@@ -1,0 +1,165 @@
+"""PipelineStage / Transformer / Estimator / Model.
+
+The port's own copy of the stage contract of ``mmlspark_tpu/core/stage.py``:
+every component is a Transformer (``.transform(table)``) or an Estimator
+(``.fit(table) -> Model``), with typed params. Stages auto-register by
+class name (``__init_subclass__``). Persistence (``save``/``load``) and
+``Pipeline`` come in a later slice of the port (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import uuid as _uuid
+from typing import Any, Dict, List, Optional, Type
+
+from mmlspark_tpu_torch.core.params import Param, _NO_VALUE
+from mmlspark_tpu_torch.core.schema import Schema
+from mmlspark_tpu_torch.core.table import DataTable
+
+# global registry: class name -> class
+STAGE_REGISTRY: Dict[str, Type["PipelineStage"]] = {}
+
+
+def registered_stages() -> Dict[str, Type["PipelineStage"]]:
+    return dict(STAGE_REGISTRY)
+
+
+class PipelineStage:
+    """Base for all stages: typed params, uid, copy."""
+
+    def __init__(self, **kwargs):
+        self.uid = f"{type(self).__name__}_{_uuid.uuid4().hex[:12]}"
+        self._paramMap: Dict[str, Any] = {}
+        self._post_init()
+        for k, v in kwargs.items():
+            p = self.param(k)
+            self.set(p, v)
+
+    def _post_init(self) -> None:
+        """Initialize non-param runtime state (cached models). Called by
+        __init__ AND by copy, so subclasses must put transient attributes
+        here, not in __init__."""
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        STAGE_REGISTRY[cls.__name__] = cls
+
+    # -- param machinery ---------------------------------------------------
+
+    @classmethod
+    def _param_map_cls(cls) -> Dict[str, Param]:
+        """name -> Param for this class, cached per-class."""
+        cached = cls.__dict__.get("_params_cache")
+        if cached is not None:
+            return cached
+        seen: Dict[str, Param] = {}
+        for klass in reversed(cls.__mro__):
+            for k, v in vars(klass).items():
+                if isinstance(v, Param):
+                    seen[v.name or k] = v
+        cls._params_cache = seen
+        return seen
+
+    @classmethod
+    def params(cls) -> List[Param]:
+        """All Param descriptors declared on the class and its bases."""
+        return list(cls._param_map_cls().values())
+
+    @classmethod
+    def param(cls, name: str) -> Param:
+        p = cls._param_map_cls().get(name)
+        if p is None:
+            raise KeyError(f"{cls.__name__} has no param {name!r}")
+        return p
+
+    def set(self, param, value) -> "PipelineStage":
+        if isinstance(param, str):
+            param = self.param(param)
+        self._paramMap[param.name] = param.validate(value)
+        self._param_epoch = getattr(self, "_param_epoch", 0) + 1
+        self._on_param_change(param.name)
+        return self
+
+    def _on_param_change(self, name: str) -> None:
+        """Hook for subclasses to invalidate derived/runtime state when a
+        param changes."""
+
+    def get(self, param) -> Any:
+        if isinstance(param, str):
+            param = self.param(param)
+        if param.name in self._paramMap:
+            return self._paramMap[param.name]
+        if param.has_default:
+            return param.default
+        raise KeyError(
+            f"param {param.name!r} of {type(self).__name__} is not set "
+            f"and has no default")
+
+    def get_or_none(self, param) -> Any:
+        try:
+            return self.get(param)
+        except KeyError:
+            return None
+
+    def is_set(self, param) -> bool:
+        if isinstance(param, str):
+            param = self.param(param)
+        return param.name in self._paramMap
+
+    def copy(self, extra: Optional[Dict[str, Any]] = None) -> "PipelineStage":
+        other = type(self).__new__(type(self))
+        other.__dict__.update(
+            {k: v for k, v in self.__dict__.items() if k != "_paramMap"})
+        other._post_init()
+        other._paramMap = dict(self._paramMap)
+        other.uid = self.uid
+        if extra:
+            for k, v in extra.items():
+                other.set(k, v)
+        return other
+
+    def explain_params(self) -> str:
+        lines = []
+        for p in type(self).params():
+            cur = self._paramMap.get(p.name, _NO_VALUE)
+            bits = [f"{p.name}: {p.doc}"]
+            if p.has_default:
+                bits.append(f"(default: {p.default!r})")
+            if cur is not _NO_VALUE:
+                bits.append(f"(current: {cur!r})")
+            lines.append(" ".join(bits))
+        return "\n".join(lines)
+
+    def __repr__(self):
+        set_params = ", ".join(
+            f"{k}={v!r}" for k, v in sorted(self._paramMap.items())
+            if not isinstance(v, (DataTable,)))
+        return f"{type(self).__name__}({set_params})"
+
+
+class Transformer(PipelineStage):
+    """A table -> table stage."""
+
+    def transform(self, table: DataTable) -> DataTable:
+        raise NotImplementedError
+
+    def transform_schema(self, schema: Schema) -> Schema:
+        """Validate/propagate the schema without touching data."""
+        return schema
+
+    def __call__(self, table: DataTable) -> DataTable:
+        return self.transform(table)
+
+
+class Estimator(PipelineStage):
+    """A table -> Model stage."""
+
+    def fit(self, table: DataTable) -> "Model":
+        raise NotImplementedError
+
+    def transform_schema(self, schema: Schema) -> Schema:
+        return schema
+
+
+class Model(Transformer):
+    """A fitted Transformer produced by an Estimator."""
