@@ -13,13 +13,27 @@ Phases, one line each; any failure exits non-zero:
                float64, integer stats bitwise, two launches bitwise equal.
                Time the kernel, its plain version, one library call
                computing the same function, and its bound.
-  3. the slice — TPUBoostClassifier.fit -> transform on a 1M x 28
+  2b. flash  — the flash-attention kernel against its plain version in
+               float64 (f32 within rtol 1e-4 / atol 1e-4; bf16 out within
+               one bf16 rounding, rtol 2**-8), at the slice's shape
+               (8, 1024, 16, 128) causal, the ragged, offset, fully
+               masked and D = 160 cases; two launches bitwise equal.
+               Time the kernel, its plain version, SDPA and the bound at
+               the slice's shape in f32 and bf16.
+  3. GBDT slice — TPUBoostClassifier.fit -> transform on a 1M x 28
                HIGGS-shaped table (5 rounds, 63 leaves) through the
                kernel, at max_bin 255 and 63; launch counts are reset
                just before each fit and read just after. A third fit on
                the plain scatter path must reach the same holdout AUC
                (within 0.005), and a small fit on the card must agree
                with the same fit on the CPU.
+  4. DNN slice — TPUModel.transform of 20 rows x 1024 tokens through the
+               full-width LM of bench.py (LM_SPEC, seeded weights):
+               exactly 8 flash launches per batch (24), finite logits of
+               shape (20, 1024, 32000), rows 16-19 alone equal to the
+               full run, and a depth-2 f32 model agreeing on the card
+               and on the CPU (max |logit diff| <= 1e-3, argmax equal on
+               >= 99.9 % of positions).
 Then one JSON line of per-kernel numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -38,8 +52,20 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM CUDA-core rate, outside tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 SECTOR_BYTES = 32           # the unit of a DRAM read
 N_TRAIN, N_TEST = 1_000_000, 100_000
+# (B, Lq, Lk, H, D, causal, q_offset, k_offset): the slice's attention,
+# the ragged cases of tests/test_flash_attention.py, shard offsets, a
+# fully masked shard and a wide head
+FLASH_MAIN = (8, 1024, 1024, 16, 128, True, 0, 0)
+FLASH_CASES = [FLASH_MAIN,
+               (2, 100, 100, 3, 16, True, 0, 0),
+               (2, 300, 520, 3, 16, False, 0, 0),
+               (2, 520, 300, 3, 16, True, 0, 0),
+               (2, 100, 100, 3, 16, True, 64, 0),
+               (2, 100, 100, 3, 16, True, 0, 1000),
+               (1, 300, 300, 2, 160, True, 0, 0)]
 
 
 def fail(msg: str) -> None:
@@ -84,6 +110,11 @@ def main() -> int:
         from mmlspark_tpu_torch.gbdt import hist_kernels as HK
         from mmlspark_tpu_torch.gbdt.binning import BinMapper
         from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+        from mmlspark_tpu_torch.models.networks import build_network
+        from mmlspark_tpu_torch.models.tpu_model import TPUModel
+        from mmlspark_tpu_torch.ops import flash_attention as FA
+        from mmlspark_tpu_torch.profile_transform import (
+            BATCH as LM_BATCH, LM_SPEC, ROWS as LM_ROWS)
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})",
               file=sys.stderr)
@@ -233,7 +264,73 @@ def main() -> int:
         del bins, grad, hess, w, leaf, cv, out, again, ref
     torch.cuda.empty_cache()
 
-    # ---- 3. the slice end to end -----------------------------------------
+    # ---- 2b. flash-attention kernel vs its plain version -----------------
+    def flash_bound_ms(case, dtype):
+        """Least time on these inputs: q, k, v read once and O, LSE
+        written once at the memory rate, or 4*D flops per unmasked
+        (query, key) pair at the input type's peak, whichever is
+        larger."""
+        b, lq, lk, h, d, causal, qo, ko = case
+        item = torch.tensor([], dtype=dtype).element_size()
+        pairs = lq * lk
+        if causal:
+            pairs = int(np.clip(np.arange(lq) + qo - ko + 1, 0, lk).sum())
+        nbytes = item * b * h * d * (2 * lq + 2 * lk) + 4 * b * h * lq
+        rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 4 * d * pairs * b * h / rate
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    flash_measured = {}
+    for ci, case in enumerate(FLASH_CASES):
+        b, lq, lk, h, d, causal, qo, ko = case
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(100 + ci)
+            q, k, v = (torch.randn((b, n, h, d), generator=g, device=dev
+                                   ).to(dtype) for n in (lq, lk, lk))
+            out, lse = FA.flash_forward(q, k, v, causal, qo, ko)
+            out2, lse2 = FA.flash_forward(q, k, v, causal, qo, ko)
+            torch.cuda.synchronize()
+            tag = (f"flash {str(dtype).split('.')[-1]} (B={b}, Lq={lq}, "
+                   f"Lk={lk}, H={h}, D={d}, causal={causal}, "
+                   f"offsets={qo}/{ko})")
+            check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                  f"{tag}: two launches differ")
+            rout, rlse = FA.flash_forward_plain(q.double(), k.double(),
+                                                v.double(), causal, qo, ko)
+            err = float((out.double() - rout).abs().max())
+            lerr = float((lse.double() - rlse).abs().max()
+                         / max(1.0, float(rlse.abs().max())))
+            rtol, atol = ((1e-4, 1e-4) if dtype == torch.float32
+                          else (2 ** -8, 1e-5))
+            check(torch.allclose(out.double(), rout, rtol=rtol, atol=atol),
+                  f"{tag}: out max_abs_err {err} beyond rtol {rtol} "
+                  f"atol {atol}")
+            check(torch.allclose(lse.double(), rlse, rtol=1e-4, atol=1e-4),
+                  f"{tag}: lse beyond rtol 1e-4 atol 1e-4")
+            print(f"{tag}: out max_abs_err {err:.3e} vs float64 plain "
+                  f"(rtol {rtol:g}, atol {atol:g}), lse rel err "
+                  f"{lerr:.1e}; repeat launch bitwise equal")
+            if case == FLASH_MAIN:
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                k_ms = time_ms(lambda: FA.flash_forward(q, k, v, causal))
+                p_ms = time_ms(lambda: FA.flash_forward_plain(q, k, v,
+                                                              causal))
+                l_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+                bd, by = flash_bound_ms(case, dtype)
+                flash_measured[dtype] = dict(
+                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                    bound_ms=bd, bound_by=by)
+                print(f"{tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                      f"SDPA {l_ms:.4f} ms, bound {bd:.4f} ms ({by})")
+                del qt, kt, vt
+            del q, k, v, out, lse, out2, lse2, rout, rlse
+    torch.cuda.empty_cache()
+
+    # ---- 3. the GBDT slice end to end ------------------------------------
     train_t = DataTable({"features": Xtr, "label": ytr})
     test_t = DataTable({"features": Xte, "label": yte})
 
@@ -306,6 +403,79 @@ def main() -> int:
     print(f"slice: 20k-row fit on the card vs on the CPU: trees identical "
           f"{same}, max |p diff| {diff:.3e}")
 
+    # ---- 4. the DNN slice: TPUModel.transform through the full-width LM --
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = build_network(LM_SPEC, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    tokens = np.random.default_rng(7).integers(
+        0, LM_SPEC["vocab_size"], size=(LM_ROWS, LM_SPEC["max_len"]))
+    table = DataTable({"tokens": tokens})
+    model = TPUModel.from_module(lm, device="cuda", inputCol="tokens",
+                                 outputCol="logits", batchSize=LM_BATCH)
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    scored = model.transform(table)
+    torch.cuda.synchronize()
+    tr_s = time.perf_counter() - t0
+    lm_launches = FA.LAUNCHES["_fwd_kernel"]
+    n_batches = -(-LM_ROWS // LM_BATCH)
+    check(lm_launches == LM_SPEC["depth"] * n_batches,
+          f"LM transform launched the flash kernel {lm_launches} times, "
+          f"not {LM_SPEC['depth']} x {n_batches}")
+    met = model.metrics()
+    logits = scored["logits"]
+    want = (LM_ROWS, LM_SPEC["max_len"], LM_SPEC["vocab_size"])
+    check(logits.shape == want and logits.dtype == np.float32,
+          f"logits {logits.shape} {logits.dtype}, want {want} float32")
+    check(bool(np.isfinite(logits).all()), "non-finite logits")
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = LM_ROWS * LM_SPEC["max_len"]
+    print(f"LM slice: {w_bytes / 1e9:.3f} GB of weights on the card "
+          f"(init {init_s:.2f} s), peak device memory {peak / 1e9:.3f} GB")
+    print(f"LM slice: transform {LM_ROWS} x {LM_SPEC['max_len']} tokens in "
+          f"{tr_s:.3f} s ({n_tok / tr_s:.0f} tokens/s), {n_batches} batches "
+          f"of {LM_BATCH}, flash launches {lm_launches}; pad_ms "
+          f"{met['pad_ms']}, device_ms {met['device_ms']}")
+    print(f"LM slice: readback of {logits.nbytes / 1e9:.3f} GB of f32 "
+          f"logits, readback_ms {met['readback_ms']}")
+    t0 = time.perf_counter()
+    model.transform(table)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"LM slice: warm transform {warm_s:.3f} s "
+          f"({n_tok / warm_s:.0f} tokens/s)")
+    tail = model.transform(DataTable({"tokens": tokens[16:20]}))["logits"]
+    tail_err = float(np.abs(tail - logits[16:20]).max())
+    check(tail_err <= 1e-5, f"rows 16-19 alone differ from the full run by "
+          f"{tail_err}")
+    print(f"LM slice: rows 16-19 alone vs the full run: max |diff| "
+          f"{tail_err:.3e} (<= 1e-5)")
+    del lm, model, scored, logits, tail
+    torch.cuda.empty_cache()
+
+    # the same depth-2 f32 model on the card (flash kernel) and on the CPU
+    # (its plain version); an f32 head, since a bf16 head rounds logits to
+    # 2**-8 relative, above the 1e-3 held here
+    spec2 = dict(LM_SPEC, depth=2, head_dtype="float32")
+    m2 = build_network(spec2, device="cuda", seed=1)
+    row = torch.from_numpy(tokens[:1])
+    with torch.inference_mode():
+        on_card = m2(row.to(dev)).cpu()
+    m2 = m2.to("cpu")
+    with torch.inference_mode():
+        on_cpu = m2(row)
+    l_diff = float((on_card - on_cpu).abs().max())
+    agree = float((on_card.argmax(-1) == on_cpu.argmax(-1)).double().mean())
+    check(l_diff <= 1e-3, f"depth-2 card vs CPU logits differ by {l_diff}")
+    check(agree >= 0.999, f"depth-2 card vs CPU argmax agree on {agree}")
+    print(f"LM slice: depth-2 f32 card vs CPU: max |logit diff| "
+          f"{l_diff:.3e} (<= 1e-3), argmax equal on {100 * agree:.2f} % "
+          "of positions")
+    del m2, on_card, on_cpu
+
     kernels = []
     for name, route, B, launches, line in (
             (f"hist (single leaf, B={b255})", "_hist_kernel_nibble", b255,
@@ -320,6 +490,14 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"]})
+    m = flash_measured[torch.float32]
+    kernels.append({
+        "name": "flash_fwd (f32, B=8, L=1024, H=16, D=128, causal)",
+        "route": "cuda", "source": "mmlspark_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "mmlspark_tpu/ops/flash_attention.py:93",
+        "launches": lm_launches, "max_abs_err": m["max_abs_err"],
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

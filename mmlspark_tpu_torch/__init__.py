@@ -8,7 +8,10 @@ Hopper (``csrc/``, built with ``nvcc`` at first use).
 Entry points run on the card unless the caller asks for the CPU with
 ``device="cpu"``; without a card they raise. Ported so far: the GBDT
 path, ``TPUBoostClassifier/Regressor.fit`` -> ``transform`` (dense,
-serial, float32 histograms). See ROADMAP.md for what comes next.
+serial, float32 histograms), and DNN inference, ``TPUModel.transform``
+over the ``Transformer`` and ``MLP`` of ``build_network`` (attention at
+L >= 512 through a flash-attention kernel). See ROADMAP.md for what
+comes next.
 """
 
 from mmlspark_tpu_torch.core.table import DataTable
@@ -17,7 +20,10 @@ from mmlspark_tpu_torch.gbdt import (
     BinMapper, Booster, TPUBoostClassificationModel, TPUBoostClassifier,
     TPUBoostRegressionModel, TPUBoostRegressor, train,
 )
+from mmlspark_tpu_torch.models.networks import build_network
+from mmlspark_tpu_torch.models.tpu_model import TPUModel
 
 __all__ = ["DataTable", "resolve_device", "BinMapper", "Booster", "train",
            "TPUBoostClassifier", "TPUBoostClassificationModel",
-           "TPUBoostRegressor", "TPUBoostRegressionModel"]
+           "TPUBoostRegressor", "TPUBoostRegressionModel", "TPUModel",
+           "build_network"]

@@ -1,4 +1,4 @@
-"""PyTorch port: the CUDA histogram kernel against its plain version.
+"""PyTorch port: the CUDA kernels against their plain versions.
 
 Needs a CUDA card of compute capability >= 9.0 (marked ``cuda``; each
 test skips without one). This file imports neither JAX nor the JAX
@@ -11,7 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.gbdt import hist_kernels as HK
+from mmlspark_tpu_torch.models.networks import build_network
+from mmlspark_tpu_torch.models.tpu_model import TPUModel
+from mmlspark_tpu_torch.ops import flash_attention as FA
 
 CASES = [
     (700, 20, 6, 16),     # multi-leaf, B < 128: the _hist_kernel route
@@ -93,3 +97,121 @@ def test_cuda_wrapper_refuses_bad_inputs(card):
         HK.hist_device(b, g, h.cpu(), w, leaf, 1, 8)
     with pytest.raises(ValueError):
         HK.hist_device(b, g, h, w, leaf, 1, 4096)
+
+
+# (B, Lq, Lk, H, D, causal, q_offset, k_offset): the slice's shape, the
+# ragged cases of tests/test_flash_attention.py, shard offsets, a fully
+# masked shard and a wide head
+FLASH_CASES = [
+    (8, 1024, 1024, 16, 128, True, 0, 0),
+    (2, 100, 100, 3, 16, True, 0, 0),
+    (2, 300, 520, 3, 16, False, 0, 0),
+    (2, 520, 300, 3, 16, True, 0, 0),
+    (1, 64, 64, 2, 8, True, 64, 0),
+    (1, 32, 32, 2, 8, True, 0, 1000),
+    (1, 300, 300, 2, 160, True, 0, 0),
+]
+
+
+def _qkv(dev, b, lq, lk, h, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(length):
+        return torch.randn((b, length, h, d), generator=g,
+                           device=dev).to(dtype)
+    return mk(lq), mk(lk), mk(lk)
+
+
+def _assert_flash_close(got, ref, dtype):
+    out, lse = got
+    rout, rlse = ref
+    if dtype == torch.float32:
+        # f32 sums in another order than the float64 reference
+        torch.testing.assert_close(out.double(), rout, rtol=1e-4, atol=1e-4)
+    else:
+        # one rounding of the f32 result to bfloat16 (half an ulp, 2**-9)
+        torch.testing.assert_close(out.double(), rout, rtol=2 ** -8,
+                                   atol=1e-5)
+    torch.testing.assert_close(lse.double(), rlse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_matches_plain(card, case, dtype):
+    b, lq, lk, h, d, causal, qo, ko = case
+    q, k, v = _qkv(card, b, lq, lk, h, d, dtype, seed=lq + lk)
+    FA.reset_launches()
+    got = FA.flash_forward(q, k, v, causal, qo, ko)
+    again = FA.flash_forward(q, k, v, causal, qo, ko)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["_fwd_kernel"] == 2
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    assert got[0].shape == (b, lq, h, d) and got[1].shape == (b, h, lq)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    ref = FA.flash_forward_plain(q.double(), k.double(), v.double(),
+                                 causal, qo, ko)
+    _assert_flash_close(got, ref, dtype)
+    if ko == 1000:
+        assert torch.all(got[0] == 0) and torch.all(got[1] == FA.NEG_INF)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_reads_strided_qkv_views(card):
+    """The q / k / v of a TransformerBlock: views of one (B, L, 3*H*D)
+    projection, read in place through their strides."""
+    b, l, h, d = 2, 600, 4, 32
+    g = torch.Generator(device=card).manual_seed(5)
+    qkv = torch.randn((b, l, 3 * h * d), generator=g, device=card)
+    q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
+    assert not q.is_contiguous()
+    got = FA.flash_forward(q, k, v, True)
+    ref = FA.flash_forward_plain(q.double(), k.double(), v.double(), True)
+    _assert_flash_close(got, ref, torch.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_refuses_bad_inputs(card):
+    q, k, v = _qkv(card, 1, 64, 64, 2, 16, torch.float32)
+    with pytest.raises(ValueError):
+        FA.flash_forward(*_qkv(card, 1, 64, 64, 1, 272, torch.float32))
+    with pytest.raises(ValueError):
+        FA.flash_forward(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        FA.flash_forward(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        FA.flash_forward(q, k[:, :, :1], v)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_gradient_raises(card):
+    q, k, v = _qkv(card, 1, 64, 64, 2, 16, torch.float32)
+    q.requires_grad_(True)
+    out = FA.flash_attention(q, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="DNN training"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+def test_cuda_tpumodel_transform_matches_cpu(card):
+    """TPUModel on the card (flash kernel, pinned uploads, side-stream
+    readback, bf16 head widened on the host) against the same weights on
+    the CPU (plain version): three micro-batches, the last one ragged."""
+    spec = {"type": "transformer", "vocab_size": 300, "dim": 64,
+            "depth": 2, "heads": 4, "max_len": 512}
+    tokens = np.random.default_rng(0).integers(0, 300, size=(19, 512))
+    table = DataTable({"tokens": tokens})
+    module = build_network(spec, device="cpu", seed=3)
+    ref = TPUModel.from_module(module, device="cpu", inputCol="tokens",
+                               outputCol="logits", batchSize=8
+                               ).transform(table)["logits"]
+    model = TPUModel.from_module(module, device=card, inputCol="tokens",
+                                 outputCol="logits", batchSize=8)
+    FA.reset_launches()
+    got = model.transform(table)["logits"]
+    assert FA.LAUNCHES["_fwd_kernel"] == spec["depth"] * 3
+    assert got.shape == (19, 512, 300) and got.dtype == np.float32
+    # f32 throughout (TF32 off): the card and the CPU sum in other orders
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    m = model.metrics()
+    assert m["pad_ms"]["count"] == m["readback_ms"]["count"] == 3
