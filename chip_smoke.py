@@ -20,6 +20,11 @@ Phases, one line each; any failure exits non-zero:
                masked and D = 160 cases; two launches bitwise equal.
                Time the kernel, its plain version, SDPA and the bound at
                the slice's shape in f32 and bf16.
+  2c. flash backward — the flash_dq / flash_dkv kernels against their
+               plain version in float64 on the same cases (dq, dk, dv with
+               2b's tolerances); two launches bitwise equal. At the slice's
+               shape, time each kernel, the plain version, SDPA's backward
+               and each kernel's bound, in f32 and bf16.
   3. GBDT slice — TPUBoostClassifier.fit -> transform on a 1M x 28
                HIGGS-shaped table (5 rounds, 63 leaves) through the
                kernel, at max_bin 255 and 63; launch counts are reset
@@ -34,6 +39,15 @@ Phases, one line each; any failure exits non-zero:
                full run, and a depth-2 f32 model agreeing on the card
                and on the CPU (max |logit diff| <= 1e-3, argmax equal on
                >= 99.9 % of positions).
+  5. training slice — TPULearner.fit of the full-width LM (LM_SPEC,
+               token cross-entropy, AdamW at 1e-3, bf16 compute, device
+               feed) over 32 rows x 1024 tokens for 2 epochs (8 steps of
+               8): exactly 64 launches of each flash kernel, 8 finite
+               losses with the last below the first, the returned model
+               scoring finite logits; then a depth-2 f32 model trained 2
+               SGD steps at batch 2, L = 512 on the card and on the CPU
+               from the same weights (losses within rtol 1e-4, weights
+               within 1e-3 of the largest update).
 Then one JSON line of per-kernel numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -110,9 +124,12 @@ def main() -> int:
         from mmlspark_tpu_torch.gbdt import hist_kernels as HK
         from mmlspark_tpu_torch.gbdt.binning import BinMapper
         from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+        from mmlspark_tpu_torch.models.learner import TPULearner
         from mmlspark_tpu_torch.models.networks import build_network
         from mmlspark_tpu_torch.models.tpu_model import TPUModel
         from mmlspark_tpu_torch.ops import flash_attention as FA
+        from mmlspark_tpu_torch.profile_train import (
+            BATCH as TRAIN_BATCH, slice_table)
         from mmlspark_tpu_torch.profile_transform import (
             BATCH as LM_BATCH, LM_SPEC, ROWS as LM_ROWS)
     except ImportError as e:
@@ -330,6 +347,86 @@ def main() -> int:
             del q, k, v, out, lse, out2, lse2, rout, rlse
     torch.cuda.empty_cache()
 
+    # ---- 2c. flash-attention backward kernels vs their plain version -----
+    def flash_bwd_bound_ms(case, dtype, kernel):
+        """Least time on these inputs: q, k, v, dO read once with LSE and
+        delta, and the kernel's outputs (dQ, or dK and dV) written once,
+        at the memory rate; or its flops per unmasked pair (6·D for dQ,
+        8·D for dK and dV) at the input type's peak; whichever is larger."""
+        b, lq, lk, h, d, causal, qo, ko = case
+        item = torch.tensor([], dtype=dtype).element_size()
+        outs = lq if kernel == "_dq_kernel" else 2 * lk
+        nbytes = (item * b * h * d * (2 * lq + 2 * lk + outs)
+                  + 2 * 4 * b * h * lq)
+        rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = (FA.FLOPS_PER_PAIR[kernel] * d * b * h
+                 * FA.unmasked_pairs(lq, lk, causal, qo, ko) / rate)
+        return (1e3 * max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    bwd_measured = {}
+    for ci, case in enumerate(FLASH_CASES):
+        b, lq, lk, h, d, causal, qo, ko = case
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(200 + ci)
+            q, k, v = (torch.randn((b, n, h, d), generator=g, device=dev
+                                   ).to(dtype) for n in (lq, lk, lk))
+            out, lse = FA.flash_forward(q, k, v, causal, qo, ko)
+            dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+            got = FA.flash_backward(q, k, v, out, lse, dout, causal, qo, ko)
+            again = FA.flash_backward(q, k, v, out, lse, dout, causal, qo,
+                                      ko)
+            torch.cuda.synchronize()
+            tag = (f"flash bwd {str(dtype).split('.')[-1]} (B={b}, Lq={lq}, "
+                   f"Lk={lk}, H={h}, D={d}, causal={causal}, "
+                   f"offsets={qo}/{ko})")
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"{tag}: two launches differ")
+            ref = FA.flash_backward_plain(q.double(), k.double(), v.double(),
+                                          out.double(), lse.double(),
+                                          dout.double(), causal, qo, ko)
+            rtol, atol = ((1e-4, 1e-4) if dtype == torch.float32
+                          else (2 ** -8, 1e-5))
+            errs = {}
+            for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+                errs[name] = float((x.double() - r).abs().max())
+                check(torch.allclose(x.double(), r, rtol=rtol, atol=atol),
+                      f"{tag}: {name} max_abs_err {errs[name]} beyond rtol "
+                      f"{rtol} atol {atol}")
+            print(f"{tag}: max_abs_err dq {errs['dq']:.3e} dk "
+                  f"{errs['dk']:.3e} dv {errs['dv']:.3e} vs float64 plain "
+                  f"(rtol {rtol:g}, atol {atol:g}); repeat launch bitwise "
+                  "equal")
+            if case == FLASH_MAIN:
+                args = (q, k, v, out, lse, dout, causal)
+                delta = FA.flash_delta(out, dout)
+                kargs = (q, k, v, dout, lse, delta, causal)
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              .requires_grad_(True) for t in (q, k, v))
+                sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)
+                g_t = dout.transpose(1, 2).contiguous()
+                dq_ms = time_ms(lambda: FA.flash_dq_cuda(*kargs))
+                dkv_ms = time_ms(lambda: FA.flash_dkv_cuda(*kargs))
+                p_ms = time_ms(lambda: FA.flash_backward_plain(*args))
+                l_ms = time_ms(lambda: torch.autograd.grad(
+                    sdpa_out, (qt, kt, vt), g_t, retain_graph=True))
+                for kernel, ms, err in (
+                        ("_dq_kernel", dq_ms, errs["dq"]),
+                        ("_dkv_kernel", dkv_ms, max(errs["dk"], errs["dv"]))):
+                    bd, by = flash_bwd_bound_ms(case, dtype, kernel)
+                    bwd_measured[(kernel, dtype)] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=p_ms,
+                        library_ms=l_ms, bound_ms=bd, bound_by=by)
+                    print(f"{tag}: {kernel} {ms:.4f} ms, bound {bd:.4f} ms "
+                          f"({by})")
+                print(f"{tag}: plain backward (dq, dk, dv) {p_ms:.4f} ms, "
+                      f"SDPA backward (dq, dk, dv) {l_ms:.4f} ms")
+                del qt, kt, vt, sdpa_out, g_t, args, kargs, delta
+            del q, k, v, out, lse, dout, got, again, ref
+    torch.cuda.empty_cache()
+
     # ---- 3. the GBDT slice end to end ------------------------------------
     train_t = DataTable({"features": Xtr, "label": ytr})
     test_t = DataTable({"features": Xte, "label": yte})
@@ -476,6 +573,88 @@ def main() -> int:
           "of positions")
     del m2, on_card, on_cpu
 
+    # ---- 5. the training slice: TPULearner.fit of the full-width LM ------
+    train_rows = 32
+    train_table = slice_table(train_rows)
+    learner = TPULearner(
+        networkSpec=LM_SPEC, loss="token_cross_entropy", optimizer="adamw",
+        learningRate=1e-3, batchSize=TRAIN_BATCH, computeDtype="bfloat16",
+        dataFeed="device", epochs=2, logEvery=1)
+    n_steps = 2 * train_rows // TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    trained = learner.fit(train_table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    train_launches = dict(FA.LAUNCHES)
+    want_l = LM_SPEC["depth"] * n_steps
+    check(all(v == want_l for v in train_launches.values()),
+          f"training launched the flash kernels {train_launches} times, "
+          f"not {want_l} each")
+    losses = [h["loss"] for h in learner.history]
+    check(len(losses) == n_steps and all(np.isfinite(losses)),
+          f"training losses {losses}")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    tm = learner.timing
+    step_s = tm["wall_s"] / tm["steps_timed"]
+    print(f"training slice: {n_steps} steps of {TRAIN_BATCH} x "
+          f"{LM_SPEC['max_len']} tokens (AdamW, bf16) in {fit_s:.3f} s "
+          f"(build and first step included); flash launches "
+          f"{train_launches}; peak device memory {peak / 1e9:.3f} GB")
+    print(f"training slice: losses {[round(x, 4) for x in losses]}")
+    print(f"training slice: {step_s:.4f} s per step after the first, "
+          f"{tm['examples_per_sec'] * LM_SPEC['max_len']:.0f} tokens/s; "
+          f"timing {tm}")
+    scores = trained.transform(DataTable(
+        {"features": np.asarray(train_table["features"][:4])}))["scores"]
+    want = (4, LM_SPEC["max_len"], LM_SPEC["vocab_size"])
+    check(scores.shape == want and bool(np.isfinite(scores).all()),
+          f"trained model scores {scores.shape}, finite "
+          f"{bool(np.isfinite(scores).all())}")
+    print(f"training slice: the returned model scores {scores.shape} "
+          "finite logits")
+    del learner, trained, scores
+    torch.cuda.empty_cache()
+
+    # a depth-2 f32 model trained 2 SGD steps on the card (flash kernels)
+    # and on the CPU (their plain versions) from the same weights
+    import copy
+    spec2 = dict(LM_SPEC, depth=2, head_dtype="float32")
+    m0 = build_network(spec2, device="cpu", seed=2)
+    w0 = {k: t.clone() for k, t in m0.state_dict().items()}
+    toks2 = np.asarray(train_table["features"][:4, :512])
+    small = DataTable({"features": toks2,
+                       "label": np.roll(toks2.astype(np.int64), -1, 1)})
+
+    def fit_small(device):
+        lrn = TPULearner(moduleFactory=lambda: copy.deepcopy(m0),
+                         device=device, loss="token_cross_entropy",
+                         optimizer="sgd", schedule="constant",
+                         learningRate=0.1, batchSize=2, epochs=1,
+                         computeDtype="float32", logEvery=1)
+        mod = lrn.fit(small)
+        return [h["loss"] for h in lrn.history], {
+            k: t.detach().cpu() for k, t in mod.get("weights").items()}
+    FA.reset_launches()
+    l_card, w_card = fit_small("cuda")
+    check(FA.LAUNCHES["_dq_kernel"] == 4, f"depth-2 fit {FA.LAUNCHES}")
+    t0 = time.perf_counter()
+    l_cpu, w_cpu = fit_small("cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    upd = max(float((w_cpu[k] - w0[k]).abs().max()) for k in w0)
+    w_diff = max(float((w_card[k] - w_cpu[k]).abs().max()) for k in w0)
+    check(loss_rel <= 1e-4, f"depth-2 card vs CPU losses {l_card} vs "
+          f"{l_cpu}")
+    check(w_diff <= 1e-3 * upd, f"depth-2 card vs CPU weights differ by "
+          f"{w_diff}, largest update {upd}")
+    print(f"training slice: depth-2 f32, 2 SGD steps, card vs CPU ({cpu_s:.1f}"
+          f" s there): losses rel diff {loss_rel:.2e} (<= 1e-4), max |weight "
+          f"diff| {w_diff:.3e} vs largest update {upd:.3e} (<= 1e-3 of it)")
+    del m0, w0, w_card, w_cpu
+
     kernels = []
     for name, route, B, launches, line in (
             (f"hist (single leaf, B={b255})", "_hist_kernel_nibble", b255,
@@ -498,6 +677,19 @@ def main() -> int:
         "launches": lm_launches, "max_abs_err": m["max_abs_err"],
         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    for kernel, name, line in (("_dq_kernel", "flash_dq", 148),
+                               ("_dkv_kernel", "flash_dkv", 190)):
+        # the training slice's type: bf16; library_ms is SDPA's whole
+        # backward (dq, dk, dv), plain_ms the whole plain backward
+        m = bwd_measured[(kernel, torch.bfloat16)]
+        kernels.append({
+            "name": f"{name} (bf16, B=8, L=1024, H=16, D=128, causal)",
+            "route": "cuda", "source": "mmlspark_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"mmlspark_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[kernel],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

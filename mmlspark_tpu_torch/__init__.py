@@ -10,8 +10,9 @@ Entry points run on the card unless the caller asks for the CPU with
 path, ``TPUBoostClassifier/Regressor.fit`` -> ``transform`` (dense,
 serial, float32 histograms), and DNN inference, ``TPUModel.transform``
 over the ``Transformer`` and ``MLP`` of ``build_network`` (attention at
-L >= 512 through a flash-attention kernel). See ROADMAP.md for what
-comes next.
+L >= 512 through a flash-attention kernel), and single-card DNN training,
+``TPULearner(...).fit(table)`` -> ``TPUModel`` (the attention backward
+through two flash-attention kernels). See ROADMAP.md for what comes next.
 """
 
 from mmlspark_tpu_torch.core.table import DataTable
@@ -20,10 +21,11 @@ from mmlspark_tpu_torch.gbdt import (
     BinMapper, Booster, TPUBoostClassificationModel, TPUBoostClassifier,
     TPUBoostRegressionModel, TPUBoostRegressor, train,
 )
+from mmlspark_tpu_torch.models.learner import TPULearner
 from mmlspark_tpu_torch.models.networks import build_network
 from mmlspark_tpu_torch.models.tpu_model import TPUModel
 
 __all__ = ["DataTable", "resolve_device", "BinMapper", "Booster", "train",
            "TPUBoostClassifier", "TPUBoostClassificationModel",
            "TPUBoostRegressor", "TPUBoostRegressionModel", "TPUModel",
-           "build_network"]
+           "TPULearner", "build_network"]

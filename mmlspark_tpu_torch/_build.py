@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "mmlspark_tpu_torch"
 
 # kernel name -> source file under csrc/
-SOURCES: Dict[str, str] = {"hist": "hist.cu", "flash_fwd": "flash_fwd.cu"}
+SOURCES: Dict[str, str] = {"hist": "hist.cu", "flash_fwd": "flash_fwd.cu",
+                           "flash_bwd": "flash_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

@@ -16,6 +16,11 @@ the distributions of flax's defaults: Dense kernels lecun-normal
 zeros. The draws are torch's, so they do not repeat flax's numbers; to
 run the JAX package's weights, use ``convert.module_from_flax``.
 
+``make_network`` returns a module in inference mode; ``.train()`` (the
+learner) turns on the ``MLP``'s dropout, drawn from the module's
+``dropout_generator`` (an explicit ``torch.Generator``; its bits cannot
+repeat flax's). The ``Transformer`` has no dropout in either package.
+
 Not ported yet, and raising ``NotImplementedError``: ``seq_axis``
 (ROADMAP.md, 'Long context') and the ``convnet`` / ``resnet`` /
 ``bilstm`` types (ROADMAP.md, 'Zoo networks beyond Transformer/MLP').
@@ -61,7 +66,11 @@ def _norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype
 class MLP(nn.Module):
     """Plain MLP over flat feature vectors. ``in_features`` is the input
     width, which flax infers at init and torch must know to allocate;
-    ``convert.module_from_flax`` reads it from the weights."""
+    ``convert.module_from_flax`` reads it from the weights. In train mode,
+    ``dropout > 0`` zeroes each hidden activation with that probability
+    and scales the rest by ``1 / (1 - dropout)``, as flax's ``Dropout``,
+    with bits from ``dropout_generator`` (torch's default generator when
+    it is None)."""
 
     int_input = False
 
@@ -77,7 +86,8 @@ class MLP(nn.Module):
         self.features = tuple(features)
         self.num_classes = num_classes
         self.dtype = _dtype(dtype)
-        self.dropout = dropout   # inference only: dropout is the identity
+        self.dropout = dropout
+        self.dropout_generator: Optional[torch.Generator] = None
         width = in_features
         for i, f in enumerate(self.features):
             self.add_module(f"dense_{i}", nn.Linear(width, f))
@@ -89,9 +99,19 @@ class MLP(nn.Module):
         x = x.to(self.dtype)
         for i in range(len(self.features)):
             x = F.relu(_dense(x, getattr(self, f"dense_{i}"), self.dtype))
+            if self.training and self.dropout > 0:
+                x = self._drop(x)
             if capture == f"dense_{i}":
                 return x
         return _dense(x, self.head, torch.float32)
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        keep = 1.0 - self.dropout
+        if keep <= 0.0:
+            return torch.zeros_like(x)      # flax's rate 1.0
+        u = torch.rand(x.shape, generator=self.dropout_generator,
+                       device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
     def feature_layers(self) -> List[str]:
         return [f"dense_{i}" for i in range(len(self.features))]
@@ -245,7 +265,8 @@ NETWORK_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
 
 def make_network(spec: Dict[str, Any], device: DeviceLike = None
                  ) -> nn.Module:
-    """The module of ``spec`` on ``device`` in inference mode, built in
+    """The module of ``spec`` on ``device`` in inference mode (``.train()``
+    turns on training mode), built in
     place there; its weights hold torch's default draws until
     ``init_weights`` or ``convert.module_from_flax`` fill them. (Built on
     the meta device instead, the first build in a process pays seconds of

@@ -105,15 +105,19 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
 
     @staticmethod
     def from_module(module: nn.Module, device: DeviceLike = None,
-                    **kw) -> "TPUModel":
+                    input_shape: Optional[List[int]] = None,
+                    input_scale: float = 1.0, **kw) -> "TPUModel":
         """Wrap an ``nn.Module`` (moved to ``device`` in eval mode); its
         parameters and buffers become ``weights``, and the table's feed
-        columns are passed positionally in ``feedDict`` order."""
+        columns are passed positionally in ``feedDict`` order. A float
+        input is reshaped to ``(rows, *input_shape)`` when one is given
+        and multiplied by ``input_scale`` (1/255 for image columns)."""
         dev = resolve_device(device)
         module = module.to(dev).eval()
         weights = {**dict(module.named_parameters()),
                    **dict(module.named_buffers())}
-        return TPUModel(modelFn=_ModuleApply(module),
+        return TPUModel(modelFn=_ModuleApply(module, input_shape,
+                                             input_scale),
                         weights={k: t.detach() for k, t in weights.items()},
                         device=str(dev), **kw)
 
@@ -320,14 +324,27 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
 
 class _ModuleApply:
     """``modelFn`` over an ``nn.Module``: runs it with the given weights
-    (``torch.func.functional_call``), inputs passed positionally."""
+    (``torch.func.functional_call``), inputs passed positionally; a lone
+    float input reshaped to ``input_shape`` and scaled by ``input_scale``
+    first (the JAX learner's ``_InferApply``)."""
 
-    def __init__(self, module: nn.Module):
+    def __init__(self, module: nn.Module,
+                 input_shape: Optional[List[int]] = None,
+                 input_scale: float = 1.0):
         self.module = module
         self.int_input = bool(getattr(module, "int_input", False))
         self.vocab_size = getattr(module, "vocab_size", None)
+        self.input_shape = list(input_shape) if input_shape else None
+        self.input_scale = float(input_scale)
 
     def __call__(self, weights: Dict[str, torch.Tensor],
                  inputs: Dict[str, torch.Tensor]):
-        return torch.func.functional_call(self.module, weights,
-                                          tuple(inputs.values()))
+        args = tuple(inputs.values())
+        if self.input_shape or self.input_scale != 1.0:
+            x = args[0]
+            if self.input_shape:
+                x = x.reshape((x.shape[0],) + tuple(self.input_shape))
+            if not self.int_input and self.input_scale != 1.0:
+                x = x.float() * self.input_scale
+            args = (x,) + args[1:]
+        return torch.func.functional_call(self.module, weights, args)

@@ -183,13 +183,124 @@ def test_cuda_flash_wrapper_refuses_bad_inputs(card):
         FA.flash_forward(q, k[:, :, :1], v)
 
 
+def _assert_grads_close(got, ref, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        if dtype == torch.float32:
+            # f32 sums in another order than the float64 reference
+            torch.testing.assert_close(a.double(), b, rtol=1e-4, atol=1e-4,
+                                       msg=name)
+        else:
+            # one rounding of the f32 result to bfloat16
+            torch.testing.assert_close(a.double(), b, rtol=2 ** -8,
+                                       atol=1e-5, msg=name)
+
+
 @pytest.mark.cuda
-def test_cuda_flash_gradient_raises(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_backward_matches_plain(card, case, dtype):
+    b, lq, lk, h, d, causal, qo, ko = case
+    q, k, v = _qkv(card, b, lq, lk, h, d, dtype, seed=lq + lk + 1)
+    out, lse = FA.flash_forward(q, k, v, causal, qo, ko)
+    g = torch.randn(out.shape, generator=torch.Generator(
+        device=card).manual_seed(7), device=card).to(dtype)
+    FA.reset_launches()
+    got = FA.flash_backward(q, k, v, out, lse, g, causal, qo, ko)
+    again = FA.flash_backward(q, k, v, out, lse, g, causal, qo, ko)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"_fwd_kernel": 0, "_dq_kernel": 2,
+                           "_dkv_kernel": 2}
+    pairs = FA.unmasked_pairs(lq, lk, causal, qo, ko)
+    assert FA.FLOPS["_dq_kernel"] == 2 * 6 * d * b * h * pairs
+    assert FA.FLOPS["_dkv_kernel"] == 2 * 8 * d * b * h * pairs
+    for a, b2, like in zip(got, again, (q, k, v)):
+        assert a.dtype == dtype and a.shape == like.shape
+        assert torch.equal(a, b2)          # no order-dependent atomics
+    ref = FA.flash_backward_plain(q.double(), k.double(), v.double(),
+                                  out.double(), lse.double(), g.double(),
+                                  causal, qo, ko)
+    _assert_grads_close(got, ref, dtype)
+    if ko == 1000:
+        assert all(torch.all(t == 0) for t in got)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_through_strided_qkv_views(card):
+    """The gradient of a TransformerBlock's attention: q / k / v views of
+    one (B, L, 3*H*D) projection, through forward and both backward
+    kernels, against the same graph on the CPU in float64 (the plain
+    versions)."""
+    b, l, h, d = 2, 600, 4, 32
+    gen = torch.Generator(device=card).manual_seed(11)
+    qkv = torch.randn((b, l, 3 * h * d), generator=gen, device=card)
+    g = torch.randn((b, l, h, d), generator=gen, device=card)
+
+    def grad_of(proj, gout):
+        proj = proj.detach().requires_grad_(True)
+        q, k, v = (t.view(b, l, h, d) for t in proj.split(h * d, dim=-1))
+        (FA.flash_attention(q, k, v, causal=True) * gout).sum().backward()
+        return proj.grad
+    FA.reset_launches()
+    got = grad_of(qkv, g)
+    assert FA.LAUNCHES == {"_fwd_kernel": 1, "_dq_kernel": 1,
+                           "_dkv_kernel": 1}
+    ref = grad_of(qkv.cpu().double(), g.cpu().double())
+    assert FA.LAUNCHES["_dq_kernel"] == 1       # the CPU never launches
+    torch.testing.assert_close(got.cpu().double(), ref, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_refuses_bad_inputs(card):
     q, k, v = _qkv(card, 1, 64, 64, 2, 16, torch.float32)
-    q.requires_grad_(True)
-    out = FA.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="DNN training"):
-        out.sum().backward()
+    out, lse = FA.flash_forward(q, k, v, True)
+    with pytest.raises(ValueError):
+        FA.flash_backward(q, k, v, out, lse.double(), out, True)
+    with pytest.raises(ValueError):
+        FA.flash_backward(q, k, v, out, lse[:, :1], out, True)
+    with pytest.raises(ValueError):
+        FA.flash_backward(q, k, v, out, lse, out.cpu(), True)
+    with pytest.raises(ValueError):
+        FA.flash_backward_cuda(q.cpu(), k.cpu(), v.cpu(), out.cpu(),
+                               lse.cpu(), out.cpu(), True)
+
+
+@pytest.mark.cuda
+def test_cuda_learner_fit_matches_cpu(card):
+    """TPULearner on the card (flash forward and backward kernels) against
+    the same fit on the CPU (their plain versions), from the same weights:
+    a small L = 512 Transformer, 4 SGD steps at a constant rate."""
+    from mmlspark_tpu_torch.models.learner import TPULearner
+    spec = {"type": "transformer", "vocab_size": 64, "dim": 32, "depth": 2,
+            "heads": 4, "max_len": 512}
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, 64, size=(8, 512)).astype(np.float32)
+    table = DataTable({"features": toks,
+                       "label": np.roll(toks.astype(np.int64), -1, 1)})
+    init = build_network(spec, device="cpu", seed=4).state_dict()
+
+    def fit(device):
+        module = build_network(spec, device="cpu", seed=0)
+        module.load_state_dict(init)
+        learner = TPULearner(moduleFactory=lambda: module, device=device,
+                             loss="token_cross_entropy", optimizer="sgd",
+                             schedule="constant", learningRate=0.5,
+                             batchSize=4, epochs=2, computeDtype="float32",
+                             logEvery=1)
+        model = learner.fit(table)
+        return learner, model
+    FA.reset_launches()
+    lg, mg = fit("cuda")
+    assert FA.LAUNCHES == {"_fwd_kernel": 8, "_dq_kernel": 8,
+                           "_dkv_kernel": 8}
+    lc, mc = fit("cpu")
+    np.testing.assert_allclose([h["loss"] for h in lg.history],
+                               [h["loss"] for h in lc.history], rtol=1e-4)
+    wg, wc = mg.get("weights"), mc.get("weights")
+    for name in wc:
+        np.testing.assert_allclose(wg[name].cpu().numpy(),
+                                   wc[name].numpy(), rtol=1e-3, atol=1e-4,
+                                   err_msg=name)
 
 
 @pytest.mark.cuda

@@ -1,20 +1,22 @@
-"""PyTorch port: the flash-attention forward and the attention routes
-against the JAX package, on the CPU.
+"""PyTorch port: flash attention (forward and backward) and the attention
+routes against the JAX package, on the CPU.
 
-The same numpy inputs go through the JAX ``_flash_forward`` (its Pallas
-``_fwd_kernel`` in interpret mode, as ``tests/test_flash_attention.py``
-runs it) and the port's ``flash_forward``, which on CPU tensors runs its
-plain version; the CUDA kernel is held to that plain version on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+The same numpy inputs go through the JAX ``_flash_forward`` /
+``_flash_backward`` (their Pallas kernels in interpret mode, as
+``tests/test_flash_attention.py`` runs them) and the port's
+``flash_forward`` / ``flash_backward``, which on CPU tensors run their
+plain versions; the CUDA kernels are held to those plain versions on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
-from mmlspark_tpu.ops.flash_attention import _flash_forward
+from mmlspark_tpu.ops.flash_attention import _flash_backward, _flash_forward
 from mmlspark_tpu.parallel import ring_attention as jra
 
 from mmlspark_tpu_torch.ops import flash_attention as FA
@@ -111,12 +113,96 @@ def test_dense_attention_fully_masked_rows_are_zero():
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
-def test_gradient_request_raises():
-    q, k, v = _torch(_qkv(1, 64, 64, 2, 8, seed=1), F32)
-    q.requires_grad_(True)
-    out = FA.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="DNN training"):
-        out.sum().backward()
+# (B, Lq, Lk, H, D, causal, q_offset, k_offset): the forward's ragged,
+# offset, fully masked and wide-head cases
+BWD_CASES = [
+    (2, 100, 100, 3, 16, True, 0, 0),
+    (2, 300, 520, 3, 16, False, 0, 0),
+    (2, 520, 300, 3, 16, True, 0, 0),
+    (2, 100, 100, 3, 16, True, 64, 0),
+    (1, 32, 32, 2, 8, True, 0, 1000),
+    (1, 300, 300, 2, 160, True, 0, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_plain_backward_matches_jax_kernels(case, dtype):
+    b, lq, lk, h, d, causal, qo, ko = case
+    q, k, v = _qkv(b, lq, lk, h, d, seed=lq + 2 * lk + d)
+    g = np.random.default_rng(d).normal(size=q.shape).astype(np.float32)
+    jq, jk, jv, jg = _jax((q, k, v, g), dtype)
+    jout, jlse = _flash_forward(jq, jk, jv, causal=causal, q_offset=qo,
+                                k_offset=ko, interpret=True)
+    ref = _flash_backward(jq, jk, jv, jout, jlse, jg, causal, qo, ko, True)
+    # the JAX forward's out and its lse, (B*H, Lq_pad, 1) -> (B, H, Lq)
+    out = _torch([np.asarray(jout.astype(jnp.float32))], dtype)[0]
+    lse = torch.from_numpy(np.array(jlse)[:, :lq, 0].reshape(b, h, lq))
+    FA.reset_launches()
+    got = FA.flash_backward(*_torch((q, k, v), dtype), out, lse,
+                            _torch([g], dtype)[0], causal, qo, ko)
+    assert sum(FA.LAUNCHES.values()) == 0        # CPU tensors never launch
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == getattr(torch, dtype) and a.shape == r.shape
+        r = np.asarray(r.astype(jnp.float32))
+        if dtype == F32:
+            # f32 sums in another order than the interpreted kernels
+            np.testing.assert_allclose(a.numpy(), r, rtol=1e-4, atol=1e-5,
+                                       err_msg=name)
+        else:
+            # both round an f32 sum to bf16 once: one bf16 ulp apart
+            np.testing.assert_allclose(a.float().numpy(), r, rtol=2 ** -7,
+                                       atol=1e-5, err_msg=name)
+    if ko == 1000:
+        assert all(torch.all(t == 0) for t in got)
+
+
+@pytest.mark.parametrize("causal,qo,ko", [(False, 0, 0), (True, 0, 0),
+                                          (True, 3, 0)])
+def test_flash_attention_gradcheck(causal, qo, ko):
+    """Finite differences in float64 through the autograd Function: the
+    plain forward and the plain backward on the CPU."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, n, 2, 4)))
+               .requires_grad_(True) for n in (6, 7, 7))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: FA.flash_attention(a, b, c, causal, qo, ko),
+        (q, k, v), eps=1e-6, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,ko", [(True, 0), (False, 0), (True, 40)])
+def test_attention_gradient_matches_jax_dense(causal, ko):
+    """Autograd of the port's ``attention`` at L = 512 (the flash route,
+    its plain backward on the CPU) against ``jax.grad`` of the JAX
+    ``dense_attention``, on the same inputs and output cotangent."""
+    q, k, v = _qkv(1, 512, 512, 2, 8, seed=ko + 8)
+    g = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    ref = jax.grad(lambda a, b, c: jnp.sum(
+        jra.dense_attention(a, b, c, causal, 0, ko) * g),
+        argnums=(0, 1, 2))(*_jax((q, k, v), F32))
+    tq, tk, tv = (t.requires_grad_(True) for t in _torch((q, k, v), F32))
+    out = tra.attention(tq, tk, tv, causal=causal, k_offset=ko)
+    (out * torch.from_numpy(g)).sum().backward()
+    for name, a, r in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad),
+                          ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_dense_route_differentiates_through_autograd():
+    """Below FLASH_MIN_LEN the route is dense_attention, differentiated by
+    autograd; it agrees with the flash route's backward."""
+    q, k, v = _qkv(1, 64, 64, 2, 8, seed=1)
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        size=q.shape).astype(np.float32))
+    grads = []
+    for fn in (tra.attention, FA.flash_attention):
+        ts = [t.requires_grad_(True) for t in _torch((q, k, v), F32)]
+        (fn(*ts, causal=True) * g).sum().backward()
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
 def test_sequence_parallel_schemes_raise():
@@ -130,6 +216,13 @@ def test_wrappers_refuse_bad_inputs():
     q, k, v = _torch(_qkv(1, 8, 8, 2, 8, seed=3), F32)
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_forward_cuda(q, k, v)           # CPU tensors: no kernel
+    out, lse = FA.flash_forward(q, k, v, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_backward_cuda(q, k, v, out, lse, out, True)
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_backward(q, k, v, out, lse[:, :1], out, True)
+    with pytest.raises(ValueError, match="g "):
+        FA.flash_backward(q, k, v, out, lse, out[:, :4], True)
     with pytest.raises(ValueError):
         FA.flash_forward(q, k.double(), v)
     with pytest.raises(ValueError):
