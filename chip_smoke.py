@@ -6,7 +6,11 @@
 Phases, one line each; any failure exits non-zero:
   1. build   — compile every kernel under mmlspark_tpu_torch/csrc/ with
                nvcc (sm_90a) and print the seconds it took, the card's
-               name and power limit.
+               name and power limit; then each flash kernel's registers,
+               spills and shared memory (-Xptxas -v) and its count of
+               HMMA instructions (cuobjdump -sass). Fails if a bf16
+               forward or flash_dkv kernel has no HMMA, if either spills
+               at D = 128, or without cuobjdump.
   2. kernels — call each kernel's wrapper on the card and hold it against
                its plain PyTorch version on the same inputs: float32
                within rtol 1e-5 / atol 1e-3 of the plain version in
@@ -17,12 +21,16 @@ Phases, one line each; any failure exits non-zero:
                float64 (f32 within rtol 1e-4 / atol 1e-4; bf16 out within
                one bf16 rounding, rtol 2**-8), at the slice's shape
                (8, 1024, 16, 128) causal, the ragged, offset, fully
-               masked and D = 160 cases; two launches bitwise equal.
-               Time the kernel, its plain version, SDPA and the bound at
-               the slice's shape in f32 and bf16.
+               masked and D = 160 cases, the tile edges (Lq, Lk in
+               {1, 17, 65, 1000}, D in {8, 20, 64, 256}) and unaligned
+               views; two launches bitwise equal; in bf16, SDPA's error
+               on the same inputs beside the kernel's. Time the kernel,
+               its plain version, SDPA and the bound at the slice's shape
+               in f32 and bf16.
   2c. flash backward — the flash_dq / flash_dkv kernels against their
                plain version in float64 on the same cases (dq, dk, dv with
-               2b's tolerances); two launches bitwise equal. At the slice's
+               2b's tolerances); two launches bitwise equal; in bf16,
+               SDPA's backward error beside them. At the slice's
                shape, time each kernel, the plain version, SDPA's backward
                and each kernel's bound, in f32 and bf16.
   3. GBDT slice — TPUBoostClassifier.fit -> transform on a 1M x 28
@@ -58,6 +66,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -71,7 +81,8 @@ SECTOR_BYTES = 32           # the unit of a DRAM read
 N_TRAIN, N_TEST = 1_000_000, 100_000
 # (B, Lq, Lk, H, D, causal, q_offset, k_offset): the slice's attention,
 # the ragged cases of tests/test_flash_attention.py, shard offsets, a
-# fully masked shard and a wide head
+# fully masked shard, a wide head, and the tile edges of the tensor-core
+# route (Lq, Lk in {1, 17, 65, 1000}, D in {8, 20, 64, 256})
 FLASH_MAIN = (8, 1024, 1024, 16, 128, True, 0, 0)
 FLASH_CASES = [FLASH_MAIN,
                (2, 100, 100, 3, 16, True, 0, 0),
@@ -79,7 +90,19 @@ FLASH_CASES = [FLASH_MAIN,
                (2, 520, 300, 3, 16, True, 0, 0),
                (2, 100, 100, 3, 16, True, 64, 0),
                (2, 100, 100, 3, 16, True, 0, 1000),
-               (1, 300, 300, 2, 160, True, 0, 0)]
+               (1, 300, 300, 2, 160, True, 0, 0),
+               (1, 1, 1, 2, 64, True, 0, 0),
+               (1, 17, 65, 2, 20, False, 0, 0),
+               (1, 65, 17, 2, 8, True, 0, 0),
+               (1, 65, 1000, 2, 64, True, 935, 0),
+               (1, 1000, 65, 3, 64, False, 0, 0),
+               (2, 1000, 1000, 2, 256, True, 0, 0)]
+# q, k, v as views one element into wider rows: no row is 16-byte aligned
+FLASH_UNALIGNED = (1, 300, 300, 2, 64, True, 0, 0)
+# the bf16 tensor-core kernels by library; each must run HMMA
+# instructions, and at D = 128 (the slice's head) spill nothing
+TC_KERNELS = {"flash_fwd": "flash_fwd_bf16", "flash_bwd": "flash_dkv_bf16"}
+TC_AT_128 = ("flash_fwd_bf16<128>", "flash_dkv_bf16<128, 1>")
 
 
 def fail(msg: str) -> None:
@@ -89,6 +112,85 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def short_name(mangled: str) -> str:
+    """``flash_fwd_bf16<128>`` for the mangled name of a kernel in the
+    port's anonymous namespace (template arguments: ints, float, bf16)."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while True:      # length-prefixed components: namespace, then name
+        m = re.compile(r"(\d+)").match(mangled, i)
+        if m is None:
+            break
+        i = m.end() + int(m.group(1))
+        name = mangled[m.end():i]
+    if i >= len(mangled) or mangled[i] != "I":
+        return name
+    args, i = [], i + 1
+    while i < len(mangled) and mangled[i] != "E":
+        lit = re.compile(r"Li(-?\d+)E").match(mangled, i)
+        num = re.compile(r"(\d+)").match(mangled, i)
+        if lit:
+            args.append(lit.group(1))
+            i = lit.end()
+        elif num:
+            j = num.end() + int(num.group(1))
+            args.append(mangled[num.end():j])
+            i = j
+        else:
+            args.append({"f": "float", "i": "int"}.get(mangled[i],
+                                                       mangled[i]))
+            i += 1
+    return f"{name}<{', '.join(args)}>"
+
+
+def ptxas_table(log: str):
+    """{kernel: [registers, spill store bytes, spill load bytes, shared
+    bytes]} from the ``nvcc -Xptxas -v`` output of a build."""
+    table, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", ln)
+        if m:
+            name = short_name(m.group(1))
+            table.setdefault(name, [0, 0, 0, 0])
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            table[name][1:3] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            table[name][0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            table[name][3] = int(m.group(1))
+    return table
+
+
+def hmma_counts(lib) -> dict:
+    """{kernel: number of HMMA (tensor-core) instructions} in the SASS of
+    a built library, read with cuobjdump; fails where cuobjdump is
+    missing."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.exists(exe), "cuobjdump not found: cannot show that the "
+          "bf16 kernels run on the tensor cores")
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump -sass {lib}: {sass.stderr}")
+    counts, name = {}, None
+    for ln in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = short_name(m.group(1))
+            counts[name] = 0
+        elif name is not None and "HMMA" in ln:
+            counts[name] += 1
+    return counts
 
 
 def higgs_shape(n: int, seed: int = 7):
@@ -147,12 +249,27 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     for name, (secs, log) in built.items():
-        regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "bytes stack" in ln]
-        print(f"build: {_build.SOURCES[name]} built in {secs:.1f} s; "
-              + " | ".join(regs[:6]))
+        print(f"build: {_build.SOURCES[name]} built in {secs:.1f} s")
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s "
           f"({len(built)} compiled); card: {smi}")
+    # registers, spills and tensor-core instructions of every flash kernel
+    for lib, tc in TC_KERNELS.items():
+        ptx = ptxas_table(_build.build_log(lib))
+        check(bool(ptx), f"no -Xptxas -v output kept for {lib}")
+        hmma = hmma_counts(_build.library_path(lib))
+        for kname in sorted(set(ptx) | set(hmma)):
+            regs, sst, sld, sm = ptx.get(kname, [0, 0, 0, 0])
+            print(f"build: {kname}: {regs} registers, spill stores {sst} B "
+                  f"/ loads {sld} B, {sm} B static smem, "
+                  f"{hmma.get(kname, 0)} HMMA")
+            if kname.startswith(tc):
+                check(hmma.get(kname, 0) > 0,
+                      f"{kname} runs no tensor-core (HMMA) instruction")
+            if kname in TC_AT_128:
+                check(sst == 0 and sld == 0,
+                      f"{kname} spills at D = 128 ({sst} / {sld} B)")
+        check(any(n.startswith(tc) for n in hmma),
+              f"no {tc} kernel in the SASS of {lib}")
 
     # ---- data and the main path's bin counts -----------------------------
     X, y = higgs_shape(N_TRAIN + N_TEST)
@@ -299,19 +416,60 @@ def main() -> int:
         return (1e3 * max(t_bytes, t_ops),
                 "bytes" if t_bytes >= t_ops else "operations")
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def flash_qkv(case, dtype, g, unaligned):
+        """q, k, v of a case; unaligned: views one element into rows of
+        D + 1, so that no row starts on a 16-byte boundary."""
+        b, lq, lk, h, d = case[:5]
+        e = int(unaligned)
+        return tuple(torch.randn((b, n, h, d + e), generator=g, device=dev
+                                 ).to(dtype)[..., e:] for n in (lq, lk, lk))
+
+    def sdpa_on(case, q, k, v, dout=None):
+        """SDPA on the same inputs, masked on the same global positions:
+        out, or (dq, dk, dv) for the output gradient dout. A yardstick of
+        accuracy only; the port never calls it."""
+        lq, lk, causal, qo, ko = case[1], case[2], *case[5:]
+        mask = None
+        if causal:
+            mask = (torch.arange(lq, device=dev)[:, None] + qo
+                    >= torch.arange(lk, device=dev)[None, :] + ko)
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(
+            dout is not None) for t in (q, k, v))
+        out = sdpa(qt, kt, vt, attn_mask=mask)
+        if dout is None:
+            return out.detach().transpose(1, 2)
+        grads = torch.autograd.grad(out, (qt, kt, vt), dout.transpose(1, 2))
+        return tuple(x.transpose(1, 2) for x in grads)
+
+    def err_of(x, ref):
+        """max |x - ref| over finite entries, and the non-finite count
+        (SDPA gives NaN on rows whose keys are all masked)."""
+        dx = (x.double() - ref).abs()
+        fin = torch.isfinite(dx)
+        return (float(dx[fin].max()) if bool(fin.any()) else float("nan"),
+                int((~fin).sum()))
+
+    def sdpa_note(errs):
+        return "; SDPA max_abs_err " + ", ".join(
+            f"{n} {e:.3e}" + (f" ({bad} non-finite)" if bad else "")
+            for n, (e, bad) in errs.items())
+
+    flash_all = ([(c, False) for c in FLASH_CASES]
+                 + [(FLASH_UNALIGNED, True)])
     flash_measured = {}
-    for ci, case in enumerate(FLASH_CASES):
+    for ci, (case, unaligned) in enumerate(flash_all):
         b, lq, lk, h, d, causal, qo, ko = case
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device=dev).manual_seed(100 + ci)
-            q, k, v = (torch.randn((b, n, h, d), generator=g, device=dev
-                                   ).to(dtype) for n in (lq, lk, lk))
+            q, k, v = flash_qkv(case, dtype, g, unaligned)
             out, lse = FA.flash_forward(q, k, v, causal, qo, ko)
             out2, lse2 = FA.flash_forward(q, k, v, causal, qo, ko)
             torch.cuda.synchronize()
             tag = (f"flash {str(dtype).split('.')[-1]} (B={b}, Lq={lq}, "
                    f"Lk={lk}, H={h}, D={d}, causal={causal}, "
-                   f"offsets={qo}/{ko})")
+                   f"offsets={qo}/{ko}{', unaligned views' * unaligned})")
             check(torch.equal(out, out2) and torch.equal(lse, lse2),
                   f"{tag}: two launches differ")
             rout, rlse = FA.flash_forward_plain(q.double(), k.double(),
@@ -326,13 +484,14 @@ def main() -> int:
                   f"atol {atol}")
             check(torch.allclose(lse.double(), rlse, rtol=1e-4, atol=1e-4),
                   f"{tag}: lse beyond rtol 1e-4 atol 1e-4")
+            note = ("" if dtype == torch.float32 else sdpa_note(
+                {"out": err_of(sdpa_on(case, q, k, v), rout)}))
             print(f"{tag}: out max_abs_err {err:.3e} vs float64 plain "
                   f"(rtol {rtol:g}, atol {atol:g}), lse rel err "
-                  f"{lerr:.1e}; repeat launch bitwise equal")
+                  f"{lerr:.1e}; repeat launch bitwise equal{note}")
             if case == FLASH_MAIN:
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
                               for t in (q, k, v))
-                sdpa = torch.nn.functional.scaled_dot_product_attention
                 k_ms = time_ms(lambda: FA.flash_forward(q, k, v, causal))
                 p_ms = time_ms(lambda: FA.flash_forward_plain(q, k, v,
                                                               causal))
@@ -366,12 +525,11 @@ def main() -> int:
                 "bytes" if t_bytes >= t_ops else "operations")
 
     bwd_measured = {}
-    for ci, case in enumerate(FLASH_CASES):
+    for ci, (case, unaligned) in enumerate(flash_all):
         b, lq, lk, h, d, causal, qo, ko = case
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device=dev).manual_seed(200 + ci)
-            q, k, v = (torch.randn((b, n, h, d), generator=g, device=dev
-                                   ).to(dtype) for n in (lq, lk, lk))
+            q, k, v = flash_qkv(case, dtype, g, unaligned)
             out, lse = FA.flash_forward(q, k, v, causal, qo, ko)
             dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
             got = FA.flash_backward(q, k, v, out, lse, dout, causal, qo, ko)
@@ -380,7 +538,7 @@ def main() -> int:
             torch.cuda.synchronize()
             tag = (f"flash bwd {str(dtype).split('.')[-1]} (B={b}, Lq={lq}, "
                    f"Lk={lk}, H={h}, D={d}, causal={causal}, "
-                   f"offsets={qo}/{ko})")
+                   f"offsets={qo}/{ko}{', unaligned views' * unaligned})")
             check(all(torch.equal(x, y) for x, y in zip(got, again)),
                   f"{tag}: two launches differ")
             ref = FA.flash_backward_plain(q.double(), k.double(), v.double(),
@@ -394,10 +552,13 @@ def main() -> int:
                 check(torch.allclose(x.double(), r, rtol=rtol, atol=atol),
                       f"{tag}: {name} max_abs_err {errs[name]} beyond rtol "
                       f"{rtol} atol {atol}")
+            note = ("" if dtype == torch.float32 else sdpa_note(
+                {n: err_of(x, r) for n, x, r in zip(
+                    ("dq", "dk", "dv"), sdpa_on(case, q, k, v, dout), ref)}))
             print(f"{tag}: max_abs_err dq {errs['dq']:.3e} dk "
                   f"{errs['dk']:.3e} dv {errs['dv']:.3e} vs float64 plain "
                   f"(rtol {rtol:g}, atol {atol:g}); repeat launch bitwise "
-                  "equal")
+                  f"equal{note}")
             if case == FLASH_MAIN:
                 args = (q, k, v, out, lse, dout, causal)
                 delta = FA.flash_delta(out, dout)
@@ -669,14 +830,21 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"]})
-    m = flash_measured[torch.float32]
-    kernels.append({
-        "name": "flash_fwd (f32, B=8, L=1024, H=16, D=128, causal)",
-        "route": "cuda", "source": "mmlspark_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "mmlspark_tpu/ops/flash_attention.py:93",
-        "launches": lm_launches, "max_abs_err": m["max_abs_err"],
-        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    # the forward in both types: f32 on the LM transform's path, bf16
+    # (the tensor-core body) on the training slice's
+    for dtype, tname, launches in (
+            (torch.float32, "f32", lm_launches),
+            (torch.bfloat16, "bf16", train_launches["_fwd_kernel"])):
+        m = flash_measured[dtype]
+        kernels.append({
+            "name": f"flash_fwd ({tname}, B=8, L=1024, H=16, D=128, causal)",
+            "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "mmlspark_tpu/ops/flash_attention.py:93",
+            "launches": launches, "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"]})
     for kernel, name, line in (("_dq_kernel", "flash_dq", 148),
                                ("_dkv_kernel", "flash_dkv", 190)):
         # the training slice's type: bf16; library_ms is SDPA's whole

@@ -3,8 +3,10 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes`` at first use. Libraries land in ``build/mmlspark_tpu_torch/``
-at the root of the checkout, named by a hash of their source and flags,
-so an edited source rebuilds and an unchanged one is reused. All
+at the root of the checkout, named by a hash of their source, the
+headers under ``csrc/`` and the flags, so an edited source or header
+rebuilds and an unchanged one is reused; the compiler's output is kept
+beside each library. All
 missing sources build in parallel, one ``nvcc`` process each.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -49,9 +51,22 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where kernel ``name``'s library lives: named by a hash of its
+    source, every header under ``csrc/`` (sorted by name) and the flags,
+    so an edited header rebuilds the libraries too."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler output (``-Xptxas -v``: registers, shared memory and
+    spills of each kernel) of kernel ``name``'s library, kept beside it
+    when it was built; "" if it is not built."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build_all(names: Optional[Iterable[str]] = None
@@ -83,6 +98,7 @@ def build_all(names: Optional[Iterable[str]] = None
         if proc.returncode != 0:
             errors.append(f"{SOURCES[n]}: nvcc exit {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         done[n] = (secs, log)
     if errors:

@@ -51,23 +51,46 @@
 //     fits in 227 KB, KR = 2 (32 keys) above D = 208.
 //   Row strides of D + 1 keep column reads free of bank conflicts.
 //   Registers (nvcc -Xptxas -v, sm_90a): at D = 128 flash_dq<T, 8> uses
-//   128 and flash_dkv<T, 8, 4> 160 (f32) / 164 (bf16); the widest,
-//   flash_dkv<T, 16, 4>, 233; no spills. Shared memory, not registers,
-//   holds both kernels to one block (8 warps) per SM.
+//   128 and flash_dkv<float, 8, 4> 160; the widest, flash_dkv<float, 16,
+//   4>, 233; no spills. Shared memory, not registers, holds both kernels to
+//   one block (8 warps) per SM. flash_dq runs this body in both types,
+//   flash_dkv in float32 only: TF32 would break the f32 contract.
+//
+//   flash_dkv_bf16<DP, NSPLIT>, bfloat16, on the tensor cores
+//     (mma_bf16.cuh), in the transposed orientation. A block owns 64 keys,
+//     4 warps x 16 keys as the M rows, and loops over 64-row Q tiles from
+//     the first causal one. K and V of the block are staged once; Q, dO and
+//     the tile's LSE and delta go through a two-stage cp.async ring (tile
+//     t+1's loads issued before tile t is computed). Per half of a Q tile
+//     (32 queries, so that nothing spills at D = 128), all in registers:
+//     S^T = K Q^T and dP^T = V dO^T by mma.sync with Q and dO's
+//     (q, d) rows as the .col B operand (ldmatrix; K and V re-read from
+//     shared memory with ldmatrix rather than held); P^T and dS^T on the
+//     f32 fragments; dV += P^T dO and dK += dS^T Q with P^T and dS^T as A
+//     fragments straight from registers, split into hi + lo bf16 halves so
+//     the products keep them in f32 as the TPU kernel does, and dO and Q
+//     through ldmatrix.trans. dK and dV accumulate in registers (128 floats
+//     a thread at D = 128). Heads above D = 128 (DP 160, 256) run the same
+//     kernel with 8 warps: each 16-key group's output columns are split
+//     between two warps, which both compute S^T and dP^T. Shared memory:
+//     K, V and 2 x (Q, dO) as bf16 rows of DP + 8, 103 KB at D = 128 (two
+//     blocks per SM), 198 KB at D = 256. No atomics.
 //
 // Bound on the H100 SXM at the slice's shape (B, L, H, D) = (8, 1024, 16,
 // 128), causal: flash_dq does 6*D flops per unmasked (query, key) pair
 // (51.6 GFLOP), flash_dkv 8*D (68.8 GFLOP). In f32 on the CUDA cores
 // (67 TFLOP/s) that is 0.77 ms and 1.03 ms, far above the ~0.1 ms needed to
 // move their inputs and outputs once at 3.35 TB/s: bound by operations.
-// In bf16 on the tensor cores (989 TFLOP/s) both would be bound by bytes.
-// This first design does every product in f32 FMA on the CUDA cores, each
-// one fed by shared-memory loads, with one block per SM; mma / wgmma on
-// bf16 tiles, TMA staging and pipelining are later work.
+// In bf16 on the tensor cores (989 TFLOP/s) flash_dkv needs 0.070 ms for
+// its operations, above the bytes' 0.06 ms. The f32 bodies do every
+// product in f32 FMA on the CUDA cores, fed by shared-memory loads;
+// flash_dkv_bf16 runs its products on the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -490,6 +513,301 @@ int launch_dkv(const T* q, const T* k, const T* v, const T* g,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------- flash_dkv, bf16 (mma)
+constexpr int BKV16 = 64;  // keys per block of flash_dkv_bf16
+
+size_t dkv_bf16_smem_bytes(int dp) {
+  return sizeof(__nv_bfloat16) * static_cast<size_t>(2 * BKV16 + 4 * BQ) *
+             (dp + 8) +
+         sizeof(float) * 4 * BQ;
+}
+
+// DP: the head dim padded with zeros to a multiple of 16 (32, 64, 128,
+// 160 or 256); NSPLIT: warps sharing a 16-key group's output columns.
+template <int DP, int NSPLIT>
+__global__ void __launch_bounds__(128 * NSPLIT)
+    flash_dkv_bf16(const mml::bf16* __restrict__ q,
+                   const mml::bf16* __restrict__ k,
+                   const mml::bf16* __restrict__ v,
+                   const mml::bf16* __restrict__ g,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ dlt, mml::bf16* __restrict__ dk,
+                   mml::bf16* __restrict__ dv, Args a, int vec) {
+  using mml::bf16;
+  constexpr int NT = 128 * NSPLIT;
+  constexpr int LD = DP + 8;      // row stride of the shared tiles
+  constexpr int NKS = DP / 16;    // k16 steps of S^T and dP^T
+  constexpr int DPW = DP / NSPLIT;  // output columns of one warp
+  constexpr int NO = DPW / 8;     // n8 tiles of a warp's dK and dV rows
+  constexpr int QS = 32;          // queries of a half of the Q tile
+  constexpr int NS = QS / 8;      // n8 tiles of a warp's S^T rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // (BKV16, LD)
+  bf16* Vs = Ks + BKV16 * LD;                     // (BKV16, LD)
+  bf16* Qs = Vs + BKV16 * LD;                     // 2 stages of (BQ, LD)
+  bf16* Gs = Qs + 2 * BQ * LD;                    // 2 stages of (BQ, LD): dO
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * BQ * LD);  // 2 x BQ: LSE
+  float* Ds = Ls + 2 * BQ;                                 // 2 x BQ: delta
+
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int k0 = blockIdx.x * BKV16;  // causal: the first tiles are heaviest
+  const int D = a.D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+  const int kr = (warp & 3) * 16;        // the warp's first key in the block
+  const int c0 = (warp >> 2) * DPW;      // the warp's first output column
+
+  const bf16* qb = q + b * a.qsb + h * a.qsh;
+  const bf16* kb = k + b * a.ksb + h * a.ksh;
+  const bf16* vb = v + b * a.vsb + h * a.vsh;
+  const bf16* gb = g + b * a.gsb + h * a.gsh;
+  const float* lse_b = lse + static_cast<long long>(bh) * a.Lq;
+  const float* dlt_b = dlt + static_cast<long long>(bh) * a.Lq;
+
+  const int nq = (a.Lq + BQ - 1) / BQ;
+  int qt0 = 0;
+  if (a.causal) {
+    // Q tile qt is fully masked when k0 + k_off > qt*BQ + BQ - 1 + q_off
+    const long long need =
+        static_cast<long long>(k0) + a.k_off - a.q_off - (BQ - 1);
+    qt0 = need <= 0 ? 0
+                    : static_cast<int>(min(static_cast<long long>(nq),
+                                           (need + BQ - 1) / BQ));
+  }
+
+  // the Q tile qt into ring stage st: Q, dO, LSE, delta
+  auto stage_q = [&](int qt, int st) {
+    const int r0 = qt * BQ;
+    mml::stage_tile<BQ, DP, NT>(Qs + st * BQ * LD, qb, a.qsl, r0, a.Lq, D,
+                                vec);
+    mml::stage_tile<BQ, DP, NT>(Gs + st * BQ * LD, gb, a.gsl, r0, a.Lq, D,
+                                vec);
+    for (int r = threadIdx.x; r < BQ; r += NT) {
+      const int row = r0 + r;
+      const bool in = row < a.Lq;
+      mml::cp_async4(Ls + st * BQ + r, in ? lse_b + row : lse_b, in);
+      mml::cp_async4(Ds + st * BQ + r, in ? dlt_b + row : dlt_b, in);
+    }
+  };
+
+  mml::stage_tile<BKV16, DP, NT>(Ks, kb, a.ksl, k0, a.Lk, D, vec);
+  mml::stage_tile<BKV16, DP, NT>(Vs, vb, a.vsl, k0, a.Lk, D, vec);
+  if (qt0 < nq) stage_q(qt0, 0);
+  mml::cp_async_commit();
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int st = (qt - qt0) & 1;
+    if (qt + 1 < nq) stage_q(qt + 1, st ^ 1);
+    mml::cp_async_commit();
+    mml::cp_async_wait<1>();  // tile qt (and K, V) landed
+    __syncthreads();
+    const bf16* Qt = Qs + st * BQ * LD;
+    const bf16* Gt = Gs + st * BQ * LD;
+    const float* Lt = Ls + st * BQ;
+    const float* Dt = Ds + st * BQ;
+    const int q0 = qt * BQ;
+
+    // two halves of QS queries each, so that S^T and dP^T of a half
+    // (2 x 16 floats a thread) fit beside dK and dV without spilling
+    const bool full =
+        q0 + BQ <= a.Lq && k0 + kr + 16 <= a.Lk &&
+        (!a.causal || static_cast<long long>(q0) + a.q_off >=
+                          static_cast<long long>(k0) + kr + 15 + a.k_off);
+#pragma unroll 1
+    for (int qh = 0; qh < BQ; qh += QS) {
+      // S^T = K Q^T (unscaled), 16 keys x QS queries per warp
+      float s[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < NKS; ++ks) {
+        uint32_t af[4];
+        mml::ldmatrix_x4(af, mml::a_addr(Ks, LD, kr, ks * 16, lane));
+#pragma unroll
+        for (int nb = 0; nb < NS / 2; ++nb) {
+          uint32_t bf[4];
+          mml::ldmatrix_x4(bf,
+                           mml::b_addr(Qt, LD, qh + nb * 16, ks * 16, lane));
+          mml::mma_bf16(s[2 * nb], af, bf[0], bf[1]);
+          mml::mma_bf16(s[2 * nb + 1], af, bf[2], bf[3]);
+        }
+      }
+
+      // P^T = valid ? exp(S^T * scale - LSE_q) : 0; the thread's keys are
+      // kr + gq (hr 0) and kr + gq + 8 (hr 1), its queries nt*8 + 2t + e
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = nt * 8 + 2 * t + e;
+            float& x = s[nt][2 * hr + e];
+            x = full || is_valid(a, q0 + qh + c, k0 + kr + gq + 8 * hr)
+                    ? expf(x * a.scale - Lt[qh + c])
+                    : 0.f;
+          }
+
+      // dV += P^T dO
+#pragma unroll
+      for (int kk = 0; kk < QS / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+        mml::split_a(s[2 * kk], s[2 * kk + 1], ph, pl);
+#pragma unroll
+        for (int nb = 0; nb < NO / 2; ++nb) {
+          uint32_t bf[4];
+          mml::ldmatrix_x4_trans(
+              bf, mml::bt_addr(Gt, LD, qh + kk * 16, c0 + nb * 16, lane));
+          mml::mma_bf16(dva[2 * nb], ph, bf[0], bf[1]);
+          mml::mma_bf16(dva[2 * nb], pl, bf[0], bf[1]);
+          mml::mma_bf16(dva[2 * nb + 1], ph, bf[2], bf[3]);
+          mml::mma_bf16(dva[2 * nb + 1], pl, bf[2], bf[3]);
+        }
+      }
+
+      // dP^T = V dO^T
+      float dp[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[i][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < NKS; ++ks) {
+        uint32_t af[4];
+        mml::ldmatrix_x4(af, mml::a_addr(Vs, LD, kr, ks * 16, lane));
+#pragma unroll
+        for (int nb = 0; nb < NS / 2; ++nb) {
+          uint32_t bf[4];
+          mml::ldmatrix_x4(bf,
+                           mml::b_addr(Gt, LD, qh + nb * 16, ks * 16, lane));
+          mml::mma_bf16(dp[2 * nb], af, bf[0], bf[1]);
+          mml::mma_bf16(dp[2 * nb + 1], af, bf[2], bf[3]);
+        }
+      }
+
+      // dS^T = P^T o (dP^T - delta_q) * scale, in place of dP^T
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = nt * 8 + 2 * t + e;
+            float& x = dp[nt][2 * hr + e];
+            x = s[nt][2 * hr + e] * (x - Dt[qh + c]) * a.scale;
+          }
+
+      // dK += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < QS / 16; ++kk) {
+        uint32_t dh[4], dl[4];
+        mml::split_a(dp[2 * kk], dp[2 * kk + 1], dh, dl);
+#pragma unroll
+        for (int nb = 0; nb < NO / 2; ++nb) {
+          uint32_t bf[4];
+          mml::ldmatrix_x4_trans(
+              bf, mml::bt_addr(Qt, LD, qh + kk * 16, c0 + nb * 16, lane));
+          mml::mma_bf16(dka[2 * nb], dh, bf[0], bf[1]);
+          mml::mma_bf16(dka[2 * nb], dl, bf[0], bf[1]);
+          mml::mma_bf16(dka[2 * nb + 1], dh, bf[2], bf[3]);
+          mml::mma_bf16(dka[2 * nb + 1], dl, bf[2], bf[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage st is free for tile qt + 2
+  }
+  mml::cp_async_wait<0>();
+
+  const bool pairs = (D & 1) == 0;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = k0 + kr + gq + 8 * hr;
+    if (row >= a.Lk) continue;
+    const long long at =
+        ((static_cast<long long>(b) * a.Lk + row) * a.H + h) * D;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+      const int c = c0 + i * 8 + 2 * t;
+      const float k0v = dka[i][2 * hr], k1v = dka[i][2 * hr + 1];
+      const float v0v = dva[i][2 * hr], v1v = dva[i][2 * hr + 1];
+      if (pairs && c + 1 < D) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + c) =
+            __floats2bfloat162_rn(k0v, k1v);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + c) =
+            __floats2bfloat162_rn(v0v, v1v);
+      } else {
+        if (c < D) {
+          dk[at + c] = __float2bfloat16(k0v);
+          dv[at + c] = __float2bfloat16(v0v);
+        }
+        if (c + 1 < D) {
+          dk[at + c + 1] = __float2bfloat16(k1v);
+          dv[at + c + 1] = __float2bfloat16(v1v);
+        }
+      }
+    }
+  }
+}
+
+template <int DP, int NSPLIT>
+int launch_dkv_bf16_dp(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                       const __nv_bfloat16* v, const __nv_bfloat16* g,
+                       const float* lse, const float* dlt, __nv_bfloat16* dk,
+                       __nv_bfloat16* dv, int B, const Args& a, int vec,
+                       cudaStream_t stream) {
+  const size_t smem = dkv_bf16_smem_bytes(DP);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dkv_bf16<DP, NSPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_dkv_bf16<DP, NSPLIT>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Lk + BKV16 - 1) / BKV16, B * a.H);
+  flash_dkv_bf16<DP, NSPLIT><<<grid, 128 * NSPLIT, smem, stream>>>(
+      q, k, v, g, lse, dlt, dk, dv, a, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One kernel for every bf16 shape: DP = D rounded up to 32, 64, 128, 160
+// or 256, two warps per 16-key group above 128; 16-byte staging where every
+// row is 16-byte aligned, element-wise staging otherwise.
+int launch_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                    const __nv_bfloat16* v, const __nv_bfloat16* g,
+                    const float* lse, const float* dlt, __nv_bfloat16* dk,
+                    __nv_bfloat16* dv, int B, const Args& a,
+                    cudaStream_t stream) {
+  const uintptr_t ptrs =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g);
+  const long long strides = a.qsb | a.qsl | a.qsh | a.ksb | a.ksl | a.ksh |
+                            a.vsb | a.vsl | a.vsh | a.gsb | a.gsl | a.gsh;
+  const int vec = ptrs % 16 == 0 && strides % 8 == 0 && a.D % 8 == 0;
+#define MML_DKV16(P, S) \
+  launch_dkv_bf16_dp<P, S>(q, k, v, g, lse, dlt, dk, dv, B, a, vec, stream)
+  if (a.D <= 32) return MML_DKV16(32, 1);
+  if (a.D <= 64) return MML_DKV16(64, 1);
+  if (a.D <= 128) return MML_DKV16(128, 1);
+  if (a.D <= 160) return MML_DKV16(160, 2);
+  if (a.D <= 256) return MML_DKV16(256, 2);
+#undef MML_DKV16
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Plain C interface (bound with ctypes). Each returns the cudaError_t of
@@ -541,8 +859,8 @@ int mml_flash_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                        const float* lse, const float* dlt,
                        __nv_bfloat16* dk, __nv_bfloat16* dv, MML_ARGS) {
   MML_PACK;
-  return launch_dkv<__nv_bfloat16>(q, k, v, g, lse, dlt, dk, dv, B, a,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_dkv_bf16(q, k, v, g, lse, dlt, dk, dv, B, a,
+                         static_cast<cudaStream_t>(stream));
 }
 
 #undef MML_ARGS

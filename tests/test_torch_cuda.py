@@ -101,7 +101,9 @@ def test_cuda_wrapper_refuses_bad_inputs(card):
 
 # (B, Lq, Lk, H, D, causal, q_offset, k_offset): the slice's shape, the
 # ragged cases of tests/test_flash_attention.py, shard offsets, a fully
-# masked shard and a wide head
+# masked shard, a wide head, and the tile edges of the bf16 tensor-core
+# kernels (Lq, Lk in {1, 17, 65, 1000}, D in {8, 20, 64, 256}), as
+# chip_smoke.py's FLASH_CASES
 FLASH_CASES = [
     (8, 1024, 1024, 16, 128, True, 0, 0),
     (2, 100, 100, 3, 16, True, 0, 0),
@@ -110,15 +112,25 @@ FLASH_CASES = [
     (1, 64, 64, 2, 8, True, 64, 0),
     (1, 32, 32, 2, 8, True, 0, 1000),
     (1, 300, 300, 2, 160, True, 0, 0),
+    (1, 1, 1, 2, 64, True, 0, 0),
+    (1, 17, 65, 2, 20, False, 0, 0),
+    (1, 65, 17, 2, 8, True, 0, 0),
+    (1, 65, 1000, 2, 64, True, 935, 0),
+    (1, 1000, 65, 3, 64, False, 0, 0),
+    (2, 1000, 1000, 2, 256, True, 0, 0),
 ]
 
 
-def _qkv(dev, b, lq, lk, h, d, dtype, seed=0):
+def _qkv(dev, b, lq, lk, h, d, dtype, seed=0, unaligned=False):
+    """q, k, v; unaligned: views one element into rows of D + 1, so that
+    no row starts on a 16-byte boundary (the kernels' element-wise
+    staging)."""
     g = torch.Generator(device=dev).manual_seed(seed)
+    e = int(unaligned)
 
     def mk(length):
-        return torch.randn((b, length, h, d), generator=g,
-                           device=dev).to(dtype)
+        return torch.randn((b, length, h, d + e), generator=g,
+                           device=dev).to(dtype)[..., e:]
     return mk(lq), mk(lk), mk(lk)
 
 
@@ -157,17 +169,57 @@ def test_cuda_flash_matches_plain(card, case, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_flash_reads_strided_qkv_views(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_reads_strided_qkv_views(card, dtype):
     """The q / k / v of a TransformerBlock: views of one (B, L, 3*H*D)
     projection, read in place through their strides."""
     b, l, h, d = 2, 600, 4, 32
     g = torch.Generator(device=card).manual_seed(5)
-    qkv = torch.randn((b, l, 3 * h * d), generator=g, device=card)
+    qkv = torch.randn((b, l, 3 * h * d), generator=g, device=card).to(dtype)
     q, k, v = (t.view(b, l, h, d) for t in qkv.split(h * d, dim=-1))
     assert not q.is_contiguous()
     got = FA.flash_forward(q, k, v, True)
     ref = FA.flash_forward_plain(q.double(), k.double(), v.double(), True)
-    _assert_flash_close(got, ref, torch.float32)
+    _assert_flash_close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_reads_unaligned_views(card, dtype):
+    """Rows that do not start on a 16-byte boundary: the bf16 kernels
+    stage them element by element, forward and backward alike."""
+    b, l, h, d = 1, 300, 2, 64
+    q, k, v = _qkv(card, b, l, l, h, d, dtype, seed=13, unaligned=True)
+    assert q.data_ptr() % 16 != 0 and q.stride(-1) == 1
+    FA.reset_launches()
+    got = FA.flash_forward(q, k, v, True)
+    assert FA.LAUNCHES["_fwd_kernel"] == 1      # read in place, not copied
+    _assert_flash_close(got, FA.flash_forward_plain(
+        q.double(), k.double(), v.double(), True), dtype)
+    out, lse = got
+    gout = torch.randn(out.shape, generator=torch.Generator(
+        device=card).manual_seed(3), device=card).to(dtype)
+    grads = FA.flash_backward(q, k, v, out, lse, gout, True)
+    ref = FA.flash_backward_plain(q.double(), k.double(), v.double(),
+                                  out.double(), lse.double(), gout.double(),
+                                  True)
+    _assert_grads_close(grads, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_launches_repeat_bitwise(card):
+    """The tensor-core kernels at the slice's shape: no atomics and no
+    order that changes between launches, so repeats are bitwise equal."""
+    q, k, v = _qkv(card, 8, 1024, 1024, 16, 128, torch.bfloat16, seed=21)
+    runs = []
+    for _ in range(3):
+        out, lse = FA.flash_forward(q, k, v, True)
+        g = (out.float() * 0.5).to(torch.bfloat16)
+        runs.append((out, lse, *FA.flash_backward(q, k, v, out, lse, g,
+                                                  True)))
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], again))
 
 
 @pytest.mark.cuda
@@ -225,29 +277,45 @@ def test_cuda_flash_backward_matches_plain(card, case, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_flash_autograd_through_strided_qkv_views(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_autograd_through_strided_qkv_views(card, dtype):
     """The gradient of a TransformerBlock's attention: q / k / v views of
     one (B, L, 3*H*D) projection, through forward and both backward
     kernels, against the same graph on the CPU in float64 (the plain
-    versions)."""
+    versions). In bf16 the backward is held to the plain backward in
+    float64 on the kernel forward's own (out, lse), as the other bf16
+    checks are: the float64 graph's out differs from the bf16 out by
+    one rounding, which the gradients would carry."""
     b, l, h, d = 2, 600, 4, 32
     gen = torch.Generator(device=card).manual_seed(11)
-    qkv = torch.randn((b, l, 3 * h * d), generator=gen, device=card)
-    g = torch.randn((b, l, h, d), generator=gen, device=card)
+    qkv = torch.randn((b, l, 3 * h * d), generator=gen, device=card
+                      ).to(dtype)
+    g = torch.randn((b, l, h, d), generator=gen, device=card).to(dtype)
+
+    def split(proj):
+        return [t.view(b, l, h, d) for t in proj.split(h * d, dim=-1)]
 
     def grad_of(proj, gout):
         proj = proj.detach().requires_grad_(True)
-        q, k, v = (t.view(b, l, h, d) for t in proj.split(h * d, dim=-1))
-        (FA.flash_attention(q, k, v, causal=True) * gout).sum().backward()
+        (FA.flash_attention(*split(proj), causal=True) * gout).sum(
+            ).backward()
         return proj.grad
     FA.reset_launches()
     got = grad_of(qkv, g)
     assert FA.LAUNCHES == {"_fwd_kernel": 1, "_dq_kernel": 1,
                            "_dkv_kernel": 1}
-    ref = grad_of(qkv.cpu().double(), g.cpu().double())
-    assert FA.LAUNCHES["_dq_kernel"] == 1       # the CPU never launches
-    torch.testing.assert_close(got.cpu().double(), ref, rtol=1e-4,
-                               atol=1e-4)
+    if dtype == torch.float32:
+        ref = grad_of(qkv.cpu().double(), g.cpu().double())
+        assert FA.LAUNCHES["_dq_kernel"] == 1   # the CPU never launches
+        torch.testing.assert_close(got.cpu().double(), ref, rtol=1e-4,
+                                   atol=1e-4)
+    else:
+        q, k, v = split(qkv)
+        out, lse = FA.flash_forward(q, k, v, True)
+        ref = FA.flash_backward_plain(q.double(), k.double(), v.double(),
+                                      out.double(), lse.double(),
+                                      g.double(), True)
+        _assert_grads_close(split(got), ref, dtype)
 
 
 @pytest.mark.cuda

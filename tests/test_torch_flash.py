@@ -229,3 +229,42 @@ def test_wrappers_refuse_bad_inputs():
         FA.flash_forward(q, k[:, :, :1], v)
     with pytest.raises(ValueError):
         FA.flash_forward(q, k, v, True, q_offset=1.5)
+
+
+def _split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the bf16 kernels form it: the f32 operand ``a`` split
+    into ``hi = bf16(a)`` and ``lo = bf16(a - hi)``, each product of bf16
+    values exact in f32, the two summed in one f32 accumulator."""
+    hi = a.bfloat16()
+    lo = (a - hi.float()).bfloat16()
+    return hi.float() @ b.float() + lo.float() @ b.float()
+
+
+@pytest.mark.parametrize("product", ["P V", "dS^T Q"])
+def test_bf16_split_keeps_the_f32_contract(product):
+    """Why the tensor-core kernels split P and dS into hi + lo bf16: at
+    the card tests' tolerance (one bf16 rounding of the result, rtol 2**-8,
+    atol 1e-5 against float64), causal P V and dS^T Q at L = 1024, D = 128
+    pass with the split and fail on about a quarter of the elements when
+    P or dS is rounded once to bf16, as FA2 and SDPA do."""
+    rng = np.random.default_rng(0)
+    bh, n, d = 4, 1024, 128
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(bh, n, d)))
+                  .bfloat16().double() for _ in range(4))
+    scale = d ** -0.5
+    s = (q @ k.transpose(-1, -2) * scale).masked_fill(
+        ~torch.ones(n, n, dtype=torch.bool).tril(), -torch.inf)
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    if product == "P V":
+        a, b = p, v
+    else:
+        dp = g @ v.transpose(-1, -2)
+        delta = (g * (p @ v)).sum(-1, keepdim=True)
+        a, b = (p * (dp - delta) * scale).transpose(-1, -2), q
+    ref = a @ b                                   # float64
+    a32 = a.float()                               # the kernel's f32 operand
+    split = _split_product(a32, b).bfloat16().double()
+    once = (a32.bfloat16().float() @ b.float()).bfloat16().double()
+    torch.testing.assert_close(split, ref, rtol=2 ** -8, atol=1e-5)
+    failing = (~torch.isclose(once, ref, rtol=2 ** -8, atol=1e-5)).double()
+    assert 0.15 < float(failing.mean()) < 0.4
