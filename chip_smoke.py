@@ -8,9 +8,11 @@ Phases, one line each; any failure exits non-zero:
                nvcc (sm_90a) and print the seconds it took, the card's
                name and power limit; then each flash kernel's registers,
                spills and shared memory (-Xptxas -v) and its count of
-               HMMA instructions (cuobjdump -sass). Fails if a bf16
-               forward or flash_dkv kernel has no HMMA, if either spills
-               at D = 128, or without cuobjdump.
+               HMMA instructions (cuobjdump -sass), and the blocks per SM
+               and shared memory of the f32 forward and bf16 flash_dq at
+               D = 128. Fails if a tensor-core kernel (bf16 forward,
+               flash_dkv and flash_dq; the f32 forward's 3xTF32) has no
+               HMMA, if one spills at D = 128, or without cuobjdump.
   2. kernels — call each kernel's wrapper on the card and hold it against
                its plain PyTorch version on the same inputs: float32
                within rtol 1e-5 / atol 1e-3 of the plain version in
@@ -64,6 +66,7 @@ Needs a CUDA card; without one it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -77,6 +80,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM CUDA-core rate, outside tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
+# useful f32-contract work on the tensor cores: 3 TF32 products (3xTF32) per
+# f32 product at the dense TF32 rate, the least time for f32 attention
+F32_CONTRACT_OPS_PER_S = 495e12 / 3
 SECTOR_BYTES = 32           # the unit of a DRAM read
 N_TRAIN, N_TEST = 1_000_000, 100_000
 # (B, Lq, Lk, H, D, causal, q_offset, k_offset): the slice's attention,
@@ -99,10 +105,19 @@ FLASH_CASES = [FLASH_MAIN,
                (2, 1000, 1000, 2, 256, True, 0, 0)]
 # q, k, v as views one element into wider rows: no row is 16-byte aligned
 FLASH_UNALIGNED = (1, 300, 300, 2, 64, True, 0, 0)
-# the bf16 tensor-core kernels by library; each must run HMMA
-# instructions, and at D = 128 (the slice's head) spill nothing
-TC_KERNELS = {"flash_fwd": "flash_fwd_bf16", "flash_bwd": "flash_dkv_bf16"}
-TC_AT_128 = ("flash_fwd_bf16<128>", "flash_dkv_bf16<128, 1>")
+# the tensor-core kernels by library (bf16, and the f32 forward in
+# 3xTF32); each must run HMMA instructions, and at D = 128 (the slice's
+# head) spill nothing
+TC_KERNELS = {"flash_fwd": ("flash_fwd_bf16", "flash_fwd_tf32x3"),
+              "flash_bwd": ("flash_dkv_bf16", "flash_dq_bf16")}
+TC_AT_128 = ("flash_fwd_bf16<128>", "flash_fwd_tf32x3<128>",
+             "flash_dkv_bf16<128, 1>", "flash_dq_bf16<128, 1>")
+# the kernels whose blocks per SM phase 1 prints at D = 128: (kernel,
+# library, C entry)
+OCCUPANCY = (("flash_fwd_tf32x3<128>", "flash_fwd",
+              "mml_flash_fwd_f32_occupancy"),
+             ("flash_dq_bf16<128, 1>", "flash_bwd",
+              "mml_flash_dq_bf16_occupancy"))
 
 
 def fail(msg: str) -> None:
@@ -253,7 +268,7 @@ def main() -> int:
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s "
           f"({len(built)} compiled); card: {smi}")
     # registers, spills and tensor-core instructions of every flash kernel
-    for lib, tc in TC_KERNELS.items():
+    for lib, tcs in TC_KERNELS.items():
         ptx = ptxas_table(_build.build_log(lib))
         check(bool(ptx), f"no -Xptxas -v output kept for {lib}")
         hmma = hmma_counts(_build.library_path(lib))
@@ -262,14 +277,22 @@ def main() -> int:
             print(f"build: {kname}: {regs} registers, spill stores {sst} B "
                   f"/ loads {sld} B, {sm} B static smem, "
                   f"{hmma.get(kname, 0)} HMMA")
-            if kname.startswith(tc):
+            if kname.startswith(tcs):
                 check(hmma.get(kname, 0) > 0,
                       f"{kname} runs no tensor-core (HMMA) instruction")
             if kname in TC_AT_128:
                 check(sst == 0 and sld == 0,
                       f"{kname} spills at D = 128 ({sst} / {sld} B)")
-        check(any(n.startswith(tc) for n in hmma),
-              f"no {tc} kernel in the SASS of {lib}")
+        for tc in tcs:
+            check(any(n.startswith(tc) for n in hmma),
+                  f"no {tc} kernel in the SASS of {lib}")
+    for kname, lib, entry in OCCUPANCY:
+        occ = (ctypes.c_int * 2)()
+        err = getattr(_build.load(lib), entry)(128, occ)
+        check(err == 0 and occ[0] > 0, f"{entry}: cudaError_t {err}, "
+              f"{occ[0]} blocks per SM")
+        print(f"build: {kname}: {occ[0]} blocks per SM, {occ[1]} B of "
+              "dynamic shared memory each")
 
     # ---- data and the main path's bin counts -----------------------------
     X, y = higgs_shape(N_TRAIN + N_TEST)
@@ -402,15 +425,16 @@ def main() -> int:
     def flash_bound_ms(case, dtype):
         """Least time on these inputs: q, k, v read once and O, LSE
         written once at the memory rate, or 4*D flops per unmasked
-        (query, key) pair at the input type's peak, whichever is
-        larger."""
+        (query, key) pair at the input type's tensor-core peak (f32:
+        3xTF32), whichever is larger."""
         b, lq, lk, h, d, causal, qo, ko = case
         item = torch.tensor([], dtype=dtype).element_size()
         pairs = lq * lk
         if causal:
             pairs = int(np.clip(np.arange(lq) + qo - ko + 1, 0, lk).sum())
         nbytes = item * b * h * d * (2 * lq + 2 * lk) + 4 * b * h * lq
-        rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        rate = (F32_CONTRACT_OPS_PER_S if dtype == torch.float32
+                else BF16_OPS_PER_S)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = 4 * d * pairs * b * h / rate
         return (1e3 * max(t_bytes, t_ops),
@@ -511,13 +535,15 @@ def main() -> int:
         """Least time on these inputs: q, k, v, dO read once with LSE and
         delta, and the kernel's outputs (dQ, or dK and dV) written once,
         at the memory rate; or its flops per unmasked pair (6·D for dQ,
-        8·D for dK and dV) at the input type's peak; whichever is larger."""
+        8·D for dK and dV) at the input type's tensor-core peak (f32:
+        3xTF32); whichever is larger."""
         b, lq, lk, h, d, causal, qo, ko = case
         item = torch.tensor([], dtype=dtype).element_size()
         outs = lq if kernel == "_dq_kernel" else 2 * lk
         nbytes = (item * b * h * d * (2 * lq + 2 * lk + outs)
                   + 2 * 4 * b * h * lq)
-        rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        rate = (F32_CONTRACT_OPS_PER_S if dtype == torch.float32
+                else BF16_OPS_PER_S)
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = (FA.FLOPS_PER_PAIR[kernel] * d * b * h
                  * FA.unmasked_pairs(lq, lk, causal, qo, ko) / rate)

@@ -53,8 +53,7 @@
 //   Registers (nvcc -Xptxas -v, sm_90a): at D = 128 flash_dq<T, 8> uses
 //   128 and flash_dkv<float, 8, 4> 160; the widest, flash_dkv<float, 16,
 //   4>, 233; no spills. Shared memory, not registers, holds both kernels to
-//   one block (8 warps) per SM. flash_dq runs this body in both types,
-//   flash_dkv in float32 only: TF32 would break the f32 contract.
+//   one block (8 warps) per SM. Both bodies run float32 only.
 //
 //   flash_dkv_bf16<DP, NSPLIT>, bfloat16, on the tensor cores
 //     (mma_bf16.cuh), in the transposed orientation. A block owns 64 keys,
@@ -76,15 +75,37 @@
 //     K, V and 2 x (Q, dO) as bf16 rows of DP + 8, 103 KB at D = 128 (two
 //     blocks per SM), 198 KB at D = 256. No atomics.
 //
+//   flash_dq_bf16<DP, NSPLIT>, bfloat16, on the tensor cores, in the
+//     forward's orientation. A block owns one (batch*head, 64-row Q tile),
+//     4 warps x 16 query rows, heaviest causal tiles first, and loops over
+//     32-key KV tiles; a thread keeps the LSE and delta of its two rows
+//     (g, g + 8) in registers. Q and dO are staged once; K and V go through
+//     a two-stage cp.async ring. Per KV tile, all in registers: S = Q K^T
+//     and dP = dO V^T by mma.sync with Q and dO as row A operands
+//     (ldmatrix, re-read per tile rather than held, so that nothing spills
+//     at D = 128) and K and V's (key, d) rows as the .col B operand; P and
+//     dS on the f32 fragments; dQ += dS K with dS as the A fragment
+//     straight from registers, split hi + lo so that the product keeps dS
+//     in f32 as the TPU kernel does (4 products where a plain bf16 kernel
+//     does 3), and K through ldmatrix.trans. Only tiles that the diagonal
+//     or a ragged edge crosses pay for the per-element mask. dQ accumulates
+//     in registers (64 floats a thread at D = 128); heads above D = 128 (DP
+//     160, 256) split each warp-row group's output columns between two
+//     warps (NSPLIT = 2), which both compute S and dP. Shared memory: Q,
+//     dO and 2 x (K, V) as bf16 rows of DP + 8, 68 KB at D = 128 (three
+//     blocks per SM), 132 KB at D = 256. No atomics.
+//
 // Bound on the H100 SXM at the slice's shape (B, L, H, D) = (8, 1024, 16,
 // 128), causal: flash_dq does 6*D flops per unmasked (query, key) pair
-// (51.6 GFLOP), flash_dkv 8*D (68.8 GFLOP). In f32 on the CUDA cores
-// (67 TFLOP/s) that is 0.77 ms and 1.03 ms, far above the ~0.1 ms needed to
-// move their inputs and outputs once at 3.35 TB/s: bound by operations.
-// In bf16 on the tensor cores (989 TFLOP/s) flash_dkv needs 0.070 ms for
-// its operations, above the bytes' 0.06 ms. The f32 bodies do every
-// product in f32 FMA on the CUDA cores, fed by shared-memory loads;
-// flash_dkv_bf16 runs its products on the tensor cores.
+// (51.6 GFLOP), flash_dkv 8*D (68.8 GFLOP). Under the f32 contract the
+// least time is 3xTF32 on the tensor cores (495 / 3 TFLOP/s of useful
+// work): 0.31 ms and 0.42 ms (0.77 and 1.03 ms on the CUDA cores at 67
+// TFLOP/s), far above the ~0.1 ms needed to move their inputs and outputs
+// once at 3.35 TB/s: bound by operations. In bf16 on the tensor cores
+// (989 TFLOP/s) flash_dq needs 0.052 ms and flash_dkv 0.070 ms for their
+// operations, above the bytes' 0.05-0.06 ms. The f32 bodies do every
+// product in f32 FMA on the CUDA cores, fed by shared-memory loads; the
+// bf16 kernels run their products on the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,13 +126,7 @@ constexpr int SLD = 65;            // row stride of the score tile
 constexpr size_t kMaxSmem = 232448;  // 227 KB: a block's opt-in maximum
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as Tensor.to()
-}
 
 struct Args {
   int H, Lq, Lk, D;
@@ -582,10 +597,10 @@ __global__ void __launch_bounds__(128 * NSPLIT)
   // the Q tile qt into ring stage st: Q, dO, LSE, delta
   auto stage_q = [&](int qt, int st) {
     const int r0 = qt * BQ;
-    mml::stage_tile<BQ, DP, NT>(Qs + st * BQ * LD, qb, a.qsl, r0, a.Lq, D,
-                                vec);
-    mml::stage_tile<BQ, DP, NT>(Gs + st * BQ * LD, gb, a.gsl, r0, a.Lq, D,
-                                vec);
+    mml::stage_tile<BQ, DP, LD, NT>(Qs + st * BQ * LD, qb, a.qsl, r0, a.Lq,
+                                    D, vec);
+    mml::stage_tile<BQ, DP, LD, NT>(Gs + st * BQ * LD, gb, a.gsl, r0, a.Lq,
+                                    D, vec);
     for (int r = threadIdx.x; r < BQ; r += NT) {
       const int row = r0 + r;
       const bool in = row < a.Lq;
@@ -594,8 +609,8 @@ __global__ void __launch_bounds__(128 * NSPLIT)
     }
   };
 
-  mml::stage_tile<BKV16, DP, NT>(Ks, kb, a.ksl, k0, a.Lk, D, vec);
-  mml::stage_tile<BKV16, DP, NT>(Vs, vb, a.vsl, k0, a.Lk, D, vec);
+  mml::stage_tile<BKV16, DP, LD, NT>(Ks, kb, a.ksl, k0, a.Lk, D, vec);
+  mml::stage_tile<BKV16, DP, LD, NT>(Vs, vb, a.vsl, k0, a.Lk, D, vec);
   if (qt0 < nq) stage_q(qt0, 0);
   mml::cp_async_commit();
 
@@ -769,13 +784,8 @@ int launch_dkv_bf16_dp(const __nv_bfloat16* q, const __nv_bfloat16* k,
                        cudaStream_t stream) {
   const size_t smem = dkv_bf16_smem_bytes(DP);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_bf16<DP, NSPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_dkv_bf16<DP, NSPLIT>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  const cudaError_t err =
+      mml::opt_in(flash_dkv_bf16<DP, NSPLIT>, 128 * NSPLIT, smem, nullptr);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.Lk + BKV16 - 1) / BKV16, B * a.H);
   flash_dkv_bf16<DP, NSPLIT><<<grid, 128 * NSPLIT, smem, stream>>>(
@@ -786,17 +796,24 @@ int launch_dkv_bf16_dp(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // One kernel for every bf16 shape: DP = D rounded up to 32, 64, 128, 160
 // or 256, two warps per 16-key group above 128; 16-byte staging where every
 // row is 16-byte aligned, element-wise staging otherwise.
-int launch_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                    const __nv_bfloat16* v, const __nv_bfloat16* g,
-                    const float* lse, const float* dlt, __nv_bfloat16* dk,
-                    __nv_bfloat16* dv, int B, const Args& a,
-                    cudaStream_t stream) {
+// 16-byte staging of the bf16 kernels: every row of q, k, v and dO
+// 16-byte aligned and D % 8 == 0.
+int bf16_vec(const __nv_bfloat16* q, const __nv_bfloat16* k,
+             const __nv_bfloat16* v, const __nv_bfloat16* g, const Args& a) {
   const uintptr_t ptrs =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g);
   const long long strides = a.qsb | a.qsl | a.qsh | a.ksb | a.ksl | a.ksh |
                             a.vsb | a.vsl | a.vsh | a.gsb | a.gsl | a.gsh;
-  const int vec = ptrs % 16 == 0 && strides % 8 == 0 && a.D % 8 == 0;
+  return ptrs % 16 == 0 && strides % 8 == 0 && a.D % 8 == 0;
+}
+
+int launch_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                    const __nv_bfloat16* v, const __nv_bfloat16* g,
+                    const float* lse, const float* dlt, __nv_bfloat16* dk,
+                    __nv_bfloat16* dv, int B, const Args& a,
+                    cudaStream_t stream) {
+  const int vec = bf16_vec(q, k, v, g, a);
 #define MML_DKV16(P, S) \
   launch_dkv_bf16_dp<P, S>(q, k, v, g, lse, dlt, dk, dv, B, a, vec, stream)
   if (a.D <= 32) return MML_DKV16(32, 1);
@@ -805,6 +822,233 @@ int launch_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (a.D <= 160) return MML_DKV16(160, 2);
   if (a.D <= 256) return MML_DKV16(256, 2);
 #undef MML_DKV16
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ----------------------------------------------------- flash_dq, bf16 (mma)
+constexpr int BKQ16 = 32;  // keys per KV tile of flash_dq_bf16
+
+size_t dq_bf16_smem_bytes(int dp) {
+  return sizeof(__nv_bfloat16) * static_cast<size_t>(2 * BQ + 4 * BKQ16) *
+         (dp + 8);
+}
+
+// DP: the head dim padded with zeros to a multiple of 16 (32, 64, 128,
+// 160 or 256); NSPLIT: warps sharing a 16-row group's output columns.
+template <int DP, int NSPLIT>
+__global__ void __launch_bounds__(128 * NSPLIT)
+    flash_dq_bf16(const mml::bf16* __restrict__ q,
+                  const mml::bf16* __restrict__ k,
+                  const mml::bf16* __restrict__ v,
+                  const mml::bf16* __restrict__ g,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ dlt, mml::bf16* __restrict__ dq,
+                  Args a, int vec) {
+  using mml::bf16;
+  constexpr int NT = 128 * NSPLIT;
+  constexpr int LD = DP + 8;        // row stride of the shared tiles
+  constexpr int NKS = DP / 16;      // k16 steps of S and dP
+  constexpr int DPW = DP / NSPLIT;  // output columns of one warp
+  constexpr int NO = DPW / 8;       // n8 tiles of a warp's dQ rows
+  constexpr int NS = BKQ16 / 8;     // n8 tiles of a warp's S and dP rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // (BQ, LD)
+  bf16* Gs = Qs + BQ * LD;                        // (BQ, LD): dO
+  bf16* Ks = Gs + BQ * LD;                        // 2 stages of (BKQ16, LD)
+  bf16* Vs = Ks + 2 * BKQ16 * LD;                 // 2 stages of (BKQ16, LD)
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int q0 = qt * BQ;
+  const int D = a.D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int t = lane & 3;
+  const int wr = (warp & 3) * 16;    // the warp's first row in the Q tile
+  const int c0 = (warp >> 2) * DPW;  // the warp's first output column
+
+  const bf16* qb = q + b * a.qsb + h * a.qsh;
+  const bf16* kb = k + b * a.ksb + h * a.ksh;
+  const bf16* vb = v + b * a.vsb + h * a.vsh;
+  const bf16* gb = g + b * a.gsb + h * a.gsh;
+
+  int n_kv = (a.Lk + BKQ16 - 1) / BKQ16;
+  if (a.causal) {
+    // tile kt is fully masked when kt*BKQ16 + k_off > q0 + BQ - 1 + q_off
+    const long long last =
+        static_cast<long long>(q0) + BQ - 1 + a.q_off - a.k_off;
+    const int n_c = last < 0 ? 0 : static_cast<int>(last / BKQ16) + 1;
+    n_kv = min(n_kv, n_c);
+  }
+
+  mml::stage_tile<BQ, DP, LD, NT>(Qs, qb, a.qsl, q0, a.Lq, D, vec);
+  mml::stage_tile<BQ, DP, LD, NT>(Gs, gb, a.gsl, q0, a.Lq, D, vec);
+  if (n_kv > 0) {
+    mml::stage_tile<BKQ16, DP, LD, NT>(Ks, kb, a.ksl, 0, a.Lk, D, vec);
+    mml::stage_tile<BKQ16, DP, LD, NT>(Vs, vb, a.vsl, 0, a.Lk, D, vec);
+  }
+  mml::cp_async_commit();
+
+  // LSE and delta of the thread's rows g (hr 0) and g + 8 (hr 1); a row
+  // past Lq reads 0 for both, and its zero Q and dO then give dS = 0
+  float lse_r[2], dlt_r[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wr + gq + 8 * hr;
+    const long long at = static_cast<long long>(bh) * a.Lq + row;
+    lse_r[hr] = row < a.Lq ? lse[at] : 0.f;
+    dlt_r[hr] = row < a.Lq ? dlt[at] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  // global position of the thread's first row
+  const long long qpos0 = static_cast<long long>(q0) + wr + gq + a.q_off;
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_kv) {
+      const int k1 = (kt + 1) * BKQ16;
+      mml::stage_tile<BKQ16, DP, LD, NT>(Ks + (st ^ 1) * BKQ16 * LD, kb,
+                                         a.ksl, k1, a.Lk, D, vec);
+      mml::stage_tile<BKQ16, DP, LD, NT>(Vs + (st ^ 1) * BKQ16 * LD, vb,
+                                         a.vsl, k1, a.Lk, D, vec);
+    }
+    mml::cp_async_commit();
+    mml::cp_async_wait<1>();  // tile kt (and Q, dO) landed
+    __syncthreads();
+    const bf16* Kt = Ks + st * BKQ16 * LD;
+    const bf16* Vt = Vs + st * BKQ16 * LD;
+
+    // S = Q K^T (unscaled) and dP = dO V^T, 16 x 32 per warp
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      uint32_t qf[4], gf[4];
+      mml::ldmatrix_x4(qf, mml::a_addr(Qs, LD, wr, ks * 16, lane));
+      mml::ldmatrix_x4(gf, mml::a_addr(Gs, LD, wr, ks * 16, lane));
+#pragma unroll
+      for (int nb = 0; nb < NS / 2; ++nb) {
+        uint32_t kf[4], vf[4];
+        mml::ldmatrix_x4(kf, mml::b_addr(Kt, LD, nb * 16, ks * 16, lane));
+        mml::ldmatrix_x4(vf, mml::b_addr(Vt, LD, nb * 16, ks * 16, lane));
+        mml::mma_bf16(s[2 * nb], qf, kf[0], kf[1]);
+        mml::mma_bf16(s[2 * nb + 1], qf, kf[2], kf[3]);
+        mml::mma_bf16(dp[2 * nb], gf, vf[0], vf[1]);
+        mml::mma_bf16(dp[2 * nb + 1], gf, vf[2], vf[3]);
+      }
+    }
+
+    // P = valid ? exp(S * scale - LSE) : 0, dS = P o (dP - delta) * scale
+    // in place of dP; the thread's keys are k0 + nt*8 + 2t + e
+    const int k0 = kt * BKQ16;
+    const bool full =
+        k0 + BKQ16 <= a.Lk &&
+        (!a.causal || static_cast<long long>(q0) + wr + a.q_off >=
+                          static_cast<long long>(k0) + BKQ16 - 1 + a.k_off);
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + nt * 8 + 2 * t + e;
+          const bool ok =
+              full || (kpos < a.Lk &&
+                       (!a.causal || qpos0 + 8 * hr >=
+                                         static_cast<long long>(kpos) +
+                                             a.k_off));
+          const float p =
+              ok ? expf(s[nt][2 * hr + e] * a.scale - lse_r[hr]) : 0.f;
+          float& x = dp[nt][2 * hr + e];
+          x = p * (x - dlt_r[hr]) * a.scale;
+        }
+
+    // dQ += dS K, dS from registers as hi + lo bf16
+#pragma unroll
+    for (int kk = 0; kk < BKQ16 / 16; ++kk) {
+      uint32_t dh[4], dl[4];
+      mml::split_a(dp[2 * kk], dp[2 * kk + 1], dh, dl);
+#pragma unroll
+      for (int nb = 0; nb < NO / 2; ++nb) {
+        uint32_t bf[4];
+        mml::ldmatrix_x4_trans(
+            bf, mml::bt_addr(Kt, LD, kk * 16, c0 + nb * 16, lane));
+        mml::mma_bf16(acc[2 * nb], dh, bf[0], bf[1]);
+        mml::mma_bf16(acc[2 * nb], dl, bf[0], bf[1]);
+        mml::mma_bf16(acc[2 * nb + 1], dh, bf[2], bf[3]);
+        mml::mma_bf16(acc[2 * nb + 1], dl, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // stage st is free for tile kt + 2
+  }
+  mml::cp_async_wait<0>();
+
+  const bool pairs = (D & 1) == 0;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wr + gq + 8 * hr;
+    if (row >= a.Lq) continue;
+    bf16* orow =
+        dq + ((static_cast<long long>(b) * a.Lq + row) * a.H + h) * D;
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+      const int c = c0 + i * 8 + 2 * t;
+      const float x0 = acc[i][2 * hr], x1 = acc[i][2 * hr + 1];
+      if (pairs && c + 1 < D) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (c < D) orow[c] = __float2bfloat16(x0);
+        if (c + 1 < D) orow[c + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+template <int DP, int NSPLIT>
+int launch_dq_bf16_dp(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                      const __nv_bfloat16* v, const __nv_bfloat16* g,
+                      const float* lse, const float* dlt, __nv_bfloat16* dq,
+                      int B, const Args& a, int vec, cudaStream_t stream,
+                      int* occ) {
+  const size_t smem = dq_bf16_smem_bytes(DP);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      mml::opt_in(flash_dq_bf16<DP, NSPLIT>, 128 * NSPLIT, smem, occ);
+  if (err != cudaSuccess || occ) return static_cast<int>(err);
+  const dim3 grid((a.Lq + BQ - 1) / BQ, B * a.H);
+  flash_dq_bf16<DP, NSPLIT><<<grid, 128 * NSPLIT, smem, stream>>>(
+      q, k, v, g, lse, dlt, dq, a, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One kernel for every bf16 shape, as launch_dkv_bf16 chooses it. With
+// occ, its blocks per SM and shared memory instead of a launch
+// (mml::opt_in).
+int launch_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                   const __nv_bfloat16* v, const __nv_bfloat16* g,
+                   const float* lse, const float* dlt, __nv_bfloat16* dq,
+                   int B, const Args& a, cudaStream_t stream,
+                   int* occ = nullptr) {
+  const int vec = bf16_vec(q, k, v, g, a);
+#define MML_DQ16(P, S) \
+  launch_dq_bf16_dp<P, S>(q, k, v, g, lse, dlt, dq, B, a, vec, stream, occ)
+  if (a.D <= 32) return MML_DQ16(32, 1);
+  if (a.D <= 64) return MML_DQ16(64, 1);
+  if (a.D <= 128) return MML_DQ16(128, 1);
+  if (a.D <= 160) return MML_DQ16(160, 2);
+  if (a.D <= 256) return MML_DQ16(256, 2);
+#undef MML_DQ16
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -842,8 +1086,8 @@ int mml_flash_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                       const float* lse, const float* dlt, __nv_bfloat16* dq,
                       MML_ARGS) {
   MML_PACK;
-  return launch_dq<__nv_bfloat16>(q, k, v, g, lse, dlt, dq, B, a,
-                                  static_cast<cudaStream_t>(stream));
+  return launch_dq_bf16(q, k, v, g, lse, dlt, dq, B, a,
+                        static_cast<cudaStream_t>(stream));
 }
 
 int mml_flash_dkv_f32(const float* q, const float* k, const float* v,
@@ -865,5 +1109,14 @@ int mml_flash_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 #undef MML_ARGS
 #undef MML_PACK
+
+// Blocks of the bf16 flash_dq kernel for head dim D that fit on one SM,
+// and its dynamic shared memory (occ[0], occ[1]). Returns the cudaError_t.
+int mml_flash_dq_bf16_occupancy(int D, int* occ) {
+  Args a{};
+  a.D = D;
+  return launch_dq_bf16(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                        nullptr, 0, a, nullptr, occ);
+}
 
 }  // extern "C"

@@ -54,56 +54,45 @@
 // registers and allowed two. Rows that are not 16-byte aligned (or
 // D % 8 != 0) are staged element-wise by the same kernel.
 //
-// float32: flash_fwd<float, NJ>, every product f32 FMA on the CUDA cores.
-// TF32 would break the f32 contract, so f32 keeps this body. 256 threads as
-// a 16 x 16 grid: thread (tr, tc) owns query rows tr + 16*i (i < 4), score
-// columns tc + 16*j (j < 4) of each 64-key tile, and output columns
-// tc + 16*jj (jj < NJ, NJ*16 >= D) of its rows. A row's 16 owners are the
-// 16 lanes of one half-warp, so row max and row sum are 4 shuffles. Q,
-// then K and V (through one shared buffer) are staged as f32 rows of
-// stride D + 1 (conflict-free column reads); P goes through shared memory.
+// float32: flash_fwd_tf32x3<DP>, on the tensor cores in 3xTF32
+// (mma_tf32.cuh): each f32 operand split into big + small TF32 halves and
+// multiplied three times into one f32 accumulator, which keeps the f32
+// contract (plain TF32 would not). The layout of the bf16 body: four warps
+// of 16 query rows, 32-key tiles, K and V through a two-stage cp.async
+// ring, the online softmax on the accumulator fragments, P kept in
+// registers as the A operand of P V. Tiles stay f32 in shared memory and
+// every fragment is split as it is formed (from shared memory for Q, K and
+// V, from the fragments for P): split tiles would double the shared memory
+// and its reads. Q's fragments are read again for every tile: holding them
+// would take 64 more registers a thread at D = 128. ldmatrix moves
+// 16-bit elements only, so fragments come from 16-byte loads of Q and K
+// (two k8 steps of S per load, rows of DP + 16 floats) and 8-byte loads of
+// V (two output tiles per load, rows of DP + 4), each conflict-free, by
+// relabelling k (and the output columns of P V) as the sums allow.
+// Q + 2 x (K + V) is 105 KB at D = 128: two blocks (8 warps) per SM.
 //
 // Bound on the H100 SXM at the slice's shape (B, L, H, D) = (8, 1024, 16,
-// 128), causal: 4*D*(unmasked pairs)*B*H = 34.4 GFLOP. In f32 on the CUDA
-// cores (67 TFLOP/s) that is 0.51 ms, above the 0.08 ms needed to move
-// q, k, v, O once at 3.35 TB/s: the f32 kernel is bound by operations. In
-// bf16 on the tensor cores (989 TFLOP/s) it is 0.035 ms, below the 0.04 ms
-// the bytes need: bound by bytes.
+// 128), causal: 4*D*(unmasked pairs)*B*H = 34.4 GFLOP. Under the f32
+// contract the least time is 3xTF32 on the tensor cores, 495 / 3 TFLOP/s
+// of useful work: 0.21 ms (0.51 ms on the CUDA cores at 67 TFLOP/s), above
+// the 0.08 ms needed to move q, k, v, O once at 3.35 TB/s: the f32 kernel
+// is bound by operations. In bf16 on the tensor cores (989 TFLOP/s) it is
+// 0.035 ms, below the 0.04 ms the bytes need: bound by bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per block
-constexpr int BK = 64;             // keys per KV tile
-constexpr int TR = 16;             // thread grid rows
-constexpr int TC = 16;             // thread grid columns
-constexpr int RPT = BQ / TR;       // query rows per thread
-constexpr int CPT = BK / TC;       // score columns per thread
-constexpr int NTHREADS = TR * TC;  // 256
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernel
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-// the half-warp of 16 lanes that owns one query row
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = TC / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = TC / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
+constexpr int BQ16 = 64;          // query rows per block, 16 per warp
+constexpr int BK16 = 32;          // keys per KV tile
+constexpr int NT16 = 2 * BQ16;    // threads: one warp per 16 rows
 
 struct Args {
   int H, Lq, Lk, D;
@@ -112,194 +101,6 @@ struct Args {
   int causal, q_off, k_off;
 };
 
-size_t smem_bytes(int D) {
-  return sizeof(float) *
-         (static_cast<size_t>(BQ + BK) * (D + 1) + BQ * (BK + 1));
-}
-
-// Stage rows [r0, r0 + rows) of one head (rows past `limit` as zeros) into
-// shared memory as f32 with row stride ld.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long sl,
-                                      int r0, int rows, int limit, int D,
-                                      int ld) {
-  for (int idx = threadIdx.x; idx < rows * D; idx += NTHREADS) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    const int row = r0 + r;
-    dst[r * ld + d] = row < limit ? to_f32(src[row * sl + d]) : 0.f;
-  }
-}
-
-template <typename T, int NJ>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out,
-              float* __restrict__ lse, Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int D = a.D;
-  const int ld = D + 1;
-  float* Qs = smem;             // (BQ, ld)
-  float* KVs = Qs + BQ * ld;    // (BK, ld): K for S = QK^T, then V for PV
-  float* Ps = KVs + BK * ld;    // (BQ, BK + 1)
-  constexpr int PLD = BK + 1;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh - b * a.H;
-  const int q0 = qt * BQ;
-  const int tr = threadIdx.x / TC;
-  const int tc = threadIdx.x - tr * TC;
-
-  const T* qb = q + b * a.qsb + h * a.qsh;
-  const T* kb = k + b * a.ksb + h * a.ksh;
-  const T* vb = v + b * a.vsb + h * a.vsh;
-
-  int n_kv = (a.Lk + BK - 1) / BK;
-  if (a.causal) {
-    // tile kt is fully masked when kt*BK + k_off > q0 + BQ - 1 + q_off
-    const long long last =
-        static_cast<long long>(q0) + BQ - 1 + a.q_off - a.k_off;
-    const int n_c = last < 0 ? 0 : static_cast<int>(last / BK) + 1;
-    n_kv = min(n_kv, n_c);
-  }
-
-  stage(Qs, qb, a.qsl, q0, BQ, a.Lq, D, ld);
-
-  float m[RPT], l[RPT], acc[RPT][NJ];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
-  }
-
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    stage(KVs, kb, a.ksl, k0, BK, a.Lk, D, ld);
-    __syncthreads();
-
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = Qs[(tr + TR * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = KVs[(tc + TC * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int qpos = q0 + tr + TR * i;
-      bool valid[CPT];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int kpos = k0 + tc + TC * j;
-        valid[j] = kpos < a.Lk &&
-                   (!a.causal || qpos + a.q_off >= kpos + a.k_off);
-        s[i][j] = valid[j] ? s[i][j] * a.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float corr = expf(fminf(m[i] - m_new, 0.f));
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(tr + TR * i) * PLD + tc + TC * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * corr + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= corr;
-    }
-    __syncthreads();  // every thread is done with K; P is written
-
-    stage(KVs, vb, a.vsl, k0, BK, a.Lk, D, ld);
-    __syncthreads();
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = Ps[(tr + TR * i) * PLD + kk];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int d = tc + TC * jj;
-        const float vv = d < D ? KVs[kk * ld + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
-      }
-    }
-    __syncthreads();  // V and P are free for the next tile
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + tr + TR * i;
-    if (row >= a.Lq) continue;
-    const float l_safe = l[i] > 0.f ? l[i] : 1.f;
-    T* orow = out + ((static_cast<long long>(b) * a.Lq + row) * a.H + h) * D;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int d = tc + TC * jj;
-      if (d < D) store(orow + d, acc[i][jj] / l_safe);
-    }
-    if (tc == 0)
-      lse[static_cast<long long>(bh) * a.Lq + row] = m[i] + logf(l_safe);
-  }
-}
-
-template <typename T, int NJ>
-int launch_nj(const T* q, const T* k, const T* v, T* out, float* lse, int B,
-              const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Lq + BQ - 1) / BQ, B * a.H);
-  flash_fwd<T, NJ><<<grid, NTHREADS, smem, stream>>>(q, k, v, out, lse, a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// NJ = output columns per thread: the smallest instantiated NJ with
-// 16 * NJ >= D (D <= 256).
-template <typename T>
-int launch(const T* q, const T* k, const T* v, T* out, float* lse, int B,
-           const Args& a, cudaStream_t stream) {
-  const int nj = (a.D + TC - 1) / TC;
-  if (nj <= 1) return launch_nj<T, 1>(q, k, v, out, lse, B, a, stream);
-  if (nj <= 2) return launch_nj<T, 2>(q, k, v, out, lse, B, a, stream);
-  if (nj <= 4) return launch_nj<T, 4>(q, k, v, out, lse, B, a, stream);
-  if (nj <= 6) return launch_nj<T, 6>(q, k, v, out, lse, B, a, stream);
-  if (nj <= 8) return launch_nj<T, 8>(q, k, v, out, lse, B, a, stream);
-  if (nj <= 10) return launch_nj<T, 10>(q, k, v, out, lse, B, a, stream);
-  if (nj <= 12) return launch_nj<T, 12>(q, k, v, out, lse, B, a, stream);
-  if (nj <= 16) return launch_nj<T, 16>(q, k, v, out, lse, B, a, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// ------------------------------------------------------- bf16, tensor cores
-constexpr int BQ16 = 64;          // query rows per block, 16 per warp
-constexpr int BK16 = 32;          // keys per KV tile
-constexpr int NT16 = 2 * BQ16;    // threads: one warp per 16 rows
-
-size_t smem_bytes_bf16(int dp) {
-  return sizeof(__nv_bfloat16) * static_cast<size_t>(BQ16 + 4 * BK16) *
-         (dp + 8);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
   return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
@@ -307,6 +108,12 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(kFull, x, 1);
   return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// ------------------------------------------------------- bf16, tensor cores
+size_t smem_bytes_bf16(int dp) {
+  return sizeof(__nv_bfloat16) * static_cast<size_t>(BQ16 + 4 * BK16) *
+         (dp + 8);
 }
 
 // DP: the head dim padded with zeros to a multiple of 16 (32, 64, 128,
@@ -352,10 +159,10 @@ __global__ void __launch_bounds__(NT16)
     n_kv = min(n_kv, n_c);
   }
 
-  mml::stage_tile<BQ16, DP, NT16>(Qs, qb, a.qsl, q0, a.Lq, D, vec);
+  mml::stage_tile<BQ16, DP, LD, NT16>(Qs, qb, a.qsl, q0, a.Lq, D, vec);
   if (n_kv > 0) {
-    mml::stage_tile<BK16, DP, NT16>(Ks, kb, a.ksl, 0, a.Lk, D, vec);
-    mml::stage_tile<BK16, DP, NT16>(Vs, vb, a.vsl, 0, a.Lk, D, vec);
+    mml::stage_tile<BK16, DP, LD, NT16>(Ks, kb, a.ksl, 0, a.Lk, D, vec);
+    mml::stage_tile<BK16, DP, LD, NT16>(Vs, vb, a.vsl, 0, a.Lk, D, vec);
   }
   mml::cp_async_commit();
 
@@ -374,10 +181,10 @@ __global__ void __launch_bounds__(NT16)
     const int st = kt & 1;
     if (kt + 1 < n_kv) {
       const int k1 = (kt + 1) * BK16;
-      mml::stage_tile<BK16, DP, NT16>(Ks + (st ^ 1) * BK16 * LD, kb, a.ksl, k1,
-                                    a.Lk, D, vec);
-      mml::stage_tile<BK16, DP, NT16>(Vs + (st ^ 1) * BK16 * LD, vb, a.vsl, k1,
-                                    a.Lk, D, vec);
+      mml::stage_tile<BK16, DP, LD, NT16>(Ks + (st ^ 1) * BK16 * LD, kb,
+                                          a.ksl, k1, a.Lk, D, vec);
+      mml::stage_tile<BK16, DP, LD, NT16>(Vs + (st ^ 1) * BK16 * LD, vb,
+                                          a.vsl, k1, a.Lk, D, vec);
     }
     mml::cp_async_commit();
     mml::cp_async_wait<1>();  // tile kt (and Q) landed
@@ -510,13 +317,8 @@ int launch_bf16_dp(const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, float* lse,
                    int B, const Args& a, int vec, cudaStream_t stream) {
   const size_t smem = smem_bytes_bf16(DP);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_fwd_bf16<DP>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  const cudaError_t err =
+      mml::opt_in(flash_fwd_bf16<DP>, NT16, smem, nullptr);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.Lq + BQ16 - 1) / BQ16, B * a.H);
   flash_fwd_bf16<DP><<<grid, NT16, smem, stream>>>(q, k, v, out, lse, a,
@@ -546,6 +348,245 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ------------------------------------------------ float32, 3xTF32 (mma)
+size_t smem_bytes_tf32(int dp) {
+  return sizeof(float) * static_cast<size_t>((BQ16 + 2 * BK16) * (dp + 16) +
+                                             2 * BK16 * (dp + 4));
+}
+
+// DP: the head dim padded with zeros to a multiple of 16 (32, 64, 128,
+// 160 or 256).
+template <int DP>
+__global__ void __launch_bounds__(NT16)
+    flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, Args a, int vec) {
+  constexpr int LDQ = DP + 16;  // Q and K rows: conflict-free 16-byte loads
+  constexpr int LDV = DP + 4;   // V rows: conflict-free 8-byte loads
+  constexpr int NC = DP / 16;   // 16-column chunks (two k8 steps) of S
+  constexpr int NO = DP / 8;    // n8 tiles of a warp's output rows
+  constexpr int NS = BK16 / 8;  // n8 tiles of a warp's score rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // (BQ16, LDQ)
+  float* Ks = Qs + BQ16 * LDQ;                      // 2 stages of (BK16, LDQ)
+  float* Vs = Ks + 2 * BK16 * LDQ;                  // 2 stages of (BK16, LDV)
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const int q0 = qt * BQ16;
+  const int D = a.D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = warp * 16;  // the warp's first row in the Q tile
+
+  const float* qb = q + b * a.qsb + h * a.qsh;
+  const float* kb = k + b * a.ksb + h * a.ksh;
+  const float* vb = v + b * a.vsb + h * a.vsh;
+
+  int n_kv = (a.Lk + BK16 - 1) / BK16;
+  if (a.causal) {
+    const long long last =
+        static_cast<long long>(q0) + BQ16 - 1 + a.q_off - a.k_off;
+    const int n_c = last < 0 ? 0 : static_cast<int>(last / BK16) + 1;
+    n_kv = min(n_kv, n_c);
+  }
+
+  mml::stage_tile<BQ16, DP, LDQ, NT16>(Qs, qb, a.qsl, q0, a.Lq, D, vec);
+  if (n_kv > 0) {
+    mml::stage_tile<BK16, DP, LDQ, NT16>(Ks, kb, a.ksl, 0, a.Lk, D, vec);
+    mml::stage_tile<BK16, DP, LDV, NT16>(Vs, vb, a.vsl, 0, a.Lk, D, vec);
+  }
+  mml::cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  // global positions of the thread's two rows
+  const long long qpos0 = static_cast<long long>(q0) + wr + g + a.q_off;
+  // the thread's Q columns 16c + 4t .. 4t+3 of rows g and g + 8
+  const float* qrow = Qs + (wr + g) * LDQ + 4 * t;
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < n_kv) {
+      const int k1 = (kt + 1) * BK16;
+      mml::stage_tile<BK16, DP, LDQ, NT16>(Ks + (st ^ 1) * BK16 * LDQ, kb,
+                                           a.ksl, k1, a.Lk, D, vec);
+      mml::stage_tile<BK16, DP, LDV, NT16>(Vs + (st ^ 1) * BK16 * LDV, vb,
+                                           a.vsl, k1, a.Lk, D, vec);
+    }
+    mml::cp_async_commit();
+    mml::cp_async_wait<1>();  // tile kt (and Q) landed
+    __syncthreads();
+    const float* Kt = Ks + st * BK16 * LDQ;
+    const float* Vt = Vs + st * BK16 * LDV;
+
+    // S = Q K^T (unscaled), 16 x 32 per warp; k8 step 2c takes columns
+    // 16c + 4t, 4t+1 as logical k t, t+4, step 2c+1 columns 4t+2, 4t+3
+    float s[NS][4];
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float4 x0 = *reinterpret_cast<const float4*>(qrow + 16 * c);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(qrow + 8 * LDQ + 16 * c);
+      uint32_t ab0[4], as0[4], ab1[4], as1[4];
+      mml::split_a_tf32(x0.x, x1.x, x0.y, x1.y, ab0, as0);
+      mml::split_a_tf32(x0.z, x1.z, x0.w, x1.w, ab1, as1);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+        const float4 kv = *reinterpret_cast<const float4*>(
+            Kt + (nt * 8 + g) * LDQ + 16 * c + 4 * t);
+        mml::mma_3xtf32(s[nt], ab0, as0, kv.x, kv.y);
+        mml::mma_3xtf32(s[nt], ab1, as1, kv.z, kv.w);
+      }
+    }
+
+    // online softmax on the fragments: rows g (hr 0) and g + 8 (hr 1)
+    const int k0 = kt * BK16;
+    const bool masked =
+        k0 + BK16 > a.Lk ||
+        (a.causal && static_cast<long long>(k0) + BK16 - 1 + a.k_off >
+                         static_cast<long long>(q0) + wr + a.q_off);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const long long qpos = qpos0 + 8 * hr;
+      uint32_t valid = 0xffffu;  // bit 2*nt + e
+      float mx = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[nt][2 * hr + e];
+          if (masked) {
+            const int kpos = k0 + nt * 8 + 2 * t + e;
+            const bool ok = kpos < a.Lk &&
+                            (!a.causal ||
+                             qpos >= static_cast<long long>(kpos) + a.k_off);
+            if (!ok) valid &= ~(1u << (2 * nt + e));
+          }
+          x = (valid >> (2 * nt + e)) & 1u ? x * a.scale : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m[hr], quad_max(mx));
+      const float corr = __expf(fminf(m[hr] - m_new, 0.f));
+      float rs = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[nt][2 * hr + e];
+          x = (valid >> (2 * nt + e)) & 1u ? __expf(x - m_new) : 0.f;
+          rs += x;
+        }
+      l[hr] = l[hr] * corr + quad_sum(rs);
+      m[hr] = m_new;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        acc[i][2 * hr] *= corr;
+        acc[i][2 * hr + 1] *= corr;
+      }
+    }
+
+    // acc += P V: P's C fragment of an n8 tile is the A fragment of one k8
+    // step (a0..a3 = c0 c2 c1 c3, logical k t <-> key 2t, t+4 <-> 2t+1);
+    // output tiles 2j and 2j+1 take columns 16j + 2n and 16j + 2n + 1 for
+    // logical n, so one 8-byte load of V feeds both
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      uint32_t pb[4], ps[4];
+      mml::split_a_tf32(s[kk][0], s[kk][2], s[kk][1], s[kk][3], pb, ps);
+      const float* v0 = Vt + (kk * 8 + 2 * t) * LDV + 2 * g;
+#pragma unroll
+      for (int j = 0; j < NO / 2; ++j) {
+        const float2 x = *reinterpret_cast<const float2*>(v0 + 16 * j);
+        const float2 y = *reinterpret_cast<const float2*>(v0 + LDV + 16 * j);
+        mml::mma_3xtf32(acc[2 * j], pb, ps, x.x, y.x);
+        mml::mma_3xtf32(acc[2 * j + 1], pb, ps, x.y, y.y);
+      }
+    }
+    __syncthreads();  // stage st is free for tile kt + 2
+  }
+  mml::cp_async_wait<0>();
+
+  // the thread's output columns 16j + 4t .. 4t+3: tile 2j's c0 / c1 (c2 /
+  // c3 for row g + 8) at 4t and 4t+2, tile 2j+1's at 4t+1 and 4t+3
+  const bool quads = (D & 3) == 0;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wr + g + 8 * hr;
+    if (row >= a.Lq) continue;
+    const float l_safe = l[hr] > 0.f ? l[hr] : 1.f;
+    float* orow =
+        out + ((static_cast<long long>(b) * a.Lq + row) * a.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < NO / 2; ++j) {
+      const int c = 16 * j + 4 * t;
+      const float x[4] = {
+          acc[2 * j][2 * hr] / l_safe, acc[2 * j + 1][2 * hr] / l_safe,
+          acc[2 * j][2 * hr + 1] / l_safe, acc[2 * j + 1][2 * hr + 1] / l_safe};
+      if (quads && c + 3 < D) {
+        *reinterpret_cast<float4*>(orow + c) =
+            make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < D) orow[c + e] = x[e];
+      }
+    }
+    if (t == 0)
+      lse[static_cast<long long>(bh) * a.Lq + row] = m[hr] + logf(l_safe);
+  }
+}
+
+template <int DP>
+int launch_tf32_dp(const float* q, const float* k, const float* v, float* out,
+                   float* lse, int B, const Args& a, int vec,
+                   cudaStream_t stream, int* occ) {
+  const cudaError_t err =
+      mml::opt_in(flash_fwd_tf32x3<DP>, NT16, smem_bytes_tf32(DP), occ);
+  if (err != cudaSuccess || occ) return static_cast<int>(err);
+  const dim3 grid((a.Lq + BQ16 - 1) / BQ16, B * a.H);
+  flash_fwd_tf32x3<DP><<<grid, NT16, smem_bytes_tf32(DP), stream>>>(
+      q, k, v, out, lse, a, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One kernel for every float32 shape: DP = D rounded up to 32, 64, 128,
+// 160 or 256; 16-byte staging where every row is 16-byte aligned and
+// D % 4 == 0, element-wise staging otherwise. With occ, the kernel's
+// blocks per SM and shared memory instead of a launch (mml::opt_in).
+int launch_tf32(const float* q, const float* k, const float* v, float* out,
+                float* lse, int B, const Args& a, cudaStream_t stream,
+                int* occ = nullptr) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  const long long strides =
+      a.qsb | a.qsl | a.qsh | a.ksb | a.ksl | a.ksh | a.vsb | a.vsl | a.vsh;
+  const int vec = ptrs % 16 == 0 && strides % 4 == 0 && a.D % 4 == 0;
+#define MML_FWD32(P) \
+  launch_tf32_dp<P>(q, k, v, out, lse, B, a, vec, stream, occ)
+  if (a.D <= 32) return MML_FWD32(32);
+  if (a.D <= 64) return MML_FWD32(64);
+  if (a.D <= 128) return MML_FWD32(128);
+  if (a.D <= 160) return MML_FWD32(160);
+  if (a.D <= 256) return MML_FWD32(256);
+#undef MML_FWD32
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Plain C interface (bound with ctypes). Returns the cudaError_t of the
@@ -565,8 +606,8 @@ int mml_flash_fwd_f32(const float* q, const float* k, const float* v,
                       void* stream) {
   const Args a{H, Lq, Lk, D, qsb, qsl, qsh, ksb, ksl, ksh,
                vsb, vsl, vsh, scale, causal, q_off, k_off};
-  return launch<float>(q, k, v, out, lse, B, a,
-                       static_cast<cudaStream_t>(stream));
+  return launch_tf32(q, k, v, out, lse, B, a,
+                     static_cast<cudaStream_t>(stream));
 }
 
 int mml_flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -580,6 +621,15 @@ int mml_flash_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                vsb, vsl, vsh, scale, causal, q_off, k_off};
   return launch_bf16(q, k, v, out, lse, B, a,
                      static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the float32 kernel for head dim D that fit on one SM, and its
+// dynamic shared memory (occ[0], occ[1]). Returns the cudaError_t.
+int mml_flash_fwd_f32_occupancy(int D, int* occ) {
+  Args a{};
+  a.D = D;
+  return launch_tf32(nullptr, nullptr, nullptr, nullptr, nullptr, 0, a,
+                     nullptr, occ);
 }
 
 }  // extern "C"

@@ -10,7 +10,8 @@
 //     bf16 values are exact in f32. The kernels use it where an f32
 //     operand (P, dS) meets a bf16 one, so the products keep the f32
 //     contract of the TPU kernels instead of rounding P or dS to bf16.
-//   * stage_tile: rows of one head into a padded bf16 tile in shared memory.
+//   * stage_tile: rows of one head into a padded tile in shared memory;
+//   * opt_in: a kernel's dynamic shared memory, or its blocks per SM.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g < 8, t < 4):
 //   A (16 x 16, row): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 8+2t..),
@@ -28,6 +29,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mml {
@@ -138,22 +140,22 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stage rows [r0, r0 + ROWS) of one head (row stride sl elements, unit
-// stride along the head dim) into a (ROWS, DP + 8) tile; rows at or past
-// `limit` and columns at or past D are zeros. vec: 16-byte cp.async
-// (needs D % 8 == 0 and 16-byte-aligned rows; the caller commits and
-// waits); else element-wise loads and stores, visible after the next
-// __syncthreads.
-template <int ROWS, int DP, int NT>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           long long sl, int r0, int limit,
-                                           int D, bool vec) {
-  constexpr int LD = DP + 8;
+// stride along the head dim) into a (ROWS, LD) tile of T (bf16 or f32);
+// rows at or past `limit` and columns at or past D (up to DP) are zeros.
+// vec: 16-byte cp.async (needs D a multiple of 16 bytes and 16-byte-aligned
+// rows; the caller commits and waits); else element-wise loads and stores,
+// visible after the next __syncthreads.
+template <int ROWS, int DP, int LD, int NT, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long sl,
+                                           int r0, int limit, int D,
+                                           bool vec) {
   if (vec) {
-    constexpr int CH = DP / 8;  // 16-byte chunks per row
+    constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
+    constexpr int CH = DP / E;         // chunks per row
     for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
       const int r = i / CH;
-      const int c = (i - r * CH) * 8;
-      bf16* d = dst + r * LD + c;
+      const int c = (i - r * CH) * E;
+      T* d = dst + r * LD + c;
       const int row = r0 + r;
       if (c < D) {
         const bool in = row < limit;
@@ -167,10 +169,28 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
       const int r = i / DP;
       const int c = i - r * DP;
       const int row = r0 + r;
-      dst[r * LD + c] = (row < limit && c < D) ? src[row * sl + c]
-                                               : __float2bfloat16(0.f);
+      dst[r * LD + c] = (row < limit && c < D) ? src[row * sl + c] : T{};
     }
   }
+}
+
+// Opt `kernel` in to `smem` bytes of dynamic shared memory, with the
+// carveout at its largest. With occ, then report instead how many blocks of
+// `threads` fit on one SM (occ[0]) and the bytes (occ[1]); the caller
+// launches only when occ is null.
+template <typename K>
+cudaError_t opt_in(K kernel, int threads, size_t smem, int* occ) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess || occ == nullptr) return err;
+  occ[1] = static_cast<int>(smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kernel, threads,
+                                                       smem);
 }
 
 }  // namespace mml

@@ -207,6 +207,22 @@ def test_cuda_flash_reads_unaligned_views(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [20, 40, 128])
+def test_cuda_flash_f32_relabelled_products(card, d):
+    """The f32 forward (3xTF32) feeds P from its accumulator fragments
+    to P V with k relabelled (key 2t as logical k t, 2t+1 as t+4) and
+    reads V with the same relabelling: a slip would pair a probability
+    with another key's value row. Held at a non-causal, non-power-of-two
+    Lk, where every key of every tile counts, with rows of V far apart."""
+    q, k, v = _qkv(card, 2, 50, 77, 3, d, torch.float32, seed=d)
+    v = v + torch.arange(77, device=card, dtype=torch.float32)[
+        None, :, None, None]
+    got = FA.flash_forward(q, k, v, False)
+    ref = FA.flash_forward_plain(q.double(), k.double(), v.double(), False)
+    _assert_flash_close(got, ref, torch.float32)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_bf16_launches_repeat_bitwise(card):
     """The tensor-core kernels at the slice's shape: no atomics and no
     order that changes between launches, so repeats are bitwise equal."""

@@ -240,13 +240,14 @@ def _split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return hi.float() @ b.float() + lo.float() @ b.float()
 
 
-@pytest.mark.parametrize("product", ["P V", "dS^T Q"])
+@pytest.mark.parametrize("product", ["P V", "dS^T Q", "dS K"])
 def test_bf16_split_keeps_the_f32_contract(product):
     """Why the tensor-core kernels split P and dS into hi + lo bf16: at
     the card tests' tolerance (one bf16 rounding of the result, rtol 2**-8,
-    atol 1e-5 against float64), causal P V and dS^T Q at L = 1024, D = 128
-    pass with the split and fail on about a quarter of the elements when
-    P or dS is rounded once to bf16, as FA2 and SDPA do."""
+    atol 1e-5 against float64), causal P V, dS^T Q (flash_dkv) and dS K
+    (flash_dq) at L = 1024, D = 128 pass with the split and fail on about a
+    quarter of the elements when P or dS is rounded once to bf16, as FA2
+    and SDPA do."""
     rng = np.random.default_rng(0)
     bh, n, d = 4, 1024, 128
     q, k, v, g = (torch.from_numpy(rng.normal(size=(bh, n, d)))
@@ -260,7 +261,8 @@ def test_bf16_split_keeps_the_f32_contract(product):
     else:
         dp = g @ v.transpose(-1, -2)
         delta = (g * (p @ v)).sum(-1, keepdim=True)
-        a, b = (p * (dp - delta) * scale).transpose(-1, -2), q
+        ds = p * (dp - delta) * scale
+        a, b = (ds.transpose(-1, -2), q) if product == "dS^T Q" else (ds, k)
     ref = a @ b                                   # float64
     a32 = a.float()                               # the kernel's f32 operand
     split = _split_product(a32, b).bfloat16().double()
@@ -268,3 +270,54 @@ def test_bf16_split_keeps_the_f32_contract(product):
     torch.testing.assert_close(split, ref, rtol=2 ** -8, atol=1e-5)
     failing = (~torch.isclose(once, ref, rtol=2 ** -8, atol=1e-5)).double()
     assert 0.15 < float(failing.mean()) < 0.4
+
+
+def _tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
+    """float32 ``x`` as TF32 (10 mantissa bits) on the f32 bits: rounded
+    to nearest even (``"even"``), to nearest with ties away from zero
+    (``"away"``), or truncated (``"zero"``, how the tensor cores read an
+    f32 operand)."""
+    i = x.contiguous().view(torch.int32)
+    add = {"even": ((i >> 13) & 1) + 0xFFF, "away": 0x1000, "zero": 0}
+    return ((i + add[rounding]) & ~0x1FFF).view(torch.float32)
+
+
+def _3xtf32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as flash_fwd_tf32x3 forms it (``mma_tf32.cuh``): each f32
+    operand split into ``big = tf32(x)`` rounded to nearest and ``small =
+    x - big``, which the mma truncates to TF32; the products of TF32
+    values exact in f32, small*big + big*small + big*big summed in f32."""
+    ab, bb = _tf32(a, "away"), _tf32(b, "away")
+    a_s, b_s = _tf32(a - ab, "zero"), _tf32(b - bb, "zero")
+    return a_s @ bb + ab @ b_s + ab @ bb
+
+
+def test_3xtf32_keeps_the_f32_contract():
+    """Why the f32 forward runs 3xTF32 and not TF32 on the tensor cores: at
+    the card tests' f32 tolerance (rtol 1e-4, atol 1e-4 against float64),
+    causal attention at L = 1024, D = 128 with both products (Q K^T and
+    P V) in 3xTF32 passes on every element; with each operand rounded once
+    to TF32 (to nearest even, the best one rounding can do) about 2 % of
+    the elements fail (2.3 % here, f32 sums)."""
+    rng = np.random.default_rng(0)
+    bh, n, d = 4, 1024, 128
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, n, d))
+                                .astype(np.float32)) for _ in range(3))
+    scale = d ** -0.5
+    causal = torch.ones(n, n, dtype=torch.bool).tril()
+
+    def attention(product):
+        s = (product(q, k.transpose(-1, -2)) * scale).masked_fill(
+            ~causal, -torch.inf)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        return product(p, v) / p.sum(-1, keepdim=True)
+    s64 = (q.double() @ k.double().transpose(-1, -2) * scale).masked_fill(
+        ~causal, -torch.inf)
+    ref = torch.softmax(s64, -1) @ v.double()
+    split = attention(_3xtf32_product).double()
+    once = attention(
+        lambda a, b: _tf32(a, "even") @ _tf32(b, "even")).double()
+    torch.testing.assert_close(split, ref, rtol=1e-4, atol=1e-4)
+    assert float((split - ref).abs().max()) < 1e-5
+    failing = (~torch.isclose(once, ref, rtol=1e-4, atol=1e-4)).double()
+    assert 0.01 < float(failing.mean()) < 0.05
