@@ -9,10 +9,11 @@ Phases, one line each; any failure exits non-zero:
                name and power limit; then each flash kernel's registers,
                spills and shared memory (-Xptxas -v) and its count of
                HMMA instructions (cuobjdump -sass), and the blocks per SM
-               and shared memory of the f32 forward and bf16 flash_dq at
-               D = 128. Fails if a tensor-core kernel (bf16 forward,
-               flash_dkv and flash_dq; the f32 forward's 3xTF32) has no
-               HMMA, if one spills at D = 128, or without cuobjdump.
+               and shared memory of the f32 forward, bf16 flash_dq and
+               f32 flash_dq / flash_dkv at D = 128. Fails if a flash
+               kernel (forward, flash_dq and flash_dkv, bf16 and f32 in
+               3xTF32) has no HMMA, if one spills at D = 128, or without
+               cuobjdump.
   2. kernels — call each kernel's wrapper on the card and hold it against
                its plain PyTorch version on the same inputs: float32
                within rtol 1e-5 / atol 1e-3 of the plain version in
@@ -24,8 +25,9 @@ Phases, one line each; any failure exits non-zero:
                one bf16 rounding, rtol 2**-8), at the slice's shape
                (8, 1024, 16, 128) causal, the ragged, offset, fully
                masked and D = 160 cases, the tile edges (Lq, Lk in
-               {1, 17, 65, 1000}, D in {8, 20, 64, 256}) and unaligned
-               views; two launches bitwise equal; in bf16, SDPA's error
+               {1, 17, 65, 1000}, D in {8, 20, 64, 256}), a causal
+               L = 8192 and unaligned views; two launches bitwise equal;
+               in bf16, SDPA's error
                on the same inputs beside the kernel's. Time the kernel,
                its plain version, SDPA and the bound at the slice's shape
                in f32 and bf16.
@@ -54,7 +56,10 @@ Phases, one line each; any failure exits non-zero:
                feed) over 32 rows x 1024 tokens for 2 epochs (8 steps of
                8): exactly 64 launches of each flash kernel, 8 finite
                losses with the last below the first, the returned model
-               scoring finite logits; then a depth-2 f32 model trained 2
+               scoring finite logits; the same fit in f32 compute (the
+               f32 flash kernels, strict-f32 GEMMs) with the same checks,
+               step seconds, tokens/s and peak memory; then a depth-2
+               f32 model trained 2
                SGD steps at batch 2, L = 512 on the card and on the CPU
                from the same weights (losses within rtol 1e-4, weights
                within 1e-3 of the largest update).
@@ -87,8 +92,10 @@ SECTOR_BYTES = 32           # the unit of a DRAM read
 N_TRAIN, N_TEST = 1_000_000, 100_000
 # (B, Lq, Lk, H, D, causal, q_offset, k_offset): the slice's attention,
 # the ragged cases of tests/test_flash_attention.py, shard offsets, a
-# fully masked shard, a wide head, and the tile edges of the tensor-core
-# route (Lq, Lk in {1, 17, 65, 1000}, D in {8, 20, 64, 256})
+# fully masked shard, a wide head, the tile edges of the tensor-core
+# route (Lq, Lk in {1, 17, 65, 1000}, D in {8, 20, 64, 256}), and a long
+# causal sequence, where sums accumulated inside the tensor cores (which
+# truncate) would drift past the f32 tolerance
 FLASH_MAIN = (8, 1024, 1024, 16, 128, True, 0, 0)
 FLASH_CASES = [FLASH_MAIN,
                (2, 100, 100, 3, 16, True, 0, 0),
@@ -102,22 +109,28 @@ FLASH_CASES = [FLASH_MAIN,
                (1, 65, 17, 2, 8, True, 0, 0),
                (1, 65, 1000, 2, 64, True, 935, 0),
                (1, 1000, 65, 3, 64, False, 0, 0),
-               (2, 1000, 1000, 2, 256, True, 0, 0)]
+               (2, 1000, 1000, 2, 256, True, 0, 0),
+               (1, 8192, 8192, 1, 128, True, 0, 0)]
 # q, k, v as views one element into wider rows: no row is 16-byte aligned
 FLASH_UNALIGNED = (1, 300, 300, 2, 64, True, 0, 0)
-# the tensor-core kernels by library (bf16, and the f32 forward in
-# 3xTF32); each must run HMMA instructions, and at D = 128 (the slice's
-# head) spill nothing
+# the tensor-core kernels by library (bf16, and f32 in 3xTF32); each must
+# run HMMA instructions, and at D = 128 (the slice's head) spill nothing
 TC_KERNELS = {"flash_fwd": ("flash_fwd_bf16", "flash_fwd_tf32x3"),
-              "flash_bwd": ("flash_dkv_bf16", "flash_dq_bf16")}
+              "flash_bwd": ("flash_dkv_bf16", "flash_dq_bf16",
+                            "flash_dkv_tf32x3", "flash_dq_tf32x3")}
 TC_AT_128 = ("flash_fwd_bf16<128>", "flash_fwd_tf32x3<128>",
-             "flash_dkv_bf16<128, 1>", "flash_dq_bf16<128, 1>")
+             "flash_dkv_bf16<128, 1>", "flash_dq_bf16<128, 1>",
+             "flash_dkv_tf32x3<128>", "flash_dq_tf32x3<128, 1>")
 # the kernels whose blocks per SM phase 1 prints at D = 128: (kernel,
 # library, C entry)
 OCCUPANCY = (("flash_fwd_tf32x3<128>", "flash_fwd",
               "mml_flash_fwd_f32_occupancy"),
              ("flash_dq_bf16<128, 1>", "flash_bwd",
-              "mml_flash_dq_bf16_occupancy"))
+              "mml_flash_dq_bf16_occupancy"),
+             ("flash_dq_tf32x3<128, 1>", "flash_bwd",
+              "mml_flash_dq_f32_occupancy"),
+             ("flash_dkv_tf32x3<128>", "flash_bwd",
+              "mml_flash_dkv_f32_occupancy"))
 
 
 def fail(msg: str) -> None:
@@ -763,47 +776,62 @@ def main() -> int:
     # ---- 5. the training slice: TPULearner.fit of the full-width LM ------
     train_rows = 32
     train_table = slice_table(train_rows)
-    learner = TPULearner(
-        networkSpec=LM_SPEC, loss="token_cross_entropy", optimizer="adamw",
-        learningRate=1e-3, batchSize=TRAIN_BATCH, computeDtype="bfloat16",
-        dataFeed="device", epochs=2, logEvery=1)
     n_steps = 2 * train_rows // TRAIN_BATCH
-    torch.cuda.reset_peak_memory_stats()
-    FA.reset_launches()
-    t0 = time.perf_counter()
-    trained = learner.fit(train_table)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    train_launches = dict(FA.LAUNCHES)
-    want_l = LM_SPEC["depth"] * n_steps
-    check(all(v == want_l for v in train_launches.values()),
-          f"training launched the flash kernels {train_launches} times, "
-          f"not {want_l} each")
-    losses = [h["loss"] for h in learner.history]
-    check(len(losses) == n_steps and all(np.isfinite(losses)),
-          f"training losses {losses}")
-    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
-    peak = torch.cuda.max_memory_allocated()
-    tm = learner.timing
-    step_s = tm["wall_s"] / tm["steps_timed"]
-    print(f"training slice: {n_steps} steps of {TRAIN_BATCH} x "
-          f"{LM_SPEC['max_len']} tokens (AdamW, bf16) in {fit_s:.3f} s "
-          f"(build and first step included); flash launches "
-          f"{train_launches}; peak device memory {peak / 1e9:.3f} GB")
-    print(f"training slice: losses {[round(x, 4) for x in losses]}")
-    print(f"training slice: {step_s:.4f} s per step after the first, "
-          f"{tm['examples_per_sec'] * LM_SPEC['max_len']:.0f} tokens/s; "
-          f"timing {tm}")
-    scores = trained.transform(DataTable(
-        {"features": np.asarray(train_table["features"][:4])}))["scores"]
-    want = (4, LM_SPEC["max_len"], LM_SPEC["vocab_size"])
-    check(scores.shape == want and bool(np.isfinite(scores).all()),
-          f"trained model scores {scores.shape}, finite "
-          f"{bool(np.isfinite(scores).all())}")
-    print(f"training slice: the returned model scores {scores.shape} "
-          "finite logits")
-    del learner, trained, scores
-    torch.cuda.empty_cache()
+
+    def train_slice(dtype: str) -> dict:
+        """Fit the full-width LM for 2 epochs in compute type dtype; check
+        the launches, losses and scores; return the flash launches. The
+        tokens are random, so the loss falls only where the second epoch
+        repeats rows."""
+        learner = TPULearner(
+            networkSpec=LM_SPEC, loss="token_cross_entropy",
+            optimizer="adamw", learningRate=1e-3, batchSize=TRAIN_BATCH,
+            computeDtype=dtype, dataFeed="device", epochs=2, logEvery=1)
+        torch.cuda.reset_peak_memory_stats()
+        FA.reset_launches()
+        t0 = time.perf_counter()
+        trained = learner.fit(train_table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(FA.LAUNCHES)
+        want_l = LM_SPEC["depth"] * n_steps
+        check(all(v == want_l for v in launches.values()),
+              f"{dtype} training launched the flash kernels {launches} "
+              f"times, not {want_l} each")
+        losses = [h["loss"] for h in learner.history]
+        check(len(losses) == n_steps and all(np.isfinite(losses)),
+              f"{dtype} training losses {losses}")
+        check(losses[-1] < losses[0],
+              f"{dtype} training loss did not fall: {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        tm = learner.timing
+        step_s = tm["wall_s"] / tm["steps_timed"]
+        tag = f"training slice {dtype}"
+        print(f"{tag}: {n_steps} steps of {TRAIN_BATCH} x "
+              f"{LM_SPEC['max_len']} tokens (AdamW, allow_tf32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}) in {fit_s:.3f} s "
+              f"(build and first step included); flash launches "
+              f"{launches}; peak device memory {peak / 1e9:.3f} GB")
+        print(f"{tag}: losses {[round(x, 4) for x in losses]}")
+        print(f"{tag}: {step_s:.4f} s per step after the first, "
+              f"{tm['examples_per_sec'] * LM_SPEC['max_len']:.0f} "
+              f"tokens/s; timing {tm}")
+        scores = trained.transform(DataTable(
+            {"features": np.asarray(train_table["features"][:4])}))["scores"]
+        want = (4, LM_SPEC["max_len"], LM_SPEC["vocab_size"])
+        check(scores.shape == want and bool(np.isfinite(scores).all()),
+              f"{dtype}-trained model scores {scores.shape}, finite "
+              f"{bool(np.isfinite(scores).all())}")
+        print(f"{tag}: the returned model scores {scores.shape} finite "
+              "logits")
+        del learner, trained, scores
+        torch.cuda.empty_cache()
+        return launches
+
+    train_launches = train_slice("bfloat16")
+    # f32: the f32 flash_dq / flash_dkv (3xTF32) at the slice's shape;
+    # torch keeps allow_tf32 False, so the GEMMs run strict f32
+    f32_launches = train_slice("float32")
 
     # a depth-2 f32 model trained 2 SGD steps on the card (flash kernels)
     # and on the CPU (their plain versions) from the same weights
@@ -871,19 +899,25 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"]})
-    for kernel, name, line in (("_dq_kernel", "flash_dq", 148),
-                               ("_dkv_kernel", "flash_dkv", 190)):
-        # the training slice's type: bf16; library_ms is SDPA's whole
-        # backward (dq, dk, dv), plain_ms the whole plain backward
-        m = bwd_measured[(kernel, torch.bfloat16)]
-        kernels.append({
-            "name": f"{name} (bf16, B=8, L=1024, H=16, D=128, causal)",
-            "route": "cuda", "source": "mmlspark_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": f"mmlspark_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[kernel],
-            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    # the backward in both types: bf16 on the training slice's bf16 fit,
+    # f32 on its f32 fit; library_ms is SDPA's whole backward (dq, dk,
+    # dv) in that type, plain_ms the whole plain backward
+    for dtype, tname, launches in (
+            (torch.bfloat16, "bf16", train_launches),
+            (torch.float32, "f32", f32_launches)):
+        for kernel, name, line in (("_dq_kernel", "flash_dq", 148),
+                                   ("_dkv_kernel", "flash_dkv", 190)):
+            m = bwd_measured[(kernel, dtype)]
+            kernels.append({
+                "name": f"{name} ({tname}, B=8, L=1024, H=16, D=128, "
+                        "causal)",
+                "route": "cuda",
+                "source": "mmlspark_tpu_torch/csrc/flash_bwd.cu",
+                "replaces": f"mmlspark_tpu/ops/flash_attention.py:{line}",
+                "launches": launches[kernel],
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

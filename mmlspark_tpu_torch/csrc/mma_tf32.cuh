@@ -27,10 +27,27 @@
 //     = c0 c2 c1 c3. The B operand then reads rows 2t and 2t+1.
 // ldmatrix moves 16-bit elements only, so the fragments come from plain
 // 32-bit or 128-bit shared loads.
+//
+// A tile that feeds B fragments both ways (K in flash_dq: as the (key, d)
+// rows of S = Q K^T and as rows 2t, 2t+1 of dQ += dS K; Q and dO in
+// flash_dkv likewise) has no padding that keeps both loads conflict-free:
+// a quarter-warp's 16-byte loads of rows g, g+1 need a row stride of 16
+// mod 32 floats, a half-warp's 8-byte loads of rows 2t need 4 or 12 mod
+// 16. Such tiles are unpadded (row stride DP, a multiple of 32) and
+// swizzled: the 16-byte chunk c of row r lies at chunk c ^ swz(r), with
+// swz(r) = (r & 6) ^ ((r & 1) << 2). Rows g and g+1 (g even) then differ
+// in bit 2 of the swizzle, so their four chunks 4c'+t fall in opposite
+// halves of the 32 banks; rows 0, 2, 4, 6 (and 1, 3, 5, 7) differ in bits
+// 1-2, so the chunk pairs 4j + (g >> 1) of the 16 lanes of an 8-byte load
+// cover the 32 banks once. A-fragment loads (rows g and g + 8, 16 bytes)
+// are conflict-free in the same layout, so every f32 tile of the backward
+// kernels uses it.
 
 #pragma once
 
 #include <stdint.h>
+
+#include "mma_bf16.cuh"  // cp_async16
 
 namespace mml {
 
@@ -78,6 +95,51 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(c, as, b0, b1);
   mma_tf32(c, ab, s0, s1);
   mma_tf32(c, ab, b0, b1);
+}
+
+// The chunk swizzle of row r of an unpadded tile (only r % 8 counts).
+__device__ __forceinline__ int swz(int r) { return (r & 6) ^ ((r & 1) << 2); }
+
+// Offset in floats of column col of row r in an unpadded, swizzled tile
+// of row stride DP.
+template <int DP>
+__device__ __forceinline__ int swz_off(int r, int col) {
+  return r * DP + ((((col >> 2) ^ swz(r)) << 2) | (col & 3));
+}
+
+// stage_tile (mma_bf16.cuh) for f32 rows into an unpadded, swizzled
+// (ROWS, DP) tile; rows at or past `limit` and columns at or past D are
+// zeros. vec: 16-byte cp.async (D % 4 == 0 and 16-byte-aligned rows; the
+// caller commits and waits); else element-wise, visible after the next
+// __syncthreads.
+template <int ROWS, int DP, int NT>
+__device__ __forceinline__ void stage_tile_swz(float* dst, const float* src,
+                                               long long sl, int r0,
+                                               int limit, int D, bool vec) {
+  static_assert(DP % 32 == 0, "the swizzle permutes 8 chunks of a row");
+  if (vec) {
+    constexpr int CH = DP / 4;  // 16-byte chunks per row
+    for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * 4;
+      float* d = dst + swz_off<DP>(r, c);
+      const int row = r0 + r;
+      if (c < D) {
+        const bool in = row < limit;
+        cp_async16(d, in ? src + row * sl + c : src, in);
+      } else {
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
+      const int r = i / DP;
+      const int c = i - r * DP;
+      const int row = r0 + r;
+      dst[swz_off<DP>(r, c)] =
+          (row < limit && c < D) ? src[row * sl + c] : 0.f;
+    }
+  }
 }
 
 }  // namespace mml

@@ -1,15 +1,19 @@
 """Where the time of a training step goes on a CUDA card (the PyTorch port).
 
     python3 -m mmlspark_tpu_torch.profile_train [--steps 4] [--trace PATH]
+        [--compute-dtype {bfloat16,float32}]
 
 Trains the configuration ``chip_smoke.py`` drives (``TPULearner`` over
 the full-width ``LM_SPEC`` of bench.py, token cross-entropy, AdamW at
-1e-3, batches of 8 x 1024 tokens, bf16 compute, device feed; tokens from
-numpy seed 7) for ``--steps`` steps once to warm up (kernel builds,
+1e-3, batches of 8 x 1024 tokens, device feed; tokens from numpy seed 7)
+in ``--compute-dtype`` (bf16 by default; float32 runs the f32 flash
+kernels and strict-f32 GEMMs, since torch keeps ``allow_tf32`` False)
+for ``--steps`` steps once to warm up (kernel builds,
 cuBLAS, the allocator), then again under ``torch.profiler`` (CPU and
 CUDA activities) with ``traceAnnotations`` on, and prints for the steps
 after the first (whose end the learner waits for):
-  - step seconds and tokens/s over that window;
+  - step seconds and tokens/s over that window (and, first, the
+    warm-up fit's unprofiled ``learner.timing``);
   - the device's busy and idle shares of the window;
   - device time by kind: cuBLAS GEMMs, the three flash kernels, the
     optimizer, cross-entropy, casts and copies, LayerNorm, GELU, the
@@ -55,11 +59,11 @@ def kind_of(name: str) -> str:
     return "other (elementwise, reductions, embedding)"
 
 
-def slice_learner(steps: int, **kw):
+def slice_learner(steps: int, compute_dtype: str = "bfloat16", **kw):
     from mmlspark_tpu_torch.models.learner import TPULearner
     return TPULearner(networkSpec=LM_SPEC, loss="token_cross_entropy",
                       optimizer="adamw", learningRate=1e-3,
-                      batchSize=BATCH, computeDtype="bfloat16",
+                      batchSize=BATCH, computeDtype=compute_dtype,
                       dataFeed="device", epochs=1, logEvery=steps, **kw)
 
 
@@ -77,6 +81,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--compute-dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
     args = ap.parse_args()
 
     import torch
@@ -89,21 +95,27 @@ def main() -> int:
 
     table = slice_table(args.steps * BATCH)
     t0 = time.perf_counter()
-    slice_learner(args.steps).fit(table)                 # warm-up
+    warm = slice_learner(args.steps, args.compute_dtype)
+    warm.fit(table)                                      # warm-up
     torch.cuda.synchronize()
     print(f"warm-up fit of {args.steps} steps: "
-          f"{time.perf_counter() - t0:.3f} s")
+          f"{time.perf_counter() - t0:.3f} s; unprofiled learner.timing "
+          f"{warm.timing}")
+    del warm
     torch.cuda.empty_cache()
 
-    learner = slice_learner(args.steps, traceAnnotations=True)
+    learner = slice_learner(args.steps, args.compute_dtype,
+                            traceAnnotations=True)
     FA.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         learner.fit(table)
         torch.cuda.synchronize()
     print(f"card: {torch.cuda.get_device_name(0)}; LM_SPEC, {args.steps} "
-          f"steps of {BATCH} x {LM_SPEC['max_len']} tokens, bf16 compute, "
-          f"AdamW; flash launches {dict(FA.LAUNCHES)}")
+          f"steps of {BATCH} x {LM_SPEC['max_len']} tokens, "
+          f"{args.compute_dtype} compute (allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}), AdamW; flash launches "
+          f"{dict(FA.LAUNCHES)}")
     print(f"learner.timing: {learner.timing}")
 
     events = prof.events()

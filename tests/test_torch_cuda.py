@@ -101,8 +101,9 @@ def test_cuda_wrapper_refuses_bad_inputs(card):
 
 # (B, Lq, Lk, H, D, causal, q_offset, k_offset): the slice's shape, the
 # ragged cases of tests/test_flash_attention.py, shard offsets, a fully
-# masked shard, a wide head, and the tile edges of the bf16 tensor-core
-# kernels (Lq, Lk in {1, 17, 65, 1000}, D in {8, 20, 64, 256}), as
+# masked shard, a wide head, the tile edges of the tensor-core kernels
+# (Lq, Lk in {1, 17, 65, 1000}, D in {8, 20, 64, 256}) and a long causal
+# sequence (the truncating tensor-core sums must not drift), as
 # chip_smoke.py's FLASH_CASES
 FLASH_CASES = [
     (8, 1024, 1024, 16, 128, True, 0, 0),
@@ -118,6 +119,7 @@ FLASH_CASES = [
     (1, 65, 1000, 2, 64, True, 935, 0),
     (1, 1000, 65, 3, 64, False, 0, 0),
     (2, 1000, 1000, 2, 256, True, 0, 0),
+    (1, 8192, 8192, 1, 128, True, 0, 0),
 ]
 
 
@@ -332,6 +334,29 @@ def test_cuda_flash_autograd_through_strided_qkv_views(card, dtype):
                                       out.double(), lse.double(),
                                       g.double(), True)
         _assert_grads_close(split(got), ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 20, 64, 128, 256])
+def test_cuda_flash_f32_backward_relabelled_products(card, d):
+    """The f32 backward (3xTF32) feeds dS and P^T from their accumulator
+    fragments to dS K, dS^T Q and P^T dO with k relabelled (row 2t as
+    logical k t, 2t+1 as t+4), and reads K, Q and dO from swizzled tiles
+    in both orientations: a slip would pair a gradient with another
+    key's or query's row. Held at a non-causal, non-power-of-two Lq and
+    Lk, where every key of every tile counts, with D = 20 staged element
+    by element."""
+    q, k, v = _qkv(card, 2, 50, 77, 3, d, torch.float32, seed=d)
+    out, lse = FA.flash_forward(q, k, v, False)
+    g = torch.randn(out.shape, generator=torch.Generator(
+        device=card).manual_seed(d + 1), device=card)
+    FA.reset_launches()
+    got = FA.flash_backward(q, k, v, out, lse, g, False)
+    assert FA.LAUNCHES["_dq_kernel"] == FA.LAUNCHES["_dkv_kernel"] == 1
+    ref = FA.flash_backward_plain(q.double(), k.double(), v.double(),
+                                  out.double(), lse.double(), g.double(),
+                                  False)
+    _assert_grads_close(got, ref, torch.float32)
 
 
 @pytest.mark.cuda

@@ -292,32 +292,86 @@ def _3xtf32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a_s @ bb + ab @ b_s + ab @ bb
 
 
-def test_3xtf32_keeps_the_f32_contract():
-    """Why the f32 forward runs 3xTF32 and not TF32 on the tensor cores: at
-    the card tests' f32 tolerance (rtol 1e-4, atol 1e-4 against float64),
-    causal attention at L = 1024, D = 128 with both products (Q K^T and
-    P V) in 3xTF32 passes on every element; with each operand rounded once
-    to TF32 (to nearest even, the best one rounding can do) about 2 % of
-    the elements fail (2.3 % here, f32 sums)."""
+# the backward's five products, each with the gradients it feeds
+BWD_PRODUCTS = {"Q K^T": ("dq", "dk", "dv"), "dO V^T": ("dq", "dk"),
+                "dS K": ("dq",), "dS^T Q": ("dk",), "P^T dO": ("dv",)}
+
+
+def _3xtf32_inputs():
+    """q, k, v, dO of causal attention at L = 1024, D = 128 (4 heads)."""
     rng = np.random.default_rng(0)
-    bh, n, d = 4, 1024, 128
-    q, k, v = (torch.from_numpy(rng.normal(size=(bh, n, d))
-                                .astype(np.float32)) for _ in range(3))
+    return [torch.from_numpy(rng.normal(size=(4, 1024, 128))
+                             .astype(np.float32)) for _ in range(4)]
+
+
+def _backward_with(products, q, k, v, g, lse, delta, causal):
+    """dq, dk, dv as flash_dq / flash_dkv form them, with each of the five
+    products by ``products[name]`` and P, dS in the inputs' type."""
+    scale = q.shape[-1] ** -0.5
+    s = products["Q K^T"](q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse).masked_fill(~causal, 0.0)
+    dp = products["dO V^T"](g, v.transpose(-1, -2))
+    ds = p * (dp - delta) * scale
+    return {"dq": products["dS K"](ds, k),
+            "dk": products["dS^T Q"](ds.transpose(-1, -2), q),
+            "dv": products["P^T dO"](p.transpose(-1, -2), g)}
+
+
+@pytest.mark.parametrize("product", ["forward", *BWD_PRODUCTS])
+def test_3xtf32_keeps_the_f32_contract(product):
+    """Why the f32 kernels run 3xTF32 and not TF32 on the tensor cores: at
+    the card tests' f32 tolerance (rtol 1e-4, atol 1e-4 against float64),
+    causal attention at L = 1024, D = 128 passes on every element with
+    every product in 3xTF32.
+    - forward (Q K^T and P V): with each operand rounded once to TF32 (to
+      nearest even, the best one rounding can do) about 2 % of the
+      elements fail (2.3 % here, f32 sums).
+    - backward (flash_dq's Q K^T, dO V^T, dS K; flash_dkv's K Q^T, V dO^T,
+      dS^T Q, P^T dO), from f32 LSE and delta: dq, dk and dv within 1e-5;
+      and each of the five products alone rounded once to TF32 (the rest
+      3xTF32) fails 0.76-1.34 % of the elements of every gradient it
+      feeds, so none of them can drop to one TF32 product."""
+    q, k, v, g = _3xtf32_inputs()
+    n, d = q.shape[-2:]
     scale = d ** -0.5
     causal = torch.ones(n, n, dtype=torch.bool).tril()
-
-    def attention(product):
-        s = (product(q, k.transpose(-1, -2)) * scale).masked_fill(
-            ~causal, -torch.inf)
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-        return product(p, v) / p.sum(-1, keepdim=True)
     s64 = (q.double() @ k.double().transpose(-1, -2) * scale).masked_fill(
         ~causal, -torch.inf)
-    ref = torch.softmax(s64, -1) @ v.double()
-    split = attention(_3xtf32_product).double()
-    once = attention(
-        lambda a, b: _tf32(a, "even") @ _tf32(b, "even")).double()
-    torch.testing.assert_close(split, ref, rtol=1e-4, atol=1e-4)
-    assert float((split - ref).abs().max()) < 1e-5
-    failing = (~torch.isclose(once, ref, rtol=1e-4, atol=1e-4)).double()
-    assert 0.01 < float(failing.mean()) < 0.05
+    if product == "forward":
+        def attention(prod):
+            s = (prod(q, k.transpose(-1, -2)) * scale).masked_fill(
+                ~causal, -torch.inf)
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            return prod(p, v) / p.sum(-1, keepdim=True)
+        ref = torch.softmax(s64, -1) @ v.double()
+        split = attention(_3xtf32_product).double()
+        once = attention(
+            lambda a, b: _tf32(a, "even") @ _tf32(b, "even")).double()
+        torch.testing.assert_close(split, ref, rtol=1e-4, atol=1e-4)
+        assert float((split - ref).abs().max()) < 1e-5
+        failing = (~torch.isclose(once, ref, rtol=1e-4, atol=1e-4)).double()
+        assert 0.01 < float(failing.mean()) < 0.05
+        return
+    # the forward's LSE and delta = rowsum(dO o O), as the kernels get them
+    lse = torch.logsumexp(s64, -1, keepdim=True)
+    delta = (g.double() * (torch.exp(s64 - lse) @ v.double())).sum(
+        -1, keepdim=True)
+    lse, delta = lse.float(), delta.float()
+    ref = _backward_with(dict.fromkeys(BWD_PRODUCTS, torch.matmul),
+                         *(x.double() for x in (q, k, v, g, lse, delta)),
+                         causal)
+    split = _backward_with(dict.fromkeys(BWD_PRODUCTS, _3xtf32_product),
+                           q, k, v, g, lse, delta, causal)
+    one = dict.fromkeys(BWD_PRODUCTS, _3xtf32_product)
+    one[product] = lambda a, b: _tf32(a, "even") @ _tf32(b, "even")
+    once = _backward_with(one, q, k, v, g, lse, delta, causal)
+    for name, r in ref.items():
+        torch.testing.assert_close(split[name].double(), r, rtol=1e-4,
+                                   atol=1e-4, msg=name)
+        assert float((split[name].double() - r).abs().max()) < 1e-5
+        failing = float((~torch.isclose(once[name].double(), r, rtol=1e-4,
+                                        atol=1e-4)).double().mean())
+        if name in BWD_PRODUCTS[product]:
+            assert 0.005 < failing < 0.025, (name, failing)
+        else:
+            assert failing == 0.0, (name, failing)
