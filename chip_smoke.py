@@ -17,9 +17,15 @@ Phases, one line each; any failure exits non-zero:
   2. kernels — call each kernel's wrapper on the card and hold it against
                its plain PyTorch version on the same inputs: float32
                within rtol 1e-5 / atol 1e-3 of the plain version in
-               float64, integer stats bitwise, two launches bitwise equal.
-               Time the kernel, its plain version, one library call
-               computing the same function, and its bound.
+               float64, integer stats bitwise, two launches bitwise equal;
+               the hist cases include a fit's root (every row active), its
+               mean masked right child (a scattered 5 % of the rows) and
+               skewed bins (90 % in bin 0, binary, constant) in f32, int16
+               and int8. Print the hist kernel's registers, spills, launch
+               plan and blocks per SM. Time the kernel, its plain version,
+               one library call computing the same function, and its bound
+               (hist: at 80 % active as before, the root, the 5 % child and
+               the 90 %-in-bin-0 root).
   2b. flash  — the flash-attention kernel against its plain version in
                float64 (f32 within rtol 1e-4 / atol 1e-4; bf16 out within
                one bf16 rounding, rtol 2**-8), at the slice's shape
@@ -83,12 +89,10 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12      # H100 SXM CUDA-core rate, outside tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 # useful f32-contract work on the tensor cores: 3 TF32 products (3xTF32) per
 # f32 product at the dense TF32 rate, the least time for f32 attention
 F32_CONTRACT_OPS_PER_S = 495e12 / 3
-SECTOR_BYTES = 32           # the unit of a DRAM read
 N_TRAIN, N_TEST = 1_000_000, 100_000
 # (B, Lq, Lk, H, D, causal, q_offset, k_offset): the slice's attention,
 # the ragged cases of tests/test_flash_attention.py, shard offsets, a
@@ -168,8 +172,8 @@ def short_name(mangled: str) -> str:
             args.append(mangled[num.end():j])
             i = j
         else:
-            args.append({"f": "float", "i": "int"}.get(mangled[i],
-                                                       mangled[i]))
+            args.append({"f": "float", "i": "int", "s": "short",
+                         "a": "signed char"}.get(mangled[i], mangled[i]))
             i += 1
     return f"{name}<{', '.join(args)}>"
 
@@ -258,6 +262,8 @@ def main() -> int:
         from mmlspark_tpu_torch.models.networks import build_network
         from mmlspark_tpu_torch.models.tpu_model import TPUModel
         from mmlspark_tpu_torch.ops import flash_attention as FA
+        from mmlspark_tpu_torch.profile_hist import (
+            bincount_call, device_ms, hist_bound_ms, hist_inputs, time_ms)
         from mmlspark_tpu_torch.profile_train import (
             BATCH as TRAIN_BATCH, slice_table)
         from mmlspark_tpu_torch.profile_transform import (
@@ -316,94 +322,54 @@ def main() -> int:
           f"B={b255} (max_bin 255), B={b63} (max_bin 63)")
 
     # ---- 2. kernels vs their plain versions ------------------------------
-    def inputs(F, N, L, B, sdt, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-
-        def ints(lo, hi, dt):
-            return torch.randint(lo, hi, (N,), generator=g, device=dev,
-                                 dtype=dt)
-        bins = torch.randint(0, B, (F, N), generator=g, device=dev,
-                             dtype=torch.int32)
-        leaf = ints(0, L, torch.int32)
-        if sdt == torch.float32:
-            grad = torch.randn(N, generator=g, device=dev)
-            hess = torch.rand(N, generator=g, device=dev) * 0.9 + 0.1
-            w = (torch.rand(N, generator=g, device=dev) < 0.8).float()
-            return bins, grad, hess, w, leaf, None
-        hi = 120 if sdt == torch.int8 else 2000
-        w = (torch.rand(N, generator=g, device=dev) < 0.8).to(sdt)
-        return (bins, ints(-hi, hi, sdt), ints(0, hi, sdt), w, leaf,
-                ints(0, hi, sdt))
-
-    def time_ms(fn, reps=20):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-        return float(np.median(ts))
-
-    def bound_ms(F, N, w, L, B, sdt, with_count):
-        """Least time for the function on these inputs: every row's
-        weight read once; the bins, other stats and leaf id read once in
-        each 32-byte DRAM sector that holds a row of nonzero weight (the
-        only rows that contribute); the (3, L, F, B) output written once."""
-        item = torch.tensor([], dtype=sdt).element_size()
-        nz = w != 0
-
-        def sector_bytes(itemsize):
-            per = SECTOR_BYTES // itemsize
-            padded = torch.nn.functional.pad(nz, (0, (-N) % per))
-            return SECTOR_BYTES * int(padded.view(-1, per).any(1).sum())
-        nbytes = (item * N + F * sector_bytes(4)
-                  + (3 if with_count else 2) * sector_bytes(item)
-                  + (sector_bytes(4) if L > 1 else 0) + 3 * L * F * B * 4)
-        ops = 3 * F * int(nz.sum())  # one add per channel per (row, feature)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-        return (1e3 * max(t_bytes, t_ops),
-                "bytes" if t_bytes >= t_ops else "operations")
-
-    def library_call(bins, grad, hess, w, leaf, L, B, cv):
-        """One torch.bincount with weights on precomputed segment ids —
-        the library's way to the same (3, L, F, B) sums; timed as a
-        yardstick, never called by the port."""
-        F, N = bins.shape
-        lfb = L * F * B
-        seg = ((leaf.long()[None, :] * F
-                + torch.arange(F, device=dev)[:, None]) * B
-               + bins.long()).reshape(-1)
-        vals = [grad * w, hess * w, w if cv is None else cv * w]
-        wdt = torch.float32 if grad.is_floating_point() else torch.float64
-        seg3 = torch.cat([seg + c * lfb for c in range(3)])
-        wts = torch.cat([v.to(wdt)[None, :].expand(F, N).reshape(-1)
-                         for v in vals])
-        return lambda: torch.bincount(seg3, weights=wts,
-                                      minlength=3 * lfb)
+    plan = HK.launch_plan(28, N_TRAIN, 1, b255)
+    occ = ctypes.c_int(0)
+    err = _build.load("hist").mml_hist_occupancy(
+        plan.n_warps, plan.smem_bytes, ctypes.byref(occ))
+    check(err == 0 and occ.value > 0, f"mml_hist_occupancy: cudaError_t "
+          f"{err}, {occ.value} blocks per SM")
+    for kname, (regs, sst, sld, sm) in sorted(
+            ptxas_table(_build.build_log("hist")).items()):
+        print(f"build: {kname}: {regs} registers, spill stores {sst} B / "
+              f"loads {sld} B, {sm} B static smem")
+    print(f"kernel hist plan at (F=28, N={N_TRAIN}, L=1, B={b255}): {plan}; "
+          f"{occ.value} blocks per SM")
 
     measured = {}
-    shapes = [(28, N_TRAIN, 1, 256, torch.float32),
-              (28, N_TRAIN, 1, 64, torch.float32),
-              (20, 700, 6, 16, torch.float32),
-              (28, N_TRAIN, 1, 256, torch.int16),
-              (28, N_TRAIN, 1, 256, torch.int8),
-              (28, N_TRAIN, 1, b255, torch.float32),
-              (28, N_TRAIN, 1, b63, torch.float32)]
-    timed = {(28, N_TRAIN, 1, b255), (28, N_TRAIN, 1, b63)}
-    for i, (F, N, L, B, sdt) in enumerate(shapes):
-        bins, grad, hess, w, leaf, cv = inputs(F, N, L, B, sdt, seed=i)
+    # (F, N, L, B, stats type, active share, skew); the timed cases are
+    # keyed by what they stand for in `measured`: the 80 %-active cases at
+    # the main path's bin counts (as before), a fit's root (every row), a
+    # fit's mean masked right child (a scattered 5 % of the rows), and the
+    # skewed worst case (90 % of each feature's rows in bin 0, at a root)
+    shapes = [(28, N_TRAIN, 1, 256, torch.float32, 0.8, None),
+              (28, N_TRAIN, 1, 64, torch.float32, 0.8, None),
+              (20, 700, 6, 16, torch.float32, 0.8, None),
+              (28, N_TRAIN, 1, 256, torch.int16, 0.8, None),
+              (28, N_TRAIN, 1, 256, torch.int8, 0.8, None),
+              (28, N_TRAIN, 1, b255, torch.float32, 0.8, None),
+              (28, N_TRAIN, 1, b63, torch.float32, 0.8, None),
+              (28, N_TRAIN, 1, b255, torch.float32, 1.0, None),
+              (28, N_TRAIN, 1, b255, torch.float32, 0.05, None)]
+    shapes += [(28, N_TRAIN, 1, b255, sdt, 1.0, skew)
+               for skew in ("bin0_90", "binary", "constant")
+               for sdt in (torch.float32, torch.int16, torch.int8)]
+    timed = {(28, N_TRAIN, 1, b255, 0.8, None): b255,
+             (28, N_TRAIN, 1, b63, 0.8, None): b63,
+             (28, N_TRAIN, 1, b255, 1.0, None): "root",
+             (28, N_TRAIN, 1, b255, 0.05, None): "child",
+             (28, N_TRAIN, 1, b255, 1.0, "bin0_90"): "bin0_90"}
+    for i, (F, N, L, B, sdt, active, skew) in enumerate(shapes):
+        bins, grad, hess, w, leaf, cv = hist_inputs(
+            dev, F, N, L, B, sdt, seed=i, active=active, skew=skew)
         out = HK.hist_device(bins, grad, hess, w, leaf, L, B, cv)
         again = HK.hist_device(bins, grad, hess, w, leaf, L, B, cv)
         torch.cuda.synchronize()
         check(torch.equal(out, again),
-              f"two launches differ at {(F, N, L, B)} {sdt}")
-        tag = f"kernel {str(sdt).split('.')[-1]} (F={F}, N={N}, L={L}, B={B})"
+              f"two launches differ at {(F, N, L, B)} {sdt} {active} {skew}")
+        tag = (f"kernel {str(sdt).split('.')[-1]} (F={F}, N={N}, L={L}, "
+               f"B={B}" + (f", {100 * active:g} % active" if active != 0.8
+                           else "") + (f", bins {skew}" if skew else "")
+               + ")")
         if sdt == torch.float32:
             ref = HK.hist_plain(bins, grad.double(), hess.double(),
                                 w.double(), leaf, L, B)
@@ -418,19 +384,23 @@ def main() -> int:
             check(torch.equal(out, ref), f"{tag}: int sums differ ({err})")
             print(f"{tag}: bitwise equal to the plain version (exact "
                   "int32); repeat launch bitwise equal")
-        if (F, N, L, B) in timed and sdt == torch.float32:
-            lib = library_call(bins, grad, hess, w, leaf, L, B, cv)
+        key = timed.get((F, N, L, B, active, skew))
+        if key is not None and sdt == torch.float32:
+            lib = bincount_call(bins, grad, hess, w, leaf, L, B, cv)
             k_ms = time_ms(lambda: HK.hist_device(bins, grad, hess, w, leaf,
                                                   L, B, cv))
             p_ms = time_ms(lambda: HK.hist_plain(bins, grad, hess, w, leaf,
                                                  L, B, cv))
             l_ms = time_ms(lib)
-            bd, by = bound_ms(F, N, w, L, B, sdt, cv is not None)
-            measured[B] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                               library_ms=l_ms, bound_ms=bd, bound_by=by)
-            print(f"{tag}: kernel {k_ms:.4f} ms, plain index_add_ "
-                  f"{p_ms:.4f} ms, bincount {l_ms:.4f} ms, bound "
-                  f"{bd:.4f} ms ({by})")
+            d_ms, _ = device_ms(lambda: HK.hist_device(
+                bins, grad, hess, w, leaf, L, B, cv))
+            bd, by = hist_bound_ms(F, N, w, L, B, sdt, cv is not None)
+            measured[key] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                 library_ms=l_ms, bound_ms=bd, bound_by=by)
+            print(f"{tag}: kernel {k_ms:.4f} ms (device time {d_ms:.4f} ms, "
+                  f"torch.profiler), plain index_add_ {p_ms:.4f} ms, "
+                  f"bincount {l_ms:.4f} ms, bound {bd:.4f} ms ({by})")
+            del lib
         del bins, grad, hess, w, leaf, cv, out, again, ref
     torch.cuda.empty_cache()
 
@@ -871,11 +841,15 @@ def main() -> int:
     del m0, w0, w_card, w_cpu
 
     kernels = []
-    for name, route, B, launches, line in (
+    for name, route, key, launches, line in (
             (f"hist (single leaf, B={b255})", "_hist_kernel_nibble", b255,
              l255, 67),
-            (f"hist (single leaf, B={b63})", "_hist_kernel", b63, l63, 117)):
-        m = measured[B]
+            (f"hist (single leaf, B={b63})", "_hist_kernel", b63, l63, 117),
+            (f"hist (single leaf, B={b255}, 5 % child)",
+             "_hist_kernel_nibble", "child", l255, 67),
+            (f"hist (single leaf, B={b255}, root)", "_hist_kernel_nibble",
+             "root", l255, 67)):
+        m = measured[key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mmlspark_tpu_torch/csrc/hist.cu",

@@ -21,7 +21,8 @@ single-leaf kernel does (the tree grower passes zeros).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -29,11 +30,12 @@ from mmlspark_tpu_torch import _build
 
 MAX_BINS = 2048            # the range the JAX package accepts
 SMEM_MAX = 232_448         # shared memory one block may use on Hopper
-MAX_FEATURE_TILE = 8       # warps (one per feature) per block
+MAX_WARPS = 32             # warps per block (1024 threads)
+ROWS_PER_THREAD = 4        # rows each thread stages per piece (hist.cu)
 # row chunks are sized for a FIXED block count, not the card's SM count,
 # so the chunking — and with it the f32 summation order — is the same on
 # every card
-TARGET_BLOCKS = 528
+TARGET_BLOCKS = 132
 
 # launches of the CUDA kernel, keyed by the TPU kernel each launch stands
 # in for (pallas_hist._block_plan's routing); the plain version and the
@@ -58,11 +60,50 @@ def tpu_route(num_leaves: int, num_bins: int) -> str:
             else "_hist_kernel")
 
 
+class LaunchPlan(NamedTuple):
+    """The kernel's geometry: grid (ceil(F / f_tile), n_chunks) of blocks
+    of n_warps warps; each block walks rows_per_chunk rows in pieces of
+    ``piece`` rows and stages up to ``cap`` active rows at a time."""
+    f_tile: int
+    n_warps: int
+    rows_per_chunk: int
+    n_chunks: int
+    cap: int
+    smem_bytes: int
+
+    @property
+    def piece(self) -> int:
+        return _piece(self.n_warps)
+
+
+def _piece(n_warps: int) -> int:
+    """Rows a block of n_warps warps stages at once."""
+    return n_warps * 32 * ROWS_PER_THREAD
+
+
+def _warps(f_tile: int) -> int:
+    """Warps for a tile of f_tile features, each owning as many features
+    as the next: ceil(f_tile / ceil(f_tile / MAX_WARPS))."""
+    per_warp = -(-f_tile // MAX_WARPS)
+    return -(-f_tile // per_warp)
+
+
+def _smem(f_tile: int, num_leaves: int, num_bins: int, cap: int) -> int:
+    """hist.cu's shared memory: the (f_tile, 3, L, B) histogram, each
+    warp's L * B peer masks, the list of cap staged rows (offset, g, h, c
+    and, when L > 1, leaf * B) and 32 warp totals, 4 bytes each."""
+    lb = num_leaves * num_bins
+    per_entry = 4 + (num_leaves > 1)
+    return 4 * ((3 * f_tile + _warps(f_tile)) * lb + cap * per_entry + 32)
+
+
+@functools.lru_cache(maxsize=256)
 def launch_plan(f: int, n: int, num_leaves: int,
-                num_bins: int) -> Tuple[int, int, int, int]:
-    """(f_tile, rows_per_chunk, n_chunks, shared-memory bytes) for a
-    TRUE (f, n) input. Raises ValueError outside the kernel's range, as
-    ``pallas_hist._block_plan`` does for the TPU kernels."""
+                num_bins: int) -> LaunchPlan:
+    """The geometry for a TRUE (f, n) input: a function of (f, n, L, B)
+    alone, never of the card (cached: the tree grower asks for the same
+    plan at every split). Raises ValueError outside the kernel's
+    range, as ``pallas_hist._block_plan`` does for the TPU kernels."""
     if not 1 <= num_bins <= MAX_BINS:
         raise ValueError(
             f"num_bins={num_bins} is beyond the histogram kernel's range "
@@ -70,20 +111,32 @@ def launch_plan(f: int, n: int, num_leaves: int,
     if f < 1 or num_leaves < 1:
         raise ValueError(f"need f >= 1 and num_leaves >= 1, got {f}, "
                          f"{num_leaves}")
-    per_feat = 3 * num_leaves * num_bins * 4
-    if per_feat > SMEM_MAX:
+
+    def fits(ft: int) -> bool:
+        return _smem(ft, num_leaves, num_bins, _piece(_warps(ft))) <= SMEM_MAX
+    # the widest feature tile whose histogram and one piece of staged
+    # rows fit a block, then tiles of balanced width
+    widest = next((ft for ft in range(f, 0, -1) if fits(ft)), 0)
+    if widest == 0:
         raise ValueError(
             f"num_leaves={num_leaves} x num_bins={num_bins}: one feature's "
-            f"(3, L, B) histogram needs {per_feat} bytes of shared memory, "
-            f"more than a block's {SMEM_MAX}; use hist_method='scatter'")
-    cap = min(MAX_FEATURE_TILE, SMEM_MAX // per_feat)
-    n_ftiles = -(-f // cap)
+            f"(3, L, B) histogram and the staged rows need "
+            f"{_smem(1, num_leaves, num_bins, _piece(1))} bytes "
+            f"of shared memory, more than a block's {SMEM_MAX}; use "
+            "hist_method='scatter'")
+    n_ftiles = -(-f // widest)
     f_tile = -(-f // n_ftiles)
+    n_warps = _warps(f_tile)
+    # stage two pieces between consumptions where they fit, else one
+    cap = 2 * _piece(n_warps)
+    if _smem(f_tile, num_leaves, num_bins, cap) > SMEM_MAX:
+        cap = _piece(n_warps)
     n_chunks = max(1, min(-(-TARGET_BLOCKS // n_ftiles), -(-n // 32)))
     per_chunk = -(-n // n_chunks)
     rows = max(32, -(-per_chunk // 32) * 32)    # whole warps of rows
     n_chunks = max(1, -(-n // rows))
-    return f_tile, rows, n_chunks, f_tile * per_feat
+    return LaunchPlan(f_tile, n_warps, rows, n_chunks, cap,
+                      _smem(f_tile, num_leaves, num_bins, cap))
 
 
 def hist_plain(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
@@ -170,19 +223,21 @@ def hist_cuda(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     acc = _check(bins, grad, hess, weight, leaf_of_row, num_leaves,
                  count_values)
     f, n = bins.shape
-    f_tile, rows, n_chunks, smem = launch_plan(f, n, num_leaves, num_bins)
+    plan = launch_plan(f, n, num_leaves, num_bins)
     out = torch.empty((3, num_leaves, f, num_bins), dtype=acc,
                       device=bins.device)
     if n == 0:
         return out.zero_()
-    scratch = torch.empty((n_chunks if n_chunks > 1 else 0, 3, num_leaves,
-                           f, num_bins), dtype=acc, device=bins.device)
+    scratch = torch.empty((plan.n_chunks if plan.n_chunks > 1 else 0, 3,
+                           num_leaves, f, num_bins), dtype=acc,
+                          device=bins.device)
     fn = getattr(_build.load("hist"), _C_FUNCS[grad.dtype])
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8
                        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     with torch.cuda.device(bins.device):
         stream = torch.cuda.current_stream(bins.device).cuda_stream
@@ -190,7 +245,8 @@ def hist_cuda(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                  weight.data_ptr(), _ptr(count_values),
                  _ptr(leaf_of_row) if num_leaves > 1 else None,
                  out.data_ptr(), scratch.data_ptr(), f, n, num_leaves,
-                 num_bins, f_tile, rows, n_chunks, smem, stream)
+                 num_bins, plan.f_tile, plan.n_warps, plan.rows_per_chunk,
+                 plan.n_chunks, plan.cap, plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"histogram kernel launch failed: cudaError_t "
                            f"{err} (F={f}, N={n}, L={num_leaves}, "

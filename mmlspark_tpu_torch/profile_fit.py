@@ -1,6 +1,7 @@
 """Where the time of one GBDT fit goes on a CUDA card (the PyTorch port).
 
     python3 -m mmlspark_tpu_torch.profile_fit [--max-bin 255] [--trace PATH]
+    python3 mmlspark_tpu_torch/profile_fit.py [--root DIR] [--repeat K] ...
 
 Fits ``mmlspark_tpu_torch.TPUBoostClassifier`` at the configuration that
 ``chip_smoke.py`` drives (1M rows x 28 features, 5 rounds, 63 leaves)
@@ -8,10 +9,19 @@ once to warm up (kernel build, allocator), then fits again on the same
 HIGGS-shaped table under
 ``torch.profiler`` (CPU and CUDA activities) and prints:
   - the booster's phases (``train_timing``: bin, ship, boost, fetch);
+  - the share of rows each histogram launch of the warm-up fit saw
+    active (nonzero weight): its roots (every row) and its masked right
+    children (mean, median, p90), the shares the kernel is timed at;
+  - the histogram kernels' device time in the fit, in all and per
+    launch;
   - the boost window on the device (first to last histogram-kernel
     launch), the union of device activity inside it, and so the
     device's busy and idle shares there;
   - device time by kernel name, largest first.
+With ``--repeat K`` it first times K more fits without the profiler
+(fit seconds and phases each). Run as a script path, ``--root`` fits
+with the port of another checkout (an older commit unpacked beside this
+one), so that two trees compare in one call.
 With ``--trace`` it also writes the profiler's chrome trace there (about
 70 MB at the default size). Exits 1 without a
 card, or if the profiler records no device activity.
@@ -58,7 +68,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-bin", type=int, default=255)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--repeat", type=int, default=0,
+                    help="unprofiled fits timed before the profiled one")
+    own = os.path.dirname(os.path.abspath(__file__))
+    ap.add_argument("--root", default=os.path.dirname(own),
+                    help="checkout whose mmlspark_tpu_torch is fitted "
+                         "(run as a script path to pick another one)")
     args = ap.parse_args()
+    # run as a script, its own directory (the package's) heads sys.path;
+    # only the checkout named by --root may provide the port
+    root = os.path.abspath(args.root)
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != own]
+    sys.path.insert(0, root)
 
     import torch
     if not torch.cuda.is_available():
@@ -68,14 +89,37 @@ def main() -> int:
 
     from mmlspark_tpu_torch.core.table import DataTable
     from mmlspark_tpu_torch.gbdt import hist_kernels as HK
+    from mmlspark_tpu_torch.gbdt import tree as tree_mod
     from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(HK.__file__))))
+    if src != root:
+        print(f"profile_fit: imported the port from {src}, not {root}",
+              file=sys.stderr)
+        return 1
 
     X, y = higgs_shape(ROWS)
     table = DataTable({"features": X, "label": y})
     est = TPUBoostClassifier(numIterations=ITERS,
                              numLeaves=LEAVES, maxBin=args.max_bin)
-    est.fit(table)                                  # warm-up
+    active = []
+    grow_build = tree_mod.build_histogram
+
+    def counting(bins, grad, hess, weight, *a, **kw):
+        active.append((weight != 0).sum())
+        return grow_build(bins, grad, hess, weight, *a, **kw)
+    tree_mod.build_histogram = counting
+    try:
+        est.fit(table)                              # warm-up, counted
+    finally:
+        tree_mod.build_histogram = grow_build
     torch.cuda.synchronize()
+    for i in range(args.repeat):
+        t0 = time.perf_counter()
+        timing = est.fit(table).get_booster().train_timing
+        torch.cuda.synchronize()
+        print(f"unprofiled fit {i + 1}/{args.repeat}: "
+              f"{time.perf_counter() - t0:.3f} s; phases {timing}")
 
     HK.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
@@ -84,11 +128,23 @@ def main() -> int:
         booster = est.fit(table).get_booster()
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
+    print(f"port from {root}")
     print(f"card: {torch.cuda.get_device_name(0)}; rows {ROWS}, "
           f"iters {ITERS}, leaves {LEAVES}, max_bin "
           f"{args.max_bin}")
     print(f"fit {fit_s:.3f} s; phases {booster.train_timing}; histogram "
           f"launches {dict(HK.LAUNCHES)}")
+    # a tree's root sees every row; every other launch is a right child,
+    # which holds fewer rows than its tree's root
+    counts = torch.stack(active).cpu().numpy().astype(np.int64)
+    share = counts / ROWS
+    child = share[counts < counts.max()]
+    print(f"active rows per histogram launch (warm-up fit): "
+          f"{int((counts == counts.max()).sum())} roots at "
+          f"{100 * share.max():.1f} %; {child.size} masked children: mean "
+          f"{100 * child.mean():.2f} %, median "
+          f"{100 * np.median(child):.2f} %, p90 "
+          f"{100 * np.percentile(child, 90):.2f} %")
 
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -111,6 +167,12 @@ def main() -> int:
     print(f"boost window on the device {window / 1e3:.3f} ms: busy "
           f"{busy / 1e3:.3f} ms ({100 * busy / window:.1f} %), idle "
           f"{100 * (1 - busy / window):.1f} %")
+
+    hist_us = sum(e.time_range.end - e.time_range.start for e in hist)
+    n_launch = sum(HK.LAUNCHES.values())
+    print(f"histogram kernels (hist_partial + hist_reduce) "
+          f"{hist_us / 1e3:.3f} ms over {n_launch} launches: "
+          f"{hist_us / 1e3 / n_launch:.4f} ms per launch")
 
     by_name = defaultdict(lambda: [0, 0.0])
     for e in dev_events:

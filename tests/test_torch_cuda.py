@@ -17,14 +17,31 @@ from mmlspark_tpu_torch.models.networks import build_network
 from mmlspark_tpu_torch.models.tpu_model import TPUModel
 from mmlspark_tpu_torch.ops import flash_attention as FA
 
+def _case(n, f, L, B, skew=None, active=0.8):
+    tag = (f"{n}-{f}-{L}-{B}" + (f"-{skew}" if skew else "")
+           + (f"-active{active:g}" if active != 0.8 else ""))
+    return pytest.param(n, f, L, B, skew, active, id=tag)
+
+
 CASES = [
-    (700, 20, 6, 16),     # multi-leaf, B < 128: the _hist_kernel route
-    (600, 20, 1, 256),    # single-leaf B=256: the _hist_kernel_nibble route
-    (600, 20, 1, 160),
-    (600, 20, 1, 100),
-    (100, 3, 4, 8),
-    (100_000, 28, 1, 256),
-    (5000, 4, 1, 2048),   # the widest bin range: > 48 KB of shared memory
+    _case(700, 20, 6, 16),     # multi-leaf, B < 128: the _hist_kernel route
+    _case(600, 20, 1, 256),    # single-leaf B=256: the nibble route
+    _case(600, 20, 1, 160),
+    _case(600, 20, 1, 100),
+    _case(100, 3, 4, 8),
+    _case(100_000, 28, 1, 256),
+    _case(5000, 4, 1, 2048),   # the widest bin range: > 48 KB of shared memory
+    # the tree grower's launches: a masked right child (a scattered 5 % of
+    # the rows), a root (every row), no row at all, a ragged row count
+    _case(100_000, 28, 1, 256, active=0.05),
+    _case(100_000, 28, 1, 256, active=1.0),
+    _case(100_000, 28, 1, 256, active=0.0),
+    _case(99_999, 5, 3, 64, active=0.3),
+    # skewed features: a constant column, a binary one, 90 % in bin 0
+    _case(100_000, 28, 1, 256, "constant"),
+    _case(100_000, 28, 1, 256, "binary"),
+    _case(100_000, 28, 1, 256, "bin0_90"),
+    _case(20_000, 6, 6, 16, "bin0_90"),
 ]
 
 
@@ -36,18 +53,35 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(n, f, L, B, sdt=np.float32, seed=2):
+def skewed_bins(rng, f, n, B, skew):
+    """(f, n) int32 bins: uniform over [0, B) (skew None), all bin 0
+    ('constant'), bins 0 and B - 1 only ('binary'), or 90 % of the rows
+    in bin 0 and the rest uniform over [1, B) ('bin0_90')."""
+    if skew is None:
+        return rng.integers(0, B, size=(f, n)).astype(np.int32)
+    if skew == "constant":
+        return np.zeros((f, n), np.int32)
+    if skew == "binary":
+        return ((B - 1) * (rng.random((f, n)) < 0.5)).astype(np.int32)
+    assert skew == "bin0_90"
+    rest = rng.integers(1, max(B, 2), size=(f, n))
+    return np.where(rng.random((f, n)) < 0.9, 0, rest).astype(np.int32)
+
+
+def _inputs(n, f, L, B, sdt=np.float32, seed=2, skew=None, active=None):
     rng = np.random.default_rng(seed)
-    bins = rng.integers(0, B, size=(f, n)).astype(np.int32)
+    bins = skewed_bins(rng, f, n, B, skew)
     leaf = rng.integers(0, L, size=n).astype(np.int32)
     if sdt == np.float32:
+        active = 0.8 if active is None else active
         return (bins, rng.normal(size=n).astype(np.float32),
                 rng.uniform(0.1, 1, size=n).astype(np.float32),
-                (rng.random(n) < 0.8).astype(np.float32), leaf, None)
+                (rng.random(n) < active).astype(np.float32), leaf, None)
+    active = 0.7 if active is None else active
     hi = 120 if sdt == np.int8 else 3000
     return (bins, rng.integers(-hi, hi, size=n).astype(sdt),
             rng.integers(0, hi, size=n).astype(sdt),
-            (rng.random(n) < 0.7).astype(sdt), leaf,
+            (rng.random(n) < active).astype(sdt), leaf,
             rng.integers(0, hi, size=n).astype(sdt))
 
 
@@ -57,9 +91,10 @@ def _on(dev, arrs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,f,L,B", CASES)
-def test_cuda_kernel_matches_plain(card, n, f, L, B):
-    b, g, h, w, leaf, _ = _on(card, _inputs(n, f, L, B))
+@pytest.mark.parametrize("n,f,L,B,skew,active", CASES)
+def test_cuda_kernel_matches_plain(card, n, f, L, B, skew, active):
+    b, g, h, w, leaf, _ = _on(card, _inputs(n, f, L, B, skew=skew,
+                                            active=active))
     HK.reset_launches()
     got = HK.hist_device(b, g, h, w, leaf, L, B)
     again = HK.hist_device(b, g, h, w, leaf, L, B)
@@ -84,6 +119,18 @@ def test_cuda_kernel_integer_stats_exact(card, sdt, with_count):
     ref = HK.hist_plain(b, g, h, w, leaf, L, B, cv)
     assert got.dtype == torch.int32
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sdt", [np.int16, np.int8])
+@pytest.mark.parametrize("skew", ["constant", "binary", "bin0_90"])
+def test_cuda_kernel_skewed_integer_stats_exact(card, sdt, skew):
+    n, f, L, B = 100_000, 28, 1, 256
+    b, g, h, w, leaf, cv = _on(card, _inputs(n, f, L, B, sdt, skew=skew))
+    got = HK.hist_device(b, g, h, w, leaf, L, B, cv)
+    again = HK.hist_device(b, g, h, w, leaf, L, B, cv)
+    assert torch.equal(got, again)
+    assert torch.equal(got, HK.hist_plain(b, g, h, w, leaf, L, B, cv))
 
 
 @pytest.mark.cuda

@@ -21,9 +21,24 @@ from mmlspark_tpu_torch.gbdt import hist_kernels as HK
 from mmlspark_tpu_torch.gbdt.histogram import build_histogram
 
 
-def _inputs(n, f, L, B, seed=2):
+def skewed_bins(rng, f, n, B, skew):
+    """(f, n) int32 bins: uniform over [0, B) (skew None), all bin 0
+    ('constant'), bins 0 and B - 1 only ('binary'), or 90 % of the rows
+    in bin 0 and the rest uniform over [1, B) ('bin0_90')."""
+    if skew is None:
+        return rng.integers(0, B, size=(f, n)).astype(np.int32)
+    if skew == "constant":
+        return np.zeros((f, n), np.int32)
+    if skew == "binary":
+        return ((B - 1) * (rng.random((f, n)) < 0.5)).astype(np.int32)
+    assert skew == "bin0_90"
+    rest = rng.integers(1, max(B, 2), size=(f, n))
+    return np.where(rng.random((f, n)) < 0.9, 0, rest).astype(np.int32)
+
+
+def _inputs(n, f, L, B, seed=2, skew=None):
     rng = np.random.default_rng(seed)
-    return (rng.integers(0, B, size=(f, n)).astype(np.int32),
+    return (skewed_bins(rng, f, n, B, skew),
             rng.normal(size=n).astype(np.float32),
             rng.uniform(0.1, 1, size=n).astype(np.float32),
             (rng.random(n) < 0.8).astype(np.float32),
@@ -34,18 +49,29 @@ def _torch(*arrs):
     return [torch.from_numpy(a) for a in arrs]
 
 
+def _case(n, f, L, B, skew=None):
+    tag = f"{n}-{f}-{L}-{B}" + (f"-{skew}" if skew else "")
+    return pytest.param(n, f, L, B, skew, id=tag)
+
+
 CASES = [
-    (700, 20, 6, 16),     # multi-leaf, B < 128: the _hist_kernel route
-    (600, 20, 1, 256),    # single-leaf B=256: the _hist_kernel_nibble route
-    (600, 20, 1, 160),
-    (600, 20, 1, 100),    # padded B=128, the edge of the nibble route
-    (100, 3, 4, 8),
+    _case(700, 20, 6, 16),     # multi-leaf, B < 128: the _hist_kernel route
+    _case(600, 20, 1, 256),    # single-leaf B=256: the nibble route
+    _case(600, 20, 1, 160),
+    _case(600, 20, 1, 100),    # padded B=128, the edge of the nibble route
+    _case(100, 3, 4, 8),
+    # skewed features, where one bin holds most rows: a constant column, a
+    # binary one, one with 90 % of its rows in bin 0
+    _case(600, 20, 1, 256, "constant"),
+    _case(600, 20, 1, 256, "binary"),
+    _case(600, 20, 1, 256, "bin0_90"),
+    _case(700, 20, 6, 16, "bin0_90"),
 ]
 
 
-@pytest.mark.parametrize("n,f,L,B", CASES)
-def test_plain_matches_jax_pallas_interpret(n, f, L, B):
-    arrs = _inputs(n, f, L, B)
+@pytest.mark.parametrize("n,f,L,B,skew", CASES)
+def test_plain_matches_jax_pallas_interpret(n, f, L, B, skew):
+    arrs = _inputs(n, f, L, B, skew=skew)
     ref = np.asarray(jax_build(*[jnp.asarray(a) for a in arrs], L, B,
                                "pallas"))
     got = build_histogram(*_torch(*arrs), L, B, method="pallas")
@@ -104,18 +130,50 @@ def test_tpu_route_matches_block_plan(L, B, route):
     assert HK.tpu_route(L, B) == route
 
 
-def test_launch_plan_geometry():
-    # HIGGS shape: 28 features in 4 tiles of 7 warps, ~528 blocks, whole
-    # warps of rows, every row covered exactly once
-    f_tile, rows, n_chunks, smem = HK.launch_plan(28, 1_000_000, 1, 256)
-    assert f_tile == 7 and rows % 32 == 0
-    assert rows * n_chunks >= 1_000_000 > rows * (n_chunks - 1)
-    assert smem == 7 * 3 * 256 * 4 <= HK.SMEM_MAX
-    assert 4 * n_chunks <= HK.TARGET_BLOCKS + 4
-    # tiny inputs get one chunk
-    assert HK.launch_plan(3, 10, 4, 8)[2] == 1
-    # the widest single-leaf histogram still fits a block
-    assert HK.launch_plan(5, 100, 1, 2048)[0] >= 1
+@pytest.mark.parametrize("f,n,L,B", [(28, 1_000_000, 1, 256),
+                                     (28, 1_000_000, 1, 64),
+                                     (20, 700, 6, 16),
+                                     (5, 100, 1, 2048),
+                                     (3, 10, 4, 8)])
+def test_launch_plan_geometry(f, n, L, B, monkeypatch):
+    # the plan is a function of (F, N, L, B) alone: it reads nothing of the
+    # card, so the chunking (the f32 summation order) is the same on all
+    def no_card(*a, **k):
+        raise AssertionError("launch_plan asked the card")
+    for name in ("get_device_properties", "device_count", "is_available",
+                 "current_device"):
+        monkeypatch.setattr(torch.cuda, name, no_card)
+    HK.launch_plan.cache_clear()
+    plan = HK.launch_plan(f, n, L, B)
+    assert plan == HK.launch_plan(f, n, L, B)
+    ft, warps, rows, n_chunks, cap, smem = plan
+    assert 1 <= warps <= HK.MAX_WARPS and warps <= ft
+    assert -(-ft // warps) * warps - ft < warps   # balanced features a warp
+    assert smem == HK._smem(ft, L, B, cap) <= HK.SMEM_MAX
+    assert cap in (plan.piece, 2 * plan.piece)
+    n_ftiles = -(-f // ft)
+    assert n_ftiles * ft >= f > (n_ftiles - 1) * ft   # features once each
+    assert rows % 32 == 0 and n_chunks <= HK.TARGET_BLOCKS
+    # every row is covered exactly once: chunk by chunk, piece by piece,
+    # and the staged list never outgrows cap (the kernel's own loop, with
+    # every row active)
+    cover = np.zeros(n, np.int32)
+    for c in range(n_chunks):
+        r0, r1 = c * rows, min(n, (c + 1) * rows)
+        assert r0 < r1
+        staged = 0
+        for p0 in range(r0, r1, plan.piece):
+            p1 = min(p0 + plan.piece, r1)
+            cover[p0:p1] += 1
+            staged += p1 - p0
+            assert staged <= cap
+            if p0 + plan.piece >= r1 or staged + plan.piece > cap:
+                staged = 0
+    assert (cover == 1).all()
+    if (f, n) == (28, 1_000_000):
+        # the main path: one block holds every feature of its chunk, and
+        # the chunk count is the fixed target
+        assert ft == 28 and n_chunks == HK.TARGET_BLOCKS
 
 
 @pytest.mark.parametrize("L,B", [(1, 2049), (1, 0), (64, 512)])
