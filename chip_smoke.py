@@ -69,6 +69,27 @@ Phases, one line each; any failure exits non-zero:
                SGD steps at batch 2, L = 512 on the card and on the CPU
                from the same weights (losses within rtol 1e-4, weights
                within 1e-3 of the largest update).
+  6. serving slice — the max_bin 255 model of phase 3, saved with the
+               port's save and loaded back with load_stage in a fresh
+               process where jax cannot be imported: its transform of the
+               holdout bitwise equal to phase 3's. Served on the card from
+               the main process through serve_model(json_scoring_pipeline
+               (model), port=0, batch_size=256, workers=2, max_wait_ms=5):
+               2,000 one-row JSON requests from 16 client threads of a
+               second (spawned) process, so that the clients do not
+               share the engine's interpreter lock, every reply's
+               prediction equal to transform's; through
+               json_row_scoring_pipeline(model, reply_col="rawPrediction"):
+               200 rows, each reply bitwise equal to transform's
+               rawPrediction; and the MLP scorer of bench.py's
+               bench_serving ([256, 128] -> 10 classes at input dim 128,
+               seeded weights, batchSize 256, f32) after warmup returned
+               len(bucket_sizes()): 400 replies equal to a direct
+               transform. Prints requests/s, client p50 / p99, batches
+               and rows per batch, the engine's queue_wait / decode /
+               pipeline / respond ms p50; hist launches are counted
+               around the serving (the forest walk is plain torch, so
+               none).
 Then one JSON line of per-kernel numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -244,6 +265,181 @@ def auc(y, p) -> float:
     n_neg = len(y) - n_pos
     return float((ranks[y == 1].sum() - n_pos * (n_pos + 1) / 2)
                  / (n_pos * n_neg))
+
+
+def served(engine, label: str, bodies, n_threads: int):
+    """Drive ``engine`` with ``bodies`` from ``n_threads`` keep-alive
+    client threads (60 s timeouts) of a spawned process, so that the
+    clients do not contend with the engine for its interpreter lock;
+    wait (polling) until its source has counted every reply, check its
+    threads, print the numbers. Any non-200 reply or client error, or a
+    client process that does not finish, fails the run."""
+    import multiprocessing
+    import queue
+    from mmlspark_tpu_torch.profile_serving import _client_process
+    ctx = multiprocessing.get_context("spawn")
+    out_q = ctx.Queue()
+    proc = ctx.Process(target=_client_process, args=(
+        bodies, engine.source.address, n_threads, out_q))
+    proc.start()
+    try:
+        replies, lat, wall, errors = out_q.get(timeout=300)
+    except queue.Empty:
+        fail(f"{label}: the client process sent no result")
+    finally:
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    check(proc.exitcode == 0, f"{label}: client process exit code "
+          f"{proc.exitcode}")
+    check(not errors, f"{label}: serving errors {errors[:5]}")
+    n = len(bodies)
+    deadline = time.monotonic() + 30
+    while engine.source.requests_answered < n and \
+            time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(engine.source.requests_answered == n,
+          f"{label}: {engine.source.requests_answered} answered of {n}")
+    check(engine.is_alive() and engine.workers_restarted == 0,
+          f"{label}: an engine thread died "
+          f"({engine.workers_restarted} restarts)")
+    m = engine.metrics()
+    ms = np.sort(np.asarray(lat)) * 1e3
+    print(f"{label}: {n} requests from {n_threads} clients (a second "
+          f"process) in {wall:.3f} s "
+          f"({n / wall:.1f} requests/s), client p50 "
+          f"{ms[int(0.50 * (n - 1))]:.3f} ms, p99 "
+          f"{ms[int(0.99 * (n - 1))]:.3f} ms; {m['batches_processed']} "
+          f"batches, {m['batch_rows'].get('mean', 0):.2f} rows per batch; "
+          f"p50 ms: queue_wait {m['queue_wait_ms'].get('p50')}, decode "
+          f"{m['decode_ms'].get('p50')}, pipeline "
+          f"{m['pipeline_ms'].get('p50')}, respond "
+          f"{m['respond_ms'].get('p50')}")
+    return replies
+
+
+RELOAD_CHECK = """
+import sys
+sys.modules["jax"] = None
+sys.modules["mmlspark_tpu"] = None
+import numpy as np
+from mmlspark_tpu_torch.core.stage import load_stage
+from mmlspark_tpu_torch.core.table import DataTable
+model = load_stage(sys.argv[1])
+assert model.get("device") == "cuda", model.get("device")
+ref = np.load(sys.argv[2])
+out = model.transform(DataTable({"features": ref["features"]}))
+for col in ("rawPrediction", "probability", "prediction"):
+    assert np.array_equal(np.asarray(out[col]), ref[col]), col
+bad = [k for k, v in sys.modules.items() if v is not None
+       and k.split(".")[0] in ("jax", "jaxlib", "flax", "mmlspark_tpu")]
+assert not bad, bad
+print("reload OK")
+"""
+
+
+def serving_slice(model, out, Xte, smi: str) -> None:
+    """Phase 6: save -> reload (fresh jax-blocked process) -> serve."""
+    import torch
+    from mmlspark_tpu_torch.core.stage import load_stage
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.gbdt import hist_kernels as HK
+    from mmlspark_tpu_torch.models.networks import build_network
+    from mmlspark_tpu_torch.models.tpu_model import TPUModel
+    from mmlspark_tpu_torch.serving import (
+        json_row_scoring_pipeline, json_scoring_pipeline, serve_model)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke_serving")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "model_max_bin_255")
+    t0 = time.perf_counter()
+    model.save(path)
+    save_s = time.perf_counter() - t0
+    ref = os.path.join(work, "phase3_holdout.npz")
+    np.savez(ref, features=Xte, **{c: np.asarray(out[c]) for c in (
+        "rawPrediction", "probability", "prediction")})
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", RELOAD_CHECK, path, ref],
+                       capture_output=True, text=True, cwd=root,
+                       env={**os.environ, "PYTHONPATH": root}, timeout=300)
+    check(r.returncode == 0 and "reload OK" in r.stdout,
+          f"reload in a jax-blocked process failed: {r.stderr[-2000:]}")
+    print(f"serving slice: saved in {save_s:.3f} s; reloaded in a fresh "
+          f"jax-blocked process ({time.perf_counter() - t0:.1f} s): "
+          f"transform of {len(Xte)} holdout rows bitwise equal to phase 3's")
+
+    loaded = load_stage(path)
+    raw = np.asarray(out["rawPrediction"])
+    pred = np.asarray(out["prediction"])
+    HK.reset_launches()
+    engine = serve_model(json_scoring_pipeline(loaded), port=0,
+                         batch_size=256, workers=2, max_wait_ms=5)
+    try:
+        bodies = [json.dumps({"features": Xte[i].tolist()}).encode()
+                  for i in range(2000)]
+        replies = served(engine, "serving slice GBDT (json_scoring_"
+                         "pipeline)", bodies, 16)
+    finally:
+        engine.stop()
+    bad = [i for i, rep in enumerate(replies)
+           if rep != {"prediction": int(pred[i])}]
+    check(not bad, f"{len(bad)} GBDT replies differ from transform, first "
+          f"{[(i, replies[i], pred[i]) for i in bad[:3]]}")
+    engine = serve_model(json_row_scoring_pipeline(
+        loaded, reply_col="rawPrediction"), port=0, batch_size=256,
+        workers=2, max_wait_ms=5)
+    try:
+        bodies = [json.dumps({"features": Xte[i].tolist()}).encode()
+                  for i in range(200)]
+        replies = served(engine, "serving slice GBDT (json_row_scoring_"
+                         "pipeline, rawPrediction)", bodies, 16)
+    finally:
+        engine.stop()
+    bad = [i for i, rep in enumerate(replies) if rep != raw[i].tolist()]
+    check(not bad, f"{len(bad)} rawPrediction replies not bitwise equal "
+          f"to transform's, first {[(i, replies[i]) for i in bad[:3]]}")
+    launches = dict(HK.LAUNCHES)
+    print(f"serving slice: 2000 predictions equal to transform's, 200 "
+          f"rawPrediction replies bitwise equal; hist launches while "
+          f"serving {launches} (the forest walk is plain torch)")
+
+    # the MLP scorer of bench.py's bench_serving, on the card
+    dim = 128
+    net = build_network({"type": "mlp", "features": [256, 128],
+                         "num_classes": 10, "in_features": dim},
+                        device="cuda", seed=0)
+    mlp = TPUModel.from_module(net, device="cuda", inputCol="features",
+                               outputCol="scores", batchSize=256,
+                               computeDtype="float32")
+    x = np.random.default_rng(0).normal(size=(400, dim)).astype(np.float32)
+    t0 = time.perf_counter()
+    compiled = mlp.warmup({"features": x[:1]})
+    warm_s = time.perf_counter() - t0
+    check(compiled == len(mlp.bucket_sizes()),
+          f"MLP warmup met {compiled} new shapes, not "
+          f"{len(mlp.bucket_sizes())}")
+    check(mlp.warmup({"features": x[:1]}) == 0, "second warmup not warm")
+    want = mlp.transform(DataTable({"features": x}))["scores"].argmax(-1)
+    torch.cuda.synchronize()
+    engine = serve_model(json_scoring_pipeline(mlp), port=0,
+                         batch_size=256, workers=2, max_wait_ms=5)
+    try:
+        bodies = [json.dumps({"features": row.tolist()}).encode()
+                  for row in x]
+        replies = served(engine, "serving slice MLP (bench_serving "
+                         "scorer)", bodies, 16)
+    finally:
+        engine.stop()
+    bad = [i for i, rep in enumerate(replies)
+           if rep != {"prediction": int(want[i])}]
+    check(not bad, f"{len(bad)} MLP replies differ from transform")
+    check(mlp.jit_cache_misses == len(mlp.bucket_sizes()),
+          f"serving met new shapes after warmup: {mlp.jit_cache_misses}")
+    print(f"serving slice: MLP warmup ran {compiled} buckets "
+          f"{mlp.bucket_sizes()} in {warm_s:.3f} s, 400 replies equal to "
+          f"transform, no new shape while serving; card: {smi}")
 
 
 def main() -> int:
@@ -636,14 +832,14 @@ def main() -> int:
         print(f"slice {label}: fit {fit_s:.2f} s "
               f"({booster.train_timing}), transform {tr_s:.3f} s, holdout "
               f"AUC {a:.5f}, launches {launches}")
-        return a, launches
+        return a, launches, model, out
 
-    auc255, l255 = fit_transform("max_bin=255 kernel", "_hist_kernel_nibble",
-                                 histMethod="auto")
-    auc63, l63 = fit_transform("max_bin=63 kernel", "_hist_kernel",
-                               maxBin=63, histMethod="auto")
-    auc_plain, _ = fit_transform("max_bin=255 plain scatter", None,
-                                 histMethod="scatter")
+    auc255, l255, model255, out255 = fit_transform(
+        "max_bin=255 kernel", "_hist_kernel_nibble", histMethod="auto")
+    auc63, l63, _, _ = fit_transform("max_bin=63 kernel", "_hist_kernel",
+                                     maxBin=63, histMethod="auto")
+    auc_plain, _, _, _ = fit_transform("max_bin=255 plain scatter", None,
+                                       histMethod="scatter")
     check(abs(auc255 - auc_plain) < 0.005,
           f"kernel AUC {auc255} vs plain {auc_plain}")
     check(auc255 > 0.8, f"holdout AUC {auc255} too low: the model did not "
@@ -839,6 +1035,9 @@ def main() -> int:
           f" s there): losses rel diff {loss_rel:.2e} (<= 1e-4), max |weight "
           f"diff| {w_diff:.3e} vs largest update {upd:.3e} (<= 1e-3 of it)")
     del m0, w0, w_card, w_cpu
+
+    # ---- 6. the serving slice: save, reload, serve over HTTP --------------
+    serving_slice(model255, out255, Xte, smi)
 
     kernels = []
     for name, route, key, launches, line in (

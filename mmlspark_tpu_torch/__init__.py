@@ -12,9 +12,15 @@ serial, float32 histograms), and DNN inference, ``TPUModel.transform``
 over the ``Transformer`` and ``MLP`` of ``build_network`` (attention at
 L >= 512 through a flash-attention kernel), and single-card DNN training,
 ``TPULearner(...).fit(table)`` -> ``TPUModel`` (the attention backward
-through two flash-attention kernels). See ROADMAP.md for what comes next.
+through two flash-attention kernels). Stages compose into ``Pipeline``
+and ``save`` / ``load_stage`` in the JAX package's on-disk format (either
+package loads the other's GBDT models), and a fitted model serves over
+HTTP: ``serving.serve_model(serving.json_scoring_pipeline(model))`` or
+``python -m mmlspark_tpu_torch.cli serve --model M``. See ROADMAP.md for
+what comes next.
 """
 
+from mmlspark_tpu_torch.core.stage import Pipeline, PipelineModel, load_stage
 from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.device import resolve_device
 from mmlspark_tpu_torch.gbdt import (
@@ -25,7 +31,8 @@ from mmlspark_tpu_torch.models.learner import TPULearner
 from mmlspark_tpu_torch.models.networks import build_network
 from mmlspark_tpu_torch.models.tpu_model import TPUModel
 
-__all__ = ["DataTable", "resolve_device", "BinMapper", "Booster", "train",
+__all__ = ["DataTable", "Pipeline", "PipelineModel", "load_stage",
+           "resolve_device", "BinMapper", "Booster", "train",
            "TPUBoostClassifier", "TPUBoostClassificationModel",
            "TPUBoostRegressor", "TPUBoostRegressionModel", "TPUModel",
            "TPULearner", "build_network"]

@@ -1,18 +1,28 @@
-"""PipelineStage / Transformer / Estimator / Model.
+"""PipelineStage / Transformer / Estimator / Pipeline.
 
 The port's own copy of the stage contract of ``mmlspark_tpu/core/stage.py``:
 every component is a Transformer (``.transform(table)``) or an Estimator
-(``.fit(table) -> Model``), with typed params. Stages auto-register by
-class name (``__init_subclass__``). Persistence (``save``/``load``) and
-``Pipeline`` come in a later slice of the port (ROADMAP.md).
+(``.fit(table) -> Model``), with typed params, composed through
+``Pipeline``. Stages auto-register by class name (``__init_subclass__``)
+for load-time resolution; ``save``/``load`` go through
+``core/serialize.py`` in the JAX package's on-disk format.
+
+``Pipeline.fit`` and ``PipelineModel.transform`` run stage after stage
+on the host. The reference also drops, between stages, the columns no
+later stage reads (its fusion planner's liveness pass, fed by the
+stages' ``reads_columns`` / ``writes_columns`` / ``removes_columns``);
+that changes no output, and the port, which has no fusion planner yet,
+keeps every column and declares no column flow.
+``PipelineModel.fused()`` raises (ROADMAP.md, 'Device pipeline and
+serving compilation').
 """
 
 from __future__ import annotations
 
 import uuid as _uuid
-from typing import Any, Dict, List, Optional, Type
+from typing import Any, Dict, List, Optional, Sequence, Type
 
-from mmlspark_tpu_torch.core.params import Param, _NO_VALUE
+from mmlspark_tpu_torch.core.params import ComplexParam, Param, _NO_VALUE
 from mmlspark_tpu_torch.core.schema import Schema
 from mmlspark_tpu_torch.core.table import DataTable
 
@@ -37,8 +47,8 @@ class PipelineStage:
 
     def _post_init(self) -> None:
         """Initialize non-param runtime state (cached models). Called by
-        __init__ AND by copy, so subclasses must put transient attributes
-        here, not in __init__."""
+        __init__ AND by load_stage/copy, so subclasses must put transient
+        attributes here, not in __init__."""
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
@@ -130,11 +140,31 @@ class PipelineStage:
             lines.append(" ".join(bits))
         return "\n".join(lines)
 
+    # -- persistence -------------------------------------------------------
+
+    def save(self, path: str, overwrite: bool = True) -> None:
+        from mmlspark_tpu_torch.core import serialize
+        serialize.save_stage(self, path, overwrite=overwrite)
+
+    @classmethod
+    def load(cls, path: str) -> "PipelineStage":
+        from mmlspark_tpu_torch.core import serialize
+        stage = serialize.load_stage(path)
+        if cls is not PipelineStage and not isinstance(stage, cls):
+            raise TypeError(
+                f"loaded {type(stage).__name__}, expected {cls.__name__}")
+        return stage
+
     def __repr__(self):
         set_params = ", ".join(
             f"{k}={v!r}" for k, v in sorted(self._paramMap.items())
             if not isinstance(v, (DataTable,)))
         return f"{type(self).__name__}({set_params})"
+
+
+def load_stage(path: str) -> PipelineStage:
+    from mmlspark_tpu_torch.core import serialize
+    return serialize.load_stage(path)
 
 
 class Transformer(PipelineStage):
@@ -163,3 +193,73 @@ class Estimator(PipelineStage):
 
 class Model(Transformer):
     """A fitted Transformer produced by an Estimator."""
+
+
+class Pipeline(Estimator):
+    """Chain of stages; fit() runs estimators in sequence feeding each the
+    output of the previous fitted prefix (SparkML Pipeline semantics)."""
+
+    stages = ComplexParam("The stages of the pipeline", default=None)
+
+    def __init__(self, stages: Optional[Sequence[PipelineStage]] = None, **kw):
+        super().__init__(**kw)
+        if stages is not None:
+            self.set_stages(stages)
+
+    def set_stages(self, stages: Sequence[PipelineStage]) -> "Pipeline":
+        self.set("stages", list(stages))
+        return self
+
+    def get_stages(self) -> List[PipelineStage]:
+        return self.get("stages") or []
+
+    def fit(self, table: DataTable) -> "PipelineModel":
+        fitted: List[Transformer] = []
+        cur = table
+        stages = self.get_stages()
+        for i, stage in enumerate(stages):
+            last = i == len(stages) - 1
+            if isinstance(stage, Estimator):
+                model = stage.fit(cur)
+                fitted.append(model)
+                if not last:
+                    cur = model.transform(cur)
+            elif isinstance(stage, Transformer):
+                fitted.append(stage)
+                if not last:
+                    cur = stage.transform(cur)
+            else:
+                raise TypeError(f"stage {stage!r} is not Transformer/Estimator")
+        return PipelineModel(stages=fitted)
+
+    def transform_schema(self, schema: Schema) -> Schema:
+        for stage in self.get_stages():
+            schema = stage.transform_schema(schema)
+        return schema
+
+
+class PipelineModel(Model):
+    stages = ComplexParam("The fitted stages of the pipeline", default=None)
+
+    def __init__(self, stages: Optional[Sequence[Transformer]] = None, **kw):
+        super().__init__(**kw)
+        if stages is not None:
+            self.set("stages", list(stages))
+
+    def get_stages(self) -> List[Transformer]:
+        return self.get("stages") or []
+
+    def transform(self, table: DataTable) -> DataTable:
+        for stage in self.get_stages():
+            table = stage.transform(table)
+        return table
+
+    def fused(self, batch_size: int = 256):
+        raise NotImplementedError(
+            "PipelineModel.fused is not ported yet: ROADMAP.md, 'Device "
+            "pipeline and serving compilation'")
+
+    def transform_schema(self, schema: Schema) -> Schema:
+        for stage in self.get_stages():
+            schema = stage.transform_schema(schema)
+        return schema

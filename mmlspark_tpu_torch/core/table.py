@@ -13,12 +13,16 @@ not ported yet (ROADMAP.md, "GBDT ingest beyond dense input").
 
 from __future__ import annotations
 
+import json
+import os
+import pickle
 from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 
 from mmlspark_tpu_torch.core import schema as S
 from mmlspark_tpu_torch.core.schema import Field, Schema
+from mmlspark_tpu_torch.core.serialize import restricted_loads
 
 ColumnData = Union[np.ndarray, List[Any]]
 
@@ -292,3 +296,39 @@ class DataTable:
     def __repr__(self):
         return (f"DataTable[{self._n_rows} rows x {len(self._columns)} cols: "
                 f"{', '.join(f'{f.name}:{f.tag}' for f in self._schema)}]")
+
+    # -- persistence -------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Save to a directory (npz for array columns, pickle for the
+        rest), in the JAX package's layout: either package loads it."""
+        os.makedirs(path, exist_ok=True)
+        arrays = {}
+        objects = {}
+        for n, c in self._columns.items():
+            if isinstance(c, np.ndarray) and c.dtype != object:
+                arrays[n] = c
+            else:
+                objects[n] = list(c)
+        np.savez(os.path.join(path, "columns.npz"), **arrays)
+        with open(os.path.join(path, "objects.pkl"), "wb") as f:
+            pickle.dump(objects, f)
+        with open(os.path.join(path, "schema.json"), "w") as f:
+            json.dump({"schema": self._schema.to_json(),
+                       "order": self.column_names,
+                       "num_shards": self.num_shards}, f)
+
+    @staticmethod
+    def load(path: str) -> "DataTable":
+        """Load a saved table; its object columns unpickle through
+        ``serialize.restricted_loads`` (no JAX-package classes)."""
+        with open(os.path.join(path, "schema.json")) as f:
+            meta = json.load(f)
+        npz = np.load(os.path.join(path, "columns.npz"), allow_pickle=False)
+        with open(os.path.join(path, "objects.pkl"), "rb") as f:
+            objects = restricted_loads(f.read())
+        cols: Dict[str, ColumnData] = {}
+        for n in meta["order"]:
+            cols[n] = npz[n] if n in npz.files else objects[n]
+        return DataTable(cols, Schema.from_json(meta["schema"]),
+                         num_shards=meta.get("num_shards", 1))

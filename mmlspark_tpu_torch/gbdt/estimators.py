@@ -188,9 +188,6 @@ class _BoosterModel(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
 
     _features_matrix = _BoostParams._features_matrix
 
-    def reads_columns(self, schema):
-        return [self.get_features_col()]
-
     def save_native_model(self, path: str) -> None:
         self.get_booster().save_native_model(path)
 
@@ -251,10 +248,6 @@ class TPUBoostClassificationModel(_BoosterModel):
     rawPredictionCol = ColParam("raw score output column",
                                 default="rawPrediction")
 
-    def writes_columns(self, schema):
-        return [self.get("rawPredictionCol"), self.get("probabilityCol"),
-                self.get_prediction_col()]
-
     def transform(self, table: DataTable) -> DataTable:
         X = self._features_matrix(table)
         booster = self.get_booster()
@@ -313,9 +306,6 @@ class TPUBoostRegressor(Estimator, _BoostParams):
 
 class TPUBoostRegressionModel(_BoosterModel):
     """Fitted GBDT regressor."""
-
-    def writes_columns(self, schema):
-        return [self.get_prediction_col()]
 
     def transform(self, table: DataTable) -> DataTable:
         X = self._features_matrix(table)

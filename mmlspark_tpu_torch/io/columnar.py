@@ -1,0 +1,526 @@
+"""Zero-copy columnar ingress codecs for the serving hot path: the
+port's copy of ``mmlspark_tpu/io/columnar.py``, without its shared-
+memory transport (``application/x-shm-columns`` raises, naming ROADMAP
+item 15, 'The rest of the serving plane'), without the static-audit
+registry of ingress kernels, which serves a tool of the JAX package, and
+without the helpers no scorer of the port calls yet (``StagingPool``,
+``assemble_column``, ``columns_to_rows``).
+
+JSON decode + row batching + pad together can rival the device phase of
+a serving batch. This module retires the host side of that path the way Arrow
+/ Plasma retire serialization in analytics stacks (Moritz et al.):
+requests carry **typed column buffers** instead of JSON rows, and
+decode becomes an ``np.frombuffer`` view over the request body — no
+text parse, no per-row Python objects, no per-element boxing between
+the socket and ``device_put``.
+
+Wire formats (negotiated per request via Content-Type):
+
+- ``application/json`` — the compatibility **oracle**: one row object
+  per request, exactly the pre-existing protocol. Columnar-path scores
+  are pinned bit-identical to it (tests/test_ingress.py).
+- ``application/x-msgpack-columns`` — typed columns in a framed binary
+  layout: a small msgpack (or JSON, when msgpack is absent) header
+  describing dtype/shape/offset per column, followed by 8-byte-aligned
+  raw buffers. Numeric columns decode as ZERO-COPY views into the
+  request body; string/token columns ride arrow-style
+  (offsets + utf-8 payload) and materialize in one pass for the host
+  featurization kernels. Needs only numpy.
+- ``application/vnd.apache.arrow.stream`` — an Arrow IPC stream
+  (pyarrow optional: when absent the decoder raises ``CodecError`` and
+  the engine 400s only that request; clients default to
+  msgpack-columns).
+
+What still copies, and why (the honest part of the zero-copy claim):
+
+- numeric columns: zero-copy from body to the assembled batch when a
+  micro-batch holds ONE columnar request; multi-request batches pay
+  one concatenate into the assembled column (segments from different
+  request bodies cannot alias one buffer).
+- string / token-list columns: one materialization pass (pyarrow's C
+  ``to_pylist`` when available) — the host featurization kernels
+  (string codes, token hashing) consume Python strings by contract.
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+
+# ---------------------------------------------------------------------------
+# content types + negotiation
+# ---------------------------------------------------------------------------
+
+CT_JSON = "application/json"
+CT_MSGPACK_COLUMNS = "application/x-msgpack-columns"
+CT_ARROW_STREAM = "application/vnd.apache.arrow.stream"
+# the body is a tiny control message; the MCOL frame itself lives in a
+# shared-memory segment the control message points into (io/shm.py)
+CT_SHM_COLUMNS = "application/x-shm-columns"
+
+# codec name -> content type (the negotiation table; "json" is the
+# oracle and the default for anything unrecognized — old clients never
+# sent a meaningful Content-Type and must keep working)
+CODEC_CONTENT_TYPES: Dict[str, str] = {
+    "json": CT_JSON,
+    "msgpack": CT_MSGPACK_COLUMNS,
+    "arrow": CT_ARROW_STREAM,
+    "shm": CT_SHM_COLUMNS,
+}
+_CT_TO_CODEC = {v: k for k, v in CODEC_CONTENT_TYPES.items()}
+
+COLUMNAR_CODECS = ("msgpack", "arrow")
+
+
+class CodecError(ValueError):
+    """A request body that fails to decode under its negotiated codec
+    (malformed frame, schema mismatch, unavailable optional dependency).
+    The serving engine answers 400 for THAT request only — batch-mates
+    proceed (tests/test_ingress.py::TestPoisonedColumnarRequest)."""
+
+
+def negotiate(headers: Optional[Mapping[str, str]]) -> str:
+    """Codec name for a request's Content-Type header (case-insensitive
+    key and value match, parameters like ``; charset=`` ignored).
+    Unknown or missing content types fall back to the JSON oracle —
+    negotiation must never reject what the old protocol accepted."""
+    if not headers:
+        return "json"
+    ct = None
+    for k in headers:  # per-header, not per-row
+        if k.lower() == "content-type":
+            ct = headers[k]
+            break
+    if not ct:
+        return "json"
+    base = ct.split(";", 1)[0].strip().lower()
+    return _CT_TO_CODEC.get(base, "json")
+
+
+# ---------------------------------------------------------------------------
+# the decoded unit
+# ---------------------------------------------------------------------------
+
+
+class ColumnarBatch:
+    """One request's decoded columns: numeric columns are numpy arrays
+    (zero-copy views into the request body where the layout allows),
+    string columns are ``List[Optional[str]]``, token columns are
+    ``List[List[str]]`` — exactly the column representations the
+    DataTable / host featurization kernels consume."""
+
+    __slots__ = ("columns", "n_rows", "codec")
+
+    def __init__(self, columns: Dict[str, Any], n_rows: int,
+                 codec: str = "msgpack"):
+        self.columns = columns
+        self.n_rows = int(n_rows)
+        self.codec = codec
+
+
+# ---------------------------------------------------------------------------
+# msgpack-columns framing
+# ---------------------------------------------------------------------------
+
+_MAGIC = b"MCOL"
+_HDR_JSON, _HDR_MSGPACK = 0, 1
+
+
+def _msgpack():
+    try:
+        import msgpack
+        return msgpack
+    except Exception:  # noqa: BLE001 — optional; JSON header fallback
+        return None
+
+
+def _align8(n: int) -> int:
+    return (n + 7) & ~7
+
+
+class _BufWriter:
+    """Collects 8-byte-aligned payload buffers; offsets are relative to
+    the payload start (so the header content never depends on its own
+    serialized length)."""
+
+    def __init__(self):
+        self.parts: List[bytes] = []
+        self.bufs: List[List[int]] = []
+        self._off = 0
+
+    def add(self, data: bytes) -> int:
+        idx = len(self.bufs)
+        self.bufs.append([self._off, len(data)])
+        self.parts.append(data)
+        pad = _align8(len(data)) - len(data)
+        if pad:
+            self.parts.append(b"\x00" * pad)
+        self._off += _align8(len(data))
+        return idx
+
+
+def _encode_strings(values: List[Optional[str]],
+                    w: _BufWriter) -> Dict[str, int]:
+    """Arrow-style string column: int32 offsets (len N+1) + utf-8
+    payload, plus an int8 validity buffer when any value is None
+    (None encodes as an empty slot + valid=0)."""
+    n = len(values)
+    offsets = np.zeros(n + 1, dtype=np.int32)
+    chunks: List[bytes] = []
+    valid = None
+    pos = 0
+    for i, v in enumerate(values):  # client-side encode; not a kernel
+        if v is None:
+            if valid is None:
+                valid = np.ones(n, dtype=np.int8)
+            valid[i] = 0
+        else:
+            b = v.encode("utf-8")
+            chunks.append(b)
+            pos += len(b)
+        offsets[i + 1] = pos
+    out = {"o": w.add(offsets.tobytes()), "d": w.add(b"".join(chunks))}
+    if valid is not None:
+        out["valid"] = w.add(valid.tobytes())
+    return out
+
+
+def encode_columns(columns: Mapping[str, Any],
+                   codec: str = "msgpack") -> Tuple[bytes, str]:
+    """Encode typed columns as one request body. Returns
+    ``(body, content_type)``. Columns may be numpy arrays (any numeric
+    dtype, 1-D scalars or 2-D vectors), lists of str (string column),
+    or lists of lists of str (token column). All columns must share one
+    row count. ``codec``: ``"msgpack"`` (default; numpy-only) or
+    ``"arrow"`` (requires pyarrow)."""
+    if codec == "arrow":
+        return _encode_arrow(columns), CT_ARROW_STREAM
+    if codec != "msgpack":
+        raise CodecError(f"unknown columnar codec {codec!r}")
+    n_rows: Optional[int] = None
+    w = _BufWriter()
+    cols: List[Dict[str, Any]] = []
+    for name, data in columns.items():
+        if isinstance(data, np.ndarray):
+            if data.dtype == object:
+                data = list(data)
+            else:
+                arr = np.ascontiguousarray(data)
+                cols.append({"name": name, "k": "num",
+                             "dt": arr.dtype.str,
+                             "sh": list(arr.shape),
+                             "b": w.add(arr.tobytes())})
+                m = arr.shape[0] if arr.ndim else 1
+                n_rows = m if n_rows is None else n_rows
+                if m != n_rows:
+                    raise CodecError(
+                        f"column {name!r} has {m} rows; expected {n_rows}")
+                continue
+        data = list(data)
+        m = len(data)
+        n_rows = m if n_rows is None else n_rows
+        if m != n_rows:
+            raise CodecError(
+                f"column {name!r} has {m} rows; expected {n_rows}")
+        first = next((v for v in data if v is not None), None)
+        if first is None or isinstance(first, str):
+            cols.append({"name": name, "k": "str",
+                         **_encode_strings(data, w)})
+        elif isinstance(first, (list, tuple, np.ndarray)) and (
+                len(first) == 0 or isinstance(first[0], str)):
+            list_offsets = np.zeros(m + 1, dtype=np.int32)
+            flat: List[str] = []
+            pos = 0
+            for i, toks in enumerate(data):   # client-side encode
+                toks = [] if toks is None else list(toks)
+                flat.extend(toks)
+                pos += len(toks)
+                list_offsets[i + 1] = pos
+            entry = {"name": name, "k": "tok",
+                     "lo": w.add(list_offsets.tobytes())}
+            entry.update(_encode_strings(flat, w))
+            cols.append(entry)
+        elif isinstance(first, (bool, int, float, np.generic)):
+            # numeric list column (the JSON-row shape): ride as f64/i64
+            try:
+                arr = np.asarray(data)
+            except ValueError as e:   # ragged numeric lists
+                raise CodecError(
+                    f"column {name!r}: not encodable as a rectangular "
+                    f"numeric array ({e})") from e
+            if arr.dtype.hasobject:
+                # tobytes() of an object array would put raw CPython
+                # heap POINTERS on the wire — refuse client-side.
+                # Nullable numerics encode as float with NaN (the
+                # columnar equivalent of JSON null; see docs)
+                raise CodecError(
+                    f"column {name!r}: mixed/None numeric values "
+                    f"don't have a typed buffer encoding — use a "
+                    f"float array with NaN for missing cells")
+            cols.append({"name": name, "k": "num", "dt": arr.dtype.str,
+                         "sh": list(arr.shape), "b": w.add(arr.tobytes())})
+        else:
+            raise CodecError(
+                f"column {name!r}: unsupported value type "
+                f"{type(first).__name__} for columnar encoding")
+    header = {"v": 1, "n": int(n_rows or 0), "cols": cols, "bufs": w.bufs}
+    mp = _msgpack()
+    if mp is not None:
+        hdr, flag = mp.packb(header, use_bin_type=True), _HDR_MSGPACK
+    else:
+        hdr, flag = json.dumps(header).encode("utf-8"), _HDR_JSON
+    prefix = _MAGIC + bytes([flag]) + struct.pack("<I", len(hdr)) + hdr
+    pad = _align8(len(prefix)) - len(prefix)
+    return (prefix + b"\x00" * pad + b"".join(w.parts)), CT_MSGPACK_COLUMNS
+
+
+def _decode_strings(body: memoryview, bufs: List[List[int]],
+                    payload: int, entry: Dict[str, Any],
+                    n: int) -> List[Optional[str]]:
+    """Arrow-style string buffers -> List[Optional[str]]: ONE pyarrow C
+    pass when available, else the acknowledged fallback loop. This is
+    the documented copy on the string path — host featurization kernels
+    consume Python strings by contract."""
+    off_o, len_o = bufs[entry["o"]]
+    off_d, len_d = bufs[entry["d"]]
+    offsets = np.frombuffer(body, dtype=np.int32, count=n + 1,
+                            offset=payload + off_o)
+    data = bytes(body[payload + off_d: payload + off_d + len_d])
+    if int(offsets[-1]) != len_d or bool(np.any(np.diff(offsets) < 0)):
+        raise CodecError("string column offsets are corrupt")
+    try:
+        import pyarrow as pa
+        arr = pa.Array.from_buffers(
+            pa.utf8(), n,
+            [None, pa.py_buffer(offsets.tobytes()), pa.py_buffer(data)])
+        vals = arr.to_pylist()
+    except ImportError:
+        vals = [data[a:b].decode("utf-8")
+                for a, b in zip(offsets[:-1], offsets[1:])]
+    if "valid" in entry:
+        off_v, _ = bufs[entry["valid"]]
+        valid = np.frombuffer(body, dtype=np.int8, count=n,
+                              offset=payload + off_v)
+        vals = [v if f else None
+                for v, f in zip(vals, valid)]
+    return vals
+
+
+def _decode_msgpack_columns(body: bytes) -> ColumnarBatch:
+    """Decode one msgpack-columns frame. Numeric columns are ZERO-COPY
+    ``np.frombuffer`` views into ``body``; string/token columns
+    materialize once (see module docstring)."""
+    if len(body) < 9 or body[:4] != _MAGIC:
+        raise CodecError("not a msgpack-columns frame (bad magic)")
+    flag = body[4]
+    (hdr_len,) = struct.unpack_from("<I", body, 5)
+    if 9 + hdr_len > len(body):
+        raise CodecError("truncated msgpack-columns header")
+    hdr_bytes = body[9:9 + hdr_len]
+    try:
+        if flag == _HDR_MSGPACK:
+            mp = _msgpack()
+            if mp is None:
+                raise CodecError(
+                    "msgpack header but msgpack is unavailable")
+            header = mp.unpackb(hdr_bytes, raw=False)
+        else:
+            # bytes() tolerates a memoryview body (the shm path decodes
+            # frames in place over the shared segment)
+            header = json.loads(bytes(hdr_bytes).decode("utf-8"))
+    except CodecError:
+        raise
+    except Exception as e:  # noqa: BLE001 — malformed header
+        raise CodecError(f"malformed columnar header: {e}") from e
+    payload = _align8(9 + hdr_len)
+    n = int(header.get("n", 0))
+    bufs = header.get("bufs", [])
+    for off, nbytes in bufs:  # per-buffer, not per-row
+        if off < 0 or payload + off + nbytes > len(body):
+            raise CodecError("columnar buffer exceeds request body")
+    mv = memoryview(body)
+    columns: Dict[str, Any] = {}
+    for entry in header.get("cols", ()):  # per-column
+        name, kind = entry.get("name"), entry.get("k")
+        if not isinstance(name, str):
+            raise CodecError("column entry without a name")
+        try:
+            if kind == "num":
+                dt = np.dtype(entry["dt"])
+                shape = tuple(
+                    int(s) for s in entry["sh"])
+                off, nbytes = bufs[entry["b"]]
+                count = int(np.prod(shape)) if shape else 1
+                if count * dt.itemsize != nbytes:
+                    raise CodecError(
+                        f"column {name!r}: buffer size {nbytes} != "
+                        f"dtype/shape product")
+                arr = np.frombuffer(mv, dtype=dt, count=count,
+                                    offset=payload + off).reshape(shape)
+                if shape and shape[0] != n:
+                    raise CodecError(
+                        f"column {name!r} has {shape[0]} rows; "
+                        f"header says {n}")
+                columns[name] = arr
+            elif kind == "str":
+                columns[name] = _decode_strings(mv, bufs, payload,
+                                                entry, n)
+            elif kind == "tok":
+                off_lo, _ = bufs[entry["lo"]]
+                lo = np.frombuffer(mv, dtype=np.int32, count=n + 1,
+                                   offset=payload + off_lo)
+                if bool(np.any(np.diff(lo) < 0)):
+                    raise CodecError(
+                        f"column {name!r}: list offsets are corrupt")
+                flat = _decode_strings(mv, bufs, payload, entry,
+                                       int(lo[-1]))
+                columns[name] = [flat[a:b]
+                                 for a, b in zip(lo[:-1], lo[1:])]
+            else:
+                raise CodecError(
+                    f"column {name!r}: unknown column kind {kind!r}")
+        except CodecError:
+            raise
+        except Exception as e:  # noqa: BLE001 — malformed entry
+            raise CodecError(
+                f"column {name!r} failed to decode: {e}") from e
+    return ColumnarBatch(columns, n, codec="msgpack")
+
+
+
+# ---------------------------------------------------------------------------
+# Arrow IPC codec (pyarrow optional)
+# ---------------------------------------------------------------------------
+
+
+def _pyarrow():
+    try:
+        import pyarrow as pa
+        return pa
+    except Exception:  # noqa: BLE001 — optional dependency
+        return None
+
+
+def _encode_arrow(columns: Mapping[str, Any]) -> bytes:
+    pa = _pyarrow()
+    if pa is None:
+        raise CodecError("arrow codec requested but pyarrow is "
+                         "unavailable; use codec='msgpack'")
+    arrays, names = [], []
+    for name, data in columns.items():
+        names.append(name)
+        if isinstance(data, np.ndarray) and data.ndim == 2:
+            flat = pa.array(np.ascontiguousarray(data).reshape(-1))
+            arrays.append(pa.FixedSizeListArray.from_arrays(
+                flat, data.shape[1]))
+        elif isinstance(data, np.ndarray):
+            arrays.append(pa.array(data))
+        else:
+            arrays.append(pa.array(list(data)))
+    batch = pa.record_batch(arrays, names=names)
+    sink = pa.BufferOutputStream()
+    with pa.ipc.new_stream(sink, batch.schema) as writer:
+        writer.write_batch(batch)
+    return sink.getvalue().to_pybytes()
+
+
+def _decode_arrow(body: bytes) -> ColumnarBatch:
+    """Arrow IPC stream -> ColumnarBatch. Numeric columns come back
+    zero-copy where arrow's buffers allow (no nulls); fixed-size-list
+    columns flatten zero-copy into (N, D) views; strings/lists
+    materialize through arrow's C ``to_pylist``."""
+    pa = _pyarrow()
+    if pa is None:
+        raise CodecError("arrow request but pyarrow is unavailable "
+                         "on this engine")
+    try:
+        with pa.ipc.open_stream(pa.py_buffer(body)) as reader:
+            tbl = reader.read_all()
+    except Exception as e:  # noqa: BLE001 — malformed stream
+        raise CodecError(f"malformed arrow stream: {e}") from e
+    columns: Dict[str, Any] = {}
+    for name in tbl.column_names:  # per-column
+        arr = tbl.column(name).combine_chunks()
+        t = arr.type
+        if pa.types.is_fixed_size_list(t):
+            flat = arr.flatten()
+            vals = flat.to_numpy(zero_copy_only=flat.null_count == 0)
+            columns[name] = vals.reshape(len(arr), t.list_size)
+        elif (pa.types.is_integer(t) or pa.types.is_floating(t)
+                or pa.types.is_boolean(t)):
+            columns[name] = arr.to_numpy(
+                zero_copy_only=arr.null_count == 0 and
+                not pa.types.is_boolean(t))
+        else:
+            columns[name] = arr.to_pylist()
+    return ColumnarBatch(columns, tbl.num_rows, codec="arrow")
+
+
+
+def _decode_shm(body: bytes) -> ColumnarBatch:
+    """The shared-memory transport is not ported: a shm-negotiated
+    request fails with ``NotImplementedError``, which the scorer turns
+    into a 400 for that request alone."""
+    raise NotImplementedError(
+        "the shared-memory columnar transport (application/x-shm-columns)"
+        " is not ported yet: ROADMAP.md, 'The rest of the serving plane'")
+
+
+_DECODERS: Dict[str, Callable[[bytes], ColumnarBatch]] = {
+    "msgpack": _decode_msgpack_columns,
+    "arrow": _decode_arrow,
+    "shm": _decode_shm,
+}
+
+
+def decode_columnar(codec: str, body: Optional[bytes]) -> ColumnarBatch:
+    """Decode one request body under ``codec`` (``"msgpack"``,
+    ``"arrow"``, or ``"shm"``). Raises ``CodecError`` on anything
+    malformed — the engine turns that into a 400 for this request
+    only."""
+    fn = _DECODERS.get(codec)
+    if fn is None:
+        raise CodecError(f"unknown columnar codec {codec!r}")
+    if not body:
+        raise CodecError("empty request body")
+    return fn(bytes(body))
+
+
+# ---------------------------------------------------------------------------
+# the prepared-batch envelope the serving engine understands
+# ---------------------------------------------------------------------------
+
+
+class PreparedBatch:
+    """What a codec-aware ``prepare_batch`` hands the engine:
+
+    - ``payload``: the scorer-private decoded state for the SURVIVING
+      requests (consumed by ``execute_prepared``).
+    - ``rejects``: ``{request_id: message}`` for requests whose body
+      failed its negotiated codec — the engine 400s exactly these,
+      finalizes their traces as errors, and dispatches the rest.
+    - ``spans``: per surviving request ``(start, end, codec)`` row
+      spans into the assembled batch (JSON oracle requests span one
+      row; columnar requests span their batch's rows).
+    - ``codecs``: decode counts per codec (the trace span / metrics
+      label).
+    - ``meta``: scorer-private bookkeeping that must only be committed
+      AFTER the batch scores successfully (e.g. the per-column
+      reference shapes the schema-mismatch guard trusts).
+    """
+
+    __slots__ = ("payload", "rejects", "spans", "codecs", "meta")
+
+    def __init__(self, payload: Any = None,
+                 rejects: Optional[Dict[str, str]] = None,
+                 spans: Optional[List[Tuple[int, int, str]]] = None,
+                 codecs: Optional[Dict[str, int]] = None,
+                 meta: Optional[Dict[str, Any]] = None):
+        self.payload = payload
+        self.rejects = rejects or {}
+        self.spans = spans or []
+        self.codecs = codecs or {}
+        self.meta = meta or {}

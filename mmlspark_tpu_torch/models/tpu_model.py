@@ -15,10 +15,23 @@ on the host). Token-id models
 
 The card is the default device (``device`` Param, ``None`` = cuda);
 without one it raises unless ``device='cpu'`` was asked for.
+
+Serving hooks (the reference's): ``warmup`` runs every shape bucket once
+before traffic (``core/warmup.py``); ``jit_cache_misses`` counts the
+distinct padded (bucket rows, dtype) shapes the model has run for the
+first time — the port's analog of the reference's XLA compile counter
+(an eager torch forward compiles nothing, but a shape's first run pays
+for cuBLAS heuristics, kernel loads and fresh allocator blocks), so a
+first ``warmup`` returns ``len(bucket_sizes())`` and a second 0;
+``histograms`` hands out the raw pad / device / readback histograms.
+Saved with ``save``, the weights go as a pytree and a module's
+``_ModuleApply`` as a pickle of its structure (parameters on the meta
+device; the weights restore them).
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -90,6 +103,9 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
         # host batch assembly + upload, the dispatch -> readback-complete
         # round trip, and the readback alone
         self._hists = histogram_set("pad_ms", "device_ms", "readback_ms")
+        # (padded rows, dtype) shapes run so far; set.add is atomic, so
+        # concurrent transforms count each shape once
+        self._seen_shapes: set = set()
 
     def _on_param_change(self, name: str) -> None:
         if name in ("weights", "device"):
@@ -138,9 +154,6 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
     def quantize(self, calib, percentile: float = 100.0) -> "TPUModel":
         raise _not_ported("quantize", "DNN int8 inference")
 
-    def warmup(self, example, sizes: Optional[List[int]] = None) -> int:
-        raise _not_ported("warmup", "HTTP serving of the GBDT model")
-
     # -- device state -------------------------------------------------------
 
     def _device(self) -> torch.device:
@@ -185,11 +198,33 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
             b *= 2
         return min(b, cap)
 
+    def warmup(self, example, sizes: Optional[List[int]] = None) -> int:
+        """Run every serving bucket once before traffic, so no live
+        request pays a shape's first run. ``example`` is a DataTable, or
+        a dict of column -> array, holding at least one representative
+        row for every feed column; rows are tiled up to each bucket size
+        and pushed through ``transform`` (core/warmup.py, each bucket's
+        wall time in the ``model_warmup_ms`` histogram). Returns the
+        number of first-time shapes it met (0 when all were warm)."""
+        from mmlspark_tpu_torch.core.warmup import warmup_transform
+        return warmup_transform(self, example, sizes)
+
+    @property
+    def jit_cache_misses(self) -> int:
+        """Distinct padded (rows, dtype) shapes run for the first time."""
+        return len(self._seen_shapes)
+
+    def histograms(self) -> Dict[str, Any]:
+        """The raw pad / device / readback histogram objects (exact
+        buckets); ``metrics()`` keeps returning the summary view."""
+        return dict(self._hists)
+
     def metrics(self) -> Dict[str, Any]:
-        """pad / device / readback latency summaries (ms) and the
-        precision label."""
+        """pad / device / readback latency summaries (ms), the
+        first-run shape counter and the precision label."""
         out: Dict[str, Any] = {k: h.summary()
                                for k, h in self._hists.items()}
+        out["jit_cache_misses"] = self.jit_cache_misses
         out["precision"] = self.get("precision")
         return out
 
@@ -226,6 +261,8 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
                         f"[0, {vocab})")
                 # edge-pad: padded rows stay valid inputs
                 arr, _ = pad_to_multiple(arr, self.bucket_for(rows), axis=0)
+                self._seen_shapes.add(
+                    (arr.shape[0], torch.long if int_input else dtype))
                 t = torch.from_numpy(np.ascontiguousarray(arr))
                 if on_card:
                     t = t.pin_memory().to(dev, non_blocking=True)
@@ -336,6 +373,19 @@ class _ModuleApply:
         self.vocab_size = getattr(module, "vocab_size", None)
         self.input_shape = list(input_shape) if input_shape else None
         self.input_scale = float(input_scale)
+
+    def __getstate__(self):
+        # the structure travels, not the values: parameters and buffers
+        # go to the meta device (the TPUModel's ``weights`` pytree holds
+        # them, and ``functional_call`` swaps them in on every call)
+        memo = {id(p): nn.Parameter(torch.empty_like(p, device="meta"),
+                                    requires_grad=p.requires_grad)
+                for p in self.module.parameters()}
+        memo.update({id(b): torch.empty_like(b, device="meta")
+                     for b in self.module.buffers()})
+        state = dict(self.__dict__)
+        state["module"] = copy.deepcopy(self.module, memo)
+        return state
 
     def __call__(self, weights: Dict[str, torch.Tensor],
                  inputs: Dict[str, torch.Tensor]):

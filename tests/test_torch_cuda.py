@@ -482,3 +482,70 @@ def test_cuda_tpumodel_transform_matches_cpu(card):
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
     m = model.metrics()
     assert m["pad_ms"]["count"] == m["readback_ms"]["count"] == 3
+
+
+@pytest.mark.cuda
+def test_cuda_gbdt_served_over_http_equals_transform(card, tmp_path):
+    """A GBDT model fit on the card (hist kernel), saved, loaded and
+    served from the card through json_scoring_pipeline and the row
+    scorer: every reply equals transform's value for its row
+    (rawPrediction bitwise)."""
+    import json
+    import threading
+    import time
+    import urllib.request
+    from mmlspark_tpu_torch.core.stage import load_stage
+    from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+    from mmlspark_tpu_torch.serving import (
+        json_row_scoring_pipeline, json_scoring_pipeline, serve_model)
+
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(20_000, 28)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(np.float32)
+    HK.reset_launches()
+    fitted = TPUBoostClassifier(numIterations=4, numLeaves=15,
+                                device="cuda").fit(
+        DataTable({"features": X, "label": y}))
+    assert sum(HK.LAUNCHES.values()) > 0
+    fitted.save(str(tmp_path / "m"))
+    model = load_stage(str(tmp_path / "m"))
+    assert model.get("device") == "cuda"
+    rows = X[:64]
+    want = model.transform(DataTable({"features": rows}))
+
+    def post(addr, row):
+        req = urllib.request.Request(
+            addr, data=json.dumps({"features": row.tolist()}).encode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert r.status == 200
+            return json.loads(r.read())
+
+    for scorer, key, expect in (
+            (json_scoring_pipeline(model), "prediction",
+             [{"prediction": int(p)} for p in want["prediction"]]),
+            (json_row_scoring_pipeline(model, reply_col="rawPrediction"),
+             "rawPrediction", want["rawPrediction"].tolist())):
+        engine = serve_model(scorer, port=0, batch_size=16, workers=2,
+                             max_wait_ms=5)
+        try:
+            got = {}
+
+            def client(i):
+                for j in range(i, len(rows), 8):
+                    got[j] = post(engine.source.address, rows[j])
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert [got[j] for j in range(len(rows))] == expect, key
+            deadline = time.monotonic() + 10
+            while engine.source.requests_answered < len(rows) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert engine.source.requests_answered == len(rows)
+            assert engine.is_alive()
+        finally:
+            engine.stop()

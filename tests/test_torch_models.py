@@ -243,7 +243,6 @@ def test_tpumodel_refuses_what_is_not_ported(lm_vars):
                        (lambda: model.set_sharding(None), "Device pipeline"),
                        (lambda: model.device_op(None), "Device pipeline"),
                        (lambda: model.quantize({}), "DNN int8 inference"),
-                       (lambda: model.warmup({}), "HTTP serving"),
                        (lambda: model.set("precision", "int8"),
                         "DNN int8 inference")):
         with pytest.raises(NotImplementedError, match=item):
@@ -251,6 +250,9 @@ def test_tpumodel_refuses_what_is_not_ported(lm_vars):
     with pytest.raises(ValueError, match="outside"):
         model.transform(mtt.DataTable({"tokens": _tokens(2, 8, vocab=65)
                                        + 1}))
+    # warmup is ported (the serving slice); an empty example still raises
+    with pytest.raises(ValueError, match="at least one example row"):
+        model.warmup({})
 
 
 def test_threaded_prefetcher_keeps_order_and_forwards_errors():
