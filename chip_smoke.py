@@ -25,7 +25,8 @@ Phases, one line each; any failure exits non-zero:
                plan and blocks per SM. Time the kernel, its plain version,
                one library call computing the same function, and its bound
                (hist: at 80 % active as before, the root, the 5 % child and
-               the 90 %-in-bin-0 root).
+               the 90 %-in-bin-0 root in f32; the root and the 5 % child
+               in int16 at max_bin 255 and in int8 at max_bin 63).
   2b. flash  — the flash-attention kernel against its plain version in
                float64 (f32 within rtol 1e-4 / atol 1e-4; bf16 out within
                one bf16 rounding, rtol 2**-8), at the slice's shape
@@ -90,8 +91,33 @@ Phases, one line each; any failure exits non-zero:
                pipeline / respond ms p50; hist launches are counted
                around the serving (the forest walk is plain torch, so
                none).
-Then one JSON line of per-kernel numbers, the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}.
+  7. GBDT training options — on phase 3's 1M x 28 table (63 leaves,
+               seed 7, the 100k holdout as validation data), each fit's
+               launches counted by stats type just around it and traced
+               on the device (seconds, phases, the hist kernels' share of
+               the boost phase): (a) bagging 0.8 / 1 and feature fraction
+               0.8 with early_stopping_round 5 over 30 rounds —
+               best_iteration is 1 + the argmin of the losses the run
+               read and num_trees what the every-5-iterations cadence
+               gives, on the holdout and on the holdout with its labels
+               flipped (where the run must stop); the masks of iterations
+               0-2 bitwise equal card vs CPU; (b) hist_bits=16 at max_bin
+               255 (5 rounds): every launch int16, as many as histograms,
+               holdout AUC above 0.8 and its gap to phase 3's f32 fit
+               printed; q16 within 0.005 of f32 held at the size
+               tests/test_gbdt_dist_quant.py pins it (4096 rows); (c)
+               hist_bits=8 at max_bin 63: every launch int8, AUC finite
+               and above 0.5; (d) q16 + sampling, 5 rounds with
+               keepTrainingData then boost_more(5) bitwise equal to 10
+               rounds in one call, then boost_more(5) on the holdout: 15
+               iterations, finite scores; (e) a 20k-row q16 fit on the
+               card and on the CPU (AUC within 0.005), the iteration-0 L1
+               scales of each, and the q16 / q8 rounding of the same f32
+               stats and the int16 / int8 root and masked-child
+               histograms bitwise equal across the two.
+Then one JSON line of per-kernel numbers (the hist rows include the int16
+and int8 launches of (b) and (c)), the card's name and power limit, and
+as the last line {"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits 1 and prints no result.
 """
@@ -442,6 +468,327 @@ def serving_slice(model, out, Xte, smi: str) -> None:
           f"transform, no new shape while serving; card: {smi}")
 
 
+def training_options(train_t, test_t, Xtr, ytr, Xte, yte, auc255: float,
+                     smi: str) -> dict:
+    """Phase 7: the GBDT training options at full width. Returns the
+    int16 / int8 hist launches of the main-path fits (b) and (c)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.gbdt import hist_kernels as HK
+    from mmlspark_tpu_torch.gbdt import prng
+    from mmlspark_tpu_torch.gbdt.binning import BinMapper
+    from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+    from mmlspark_tpu_torch.gbdt.objectives import get_objective
+    from mmlspark_tpu_torch.gbdt.tree import (
+        _sround, quant_scales, quantize_stats, sample_iteration_masks)
+    from mmlspark_tpu_torch.profile_fit import threefry_costs, union_us
+
+    dev = torch.device("cuda")
+    sampled = dict(baggingFraction=0.8, baggingFreq=1, featureFraction=0.8)
+
+    def fit(label, table=train_t, **kw):
+        """One main-path fit (counts set to 0 just before, read just
+        after), traced on the device: seconds, phases, holdout AUC, and
+        the hist kernels' share of the boost window."""
+        HK.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model = TPUBoostClassifier(numLeaves=63, seed=7, **kw).fit(table)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = dict(HK.LAUNCHES_BY_TYPE)
+        booster = model.get_booster()
+        prob = np.asarray(model.transform(test_t)["probability"])
+        check(prob.shape == (N_TEST, 2) and np.isfinite(prob).all(),
+              f"training options {label}: outputs {prob.shape} not finite")
+        a = auc(yte, prob[:, 1])
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        hist = [e for e in ev if "hist_" in e.name]
+        share = "not measured (no device events traced)"
+        if hist:
+            hist_ms = sum(e.time_range.end - e.time_range.start
+                          for e in hist) / 1e3
+            w0 = min(e.time_range.start for e in hist)
+            w1 = max(e.time_range.end for e in hist)
+            busy = union_us([(max(e.time_range.start, w0),
+                              min(e.time_range.end, w1)) for e in ev
+                             if e.time_range.end > w0
+                             and e.time_range.start < w1])
+            boost_ms = 1e3 * booster.train_timing["boost"]
+            share = (f"hist kernels {hist_ms:.3f} ms = "
+                     f"{100 * hist_ms / boost_ms:.2f} % of the boost phase "
+                     f"({boost_ms:.1f} ms); device busy "
+                     f"{100 * busy / max(w1 - w0, 1e-9):.1f} % of the "
+                     "first-to-last hist window")
+        print(f"training options {label}: fit {secs:.2f} s under the CUDA "
+              f"profiler ({booster.train_timing}), {booster.num_trees} "
+              f"trees, holdout AUC {a:.5f}, histograms "
+              f"{booster.train_info['histograms']}, launches by stats type "
+              f"{launches}; {share}")
+        return model, booster, a, launches
+
+    def int_route_only(label, booster, launches, sdt):
+        h = booster.train_info["histograms"]
+        check(launches[sdt] == h and all(
+            v == 0 for k, v in launches.items() if k != sdt),
+            f"training options {label}: launches {launches}, {h} "
+            f"histograms, all of them expected as {sdt}")
+
+    # (a) bagging + feature fraction with early stopping on the holdout;
+    # then on the holdout with its labels flipped, where the validation
+    # loss rises from the first tree on, so that the run stops
+    def stop_checks(label, booster, n_iter, esr):
+        losses = booster.train_info["valid_loss"]
+        m = len(losses)
+        check(booster.best_iteration == 1 + int(np.argmin(losses)),
+              f"{label}: best_iteration {booster.best_iteration} vs "
+              f"1 + argmin of {m} losses")
+        stopped = m - booster.best_iteration >= esr
+        sync = min(esr, 8)
+        want = min(n_iter, -(-m // sync) * sync) if stopped else n_iter
+        check(stopped or m == n_iter, f"{label}: {m} losses read")
+        check(booster.num_trees == want,
+              f"{label}: {booster.num_trees} trees, the cadence gives "
+              f"{want}")
+        print(f"training options {label}: best_iteration "
+              f"{booster.best_iteration} = 1 + argmin of the {m} losses "
+              f"read, stopped {stopped}, {booster.num_trees} trees as the "
+              f"every-{sync}-iterations cadence gives")
+
+    _, ba, auc_a, la = fit("(a) bagging 0.8/1, feature_fraction 0.8, "
+                           "early_stopping_round 5", numIterations=30,
+                           earlyStoppingRound=5, validationData=test_t,
+                           **sampled)
+    check(la["float32"] == ba.train_info["histograms"],
+          f"(a): launches {la}")
+    stop_checks("(a)", ba, 30, 5)
+    flipped = DataTable({"features": Xte, "label": 1.0 - yte})
+    _, bf, _, _ = fit("(a) on the label-flipped holdout", numIterations=30,
+                      earlyStoppingRound=5, validationData=flipped,
+                      **sampled)
+    stop_checks("(a) flipped", bf, 30, 5)
+    check(bf.num_trees < 30, "(a) flipped: the run did not stop")
+    # the masks drawn on the card equal the CPU's, and what a draw costs
+    key = prng.PRNGKey(7)
+    ones = {d: (torch.ones(N_TRAIN, device=d), torch.ones(28, device=d))
+            for d in (dev, torch.device("cpu"))}
+    for it in range(3):
+        (wg, fg), (wc, fc) = (sample_iteration_masks(
+            key, it, *ones[d], (0.8, 1), 0.8, 28, 28)
+            for d in (dev, torch.device("cpu")))
+        check(torch.equal(wg.cpu(), wc) and torch.equal(fg.cpu(), fc),
+              f"(a): the masks of iteration {it} differ card vs CPU")
+    costs = threefry_costs(torch)
+    print(f"training options (a): bagging / feature-fraction masks of "
+          f"iterations 0-2 bitwise equal card vs CPU ({N_TRAIN} rows); "
+          + "; ".join(f"{label}: {dev_ms:.3f} ms on the card"
+                      for label, (dev_ms, _) in costs.items()))
+
+    # (b) hist_bits=16 at max_bin 255: the int16 launch of the route of
+    # _hist_kernel_nibble; (c) hist_bits=8 at max_bin 63: the int8 launch
+    # of the route of _hist_kernel
+    _, bb, auc_b, lb = fit("(b) hist_bits=16, max_bin 255",
+                           numIterations=5, histBits=16)
+    int_route_only("(b)", bb, lb, "int16")
+    # the global-L1 scale leaves each row about Q / N of a step (0.016 at
+    # 1M rows), so q16's gap to f32 grows with the rows: held here to
+    # 0.01; the 0.005 rule of tests/test_gbdt_dist_quant.py:101 is held
+    # at the size it pins (4096 rows)
+    check(abs(auc_b - auc255) < 0.01, f"(b): q16 holdout AUC {auc_b} vs "
+          f"f32 {auc255} at 1M rows")
+    Xs, ys = higgs_shape(6000)
+    small_kw = dict(numIterations=6, numLeaves=15, maxBin=63,
+                    minDataInLeaf=5)
+    small_t = DataTable({"features": Xs[:4096], "label": ys[:4096]})
+    hold_t = DataTable({"features": Xs[4096:], "label": ys[4096:]})
+    a16, a32 = (auc(ys[4096:], TPUBoostClassifier(histBits=bits, **small_kw)
+                    .fit(small_t).transform(hold_t)["probability"][:, 1])
+                for bits in (16, 32))
+    check(abs(a16 - a32) < 0.005, f"(b): at 4096 rows q16 AUC {a16} vs "
+          f"f32 {a32}")
+    print(f"training options (b): q16 vs f32 (phase 3) holdout AUC "
+          f"{auc_b:.5f} vs {auc255:.5f} at 1M rows (|diff| "
+          f"{abs(auc_b - auc255):.5f} < 0.01); at tests/test_gbdt_dist_quant.py's "
+          f"4096 rows on the card {a16:.5f} vs {a32:.5f} (|diff| "
+          f"{abs(a16 - a32):.5f} < 0.005)")
+    _, bc, auc_c, lc = fit("(c) hist_bits=8, max_bin 63", numIterations=5,
+                           histBits=8, maxBin=63)
+    int_route_only("(c)", bc, lc, "int8")
+    check(np.isfinite(auc_c) and auc_c > 0.5, f"(c): q8 AUC {auc_c}")
+
+    # (d) retained continuation: 5 + boost_more(5) == 10 in one call
+    kw = dict(numLeaves=63, seed=7, histBits=16, **sampled)
+    HK.reset_launches()
+    m5 = TPUBoostClassifier(numIterations=5, keepTrainingData=True,
+                            **kw).fit(train_t)
+    grown = m5.get_booster().boost_more(5)
+    m10 = TPUBoostClassifier(numIterations=10, **kw).fit(train_t)
+    torch.cuda.synchronize()
+    ld = dict(HK.LAUNCHES_BY_TYPE)
+    one = m10.get_booster()
+    for k in one.trees:
+        check(np.array_equal(grown.trees[k], one.trees[k]),
+              f"(d): boost_more(5) after 5 differs from 10 in {k!r}")
+    fresh = grown.boost_more(5, Xte, yte)
+    pf = fresh.predict(Xte)
+    check(fresh.num_trees == 15 and np.isfinite(pf).all(),
+          f"(d): fresh-data boost_more: {fresh.num_trees} trees")
+    print(f"training options (d): q16 + sampling, 5 rounds + boost_more(5) "
+          f"bitwise equal to 10 in one call (launches {ld}); "
+          f"boost_more(5) on the holdout: 15 iterations, finite scores, "
+          f"holdout AUC {auc(yte, pf):.5f}")
+
+    # (e) the card against the CPU: a 20k-row quantized fit on each
+    small = DataTable({"features": Xtr[:20000], "label": ytr[:20000]})
+    skw = dict(numIterations=5, numLeaves=15, maxBin=63, histBits=16,
+               seed=7)
+    pg = TPUBoostClassifier(device="cuda", **skw).fit(small) \
+        .transform(test_t)["probability"][:, 1]
+    pc = TPUBoostClassifier(device="cpu", **skw).fit(small) \
+        .transform(test_t)["probability"][:, 1]
+    ag, ac = auc(yte, pg), auc(yte, pc)
+    check(abs(ag - ac) < 0.005, f"(e): card AUC {ag} vs CPU {ac}")
+    obj = get_objective("binary")
+    ys = ytr[:20000].astype(np.float64)
+    s0 = np.float32(obj.init_score(ys, np.ones_like(ys))[0])
+    yc = torch.from_numpy(ytr[:20000].astype(np.float32))
+    gc, hc = obj.grad_hess(torch.full((20000,), float(s0)), yc)
+    wc = torch.ones(20000)
+    gg, hg = obj.grad_hess(torch.full((20000,), float(s0), device=dev),
+                           yc.to(dev))
+    sc = quant_scales(gc, hc, wc, 16)
+    sg = quant_scales(gg, hg, wc.to(dev), 16)
+    print(f"training options (e): iteration-0 L1 scales (dg, dh, dc) on "
+          f"the CPU {[float(v) for v in sc]}, on the card "
+          f"{[float(v) for v in sg]}, equal "
+          f"{all(float(a) == float(b) for a, b in zip(sc, sg))}")
+    bins = torch.from_numpy(BinMapper.fit(Xtr[:20000], max_bin=63)
+                            .transform_fm(Xtr[:20000]))
+    B = int(bins.max()) + 1
+    zero = torch.zeros(20000, dtype=torch.int32)
+    tk = prng.fold_in(prng.fold_in(prng.fold_in(key, 0), 3), 0)
+    for bits, sdt in ((16, torch.int16), (8, torch.int8)):
+        sc = quant_scales(gc, hc, wc, bits)
+        qc = [_sround(v, d, tk, ch, sdt)
+              for ch, (v, d) in enumerate(zip((gc * wc, hc * wc, wc), sc))]
+        qg = [_sround(v.to(dev), d.to(dev), tk, ch, sdt)
+              for ch, (v, d) in enumerate(zip((gc * wc, hc * wc, wc), sc))]
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(qc, qg)),
+              f"(e): {bits}-bit rounding differs card vs CPU")
+        for what, mask in (("root", torch.ones(20000, dtype=sdt)),
+                           ("masked child", (bins[0] > B // 2).to(sdt))):
+            ref = HK.hist_plain(bins, qc[0], qc[1], mask, zero, 1, B, qc[2])
+            got = HK.hist_device(bins.to(dev), qg[0], qg[1], mask.to(dev),
+                                 zero.to(dev), 1, B, qg[2])
+            check(torch.equal(got.cpu(), ref),
+                  f"(e): {bits}-bit {what} histogram differs from plain")
+    print(f"training options (e): q16 / q8 rounding of the same f32 stats "
+          f"bitwise equal card vs CPU, int16 / int8 root and masked-child "
+          f"histograms bitwise equal to hist_plain; 20k-row q16 fit holdout "
+          f"AUC card {ag:.5f} vs CPU {ac:.5f} (|diff| {abs(ag - ac):.5f} "
+          f"< 0.005); card: {smi}")
+    for bits, max_bin in ((8, 63), (16, 255)):
+        replay_on_cpu("phase 3's rows", Xtr[:20000], ytr[:20000], bits,
+                      max_bin)
+    # and on the table of tests/test_torch_cuda.py's quantized-fit test
+    rng = np.random.default_rng(7)
+    Xq = rng.normal(size=(24_000, 28)).astype(np.float32)
+    yq = (Xq[:, 0] + 0.6 * Xq[:, 1] * Xq[:, 2] + 0.3
+          + rng.normal(scale=0.5, size=24_000) > 0).astype(np.float32)
+    replay_on_cpu("the card test's rows", Xq[:20_000], yq[:20_000], 8, 63)
+    return {"int16": lb["int16"], "int8": lc["int8"]}
+
+
+def replay_on_cpu(rows: str, X, y, bits: int, max_bin: int) -> None:
+    """Phase 7(e), tree by tree: a 20k-row quantized fit on the card in
+    which every int histogram is held bitwise to ``hist_plain`` on the
+    same inputs, and each tree to the CPU grower's given that tree's
+    inputs and the card's three scales (structure, gains, values, leaf of
+    every row). Then tree 0 on the CPU with its own scales, to show where
+    the one-ulp difference of the f32 L1 sums parts the two fits."""
+    import torch
+    from mmlspark_tpu_torch.gbdt import booster as booster_mod
+    from mmlspark_tpu_torch.gbdt import hist_kernels as HK
+    from mmlspark_tpu_torch.gbdt import tree as tree_mod
+
+    grown, scales, n_hist = [], [], [0]
+    grow, build, qs = (booster_mod.grow_tree, tree_mod.build_histogram,
+                       tree_mod.quant_scales)
+
+    def rec_grow(bins, grad, hess, w, fm, gp, quant_key=None):
+        out = grow(bins, grad, hess, w, fm, gp, quant_key=quant_key)
+        grown.append(([t.cpu() for t in (bins, grad, hess, w, fm)], gp,
+                      quant_key, out[0], out[1].cpu()))
+        return out
+
+    def rec_scales(*a):
+        scales.append(qs(*a))
+        return scales[-1]
+
+    def held_hist(bins, g, h, w, leaf, L, B, method, count_values):
+        out = build(bins, g, h, w, leaf, L, B, method=method,
+                    count_values=count_values)
+        ref = HK.hist_plain(*(t.cpu() for t in (bins, g, h, w, leaf)), L, B,
+                            count_values.cpu())
+        check(torch.equal(out.cpu(), ref), f"(e) q{bits}: int histogram "
+              f"{n_hist[0]} of the fit differs from hist_plain")
+        n_hist[0] += 1
+        return out
+
+    booster_mod.grow_tree, tree_mod.quant_scales = rec_grow, rec_scales
+    tree_mod.build_histogram = held_hist
+    try:
+        booster_mod.train({"objective": "binary", "num_iterations": 5,
+                           "num_leaves": 15, "max_bin": max_bin,
+                           "hist_bits": bits, "seed": 7}, X, y,
+                          device="cuda")
+    finally:
+        booster_mod.grow_tree, tree_mod.build_histogram = grow, build
+        tree_mod.quant_scales = qs
+    check(len(grown) == len(scales) == 5, f"(e) q{bits}: {len(grown)} trees")
+
+    def cpu_tree(t, deltas):
+        inputs, gp, key, _, _ = grown[t]
+        if deltas is not None:
+            tree_mod.quant_scales = lambda *a: deltas
+        try:
+            tr, leaf_of_row, _, _ = tree_mod.grow_tree(*inputs, gp,
+                                                       quant_key=key)
+        finally:
+            tree_mod.quant_scales = qs
+        return tr, leaf_of_row
+
+    for t, (_, _, _, card_tree, card_leaf) in enumerate(grown):
+        tr, leaf_of_row = cpu_tree(t, scales[t].cpu())
+        check(all(np.array_equal(getattr(tr, k), getattr(card_tree, k))
+                  for k in tr._fields) and torch.equal(leaf_of_row,
+                                                       card_leaf),
+              f"(e) q{bits}: tree {t} on the CPU from the card's inputs "
+              "and scales differs from the card's")
+    own, _ = cpu_tree(0, None)
+    own_scales = qs(*grown[0][0][1:4], bits)
+    card0 = grown[0][3]
+    split = np.flatnonzero(~card0.is_leaf)
+    part = [j for j in split if (own.feature[j], own.bin_threshold[j])
+            != (card0.feature[j], card0.bin_threshold[j])]
+    where = "none"
+    if part:
+        j = part[0]
+        where = (f"node {j}: card feature {card0.feature[j]} bin "
+                 f"{card0.bin_threshold[j]} gain {card0.gain[j]!r}, CPU "
+                 f"feature {own.feature[j]} bin {own.bin_threshold[j]} gain "
+                 f"{own.gain[j]!r}")
+    print(f"training options (e): q{bits} at max_bin {max_bin}, {rows}: "
+          f"{n_hist[0]} int histograms of the card's fit bitwise equal to "
+          f"hist_plain; its 5 trees bitwise equal to the CPU grower's given "
+          f"the same inputs and the card's scales; tree 0's scales card "
+          f"{[float(v) for v in scales[0]]} vs CPU "
+          f"{[float(v) for v in own_scales]}; with its own scales the CPU's "
+          f"tree 0 first parts from the card's at {where}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -549,11 +896,21 @@ def main() -> int:
     shapes += [(28, N_TRAIN, 1, b255, sdt, 1.0, skew)
                for skew in ("bin0_90", "binary", "constant")
                for sdt in (torch.float32, torch.int16, torch.int8)]
-    timed = {(28, N_TRAIN, 1, b255, 0.8, None): b255,
-             (28, N_TRAIN, 1, b63, 0.8, None): b63,
-             (28, N_TRAIN, 1, b255, 1.0, None): "root",
-             (28, N_TRAIN, 1, b255, 0.05, None): "child",
-             (28, N_TRAIN, 1, b255, 1.0, "bin0_90"): "bin0_90"}
+    # the quantized fits' launches (phase 7): int16 at max_bin 255, int8
+    # at max_bin 63, each at a root and at the 5 % child
+    shapes += [(28, N_TRAIN, 1, B, sdt, active, None)
+               for B, sdt in ((b255, torch.int16), (b63, torch.int8))
+               for active in (1.0, 0.05)]
+    f32 = torch.float32
+    timed = {(28, N_TRAIN, 1, b255, f32, 0.8, None): b255,
+             (28, N_TRAIN, 1, b63, f32, 0.8, None): b63,
+             (28, N_TRAIN, 1, b255, f32, 1.0, None): "root",
+             (28, N_TRAIN, 1, b255, f32, 0.05, None): "child",
+             (28, N_TRAIN, 1, b255, f32, 1.0, "bin0_90"): "bin0_90",
+             (28, N_TRAIN, 1, b255, torch.int16, 1.0, None): "root_i16",
+             (28, N_TRAIN, 1, b255, torch.int16, 0.05, None): "child_i16",
+             (28, N_TRAIN, 1, b63, torch.int8, 1.0, None): "root_i8",
+             (28, N_TRAIN, 1, b63, torch.int8, 0.05, None): "child_i8"}
     for i, (F, N, L, B, sdt, active, skew) in enumerate(shapes):
         bins, grad, hess, w, leaf, cv = hist_inputs(
             dev, F, N, L, B, sdt, seed=i, active=active, skew=skew)
@@ -580,8 +937,8 @@ def main() -> int:
             check(torch.equal(out, ref), f"{tag}: int sums differ ({err})")
             print(f"{tag}: bitwise equal to the plain version (exact "
                   "int32); repeat launch bitwise equal")
-        key = timed.get((F, N, L, B, active, skew))
-        if key is not None and sdt == torch.float32:
+        key = timed.get((F, N, L, B, sdt, active, skew))
+        if key is not None:
             lib = bincount_call(bins, grad, hess, w, leaf, L, B, cv)
             k_ms = time_ms(lambda: HK.hist_device(bins, grad, hess, w, leaf,
                                                   L, B, cv))
@@ -1039,6 +1396,10 @@ def main() -> int:
     # ---- 6. the serving slice: save, reload, serve over HTTP --------------
     serving_slice(model255, out255, Xte, smi)
 
+    # ---- 7. the GBDT training options at full width ----------------------
+    int_launches = training_options(train_t, test_t, Xtr, ytr, Xte, yte,
+                                    auc255, smi)
+
     kernels = []
     for name, route, key, launches, line in (
             (f"hist (single leaf, B={b255})", "_hist_kernel_nibble", b255,
@@ -1054,6 +1415,26 @@ def main() -> int:
             "source": "mmlspark_tpu_torch/csrc/hist.cu",
             "replaces": f"mmlspark_tpu/gbdt/pallas_hist.py:{line}",
             "launches": launches[route], "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"]})
+    # the int16 / int8 instantiations, launched by phase 7's quantized fits
+    # (b) and (c); times from phase 2
+    for name, sdt, key, line in (
+            (f"hist int16 (single leaf, B={b255}, root)", "int16",
+             "root_i16", 67),
+            (f"hist int16 (single leaf, B={b255}, 5 % child)", "int16",
+             "child_i16", 67),
+            (f"hist int8 (single leaf, B={b63}, root)", "int8", "root_i8",
+             117),
+            (f"hist int8 (single leaf, B={b63}, 5 % child)", "int8",
+             "child_i8", 117)):
+        m = measured[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/hist.cu",
+            "replaces": f"mmlspark_tpu/gbdt/pallas_hist.py:{line}",
+            "launches": int_launches[sdt], "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"]})

@@ -1,13 +1,16 @@
 """Booster: GBDT training driver + serialized model.
 
-Port of ``mmlspark_tpu/gbdt/booster.py`` for dense, single-device,
-float32-histogram training: the dataset is binned once (on the device
-when the cuts are float32-exact, on the host otherwise), kept on the
-device as a features-major (F, N) int32 matrix, and every boosting
-iteration is one Python step — gradients -> K trees -> score update.
-The JAX engine fuses iterations into ``lax.scan`` chunks; the chunking
-does not change its results, so it is not reproduced (``boost_chunk`` is
-accepted and has no effect).
+Port of ``mmlspark_tpu/gbdt/booster.py`` for dense, single-device
+training: the dataset is binned once (on the device when the cuts are
+float32-exact, on the host otherwise), kept on the device as a
+features-major (F, N) int32 matrix, and every boosting iteration is one
+Python step — sampling masks -> gradients -> K trees -> score update.
+Bagging, feature fraction, quantized ``hist_bits`` 16 / 8, validation
+with early stopping, warm start (``init_model``) and ``boost_more`` are
+the JAX package's, bit for bit on the same device. The JAX engine fuses
+iterations into ``lax.scan`` chunks; the chunking changes none of its
+trees, so it is not reproduced, except where early stopping reads the
+losses at the chunk boundaries (``boost_chunk`` sets that cadence).
 
 The model string is the JAX package's ``"mmlspark_tpu.booster.v1"``
 JSON, so each package loads the other's forests.
@@ -29,9 +32,10 @@ import torch
 
 from mmlspark_tpu_torch.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.gbdt.binning import BinMapper, bucketize_fm_device
+from mmlspark_tpu_torch.gbdt import prng
 from mmlspark_tpu_torch.gbdt.objectives import Objective, get_objective
 from mmlspark_tpu_torch.gbdt.tree import GrowParams, Tree, grow_tree, \
-    predict_trees
+    predict_trees, sample_iteration_masks
 
 _log = logging.getLogger("mmlspark_tpu_torch.gbdt")
 
@@ -101,7 +105,11 @@ class Booster:
         self._dev_forest: Optional[Tuple[int, Dict[str, torch.Tensor]]] = None
         self.train_timing: Dict[str, float] = {}
         self.train_info: Dict[str, Any] = {}
+        # in memory only (a Booster rebuilt from a model string has
+        # neither): the frozen BinMapper for boost_more on fresh data, and
+        # the retained training state for boost_more(data=None)
         self.bin_mapper: Optional[BinMapper] = None
+        self._resume: Optional[Dict[str, Any]] = None
 
     # -- inference ----------------------------------------------------------
 
@@ -224,6 +232,96 @@ class Booster:
             raise ValueError(f"importance_type {importance_type!r}")
         return out
 
+    # -- incremental refresh (continued boosting) ---------------------------
+
+    def boost_more(self, num_iterations: int, X=None,
+                   y: Optional[np.ndarray] = None,
+                   sample_weight: Optional[np.ndarray] = None,
+                   valid: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                   mesh=None) -> "Booster":
+        """Append ``num_iterations`` boosting rounds and return the grown
+        forest as a NEW Booster.
+
+        - ``X is None``: exact continuation on the retained training state
+          (``train(..., {'keep_training_data': True})``): the device
+          state picks up where train() stopped, so the result is bitwise
+          the forest of one run of ``it + num_iterations`` rounds. The
+          state is single-use: it moves to the returned booster, and a
+          second call on this one raises.
+        - ``X, y`` given: boosting goes on over FRESH data binned with the
+          frozen ``bin_mapper`` (the base forest's bin space), warm-started
+          from this forest (``train(..., init_model=self)``); its sampling
+          masks start again at iteration 0, as the JAX package's code
+          does."""
+        if num_iterations <= 0:
+            raise ValueError(
+                f"num_iterations must be positive: {num_iterations}")
+        if X is None:
+            if y is not None or sample_weight is not None \
+                    or valid is not None:
+                raise ValueError(
+                    "boost_more(data=None) continues on the retained "
+                    "training state; y/sample_weight/valid only apply "
+                    "with fresh X")
+            return self._boost_more_retained(int(num_iterations))
+        if self.bin_mapper is None:
+            raise ValueError(
+                "this Booster carries no BinMapper (rebuilt from a "
+                "model string?); boost_more on fresh data needs the "
+                "frozen fit-time binning — keep the trained Booster "
+                "object, or refit")
+        params = {k: v for k, v in self.params.items() if k in DEFAULTS}
+        params["num_iterations"] = int(num_iterations)
+        # the warm start cannot retain continuation state; carrying the
+        # flag would only log train()'s warning on every refresh
+        params.pop("keep_training_data", None)
+        if valid is None:
+            params["early_stopping_round"] = 0
+        return train(params, X, y, sample_weight=sample_weight,
+                     valid=valid, feature_names=self.feature_names,
+                     mesh=mesh, init_model=self,
+                     bin_mapper=self.bin_mapper, device=self.device)
+
+    def _boost_more_retained(self, extra: int) -> "Booster":
+        st = self._resume
+        if st is None:
+            raise ValueError(
+                "no retained training state: pass "
+                "{'keep_training_data': True} to train() (single-host, "
+                "no init_model, no early stopping) to enable "
+                "boost_more(data=None)")
+        if st["consumed"]:
+            raise ValueError(
+                "retained training state already consumed: the run's "
+                "scores moved on in place, so continuation chains "
+                "through the NEWEST booster returned by boost_more")
+        t_start = time.perf_counter()
+        run: _BoostRun = st["run"]
+        it0 = st["it_done"]
+        total = it0 + extra
+        # consumed before the first step: the run's scores move on in place
+        st["consumed"] = True
+        hists0 = run.histograms
+        for it in range(it0, total):
+            run.step(it)
+        stacked, tree_depths = _stack_forest(run.trees, st["mapper"],
+                                             st["num_bins"], run.lr)
+        p2 = dict(self.params)
+        p2["num_iterations"] = total
+        booster = Booster(self.objective, stacked, st["init_score"],
+                          self.num_class, st["feature_names"], p2,
+                          best_iteration=-1, tree_depths=tree_depths,
+                          device=self.device)
+        booster.bin_mapper = st["mapper"]
+        booster._resume = {**st, "it_done": total, "consumed": False}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        booster.train_timing = {
+            "boost": round(time.perf_counter() - t_start, 3)}
+        booster.train_info = {"bin_path": "retained",
+                              "histograms": run.histograms - hists0}
+        return booster
+
     # -- serialization ------------------------------------------------------
 
     def model_to_string(self) -> str:
@@ -306,16 +404,20 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md, '{item}')")
 
 
-def _validate_params(p: Dict[str, Any], X, valid, init_model, mesh) -> None:
+def _validate_params(p: Dict[str, Any], X, valid, mesh) -> None:
     """Fail fast on everything outside this slice of the port."""
     hist_bits = int(p["hist_bits"])
     if hist_bits not in (32, 16, 8):
         raise ValueError(
             f"hist_bits={p['hist_bits']} is not supported: use 32 "
             "(f32), 16 or 8 (quantized histograms)")
-    if hist_bits < 32:
-        raise _not_ported(f"hist_bits={hist_bits}",
-                          "Quantized hist_bits=16/8 training")
+    if hist_bits < 32 and p["hist_method"] == "onehot":
+        raise ValueError(
+            f"hist_bits={hist_bits} is not supported by "
+            "hist_method='onehot' (its einsum accumulates f32, so the "
+            "run would silently lose the integer-exactness contract); "
+            "use hist_method='scatter' (any device) or 'pallas' (the "
+            "card's kernel), or hist_bits=32")
     if p["parallelism"] != "serial" or mesh is not None:
         raise _not_ported(f"parallelism={p['parallelism']!r}",
                           "Distributed GBDT")
@@ -327,29 +429,114 @@ def _validate_params(p: Dict[str, Any], X, valid, init_model, mesh) -> None:
         raise ValueError(
             "hist_comm='reduce_scatter' requires parallelism='data'")
     p["hist_comm"] = "psum"
-    if float(p["bagging_fraction"]) < 1.0 and int(p["bagging_freq"]) > 0:
-        raise _not_ported("bagging (bagging_fraction < 1)",
-                          "Bagging and feature fraction")
-    if float(p["feature_fraction"]) < 1.0:
-        raise _not_ported("feature_fraction < 1",
-                          "Bagging and feature fraction")
-    if init_model is not None:
-        raise _not_ported("init_model warm start",
-                          "GBDT warm start, validation and early stopping")
-    if valid is not None or int(p["early_stopping_round"]) > 0:
-        raise _not_ported("validation data / early stopping",
-                          "GBDT warm start, validation and early stopping")
-    if p.get("keep_training_data"):
-        raise _not_ported("keep_training_data / boost_more",
-                          "GBDT warm start, validation and early stopping")
     if p["bin_fit"] == "sketch":
         raise _not_ported("bin_fit='sketch'", "GBDT ingest beyond dense input")
     if not isinstance(X, np.ndarray):
         raise _not_ported(f"{type(X).__name__} input (CSR, ChunkedTable or "
                           "streamed shards)", "GBDT ingest beyond dense input")
+    if valid is not None and not isinstance(valid[0],
+                                            (np.ndarray, list, tuple)):
+        raise _not_ported(f"{type(valid[0]).__name__} validation input",
+                          "GBDT ingest beyond dense input")
     if p["device_binning"] not in ("auto", "on", "off"):
         raise ValueError(f"device_binning={p['device_binning']!r}; expected "
                          "'auto', 'on' or 'off'")
+
+
+class _BoostRun:
+    """The device state of one boosting run and its step: iteration
+    ``it``'s sampling masks, gradients and K trees, and the score update.
+    A Booster keeps it (``keep_training_data``) so that ``boost_more``
+    steps on from where ``train`` stopped."""
+
+    def __init__(self, objective: Objective, gp: GrowParams, lr: float,
+                 bins_d: torch.Tensor, y_d: torch.Tensor,
+                 w_d: torch.Tensor, fmask: torch.Tensor,
+                 scores: torch.Tensor, mask_key: prng.Key, bag_cfg,
+                 ff_cfg):
+        self.objective, self.gp, self.lr = objective, gp, lr
+        self.bins_d, self.y_d, self.w_d, self.fmask = bins_d, y_d, w_d, fmask
+        self.scores = scores
+        self.mask_key, self.bag_cfg, self.ff_cfg = mask_key, bag_cfg, ff_cfg
+        self.trees: List[Tree] = []
+        self.histograms = 0
+
+    def step(self, it: int) -> List[Tree]:
+        """Boost iteration ``it``; returns (and keeps) its K trees."""
+        K = self.objective.num_class
+        f = self.bins_d.shape[0]
+        w, fmask = sample_iteration_masks(self.mask_key, it, self.w_d,
+                                          self.fmask, self.bag_cfg,
+                                          self.ff_cfg, f, f)
+        scores = self.scores
+        grad, hess = self.objective.grad_hess(
+            scores[0] if K == 1 else scores, self.y_d)
+        if K == 1:
+            grad, hess = grad[None, :], hess[None, :]
+        # per-round stochastic-rounding key: fold 3 (bagging folds 1,
+        # feature fraction 2), then the class
+        kq = (prng.fold_in(prng.fold_in(self.mask_key, it), 3)
+              if self.gp.hist_bits < 32 else None)
+        out = []
+        for k in range(K):
+            tree, leaf_of_row, leaf_vals, n_leaves = grow_tree(
+                self.bins_d, grad[k].contiguous(), hess[k].contiguous(), w,
+                fmask, self.gp,
+                quant_key=None if kq is None else prng.fold_in(kq, k))
+            scores[k] += self.lr * leaf_vals[leaf_of_row.long()]
+            out.append(tree)
+            self.histograms += n_leaves
+        self.trees.extend(out)
+        return out
+
+
+class _ValidEval:
+    """Validation scores for early stopping: the held-out rows in the
+    training bins (float32), walked by each iteration's trees with
+    ``bin_threshold`` as the split value, ``scores + lr * tree`` in
+    float32, then the objective's loss (a 0-d tensor on the device)."""
+
+    def __init__(self, objective: Objective, lr: float, bins_v, yv,
+                 v_scores, depth: int, dev: torch.device):
+        self.objective, self.lr, self.depth = objective, lr, depth
+        self.bins_v = torch.from_numpy(bins_v).to(dev)
+        self.yv = torch.from_numpy(yv).to(dev)
+        self.scores = torch.from_numpy(np.ascontiguousarray(
+            v_scores, dtype=np.float32)).to(dev)
+
+    def add(self, trees: List[Tree]) -> torch.Tensor:
+        dev = self.bins_v.device
+
+        def stack(name, dtype=None):
+            return torch.from_numpy(np.ascontiguousarray(np.stack(
+                [getattr(t, name) for t in trees]), dtype=dtype)).to(dev)
+        tv = predict_trees(self.bins_v, stack("feature"),
+                           stack("bin_threshold", np.float32),
+                           stack("left"), stack("right"), stack("value"),
+                           max_depth=self.depth)             # (K, Nv)
+        self.scores = self.scores + self.lr * tv
+        K = self.scores.shape[0]
+        return self.objective.loss(self.scores[0] if K == 1 else self.scores,
+                                   self.yv)
+
+
+def _stack_forest(trees: List[Tree], mapper: BinMapper, num_bins: int,
+                  lr: float) -> Tuple[Dict[str, np.ndarray], List[int]]:
+    """Host (T, M) tree arrays with raw-value thresholds (float64) and
+    the shrinkage baked into the values, and each tree's depth."""
+    if not trees:
+        return {}, []
+    stacked = {name: np.stack([getattr(t, name) for t in trees])
+               for name in Tree._fields}
+    # bin threshold -> raw value threshold, one vectorized gather,
+    # stored in float64 (the f32 walk casts down itself)
+    thr = mapper.threshold_matrix(num_bins)[stacked["feature"],
+                                            stacked["bin_threshold"]]
+    stacked["threshold"] = np.where(stacked["is_leaf"], 0.0, thr)
+    stacked["value"] = stacked["value"] * lr  # bake shrinkage
+    tree_depths = [_tree_depth({k: v[t] for k, v in stacked.items()})
+                   for t in range(len(trees))]
+    return stacked, tree_depths
 
 
 def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
@@ -362,10 +549,22 @@ def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
     """Train a Booster on a dense (N, F) matrix ``X`` with labels ``y``,
     on ``device`` (default the card; ``'cpu'`` must be asked for).
 
-    ``bin_mapper`` overrides the bin-boundary fit with a frozen mapper.
-    The returned Booster carries ``train_timing`` (per-phase wall
-    seconds: bin, ship, boost, fetch) and ``train_info`` (bin_path,
-    histograms built)."""
+    ``init_model`` (a Booster or a model string) warm-starts: boosting
+    goes on from its effective forest's scores (``best_iteration`` trees
+    when it stopped early) and the returned Booster carries those trees
+    and the new ones. ``valid`` = (X_valid, y_valid) with
+    ``early_stopping_round`` > 0 scores the held-out rows after every
+    iteration; as in the JAX package the stop decision reads the losses
+    every ``min(early_stopping_round, 8)`` iterations (the JAX engine's
+    ``boost_chunk`` cadence, which ``boost_chunk`` sets here too), so a
+    run may train a few iterations past its stop, and ``best_iteration``
+    truncates scoring. ``bin_mapper`` overrides the bin-boundary fit
+    with a frozen mapper. With ``keep_training_data`` (no warm start, no
+    early stopping) the run's device state stays on the Booster for
+    ``boost_more()``. The returned Booster carries ``train_timing``
+    (per-phase wall seconds: bin, ship, boost, fetch) and ``train_info``
+    (bin_path, histograms built and, with early stopping, valid_loss:
+    the validation losses the stop decision read)."""
     dev = resolve_device(device)
     phases: Dict[str, float] = {}
     t_phase = time.perf_counter()
@@ -384,7 +583,7 @@ def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
                                            int(p["max_bin"]))
     if isinstance(X, (list, tuple)) and y is not None:
         X = np.asarray(X, dtype=np.float64)   # dense rows as lists
-    _validate_params(p, X, valid, init_model, mesh)
+    _validate_params(p, X, valid, mesh)
     if y is None:
         raise ValueError("y is required when X is a dense matrix")
 
@@ -425,13 +624,60 @@ def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
         del raw
     else:
         bins_d = torch.from_numpy(mapper.transform_fm(X)).to(dev)
-    init_score = (objective.init_score(y, w_base) if p["boost_from_average"]
-                  else np.zeros(K))
-    scores = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
-        np.asarray(init_score, np.float32)[:, None], (K, n)))).to(dev)
+
+    # 2) init scores: a fresh start, or a warm start from a base forest
+    base_model: Optional[Booster] = None
+    if init_model is not None:
+        base_model = (Booster.from_string(init_model, device=dev)
+                      if isinstance(init_model, str) else init_model)
+        if base_model.num_class != K:
+            raise ValueError(
+                f"init_model has {base_model.num_class} classes, "
+                f"objective expects {K}")
+        if base_model.objective.name != objective.name:
+            raise ValueError(
+                f"init_model was trained with objective "
+                f"{base_model.objective.name!r}; resuming as "
+                f"{objective.name!r} would mix link spaces")
+        if len(base_model.feature_names) != f:
+            raise ValueError(
+                f"init_model was trained on "
+                f"{len(base_model.feature_names)} features, X has {f} "
+                f"(out-of-range gathers would clamp silently)")
+        init_score = base_model.init_score
+        p["f32_unsafe"] = bool(p["f32_unsafe"]) or bool(
+            base_model.params.get("f32_unsafe", False))
+        # an early-stopped base contributes only its best_iteration trees
+        base_eff_trees = base_model._resolve_iterations(None) * K
+        scores_np = _base_raw_kn(base_model, X, K)
+    else:
+        init_score = (objective.init_score(y, w_base)
+                      if p["boost_from_average"] else np.zeros(K))
+        scores_np = np.broadcast_to(
+            np.asarray(init_score, np.float32)[:, None], (K, n))
+    scores = torch.from_numpy(np.ascontiguousarray(scores_np)).to(dev)
     y_d = torch.from_numpy(y.astype(np.float32)).to(dev)
     w_d = torch.from_numpy(w_base.astype(np.float32)).to(dev)
     fmask = torch.ones(f, dtype=torch.float32, device=dev)
+
+    # validation state: the held-out rows through the binned view, the
+    # comparisons training makes
+    esr = int(p["early_stopping_round"])
+    use_valid = valid is not None and esr > 0
+    lr = float(p["learning_rate"])
+    if use_valid:
+        Xv = np.asarray(valid[0], dtype=np.float64)
+        if Xv.ndim != 2 or Xv.shape[1] != f:
+            raise ValueError(f"validation data has shape {Xv.shape}, X has "
+                             f"{f} features")
+        v_scores = (_base_raw_kn(base_model, Xv, K) if base_model is not None
+                    else np.broadcast_to(np.asarray(
+                        init_score, np.float32)[:, None], (K, len(Xv))))
+        valid_eval = _ValidEval(
+            objective, lr, mapper.transform(Xv).astype(np.float32),
+            np.asarray(valid[1], dtype=np.float32), v_scores,
+            int(p["max_depth"]) if int(p["max_depth"]) > 0
+            else int(p["num_leaves"]) - 1, dev)
     mark("ship")
 
     gp = GrowParams(
@@ -441,46 +687,89 @@ def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
         max_depth=int(p["max_depth"]),
         lambda_l1=float(p["lambda_l1"]), lambda_l2=float(p["lambda_l2"]),
         min_gain_to_split=float(p["min_gain_to_split"]),
-        hist_method=p["hist_method"])
-    lr = float(p["learning_rate"])
+        hist_method=p["hist_method"], hist_bits=int(p["hist_bits"]))
+    bag_active = (float(p["bagging_fraction"]) < 1.0
+                  and int(p["bagging_freq"]) > 0)
+    ff_active = float(p["feature_fraction"]) < 1.0
+    bag_cfg = ((float(p["bagging_fraction"]), int(p["bagging_freq"]))
+               if bag_active else None)
+    ff_cfg = float(p["feature_fraction"]) if ff_active else None
+    # the JAX package's key: the seed when any mask or the quantization
+    # draws (is-None checks: ff_cfg == 0.0 still samples), else 0
+    mask_key = prng.PRNGKey(
+        int(p["seed"]) if (bag_cfg is not None or ff_cfg is not None
+                           or gp.hist_bits < 32) else 0)
+    run = _BoostRun(objective, gp, lr, bins_d, y_d, w_d, fmask, scores,
+                    mask_key, bag_cfg, ff_cfg)
 
-    trees: List[Tree] = []
-    histograms = 0
-    for _ in range(int(p["num_iterations"])):
-        grad, hess = objective.grad_hess(scores[0] if K == 1 else scores,
-                                         y_d)
-        if K == 1:
-            grad, hess = grad[None, :], hess[None, :]
-        for k in range(K):
-            tree, leaf_of_row, leaf_vals, n_leaves = grow_tree(
-                bins_d, grad[k].contiguous(), hess[k].contiguous(), w_d,
-                fmask, gp)
-            scores[k] += lr * leaf_vals[leaf_of_row.long()]
-            trees.append(tree)
-            histograms += n_leaves
+    # the stop decision reads the losses at the JAX engine's chunk
+    # boundaries: every esr_sync = min(esr, 8) iterations and at the end
+    # (its chunk length S_cfg, capped at esr_sync), so best_iteration and
+    # the number of trees trained past the stop come out the same
+    n_iter = int(p["num_iterations"])
+    esr_sync = max(1, min(esr, 8)) if esr > 0 else 1
+    S_cfg = int(p.get("boost_chunk", 0) or 0)
+    if S_cfg <= 0:
+        S_cfg = 8 if n_iter >= 16 else 1
+    if use_valid:
+        S_cfg = min(S_cfg, esr_sync)
+    S_cfg = max(1, min(S_cfg, n_iter))
+    best_loss, best_iter = np.inf, -1
+    pending: List[Tuple[int, torch.Tensor]] = []
+    read_losses: List[float] = []
+    it0, stop = 0, False
+    while it0 < n_iter and not stop:
+        S = min(S_cfg, n_iter - it0)
+        for it in range(it0, it0 + S):
+            trees_it = run.step(it)
+            if use_valid:
+                pending.append((it, valid_eval.add(trees_it)))
+        if use_valid and (len(pending) >= esr_sync or it0 + S >= n_iter):
+            losses = torch.stack([v for _, v in pending]).cpu().numpy()
+            for (it, _), cur in zip(pending, losses.tolist()):
+                read_losses.append(cur)
+                if cur < best_loss - 1e-12:
+                    best_loss, best_iter = cur, it + 1
+                elif it + 1 - best_iter >= esr:
+                    stop = True
+                    break
+            pending.clear()
+        it0 += S
     mark("boost")
 
-    if trees:
-        stacked = {name: np.stack([getattr(t, name) for t in trees])
-                   for name in Tree._fields}
-        # bin threshold -> raw value threshold, one vectorized gather,
-        # stored in float64 (the f32 walk casts down itself)
-        thr = mapper.threshold_matrix(num_bins)[stacked["feature"],
-                                                stacked["bin_threshold"]]
-        stacked["threshold"] = np.where(stacked["is_leaf"], 0.0, thr)
-        stacked["value"] = stacked["value"] * lr  # bake shrinkage
-        tree_depths = [_tree_depth({k: v[t] for k, v in stacked.items()})
-                       for t in range(len(trees))]
-    else:
-        stacked, tree_depths = {}, []
+    stacked, tree_depths = _stack_forest(run.trees, mapper, num_bins, lr)
+    if base_model is not None and base_eff_trees > 0:
+        base_trees = {key: v[:base_eff_trees]
+                      for key, v in base_model.trees.items()}
+        stacked = _concat_forests(base_trees, stacked)
+        tree_depths = (list(base_model.tree_depths[:base_eff_trees])
+                       + tree_depths)
+        if best_iter > 0:
+            best_iter += base_eff_trees // K
     booster = Booster(objective, stacked, init_score, K, feature_names, p,
-                      best_iteration=-1, tree_depths=tree_depths,
-                      device=dev)
+                      best_iteration=best_iter if esr > 0 else -1,
+                      tree_depths=tree_depths, device=dev)
     mark("fetch")
     booster.train_timing = phases
     booster.train_info = {"bin_path": "device" if use_device_bin else "host",
-                          "histograms": histograms}
+                          "histograms": run.histograms}
+    if use_valid:
+        # the validation losses the stop decision read, one per iteration
+        booster.train_info["valid_loss"] = read_losses
     booster.bin_mapper = mapper
+    if p.get("keep_training_data") and base_model is None and not use_valid:
+        # continuation is bit-identical to one longer run only without a
+        # warm-start base (its trees live outside the run) and without
+        # early stopping (a stopped run's scores hold the overshoot)
+        booster._resume = {"run": run, "it_done": it0, "mapper": mapper,
+                           "num_bins": num_bins, "init_score": init_score,
+                           "feature_names": feature_names,
+                           "consumed": False}
+    elif p.get("keep_training_data"):
+        _log.warning(
+            "keep_training_data requested but continuation state is "
+            "only retained for single-host runs without init_model or "
+            "early stopping; boost_more(data=None) will be unavailable")
     return booster
 
 
@@ -501,6 +790,42 @@ def _host_predict_trees(X: np.ndarray, trees: Dict[str, np.ndarray],
             node = np.where(go_left, left[node], right[node])
         out[t] = trees["value"][t][node]
     return out
+
+
+def _base_raw_kn(base_model: Booster, X: np.ndarray, K: int) -> np.ndarray:
+    """Base-forest raw margins as (K, N) float32 (warm-start init)."""
+    raw = base_model.raw_score(X)
+    if K == 1:
+        raw = raw[None, :]
+    return np.asarray(raw, dtype=np.float32)
+
+
+def _pad_nodes(v: np.ndarray, m: int, key: str) -> np.ndarray:
+    """Grow a (T, M) tree-array's node dim with inert self-loop leaves."""
+    t, cur = v.shape
+    if cur == m:
+        return v
+    pad = m - cur
+    if key in ("left", "right"):
+        idx = np.broadcast_to(np.arange(cur, m), (t, pad))
+        return np.concatenate([v, idx.astype(v.dtype)], axis=1)
+    if key == "is_leaf":
+        return np.concatenate([v, np.ones((t, pad), v.dtype)], axis=1)
+    return np.concatenate([v, np.zeros((t, pad), v.dtype)], axis=1)
+
+
+def _concat_forests(a: Dict[str, np.ndarray],
+                    b: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Stack two stacked-tree dicts along T, padding node dims to match
+    (warm start may use a different num_leaves than the base model)."""
+    if not a:
+        return b
+    if not b:
+        return a
+    m = max(a["feature"].shape[1], b["feature"].shape[1])
+    return {key: np.concatenate(
+        [_pad_nodes(a[key], m, key), _pad_nodes(b[key], m, key)], axis=0)
+        for key in b}
 
 
 def _tree_depth(tree_host: Dict[str, np.ndarray]) -> int:

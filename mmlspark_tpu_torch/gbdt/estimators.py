@@ -8,9 +8,12 @@ Model holding the model string of the ``"mmlspark_tpu.booster.v1"``
 format; ``transform`` writes the same rawPrediction / probability /
 prediction columns as the JAX package.
 
-Out-of-slice settings (quantized histograms, distributed modes,
-bagging, feature fraction, validation data, warm start, streamed or
-sparse input) raise ``NotImplementedError`` from ``booster.train``.
+Bagging, feature fraction, quantized histograms (``histBits`` 16 / 8),
+validation data with early stopping, the ``initModelString`` warm start
+and ``keepTrainingData`` run as in the JAX package; the fitted model
+keeps the live booster, so ``model.get_booster().boost_more(...)``
+works. Out-of-slice settings (distributed modes, streamed or sparse
+input) raise ``NotImplementedError`` from ``booster.train``.
 """
 
 from __future__ import annotations
@@ -75,8 +78,9 @@ class _BoostParams(HasFeaturesCol, HasLabelCol, HasPredictionCol,
         "histogram strategy: 'pallas' = the hand-written device kernel, "
         "'scatter' = the plain index_add_ version; 'auto' = the kernel "
         "on a CUDA device, scatter on the CPU", default="auto")
-    histBits = IntParam("histogram precision: 32 = f32 (16/8 = quantized, "
-                        "not ported yet)", default=32)
+    histBits = IntParam("histogram precision: 32 = f32; 16 / 8 = "
+                        "stochastically rounded int16 / int8 stats with "
+                        "exact int32 histograms", default=32)
     histComm = EnumParam(["auto", "psum", "reduce_scatter"],
                          "data-parallel histogram collective (distributed "
                          "modes are not ported yet)", default="auto")
@@ -86,8 +90,9 @@ class _BoostParams(HasFeaturesCol, HasLabelCol, HasPredictionCol,
     topK = IntParam("voting-parallel candidates per worker", default=20)
     boostChunk = IntParam(
         "boosting iterations fused per device dispatch in the JAX "
-        "package; accepted and without effect here (one Python step per "
-        "iteration gives the same forest)", default=0,
+        "package (0 = auto); here one Python step runs each iteration "
+        "and the value sets only the early-stopping cadence, as it does "
+        "there (capped at min(earlyStoppingRound, 8))", default=0,
         domain=range_domain(lo=0))
     deviceBinning = EnumParam(
         ["auto", "on", "off"],
@@ -97,12 +102,14 @@ class _BoostParams(HasFeaturesCol, HasLabelCol, HasPredictionCol,
                        "streaming bin-boundary fit (in-memory dense fits "
                        "use 'sample'; 'sketch' is not ported yet)",
                        default="sample")
-    validationData = TableParam("held-out table for early stopping (not "
-                                "ported yet)", default=None)
-    initModelString = StringParam("serialized booster to warm-start from "
-                                  "(not ported yet)", default="")
-    keepTrainingData = BoolParam("retain training state for boost_more "
-                                 "(not ported yet)", default=False)
+    validationData = TableParam("held-out table for early stopping",
+                                default=None)
+    initModelString = StringParam("serialized booster to warm-start from",
+                                  default="")
+    keepTrainingData = BoolParam(
+        "retain the training state on the fitted booster so that "
+        "Booster.boost_more(data=None) continues exactly where fit() "
+        "stopped (no warm start, no early stopping)", default=False)
 
     def _train_params(self) -> Dict[str, Any]:
         return {

@@ -41,14 +41,18 @@ TARGET_BLOCKS = 132
 # in for (pallas_hist._block_plan's routing); the plain version and the
 # CPU path never count
 LAUNCHES: Dict[str, int] = {"_hist_kernel_nibble": 0, "_hist_kernel": 0}
+# the same launches keyed by the stats' type: float32, int16 (hist_bits
+# 16) or int8 (hist_bits 8)
+LAUNCHES_BY_TYPE: Dict[str, int] = {"float32": 0, "int16": 0, "int8": 0}
 
 _C_FUNCS = {torch.float32: "mml_hist_f32", torch.int16: "mml_hist_i16",
             torch.int8: "mml_hist_i8"}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_TYPE):
+        for k in counts:
+            counts[k] = 0
 
 
 def tpu_route(num_leaves: int, num_bins: int) -> str:
@@ -252,4 +256,5 @@ def hist_cuda(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                            f"{err} (F={f}, N={n}, L={num_leaves}, "
                            f"B={num_bins})")
     LAUNCHES[tpu_route(num_leaves, num_bins)] += 1
+    LAUNCHES_BY_TYPE[str(grad.dtype).split(".")[-1]] += 1
     return out

@@ -1,6 +1,6 @@
 """Leaf-wise tree growth and the batched forest walk.
 
-Port of ``mmlspark_tpu/gbdt/tree.py`` (serial, float32 histograms). The
+Port of ``mmlspark_tpu/gbdt/tree.py`` (serial). The
 JAX grower is one jitted ``fori_loop`` with masked updates; here the
 split loop is a Python loop whose per-split bookkeeping lives on the host
 (a few (L,) / (2L-1,) numpy arrays) while the row-sized work stays on the
@@ -23,18 +23,27 @@ Kept from the JAX grower, so trees come out the same:
 It builds one L = 1 histogram for the root and one per split: at most
 ``num_leaves`` histograms per tree per class.
 
-Not ported yet (``booster.train`` raises NotImplementedError naming the
-ROADMAP.md item): quantized ``hist_bits < 32``, the distributed modes,
-and the bagging / feature-fraction masks of ``sample_iteration_masks``.
+Quantized training (``hist_bits`` 16 / 8) follows the JAX grower: the
+gradients, hessians and weights are stochastically rounded once per tree
+to int16 / int8 under global-L1 scales, with uniforms keyed on
+``quant_key`` and the row id (``prng``, JAX's threefry bit for bit); the
+histograms, the cache's sibling subtraction and the bin cumsums are exact
+int32, dequantized once at gain time and at the leaf values. The
+bagging / feature-fraction masks of ``sample_iteration_masks`` come from
+the same bits. The distributed modes are not ported yet
+(``booster.train`` raises NotImplementedError naming the ROADMAP.md
+item).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.gbdt import prng
 from mmlspark_tpu_torch.gbdt.histogram import build_histogram
 
 NEG_INF = -1e30
@@ -42,8 +51,7 @@ NEG_INF = -1e30
 
 class GrowParams(NamedTuple):
     """Growth hyperparams: the JAX package's fields and defaults for the
-    serial float32 grower (its distributed and quantized fields are not
-    ported yet)."""
+    serial grower (its distributed fields are not ported yet)."""
     num_leaves: int = 31
     num_bins: int = 64
     min_data_in_leaf: int = 20
@@ -53,6 +61,9 @@ class GrowParams(NamedTuple):
     lambda_l2: float = 0.0
     min_gain_to_split: float = 0.0
     hist_method: str = "scatter"
+    # 32 = float32 histograms; 16 / 8 = stochastically rounded int16 /
+    # int8 stats with exact int32 histograms
+    hist_bits: int = 32
 
 
 class Tree(NamedTuple):
@@ -70,6 +81,53 @@ class Tree(NamedTuple):
     count: np.ndarray          # (M,) f32 row count at node
 
 
+def _index_uniforms(key: prng.Key, ids: torch.Tensor) -> torch.Tensor:
+    """Counter-based float32 uniforms: u[j] = uniform(fold_in(key,
+    ids[j])), a function of (key, ids[j]) alone, so a row or feature
+    draws the same value whatever the length of ``ids``. On the device
+    of ``ids``."""
+    return prng.uniform(prng.fold_in(key, ids))
+
+
+def sample_iteration_masks(key: prng.Key, it: int, w_base: torch.Tensor,
+                           fmask_base: torch.Tensor, bag_cfg, ff_cfg,
+                           f_valid: int, f_total: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bagging / feature-fraction masks of boosting iteration ``it`` (the
+    JAX package's, serial): a pure function of (key, it) and the row /
+    feature index.
+
+    - Bagging (``bag_cfg = (fraction, freq)``): per-row uniforms from the
+      key folded with the last resample iteration and then 1; a row stays
+      while its uniform is below the fraction (in float32).
+    - Feature fraction (``ff_cfg = fraction``): per-feature uniforms from
+      the key folded with ``it`` and then 2; with k = max(1, ceil(fraction
+      * f_valid)), the features whose uniform is at most the k-th smallest
+      stay (``uf <= kth``: features tied with the k-th all stay, as in
+      the JAX package)."""
+    w = w_base
+    if bag_cfg is not None:
+        frac, freq = bag_cfg
+        bag_it = (it // freq) * freq
+        kb = prng.fold_in(prng.fold_in(key, bag_it), 1)
+        u = _index_uniforms(kb, torch.arange(w_base.shape[0],
+                                             device=w_base.device))
+        # the fraction as the float32 the JAX package compares with
+        w = w_base * (u < float(np.float32(frac)))
+    fmask = fmask_base
+    if ff_cfg is not None:
+        dev = fmask_base.device
+        kf = prng.fold_in(prng.fold_in(key, it), 2)
+        uf = _index_uniforms(kf, torch.arange(f_total, device=dev))
+        valid = torch.arange(f_total, device=dev) < f_valid
+        uf = torch.where(valid, uf, torch.full_like(uf, math.inf))
+        k = max(1, math.ceil(ff_cfg * f_valid))
+        kth = torch.sort(uf).values[k - 1]
+        m = ((uf <= kth) & valid).to(fmask_base.dtype)
+        fmask = fmask_base * m
+    return w, fmask
+
+
 def _leaf_output(g, h, l1, l2):
     """Optimal leaf value with L1 soft-thresholding:
     -sgn(g)·max(|g|-l1, 0) / (h + l2)."""
@@ -82,9 +140,47 @@ def _split_gain(g, h, l1, l2):
     return num * num / (h + l2)
 
 
+def quant_scales(grad: torch.Tensor, hess: torch.Tensor,
+                 weight: torch.Tensor, hist_bits: int) -> torch.Tensor:
+    """The (3,) float32 quantization steps (dg, dh, dc) of one tree:
+    ``delta = max(sum(|stat|), 1e-30) / Q``, Q = 2**(bits - 2), over
+    grad * weight, hess * weight and weight — float32 sums in torch's
+    order, as the JAX package takes them in XLA's."""
+    scales = torch.stack([torch.sum(torch.abs(grad * weight)),
+                          torch.sum(torch.abs(hess * weight)),
+                          torch.sum(torch.abs(weight))])
+    tiny = torch.tensor(1e-30, dtype=torch.float32, device=grad.device)
+    return torch.maximum(scales, tiny) / (1 << (hist_bits - 2))
+
+
+def _sround(vals: torch.Tensor, delta: torch.Tensor, quant_key: prng.Key,
+            chan: int, sdt: torch.dtype) -> torch.Tensor:
+    """Stochastic rounding of vals / delta: floor(x) + (u < x - floor(x))
+    with u the uniform of (fold_in(quant_key, chan), row id), so every
+    row rounds the same way whatever the layout."""
+    x = vals / delta
+    fl = torch.floor(x)
+    u = _index_uniforms(prng.fold_in(quant_key, chan),
+                        torch.arange(vals.shape[0], device=vals.device))
+    return (fl + (u < (x - fl)).to(torch.float32)).to(sdt)
+
+
+def quantize_stats(grad: torch.Tensor, hess: torch.Tensor,
+                   weight: torch.Tensor, hist_bits: int,
+                   quant_key: prng.Key):
+    """The JAX grower's once-per-tree discretization: (qg, qh, qc) in
+    int16 / int8 (channels 0, 1, 2 of the rounding) and the (3,) scales
+    (dg, dh, dc). Rows of weight 0 round to 0."""
+    sdt = torch.int8 if hist_bits == 8 else torch.int16
+    deltas = quant_scales(grad, hess, weight, hist_bits)
+    return (_sround(grad * weight, deltas[0], quant_key, 0, sdt),
+            _sround(hess * weight, deltas[1], quant_key, 1, sdt),
+            _sround(weight, deltas[2], quant_key, 2, sdt), deltas)
+
+
 def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               weight: torch.Tensor, feature_mask: torch.Tensor,
-              p: GrowParams
+              p: GrowParams, quant_key: Optional[prng.Key] = None
               ) -> Tuple[Tree, torch.Tensor, torch.Tensor, int]:
     """Grow one tree; returns (Tree, leaf_of_row, leaf_values, n_leaves).
 
@@ -92,7 +188,8 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     and feature_mask (F,) float32 (0 disables a feature) on the same
     device. The Tree's arrays are host numpy; ``leaf_of_row`` (N,) int32
     and ``leaf_values`` (L,) float32 stay on the device for the score
-    update."""
+    update. ``p.hist_bits`` 16 / 8 needs ``quant_key``, the tree's key
+    for the stochastic rounding (``quantize_stats``)."""
     f, n = bins.shape
     L = p.num_leaves
     M = 2 * L - 1
@@ -104,9 +201,29 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     zero_leaf = torch.zeros(n, dtype=torch.int32, device=dev)
     neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
     fm_ok = (feature_mask > 0)[:, None]
+    quantized = p.hist_bits < 32
+    if quantized:
+        if p.hist_bits not in (16, 8):
+            raise ValueError(
+                f"hist_bits={p.hist_bits} is not supported: use 32 "
+                "(f32), 16 or 8 (quantized stochastic rounding)")
+        if quant_key is None:
+            raise ValueError(
+                "hist_bits < 32 requires quant_key (per-round PRNG key "
+                "for deterministic stochastic rounding)")
+        sdt = torch.int8 if p.hist_bits == 8 else torch.int16
+        qg, qh, qc, deltas = quantize_stats(grad, hess, weight, p.hist_bits,
+                                            quant_key)
 
     def leaf_hist(mask_weight):
-        """(3, F, B) histogram of the rows selected by mask_weight."""
+        """(3, F, B) histogram of the rows selected by mask_weight:
+        float32, or exact int32 when quantized (mask_weight is then the
+        0/1 row indicator in the narrow type; the row weight lives in
+        qg / qh / qc)."""
+        if quantized:
+            return build_histogram(bins, qg, qh, mask_weight, zero_leaf, 1,
+                                   B, method=p.hist_method,
+                                   count_values=qc)[:, 0]
         return build_histogram(bins, grad, hess, mask_weight, zero_leaf, 1,
                                B, method=p.hist_method)[:, 0]
 
@@ -114,11 +231,18 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         """Best candidate split of one leaf from its (3, F, B) histogram:
         float64 (gain, feature, bin, left_count, total_count) — every
         entry an exact widening of its float32 / int value."""
-        Gh, Hh, Ch = hist[0], hist[1], hist[2]                   # (F, B)
-        G, H, C = Gh[0].sum(), Hh[0].sum(), Ch[0].sum()
-        GL = torch.cumsum(Gh, dim=-1)
-        HL = torch.cumsum(Hh, dim=-1)
-        CL = torch.cumsum(Ch, dim=-1)
+        if quantized:
+            # exact int32 cumsums, one dequantize at gain time: float32(int)
+            # * delta; feature 0's last cumsum is the leaf's exact total
+            GL, HL, CL = (torch.cumsum(hist, dim=-1, dtype=torch.int32)
+                          .to(torch.float32) * deltas[:, None, None])
+            G, H, C = GL[0, -1], HL[0, -1], CL[0, -1]
+        else:
+            Gh, Hh, Ch = hist[0], hist[1], hist[2]               # (F, B)
+            G, H, C = Gh[0].sum(), Hh[0].sum(), Ch[0].sum()
+            GL = torch.cumsum(Gh, dim=-1)
+            HL = torch.cumsum(Hh, dim=-1)
+            CL = torch.cumsum(Ch, dim=-1)
         GR, HR, CR = G - GL, H - HL, C - CL
         parent_score = _split_gain(G, H, l1, l2)
         gain = (_split_gain(GL, HL, l1, l2) + _split_gain(GR, HR, l1, l2)
@@ -135,7 +259,8 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
     # root: slot 0 holds all rows (its children sit at depth 1, legal for
     # any max_depth >= 1, so the root's candidate is never depth-blocked)
-    root_hist = leaf_hist(weight)
+    root_hist = leaf_hist(torch.ones(n, dtype=sdt, device=dev)
+                          if quantized else weight)
     hist_cache = torch.zeros((L,) + tuple(root_hist.shape),
                              dtype=root_hist.dtype, device=dev)
     hist_cache[0] = root_hist
@@ -174,7 +299,10 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         # one masked single-leaf histogram for the right child; the left
         # sibling is parent - right (the LightGBM subtraction trick)
-        hist_r = leaf_hist(weight * (leaf_of_row == new_leaf))
+        if quantized:
+            hist_r = leaf_hist((leaf_of_row == new_leaf).to(sdt))
+        else:
+            hist_r = leaf_hist(weight * (leaf_of_row == new_leaf))
         hist_l = hist_cache[bl] - hist_r
 
         child_depth = int(leaf_depth[bl]) + 1
@@ -209,6 +337,9 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     # feature 0's bin sums ARE the leaf totals
     g_leaf = hist_cache[:, 0, 0, :].sum(-1)
     h_leaf = hist_cache[:, 1, 0, :].sum(-1)
+    if quantized:
+        g_leaf = g_leaf.to(torch.float32) * deltas[0]
+        h_leaf = h_leaf.to(torch.float32) * deltas[1]
     active_d = torch.arange(L, device=dev) < n_leaves
     leaf_values = torch.where(active_d, _leaf_output(g_leaf, h_leaf, l1, l2),
                               torch.zeros((), device=dev))

@@ -1,17 +1,25 @@
 """Where the time of one GBDT fit goes on a CUDA card (the PyTorch port).
 
     python3 -m mmlspark_tpu_torch.profile_fit [--max-bin 255] [--trace PATH]
+        [--hist-bits 32|16|8] [--bagging]
     python3 mmlspark_tpu_torch/profile_fit.py [--root DIR] [--repeat K] ...
 
 Fits ``mmlspark_tpu_torch.TPUBoostClassifier`` at the configuration that
-``chip_smoke.py`` drives (1M rows x 28 features, 5 rounds, 63 leaves)
+``chip_smoke.py`` drives (1M rows x 28 features, 5 rounds, 63 leaves;
+``--hist-bits 16|8`` quantized training, ``--bagging`` bagging 0.8 every
+iteration and feature fraction 0.8, seed 7, as ``chip_smoke.py`` phase 7)
 once to warm up (kernel build, allocator), then fits again on the same
 HIGGS-shaped table under
 ``torch.profiler`` (CPU and CUDA activities) and prints:
   - the booster's phases (``train_timing``: bin, ship, boost, fetch);
   - the share of rows each histogram launch of the warm-up fit saw
-    active (nonzero weight): its roots (every row) and its masked right
-    children (mean, median, p90), the shares the kernel is timed at;
+    active (nonzero weight): its roots (each tree's first launch) and
+    its masked right children (mean, median, p90), the shares the kernel
+    is timed at;
+  - with ``--bagging`` or ``--hist-bits`` below 32, the cost of the
+    threefry draws on the card (device time and host wall time): one
+    iteration's bagging / feature-fraction masks and one tree's
+    quantization (three L1 scales and three rounding draws);
   - the histogram kernels' device time in the fit, in all and per
     launch;
   - the boost window on the device (first to last histogram-kernel
@@ -64,9 +72,44 @@ def union_us(intervals):
     return total
 
 
+def threefry_costs(torch) -> dict:
+    """What the threefry draws cost on the card at ROWS rows, as
+    {what: (device ms, host wall ms)}: the device time (median of
+    CUDA-event timings, the host's issue time out) and the host's wall
+    time with a synchronise, of one iteration's bagging /
+    feature-fraction masks and of one tree's quantization."""
+    from mmlspark_tpu_torch.gbdt import prng
+    from mmlspark_tpu_torch.gbdt.tree import (quantize_stats,
+                                              sample_iteration_masks)
+    from mmlspark_tpu_torch.profile_hist import time_ms
+    dev = torch.device("cuda")
+    key = prng.PRNGKey(7)
+    w = torch.ones(ROWS, device=dev)
+    fm = torch.ones(28, device=dev)
+    g = torch.randn(ROWS, device=dev)
+    costs = {}
+    for label, fn in (
+            ("bagging + feature-fraction masks (one iteration)",
+             lambda: sample_iteration_masks(key, 1, w, fm, (0.8, 1), 0.8,
+                                            28, 28)),
+            ("quantization, 16 bits (one tree)",
+             lambda: quantize_stats(g, w * 0.25, w, 16, key))):
+        dev_ms = time_ms(fn)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        costs[label] = (dev_ms, 1e3 * (time.perf_counter() - t0) / 10)
+    return costs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-bin", type=int, default=255)
+    ap.add_argument("--hist-bits", type=int, default=32,
+                    choices=(32, 16, 8))
+    ap.add_argument("--bagging", action="store_true",
+                    help="bagging 0.8 every iteration, feature fraction 0.8")
     ap.add_argument("--trace", default="")
     ap.add_argument("--repeat", type=int, default=0,
                     help="unprofiled fits timed before the profiled one")
@@ -88,6 +131,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.gbdt import booster as booster_mod
     from mmlspark_tpu_torch.gbdt import hist_kernels as HK
     from mmlspark_tpu_torch.gbdt import tree as tree_mod
     from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
@@ -100,19 +144,26 @@ def main() -> int:
 
     X, y = higgs_shape(ROWS)
     table = DataTable({"features": X, "label": y})
-    est = TPUBoostClassifier(numIterations=ITERS,
-                             numLeaves=LEAVES, maxBin=args.max_bin)
-    active = []
-    grow_build = tree_mod.build_histogram
+    sampled = (dict(baggingFraction=0.8, baggingFreq=1,
+                    featureFraction=0.8) if args.bagging else {})
+    est = TPUBoostClassifier(numIterations=ITERS, numLeaves=LEAVES,
+                             maxBin=args.max_bin, histBits=args.hist_bits,
+                             seed=7, **sampled)
+    active, roots = [], []
+    grow_build, grow = tree_mod.build_histogram, booster_mod.grow_tree
 
     def counting(bins, grad, hess, weight, *a, **kw):
         active.append((weight != 0).sum())
         return grow_build(bins, grad, hess, weight, *a, **kw)
-    tree_mod.build_histogram = counting
+
+    def new_tree(*a, **kw):
+        roots.append(len(active))       # the tree's first launch is next
+        return grow(*a, **kw)
+    tree_mod.build_histogram, booster_mod.grow_tree = counting, new_tree
     try:
         est.fit(table)                              # warm-up, counted
     finally:
-        tree_mod.build_histogram = grow_build
+        tree_mod.build_histogram, booster_mod.grow_tree = grow_build, grow
     torch.cuda.synchronize()
     for i in range(args.repeat):
         t0 = time.perf_counter()
@@ -130,21 +181,29 @@ def main() -> int:
         fit_s = time.perf_counter() - t0
     print(f"port from {root}")
     print(f"card: {torch.cuda.get_device_name(0)}; rows {ROWS}, "
-          f"iters {ITERS}, leaves {LEAVES}, max_bin "
-          f"{args.max_bin}")
+          f"iters {ITERS}, leaves {LEAVES}, max_bin {args.max_bin}, "
+          f"hist_bits {args.hist_bits}, bagging / feature fraction "
+          f"{'0.8 / 0.8' if args.bagging else 'off'}")
     print(f"fit {fit_s:.3f} s; phases {booster.train_timing}; histogram "
-          f"launches {dict(HK.LAUNCHES)}")
-    # a tree's root sees every row; every other launch is a right child,
-    # which holds fewer rows than its tree's root
+          f"launches {dict(HK.LAUNCHES)}, by stats type "
+          f"{dict(HK.LAUNCHES_BY_TYPE)}")
+    # each tree's first launch is its root; every other launch is a
+    # masked right child
     counts = torch.stack(active).cpu().numpy().astype(np.int64)
     share = counts / ROWS
-    child = share[counts < counts.max()]
+    is_root = np.zeros(len(counts), bool)
+    is_root[roots] = True
+    child = share[~is_root]
     print(f"active rows per histogram launch (warm-up fit): "
-          f"{int((counts == counts.max()).sum())} roots at "
-          f"{100 * share.max():.1f} %; {child.size} masked children: mean "
+          f"{int(is_root.sum())} roots at {100 * share[is_root].mean():.1f} "
+          f"% on average; {child.size} masked children: mean "
           f"{100 * child.mean():.2f} %, median "
           f"{100 * np.median(child):.2f} %, p90 "
           f"{100 * np.percentile(child, 90):.2f} %")
+    if args.bagging or args.hist_bits < 32:
+        for label, (dev_ms, wall_ms) in threefry_costs(torch).items():
+            print(f"threefry draws, {label}: device {dev_ms:.3f} ms, host "
+                  f"wall {wall_ms:.3f} ms")
 
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]

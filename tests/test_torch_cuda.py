@@ -549,3 +549,126 @@ def test_cuda_gbdt_served_over_http_equals_transform(card, tmp_path):
             assert engine.is_alive()
         finally:
             engine.stop()
+
+
+def _gbdt_table(n=20_000, seed=7):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 28)).astype(np.float32)
+    y = (X[:, 0] + 0.6 * X[:, 1] * X[:, 2] + 0.3
+         + rng.normal(scale=0.5, size=n) > 0).astype(np.float32)
+    return X, y
+
+
+@pytest.mark.cuda
+def test_cuda_sampling_masks_and_rounding_equal_cpu(card):
+    """The threefry draws are integer ops: the bagging / feature-fraction
+    masks and the stochastic rounding of the same float32 stats under the
+    same scales and key come out bitwise equal on the card and the CPU."""
+    from mmlspark_tpu_torch.gbdt import prng
+    from mmlspark_tpu_torch.gbdt.tree import (
+        _sround, quant_scales, sample_iteration_masks)
+    key = prng.PRNGKey(7)
+    cpu = torch.device("cpu")
+    w = {d: torch.ones(100_000, device=d) for d in (card, cpu)}
+    fm = {d: torch.ones(28, device=d) for d in (card, cpu)}
+    for it in range(3):
+        wg, fg = sample_iteration_masks(key, it, w[card], fm[card],
+                                        (0.8, 1), 0.3, 28, 28)
+        wc, fc = sample_iteration_masks(key, it, w[cpu], fm[cpu],
+                                        (0.8, 1), 0.3, 28, 28)
+        assert torch.equal(wg.cpu(), wc) and torch.equal(fg.cpu(), fc)
+    rng = np.random.default_rng(0)
+    g = torch.from_numpy(rng.normal(size=100_000).astype(np.float32))
+    h = torch.from_numpy(rng.uniform(0.05, 0.25, 100_000).astype(np.float32))
+    wc = torch.from_numpy((rng.random(100_000) < 0.8).astype(np.float32))
+    for bits, sdt in ((16, torch.int16), (8, torch.int8)):
+        scales = quant_scales(g, h, wc, bits)
+        for chan, (v, d) in enumerate(zip((g * wc, h * wc, wc), scales)):
+            a = _sround(v, d, key, chan, sdt)
+            b = _sround(v.to(card), d.to(card), key, chan, sdt)
+            assert torch.equal(a, b.cpu()), (bits, chan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,max_bin", [(16, 255), (8, 63)])
+def test_cuda_quantized_fit_launches_the_int_kernel(card, bits, max_bin,
+                                                    monkeypatch):
+    """A quantized fit on the card launches the int16 / int8 kernel once
+    per histogram and never the f32 one, and each of its trees is the one
+    the CPU grows from that tree's inputs under the card's three scales
+    (structure, gains, values, leaf of every row). The card's and the
+    CPU's f32 L1 sums may differ in the last bit, and at 8 bits that ulp
+    can flip a near-tied split, so the two whole fits are held by AUC at
+    16 bits only."""
+    from mmlspark_tpu_torch.gbdt import booster as booster_mod
+    from mmlspark_tpu_torch.gbdt import tree as tree_mod
+    from mmlspark_tpu_torch.gbdt.booster import train
+    X, y = _gbdt_table(24_000)
+    kw = {"objective": "binary", "num_iterations": 5, "num_leaves": 15,
+          "max_bin": max_bin, "hist_bits": bits, "seed": 7}
+    grown, scales = [], []
+    grow, quant_scales = booster_mod.grow_tree, tree_mod.quant_scales
+
+    def rec_grow(bins, grad, hess, w, fm, gp, quant_key=None):
+        out = grow(bins, grad, hess, w, fm, gp, quant_key=quant_key)
+        grown.append(([t.cpu() for t in (bins, grad, hess, w, fm)], gp,
+                      quant_key, out[0], out[1].cpu()))
+        return out
+
+    def rec_scales(*a):
+        deltas = quant_scales(*a)
+        scales.append(deltas.cpu())
+        return deltas
+    with monkeypatch.context() as m:
+        m.setattr(booster_mod, "grow_tree", rec_grow)
+        m.setattr(tree_mod, "quant_scales", rec_scales)
+        HK.reset_launches()
+        bg = train(kw, X[:20_000], y[:20_000], device="cuda")
+        launches = dict(HK.LAUNCHES_BY_TYPE)
+    sdt = f"int{bits}"
+    assert launches[sdt] == bg.train_info["histograms"] > 0
+    assert sum(launches.values()) == launches[sdt]
+    assert len(grown) == len(scales) == 5
+    for t, (inputs, gp, key, card_tree, card_leaf) in enumerate(grown):
+        with monkeypatch.context() as m:
+            m.setattr(tree_mod, "quant_scales", lambda *a: scales[t])
+            tr, leaf_of_row, _, _ = tree_mod.grow_tree(*inputs, gp,
+                                                       quant_key=key)
+        for k in tr._fields:
+            np.testing.assert_array_equal(getattr(tr, k),
+                                          getattr(card_tree, k),
+                                          err_msg=f"tree {t} {k}")
+        assert torch.equal(leaf_of_row, card_leaf), t
+    bc = train(kw, X[:20_000], y[:20_000], device="cpu")
+
+    def auc(b):
+        p = b.predict(X[20_000:])
+        yt = y[20_000:]
+        order = np.argsort(p, kind="stable")
+        ranks = np.empty(len(p))
+        ranks[order] = np.arange(1, len(p) + 1)
+        n_pos = int(yt.sum())
+        return (ranks[yt == 1].sum() - n_pos * (n_pos + 1) / 2) / (
+            n_pos * (len(yt) - n_pos))
+    if bits == 16:
+        assert abs(auc(bg) - auc(bc)) < 0.005
+    assert auc(bg) > 0.6 and auc(bc) > 0.6
+
+
+@pytest.mark.cuda
+def test_cuda_retained_continuation_bitwise(card):
+    """On the card too, keep_training_data + boost_more(3) gives the
+    forest of one longer run bitwise (q16, bagging, feature fraction)."""
+    from mmlspark_tpu_torch.gbdt.booster import train
+    X, y = _gbdt_table()
+    kw = {"objective": "binary", "num_iterations": 3, "num_leaves": 15,
+          "max_bin": 63, "hist_bits": 16, "seed": 3,
+          "bagging_fraction": 0.7, "bagging_freq": 1,
+          "feature_fraction": 0.8}
+    one = train({**kw, "num_iterations": 6}, X, y, device="cuda")
+    grown = train({**kw, "keep_training_data": True}, X, y,
+                  device="cuda").boost_more(3)
+    assert grown.num_trees == one.num_trees == 6
+    for k in one.trees:
+        np.testing.assert_array_equal(grown.trees[k], one.trees[k],
+                                      err_msg=k)

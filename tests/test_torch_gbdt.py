@@ -429,6 +429,14 @@ t = mtt.DataTable({"features": X, "label": y})
 out = mtt.TPUBoostClassifier(numIterations=3, numLeaves=7, maxBin=31,
                              device="cpu").fit(t).transform(t)
 assert (out["prediction"] == y).mean() > 0.9
+# quantized, bagged, feature-sampled, early-stopped on a validation set
+m = mtt.TPUBoostClassifier(numIterations=20, numLeaves=7, maxBin=31,
+                           histBits=16, baggingFraction=0.8, baggingFreq=1,
+                           featureFraction=0.8, earlyStoppingRound=3,
+                           validationData=t, keepTrainingData=False,
+                           device="cpu").fit(t)
+assert (m.transform(t)["prediction"] == y).mean() > 0.9
+assert m.get_booster().best_iteration > 0
 assert not any(m.split(".")[0] in ("jax", "mmlspark_tpu")
                for m, v in sys.modules.items() if v is not None)
 print("OK")
@@ -459,14 +467,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card, higgs):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"hist_bits": 16}, "Quantized hist_bits"),
-    ({"hist_bits": 8}, "Quantized hist_bits"),
     ({"parallelism": "data"}, "Distributed GBDT"),
-    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "Bagging and feature"),
-    ({"feature_fraction": 0.5}, "Bagging and feature"),
-    ({"early_stopping_round": 5}, "early stopping"),
-    ({"keep_training_data": True}, "warm start"),
+    ({"parallelism": "feature"}, "Distributed GBDT"),
+    ({"parallelism": "voting"}, "Distributed GBDT"),
+    ({"parallelism": "data", "hist_bits": 16}, "Distributed GBDT"),
     ({"bin_fit": "sketch"}, "ingest beyond dense"),
+    ({"bin_fit": "sketch", "hist_bits": 8}, "ingest beyond dense"),
 ])
 def test_out_of_slice_options_raise(params, item):
     X = np.random.default_rng(0).normal(size=(50, 3))
@@ -474,13 +480,35 @@ def test_out_of_slice_options_raise(params, item):
         ttrain({"num_iterations": 1, **params}, X, X[:, 0], device="cpu")
 
 
+@pytest.mark.parametrize("params", [
+    {"hist_bits": 16}, {"hist_bits": 8},
+    {"bagging_fraction": 0.5, "bagging_freq": 1},
+    {"feature_fraction": 0.5},
+    {"early_stopping_round": 5},
+    {"keep_training_data": True},
+])
+def test_options_of_this_slice_no_longer_raise(params):
+    # bagging, feature fraction, quantized training, early stopping and
+    # keep_training_data were out of the slice until the port took them
+    X = np.random.default_rng(0).normal(size=(50, 3))
+    b = ttrain({"num_iterations": 2, "min_data_in_leaf": 5, **params}, X,
+               X[:, 0], valid=(X, X[:, 0]), device="cpu")
+    assert b.num_trees == 2
+
+
 def test_warm_start_validation_and_streaming_raise():
     X = np.random.default_rng(0).normal(size=(50, 3))
     y = X[:, 0]
-    with pytest.raises(NotImplementedError, match="warm start"):
+    # warm start and validation are in the slice: a bad model string and
+    # a validation set of another width raise, as in the JAX package
+    with pytest.raises(KeyError):
         ttrain({"num_iterations": 1}, X, y, init_model="{}", device="cpu")
-    with pytest.raises(NotImplementedError, match="early stopping"):
-        ttrain({"num_iterations": 1}, X, y, valid=(X, y), device="cpu")
+    with pytest.raises(ValueError):
+        ttrain({"num_iterations": 1, "early_stopping_round": 2}, X, y,
+               valid=(X[:, :2], y), device="cpu")
+    with pytest.raises(NotImplementedError, match="ingest beyond dense"):
+        ttrain({"num_iterations": 1, "early_stopping_round": 2}, X, y,
+               valid=(iter([X]), y), device="cpu")
     with pytest.raises(NotImplementedError, match="ingest beyond dense"):
         ttrain({"num_iterations": 1}, iter([(X, y)]), None, device="cpu")
     with pytest.raises(NotImplementedError, match="ingest beyond dense"):
