@@ -115,9 +115,40 @@ Phases, one line each; any failure exits non-zero:
                scales of each, and the q16 / q8 rounding of the same f32
                stats and the int16 / int8 root and masked-child
                histograms bitwise equal across the two.
+  8. GBDT ingest beyond dense input — (a) the Bosch production-line
+               shape of NVIDIA's gbm-bench as a CSRMatrix (1,183,747 rows
+               x 968 float32 features, ~19 % nonzero, seed 7, drawn on
+               the card; 100k more CSR rows held out) in a DataTable,
+               TPUBoostClassifier (63 leaves, max_bin 255, 5 rounds) on
+               the card, traced: fit s, train_timing, launches (one per
+               histogram), hist share of the boost, holdout AUC;
+               transform_sparse of 100k rows bitwise equal to the host
+               library's dense transform and to the fit's bins; a 200k-row
+               slice fitted from CSR and from its dense copy with equal
+               upper_bounds and bitwise equal forests; predict on the CSR
+               holdout bitwise equal to predict on its dense copy; the
+               kernel on the table's bins at a root and a 5 % child
+               against hist_plain in float64 (counts exact; g and h within
+               rtol 1e-5 / atol 1e-3 + 2e-7 of the bin's absolute mass,
+               since ~960k rows share a zero bin), with
+               its time, the plain version's, a weighted bincount's and
+               the bound. (b) phase 3's 1M x 28 table as .npy columns:
+               ChunkedTable.from_npy (65,536-row chunks) fits with binFit
+               'sample' and 'sketch', and booster.train on a list of (X,
+               y) shards: fit s, OOCStats, holdout AUC within 0.005 of
+               phase 3's dense fit, the chunk bytes alive at once (weakref
+               count) within tracked_peak_bytes = (depth + 2) x peak
+               chunk, the sketch cuts within 2 x sketch_eps in rank of an
+               exact all-rows fit, and a sketch fit that never compacts
+               (values on a 1/40 grid) giving the dense fit's cuts
+               bitwise. (c) the host binning library (csrc/bins.cpp)
+               bitwise equal to _numpy_bin_block on the 1M x 28 table in
+               float32 and float64, all features and a range, with host
+               ms and the OpenMP thread count.
 Then one JSON line of per-kernel numbers (the hist rows include the int16
-and int8 launches of (b) and (c)), the card's name and power limit, and
-as the last line {"ok": true, "device": {...}}.
+and int8 launches of 7(b) and 7(c) and the F = 968 launches of 8(a)), the
+card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits 1 and prints no result.
 """
@@ -468,12 +499,61 @@ def serving_slice(model, out, Xte, smi: str) -> None:
           f"transform, no new shape while serving; card: {smi}")
 
 
+def traced_fit(label: str, table, test_t, yte, **kw):
+    """One main-path fit of TPUBoostClassifier (63 leaves, seed 7; counts
+    set to 0 just before, read just after), traced on the device:
+    seconds, phases, holdout AUC, and the hist kernels' share of the
+    boost window. Returns (model, booster, AUC, launches by stats type,
+    launches by route)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch.gbdt import hist_kernels as HK
+    from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+    from mmlspark_tpu_torch.profile_fit import union_us
+    HK.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model = TPUBoostClassifier(numLeaves=63, seed=7, **kw).fit(table)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = dict(HK.LAUNCHES_BY_TYPE)
+    routes = dict(HK.LAUNCHES)
+    booster = model.get_booster()
+    prob = np.asarray(model.transform(test_t)["probability"])
+    check(prob.shape == (len(yte), 2) and np.isfinite(prob).all(),
+          f"{label}: outputs {prob.shape} not finite")
+    a = auc(yte, prob[:, 1])
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    hist = [e for e in ev if "hist_" in e.name]
+    share = "not measured (no device events traced)"
+    if hist:
+        hist_ms = sum(e.time_range.end - e.time_range.start
+                      for e in hist) / 1e3
+        w0 = min(e.time_range.start for e in hist)
+        w1 = max(e.time_range.end for e in hist)
+        busy = union_us([(max(e.time_range.start, w0),
+                          min(e.time_range.end, w1)) for e in ev
+                         if e.time_range.end > w0
+                         and e.time_range.start < w1])
+        boost_ms = 1e3 * booster.train_timing["boost"]
+        share = (f"hist kernels {hist_ms:.3f} ms = "
+                 f"{100 * hist_ms / boost_ms:.2f} % of the boost phase "
+                 f"({boost_ms:.1f} ms); device busy "
+                 f"{100 * busy / max(w1 - w0, 1e-9):.1f} % of the "
+                 "first-to-last hist window")
+    print(f"{label}: fit {secs:.2f} s under the CUDA profiler "
+          f"({booster.train_timing}), {booster.num_trees} trees, holdout "
+          f"AUC {a:.5f}, histograms {booster.train_info['histograms']}, "
+          f"launches by stats type {launches}; {share}")
+    return model, booster, a, launches, routes
+
+
 def training_options(train_t, test_t, Xtr, ytr, Xte, yte, auc255: float,
                      smi: str) -> dict:
     """Phase 7: the GBDT training options at full width. Returns the
     int16 / int8 hist launches of the main-path fits (b) and (c)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mmlspark_tpu_torch.core.table import DataTable
     from mmlspark_tpu_torch.gbdt import hist_kernels as HK
     from mmlspark_tpu_torch.gbdt import prng
@@ -481,52 +561,15 @@ def training_options(train_t, test_t, Xtr, ytr, Xte, yte, auc255: float,
     from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
     from mmlspark_tpu_torch.gbdt.objectives import get_objective
     from mmlspark_tpu_torch.gbdt.tree import (
-        _sround, quant_scales, quantize_stats, sample_iteration_masks)
-    from mmlspark_tpu_torch.profile_fit import threefry_costs, union_us
+        _sround, quant_scales, sample_iteration_masks)
+    from mmlspark_tpu_torch.profile_fit import threefry_costs
 
     dev = torch.device("cuda")
     sampled = dict(baggingFraction=0.8, baggingFreq=1, featureFraction=0.8)
 
     def fit(label, table=train_t, **kw):
-        """One main-path fit (counts set to 0 just before, read just
-        after), traced on the device: seconds, phases, holdout AUC, and
-        the hist kernels' share of the boost window."""
-        HK.reset_launches()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model = TPUBoostClassifier(numLeaves=63, seed=7, **kw).fit(table)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-        launches = dict(HK.LAUNCHES_BY_TYPE)
-        booster = model.get_booster()
-        prob = np.asarray(model.transform(test_t)["probability"])
-        check(prob.shape == (N_TEST, 2) and np.isfinite(prob).all(),
-              f"training options {label}: outputs {prob.shape} not finite")
-        a = auc(yte, prob[:, 1])
-        ev = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-        hist = [e for e in ev if "hist_" in e.name]
-        share = "not measured (no device events traced)"
-        if hist:
-            hist_ms = sum(e.time_range.end - e.time_range.start
-                          for e in hist) / 1e3
-            w0 = min(e.time_range.start for e in hist)
-            w1 = max(e.time_range.end for e in hist)
-            busy = union_us([(max(e.time_range.start, w0),
-                              min(e.time_range.end, w1)) for e in ev
-                             if e.time_range.end > w0
-                             and e.time_range.start < w1])
-            boost_ms = 1e3 * booster.train_timing["boost"]
-            share = (f"hist kernels {hist_ms:.3f} ms = "
-                     f"{100 * hist_ms / boost_ms:.2f} % of the boost phase "
-                     f"({boost_ms:.1f} ms); device busy "
-                     f"{100 * busy / max(w1 - w0, 1e-9):.1f} % of the "
-                     "first-to-last hist window")
-        print(f"training options {label}: fit {secs:.2f} s under the CUDA "
-              f"profiler ({booster.train_timing}), {booster.num_trees} "
-              f"trees, holdout AUC {a:.5f}, histograms "
-              f"{booster.train_info['histograms']}, launches by stats type "
-              f"{launches}; {share}")
+        model, booster, a, launches, _ = traced_fit(
+            f"training options {label}", table, test_t, yte, **kw)
         return model, booster, a, launches
 
     def int_route_only(label, booster, launches, sdt):
@@ -789,6 +832,360 @@ def replay_on_cpu(rows: str, X, y, bits: int, max_bin: int) -> None:
           f"tree 0 first parts from the card's at {where}")
 
 
+# the Bosch production-line table of NVIDIA's gbm-bench (rows x float
+# features, share of nonzero cells) and phase 8's holdout and chunk rows
+BOSCH_ROWS, BOSCH_COLS, BOSCH_DENSITY = 1_183_747, 968, 0.19
+BOSCH_HOLDOUT = 100_000
+OOC_CHUNK = 65_536
+
+
+def bosch_shape(dev, n: int, seed: int = 7):
+    """Phase 8(a)'s table: n rows x 968 float32 features, each cell
+    nonzero with probability 0.19, values N(0, 1), and a label drawn from
+    the logistic of a sparse weight vector (a tenth of the features,
+    N(0, 0.5)). Drawn on the card from a seeded generator in 65,536-row
+    blocks and kept on the host as a CSRMatrix. Returns (CSR, y)."""
+    import torch
+    from mmlspark_tpu_torch.core.sparse import CSRMatrix
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = BOSCH_COLS
+    wt = torch.where(torch.rand(f, generator=g, device=dev) < 0.1,
+                     0.5 * torch.randn(f, generator=g, device=dev), 0.0)
+    data, idx, counts, ys = [], [], [], []
+    for lo in range(0, n, OOC_CHUNK):
+        m = min(OOC_CHUNK, n - lo)
+        vals = torch.randn((m, f), generator=g, device=dev)
+        keep = torch.rand((m, f), generator=g, device=dev) < BOSCH_DENSITY
+        vals = torch.where(keep, vals, 0.0)
+        nz = vals != 0
+        r, c = nz.nonzero(as_tuple=True)          # row-major: sorted rows
+        data.append(vals[r, c].cpu().numpy())
+        idx.append(c.to(torch.int32).cpu().numpy())
+        counts.append(nz.sum(1).cpu().numpy())
+        p = torch.sigmoid(vals @ wt)
+        ys.append((torch.rand(m, generator=g, device=dev) < p)
+                  .float().cpu().numpy())
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.concatenate(counts), out=indptr[1:])
+    return (CSRMatrix(np.concatenate(data), np.concatenate(idx), indptr,
+                      (n, f)), np.concatenate(ys))
+
+
+def ingest_slice(auc255: float, Xtr, ytr, Xte, yte, test_t, measured,
+                 smi: str) -> dict:
+    """Phase 8: GBDT ingest beyond dense input. (a) a CSR fit at the
+    Bosch shape, (b) out-of-core fits from .npy chunks and shard lists,
+    (c) the host binning library against its plain version. Returns the
+    hist launches of (a)'s fit by route."""
+    import threading
+    import weakref
+
+    import torch
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.gbdt import hist_kernels as HK
+    from mmlspark_tpu_torch.gbdt import native_bins
+    from mmlspark_tpu_torch.gbdt.binning import BinMapper
+    from mmlspark_tpu_torch.gbdt.booster import train
+    from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+    from mmlspark_tpu_torch.io.ooc import (
+        ChunkedTable, peak_rss_bytes, table_nbytes)
+    from mmlspark_tpu_torch.profile_hist import (
+        bincount_call, device_ms, hist_bound_ms, hist_inputs, time_ms)
+    dev = torch.device("cuda")
+
+    # ---- (a) CSR at the Bosch shape ----------------------------------------
+    t0 = time.perf_counter()
+    csr, yb = bosch_shape(dev, BOSCH_ROWS + BOSCH_HOLDOUT)
+    tr, hold = csr[:BOSCH_ROWS], csr[BOSCH_ROWS:]
+    ytb, yhb = yb[:BOSCH_ROWS], yb[BOSCH_ROWS:]
+    host_gib = (csr.data.nbytes + csr.indices.nbytes
+                + csr.indptr.nbytes) / 2**30
+    print(f"ingest (a): Bosch-shape CSR table {tr.shape} + "
+          f"{hold.shape[0]} holdout rows, {csr.nnz} nonzeros "
+          f"({100 * csr.nnz / (csr.shape[0] * csr.shape[1]):.2f} %), "
+          f"{host_gib:.2f} GiB on the host, made in "
+          f"{time.perf_counter() - t0:.1f} s (seed 7, on the card)")
+    train_b = DataTable({"features": tr, "label": ytb})
+    hold_b = DataTable({"features": hold, "label": yhb})
+    torch.cuda.reset_peak_memory_stats()
+    model, booster, a_csr, _, routes = traced_fit(
+        "ingest (a) CSR fit, 5 rounds, max_bin 255", train_b, hold_b, yhb,
+        numIterations=5, keepTrainingData=True)
+    h = booster.train_info["histograms"]
+    mapper = booster.bin_mapper
+    bins = booster._resume["run"].bins_d        # the fit's (F, N) bins
+    F, N = bins.shape
+    B = int(mapper.num_bins.max())
+    # a mostly-zero feature's equal-frequency cuts give its zero one bin
+    # and its nonzeros the rest, so B may fall below the nibble route's
+    route = HK.tpu_route(1, B)
+    check(sum(routes.values()) == h == routes[route],
+          f"(a): launches {routes} for {h} histograms (route {route})")
+    check(a_csr > 0.6, f"(a): holdout AUC {a_csr}")
+    check((F, N) == (BOSCH_COLS, BOSCH_ROWS) and bins.dtype == torch.int32,
+          f"(a): bins {tuple(bins.shape)} {bins.dtype}")
+    zero_bin = np.asarray([np.searchsorted(u, 0.0) for u in
+                           mapper.upper_bounds])
+    in_zero = float((bins[:, :200_000].cpu().numpy()
+                     == zero_bin[:, None]).mean())
+    print(f"ingest (a): {h} launches of {route}, one per "
+          f"histogram; bins on the card {F * N * 4 / 1e9:.3f} GB int32 "
+          f"(F={F}, N={N}, B={B}), {100 * in_zero:.1f} % of cells in their "
+          f"feature's zero bin; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: {smi}")
+
+    # the sparse bins of a 100k-row slice equal the dense binning of it
+    sl = tr[:100_000]
+    b_sparse = mapper.transform_sparse(sl)
+    b_dense = mapper.transform_fm(sl.toarray(), native=True)
+    check(np.array_equal(b_sparse, b_dense),
+          "(a): transform_sparse differs from the dense transform")
+    check(np.array_equal(b_sparse, bins[:, :100_000].cpu().numpy()),
+          "(a): the fit's bins differ from transform_sparse")
+    print("ingest (a): transform_sparse of 100k rows bitwise equal to the "
+          "library's dense transform of them and to the fit's bins")
+
+    # a 200k-row slice fitted from CSR and from its dense copy
+    s2, y2 = tr[:200_000], ytb[:200_000]
+    fits = {}
+    for kind, feats in (("CSR", s2), ("dense", s2.toarray())):
+        t0 = time.perf_counter()
+        m = TPUBoostClassifier(numIterations=5, numLeaves=63, seed=7).fit(
+            DataTable({"features": feats, "label": y2}))
+        fits[kind] = (m.get_booster(), time.perf_counter() - t0)
+    (bs, ts), (bd, td) = fits["CSR"], fits["dense"]
+    same_cuts = all(np.array_equal(u, v) for u, v in zip(
+        bs.bin_mapper.upper_bounds, bd.bin_mapper.upper_bounds))
+    same_trees = all(np.array_equal(bs.trees[k], bd.trees[k])
+                     for k in bd.trees)
+    check(same_cuts, "(a): 200k rows: CSR and dense cuts differ")
+    check(same_trees, "(a): 200k rows: CSR and dense forests differ")
+    print(f"ingest (a): 200k rows fitted from CSR ({ts:.2f} s, bin path "
+          f"{bs.train_info['bin_path']}) and from the dense copy "
+          f"({td:.2f} s, bin path {bd.train_info['bin_path']}): equal "
+          f"upper_bounds, forests bitwise equal")
+    del fits, bs, bd
+
+    # predict on the CSR holdout equals predict on its dense copy
+    t0 = time.perf_counter()
+    p_csr = booster.predict(hold)
+    t_csr = time.perf_counter() - t0
+    p_dense = booster.predict(hold.toarray())
+    check(np.array_equal(p_csr, p_dense),
+          "(a): CSR and dense holdout predictions differ")
+    print(f"ingest (a): predict on the 100k-row CSR holdout ({t_csr:.2f} s, "
+          f"8192-row chunks) bitwise equal to predict on its dense copy; "
+          f"holdout AUC {a_csr:.5f}")
+
+    # the kernel on this table's bins: a root and a 5 % child
+    for key, active, seed in (("bosch_root", 1.0, 81),
+                              ("bosch_child", 0.05, 82)):
+        _, grad, hess, w, leaf, _ = hist_inputs(
+            dev, 1, N, 1, B, torch.float32, seed=seed, active=active)
+        out = HK.hist_device(bins, grad, hess, w, leaf, 1, B)
+        again = HK.hist_device(bins, grad, hess, w, leaf, 1, B)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"(a) {key}: two launches differ")
+        # float64 references, 128 features at a time: the sums, and each
+        # bin's absolute mass (the sum of |g w| and |h w|)
+        def plain64(g_, h_):
+            return torch.cat([HK.hist_plain(bins[j:j + 128], g_, h_,
+                                            w.double(), leaf, 1, B)
+                              for j in range(0, F, 128)], 2)
+        ref = plain64(grad.double(), hess.double())
+        mass = plain64(grad.double().abs(), hess.double().abs())
+        d = (out.double() - ref).abs()
+        err = float(d.max())
+        # counts exact; g and h within phase 2's rtol 1e-5 / atol 1e-3 plus
+        # 2e-7 (~3.4 float32 ulps) of the bin's absolute mass: about 960k
+        # rows share a feature's zero bin here, and a float32 sum of that
+        # many terms strays past atol 1e-3 in any order (the plain version
+        # in float32 strays ~30x further); a dropped or doubled row shows
+        # in the exact counts
+        tol = 1e-3 + 1e-5 * ref.abs() + 2e-7 * mass
+        pf = torch.cat([HK.hist_plain(bins[j:j + 128], grad, hess, w, leaf,
+                                      1, B) for j in range(0, F, 128)], 2)
+        plain_err = float((pf[:2].double() - ref[:2]).abs().max())
+        check(torch.equal(out[2].double(), ref[2]),
+              f"(a) {key}: counts differ from the plain version")
+        check(bool((d[:2] <= tol[:2]).all()),
+              f"(a) {key}: max_abs_err {err} beyond rtol 1e-5, atol 1e-3 "
+              f"+ 2e-7 of the bin's absolute mass")
+        print(f"ingest (a) {key}: counts exact; g, h max_abs_err "
+              f"{float(d[:2].max()):.3e} (worst share of the bound "
+              f"{float((d[:2] / tol[:2]).max()):.3f}; phase 2's rtol 1e-5 / "
+              f"atol 1e-3 alone is exceeded at "
+              f"{int((d[:2] > 1e-3 + 1e-5 * ref[:2].abs()).sum())} of "
+              f"{d[:2].numel()} entries); the plain version in float32: "
+              f"{plain_err:.3e}")
+        del ref, mass, d, tol, pf
+        torch.cuda.empty_cache()
+        k_ms = time_ms(lambda: HK.hist_device(bins, grad, hess, w, leaf,
+                                              1, B))
+        d_ms, _ = device_ms(lambda: HK.hist_device(bins, grad, hess, w,
+                                                   leaf, 1, B))
+        p_ms = time_ms(lambda: HK.hist_plain(bins, grad, hess, w, leaf, 1,
+                                             B), reps=5)
+        torch.cuda.empty_cache()
+        lib = bincount_call(bins, grad, hess, w, leaf, 1, B, None)
+        l_ms = time_ms(lib, reps=5)
+        del lib
+        torch.cuda.empty_cache()
+        bd_ms, by = hist_bound_ms(F, N, w, 1, B, torch.float32, False)
+        measured[key] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                             library_ms=l_ms, bound_ms=bd_ms, bound_by=by,
+                             B=B, route=route)
+        print(f"kernel float32 (F={F}, N={N}, L=1, B={B}, "
+              f"{100 * active:g} % active, Bosch-shape CSR bins): "
+              f"max_abs_err {err:.3e} vs float64 plain; repeat launch "
+              f"bitwise equal; kernel {k_ms:.4f} ms "
+              f"(device time {d_ms:.4f} ms), plain index_add_ {p_ms:.4f} "
+              f"ms, bincount {l_ms:.4f} ms, bound {bd_ms:.4f} ms ({by})")
+    del bins, booster, model, grad, hess, w, leaf, out, again
+    torch.cuda.empty_cache()
+
+    # ---- (b) out of core and streams ---------------------------------------
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ooc")
+    os.makedirs(work, exist_ok=True)
+    paths = {"features": os.path.join(work, "features.npy"),
+             "label": os.path.join(work, "label.npy")}
+    np.save(paths["features"], Xtr)
+    np.save(paths["label"], ytr)
+    live = {"bytes": 0, "peak": 0}
+    lock = threading.Lock()
+
+    def release(nb):
+        with lock:
+            live["bytes"] -= nb
+
+    def track(t):
+        """Count the chunk's bytes while any reference to it lives."""
+        nb = table_nbytes(t)
+        with lock:
+            live["bytes"] += nb
+            live["peak"] = max(live["peak"], live["bytes"])
+        weakref.finalize(t, release, nb)
+        return t
+
+    def ooc_fit(label, bin_fit):
+        live["peak"] = 0
+        src = ChunkedTable.from_npy(paths, chunk_rows=OOC_CHUNK)
+        chunked = src.map(track)
+        model, b, a, _, routes = traced_fit(
+            f"ingest (b) ChunkedTable.from_npy, binFit={bin_fit!r}",
+            chunked, test_t, yte, numIterations=5, binFit=bin_fit)
+        st = chunked.stats
+        check(routes["_hist_kernel_nibble"] == b.train_info["histograms"]
+              and sum(routes.values()) == b.train_info["histograms"],
+              f"(b) {label}: launches {routes}")
+        check(abs(a - auc255) < 0.005, f"(b) {label}: AUC {a} vs dense "
+              f"{auc255}")
+        check(live["peak"] <= st.tracked_peak_bytes()
+              <= (st.depth + 2) * st.peak_chunk_bytes,
+              f"(b) {label}: {live['peak']} bytes of chunks alive at once "
+              f"against the tracked {st.tracked_peak_bytes()}")
+        print(f"ingest (b) {label}: holdout AUC {a:.5f} vs phase 3's "
+              f"dense fit {auc255:.5f} (|diff| {abs(a - auc255):.5f} < "
+              f"0.005); OOCStats {st.snapshot()}; chunk bytes alive at "
+              f"once {live['peak']} <= tracked_peak_bytes "
+              f"{st.tracked_peak_bytes()} = (depth {st.depth} + 2) x peak "
+              f"chunk; sketch_eps {b.bin_mapper.sketch_eps:.6f}; host RSS "
+              f"peak {peak_rss_bytes() / 2**30:.2f} GiB")
+        return b
+
+    ooc_fit("sample", "sample")
+    b_sk = ooc_fit("sketch", "sketch")
+    # the sketch's cuts against an exact all-rows fit, in rank
+    eps = b_sk.bin_mapper.sketch_eps
+    X64 = Xtr.astype(np.float64)
+    exact = BinMapper.fit(X64, max_bin=255, sample_cnt=len(X64))
+    drift = 0.0
+    for j, (cs, ce) in enumerate(zip(b_sk.bin_mapper.upper_bounds,
+                                     exact.upper_bounds)):
+        check(len(cs) == len(ce), f"(b) sketch: feature {j} has {len(cs)} "
+              f"cuts, the exact fit {len(ce)}")
+        xs = np.sort(X64[:, j])
+        rank = np.searchsorted(xs, cs) - np.searchsorted(xs, ce)
+        drift = max(drift, float(np.abs(rank).max()) / len(xs))
+    # the exact walk itself lands up to a row past each target, so its
+    # cuts carry up to max_bin rows of slack
+    check(0 < eps and drift <= 2 * eps + 255 / len(X64),
+          f"(b) sketch: rank drift {drift} against 2 x eps {2 * eps}")
+    print(f"ingest (b): sketch cuts within {drift:.6f} of the exact "
+          f"all-rows fit's in rank (bound 2 x sketch_eps = {2 * eps:.6f})")
+    del X64, exact
+    # booster.train on a replayable list of (X, y) shards
+    shards = [(Xtr[i:i + OOC_CHUNK], ytr[i:i + OOC_CHUNK])
+              for i in range(0, len(Xtr), OOC_CHUNK)]
+    HK.reset_launches()
+    t0 = time.perf_counter()
+    b_sh = train({"objective": "binary", "num_iterations": 5,
+                  "num_leaves": 63, "seed": 7}, shards, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(HK.LAUNCHES)
+    a_sh = auc(yte, b_sh.predict(Xte))
+    check(launches["_hist_kernel_nibble"] == b_sh.train_info["histograms"],
+          f"(b) shards: launches {launches}")
+    check(abs(a_sh - auc255) < 0.005, f"(b) shards: AUC {a_sh}")
+    print(f"ingest (b) booster.train on {len(shards)} (X, y) shards: fit "
+          f"{secs:.2f} s ({b_sh.train_timing}), holdout AUC {a_sh:.5f} "
+          f"(|diff| to dense {abs(a_sh - auc255):.5f} < 0.005), launches "
+          f"{launches}")
+    # a sketch fit that stays in one summary: the dense fit's cuts
+    Xq = (np.round(Xtr * 40) / 40).astype(np.float32)
+    qshards = [(Xq[i:i + OOC_CHUNK], ytr[i:i + OOC_CHUNK])
+               for i in range(0, len(Xq), OOC_CHUNK)]
+    b_q = train({"objective": "binary", "num_iterations": 1,
+                 "num_leaves": 63, "max_bin": 63, "bin_fit": "sketch"},
+                qshards, device="cuda")
+    dense_q = BinMapper.fit(Xq, max_bin=63, sample_cnt=len(Xq))
+    check(b_q.bin_mapper.sketch_eps == 0.0,
+          f"(b): the quantized stream compacted (eps "
+          f"{b_q.bin_mapper.sketch_eps})")
+    check(all(np.array_equal(u, v) for u, v in zip(
+        b_q.bin_mapper.upper_bounds, dense_q.upper_bounds)),
+        "(b): uncompacted sketch cuts differ from the dense fit's")
+    print(f"ingest (b): a 'sketch' fit of {len(Xq)} rows with at most "
+          f"{max(len(np.unique(Xq[:, j])) for j in range(28))} distinct "
+          f"values a feature (no compaction, sketch_eps 0): upper_bounds "
+          f"bitwise equal to the dense all-rows fit's")
+    del Xq, qshards
+
+    # ---- (c) the host binning library against its plain version ----------
+    m = BinMapper.fit(Xtr, max_bin=255)
+    for X in (Xtr, Xtr.astype(np.float64)):
+        tag = str(X.dtype)
+        ref = m._numpy_bin_block(X, 0, X.shape[1])
+        got = m.transform_fm(X, native=True)
+        rng_got = m.transform_fm_range(X, 5, 17, native=True)
+        check(np.array_equal(got, ref) and np.array_equal(rng_got,
+                                                          ref[5:17]),
+              f"(c) {tag}: bins.cpp differs from _numpy_bin_block")
+        t_nat = host_ms(lambda: m.transform_fm(X, native=True))
+        t_rng = host_ms(lambda: m.transform_fm_range(X, 5, 17, native=True))
+        t_np = host_ms(lambda: m._numpy_bin_block(X, 0, X.shape[1]), 3)
+        print(f"ingest (c) {tag} {X.shape}: bins.cpp bitwise equal to "
+              f"_numpy_bin_block over all features and features [5, 17); "
+              f"host ms bins.cpp {t_nat:.2f} (range {t_rng:.2f}), numpy "
+              f"{t_np:.2f}; {native_bins.threads()} OpenMP threads, "
+              f"{os.cpu_count()} cores")
+    return routes
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host wall milliseconds of fn() over ``reps`` calls after
+    one warm-up."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ts))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -826,7 +1223,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     for name, (secs, log) in built.items():
-        print(f"build: {_build.SOURCES[name]} built in {secs:.1f} s")
+        print(f"build: {_build.source_of(name)} built in {secs:.1f} s")
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s "
           f"({len(built)} compiled); card: {smi}")
     # registers, spills and tensor-core instructions of every flash kernel
@@ -1400,6 +1797,10 @@ def main() -> int:
     int_launches = training_options(train_t, test_t, Xtr, ytr, Xte, yte,
                                     auc255, smi)
 
+    # ---- 8. GBDT ingest beyond dense input --------------------------------
+    ingest_routes = ingest_slice(auc255, Xtr, ytr, Xte, yte, test_t,
+                                 measured, smi)
+
     kernels = []
     for name, route, key, launches, line in (
             (f"hist (single leaf, B={b255})", "_hist_kernel_nibble", b255,
@@ -1438,6 +1839,20 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"]})
+    # the kernel on phase 8(a)'s Bosch-shape CSR bins (F = 968), launched
+    # by its CSR fit; times from phase 8(a)
+    for what, key in (("root", "bosch_root"), ("5 % child", "bosch_child")):
+        m = measured[key]
+        kernels.append({
+            "name": f"hist (single leaf, B={m['B']}, F=968 Bosch-shape "
+                    f"CSR bins, {what})", "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/hist.cu",
+            "replaces": "mmlspark_tpu/gbdt/pallas_hist.py:" + (
+                "67" if m["route"] == "_hist_kernel_nibble" else "117"),
+            "launches": ingest_routes[m["route"]],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     # the forward in both types: f32 on the LM transform's path, bf16
     # (the tensor-core body) on the training slice's
     for dtype, tname, launches in (

@@ -247,6 +247,25 @@ def warmup_histograms() -> Dict[str, LatencyHistogram]:
 
 
 # ---------------------------------------------------------------------------
+# out-of-core ingest phase histograms (io/ooc.py)
+# ---------------------------------------------------------------------------
+
+# per-chunk wall milliseconds of chunked ingest: decode (the source read
+# — .npy slice, Arrow IPC batch, generator build — on the prefetch
+# worker) and wait (how long the consumer blocked on the prefetch queue;
+# near zero when ingest hides behind the consumer's work). The JAX
+# package's two other phases, prepare and dispatch, belong to its fused
+# chunked transform, which the port does not have yet.
+OOC_PHASES = ("decode", "wait")
+_OOC_HISTS: Dict[str, LatencyHistogram] = histogram_set(*OOC_PHASES)
+
+
+def ooc_histograms() -> Dict[str, LatencyHistogram]:
+    """The process-wide out-of-core ingest phase histogram family."""
+    return _OOC_HISTS
+
+
+# ---------------------------------------------------------------------------
 # serving-ingress phase histograms (columnar ingress — io/columnar.py)
 # ---------------------------------------------------------------------------
 

@@ -31,7 +31,10 @@ port does differently:
 - **Pickles** (the ``pickle`` / ``callable`` kinds) load through a
   restricted unpickler that refuses classes of the JAX package and of
   jax / flax: such an object cannot run in the port, and the error says
-  what to use instead.
+  what to use instead. The one exception is the JAX package's
+  ``CSRMatrix`` (a sparse table column), plain numpy arrays in both
+  packages: it loads as the port's, and ``portable_dumps`` writes the
+  port's under the JAX package's name, so sparse tables cross both ways.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.core.sparse import CSRMatrix
 from mmlspark_tpu_torch.version import __version__
 
 SERIALIZATION_FORMAT_VERSION = 1
@@ -172,12 +176,21 @@ def _refusal(module: str, name: str) -> str:
             f"({_PORT}{module[len(_REFERENCE):]}) and save that")
 
 
+# classes of the JAX package whose pickles the port reads as its own
+# class of the same arrays (and writes under the JAX package's name)
+_SHARED = {("mmlspark_tpu.core.sparse", "CSRMatrix"): CSRMatrix}
+
+
 class RestrictedUnpickler(pickle.Unpickler):
     """``pickle.Unpickler`` that refuses ``mmlspark_tpu.*``, ``jax*``
     and ``flax*`` classes (``pickle.UnpicklingError`` naming what to use
-    instead); everything else resolves as usual."""
+    instead), apart from those in ``_SHARED``; everything else resolves
+    as usual."""
 
     def find_class(self, module: str, name: str):
+        shared = _SHARED.get((module, name))
+        if shared is not None:
+            return shared
         top = module.split(".")[0]
         if top in (_REFERENCE, "flax") or top.startswith("jax"):
             raise pickle.UnpicklingError(_refusal(module, name))
@@ -186,6 +199,44 @@ class RestrictedUnpickler(pickle.Unpickler):
 
 def restricted_loads(data: bytes) -> Any:
     return RestrictedUnpickler(io.BytesIO(data)).load()
+
+
+class _ReferenceCSR:
+    """Stands for the JAX package's ``CSRMatrix`` in a pickle stream:
+    ``_PortablePickler`` writes its name, never imports it."""
+
+
+class _PortablePickler(pickle._Pickler):
+    """The pure-Python pickler, writing each port ``CSRMatrix`` as a
+    call of the JAX package's class on its four arrays. The C pickler
+    would import that class to check the name; this one writes the name
+    alone, so the port never imports the JAX package, and the JAX
+    package's plain ``pickle.load`` builds its own ``CSRMatrix``."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, CSRMatrix):
+            return _ReferenceCSR, (obj.data, obj.indices, obj.indptr,
+                                   obj.shape)
+        return NotImplemented
+
+    def save_global(self, obj, name=None):
+        if obj is not _ReferenceCSR:
+            return super().save_global(obj, name)
+        self.save("mmlspark_tpu.core.sparse")
+        self.save("CSRMatrix")
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def portable_dumps(obj: Dict[str, Any]) -> bytes:
+    """``pickle.dumps`` of a dict of table columns that the JAX package
+    also loads when a column is a port ``CSRMatrix``; the C pickler when
+    none is (it is the faster)."""
+    if not any(isinstance(v, CSRMatrix) for v in obj.values()):
+        return pickle.dumps(obj)
+    buf = io.BytesIO()
+    _PortablePickler(buf, protocol=4).dump(obj)
+    return buf.getvalue()
 
 
 # ---------------------------------------------------------------------------

@@ -7,22 +7,24 @@ complex values are struct columns (lists of dicts) described by
 ``Schema`` fields. Stages move the columns they compute on to a torch
 device themselves.
 
-Dense columns only: the JAX package's sparse ``CSRMatrix`` columns are
-not ported yet (ROADMAP.md, "GBDT ingest beyond dense input").
+A vector column may be sparse: a ``core.sparse.CSRMatrix`` is kept as
+it is (schema meta ``{"sparse": True}``), sliced, taken and concatenated
+without densifying, and saved in the JAX package's on-disk format, so
+either package loads the other's sparse tables.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import pickle
 from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 
 from mmlspark_tpu_torch.core import schema as S
 from mmlspark_tpu_torch.core.schema import Field, Schema
-from mmlspark_tpu_torch.core.serialize import restricted_loads
+from mmlspark_tpu_torch.core.serialize import portable_dumps, restricted_loads
+from mmlspark_tpu_torch.core.sparse import CSRMatrix, vstack
 
 ColumnData = Union[np.ndarray, List[Any]]
 
@@ -33,6 +35,9 @@ def _is_sequence(x) -> bool:
 
 def _infer_field(name: str, data: ColumnData) -> Field:
     """Infer a Field from column data."""
+    if isinstance(data, CSRMatrix):
+        # sparse vector column (the SparseVector analog): stays sparse
+        return Field(name, S.VECTOR, {"sparse": True})
     if isinstance(data, np.ndarray):
         if data.ndim == 1:
             return Field(name, S.tag_for_numpy(data.dtype))
@@ -73,6 +78,8 @@ def _infer_field(name: str, data: ColumnData) -> Field:
 
 def _normalize_column(data: Any, n_rows: Optional[int]) -> ColumnData:
     """Coerce input to a canonical column representation."""
+    if isinstance(data, CSRMatrix):
+        return data   # first-class sparse column, never densified
     if isinstance(data, np.ndarray):
         return data
     if isinstance(data, (list, tuple)):
@@ -108,17 +115,15 @@ def _normalize_column(data: Any, n_rows: Optional[int]) -> ColumnData:
 
 def features_matrix(table: "DataTable", col: str) -> np.ndarray:
     """Vector column -> dense (N, F) float64 matrix (the shared coercion
-    every model stage uses to feed features to the device)."""
+    every model stage uses to feed features to the device). Sparse
+    columns densify here and only here, as in the JAX package; the GBDT
+    stages read the ``CSRMatrix`` through ``table.column`` instead."""
     c = table.column(col)
+    if isinstance(c, CSRMatrix):
+        return c.toarray().astype(np.float64)
     if isinstance(c, np.ndarray) and c.ndim == 2:
         return np.asarray(c, dtype=np.float64)
-    if isinstance(c, list) and c and all(
-            isinstance(v, (list, tuple, np.ndarray)) for v in c):
-        return np.stack([np.asarray(v, dtype=np.float64) for v in c])
-    raise NotImplementedError(
-        f"column {col!r} is not a dense vector column; the PyTorch port "
-        "reads dense features only (ROADMAP.md, 'GBDT ingest beyond "
-        "dense input')")
+    return np.stack([np.asarray(v, dtype=np.float64) for v in c])
 
 
 class DataTable:
@@ -185,6 +190,14 @@ class DataTable:
         cols: Dict[str, ColumnData] = {}
         for name in base.column_names:
             parts = [t._columns[name] for t in tables]
+            if any(isinstance(p, CSRMatrix) for p in parts):
+                # mixed sparse / dense parts: dense blocks become CSR so
+                # the result stays sparse (and keeps the schema's flag)
+                cols[name] = vstack([
+                    p if isinstance(p, CSRMatrix)
+                    else CSRMatrix.from_dense(np.asarray(p, np.float32))
+                    for p in parts])
+                continue
             if all(isinstance(p, np.ndarray) for p in parts):
                 try:
                     cols[name] = np.concatenate(parts, axis=0)
@@ -269,7 +282,9 @@ class DataTable:
     def _take_indices(self, idx) -> "DataTable":
         cols: Dict[str, ColumnData] = {}
         for n, c in self._columns.items():
-            if isinstance(c, np.ndarray):
+            if isinstance(c, CSRMatrix):
+                cols[n] = c.take(np.asarray(idx))
+            elif isinstance(c, np.ndarray):
                 cols[n] = c[idx]
             else:
                 cols[n] = [c[i] for i in idx]
@@ -301,18 +316,22 @@ class DataTable:
 
     def save(self, path: str) -> None:
         """Save to a directory (npz for array columns, pickle for the
-        rest), in the JAX package's layout: either package loads it."""
+        rest), in the JAX package's layout: either package loads it. A
+        sparse column is pickled under the JAX package's class name
+        (``serialize.portable_dumps``), as that package writes it."""
         os.makedirs(path, exist_ok=True)
         arrays = {}
         objects = {}
         for n, c in self._columns.items():
             if isinstance(c, np.ndarray) and c.dtype != object:
                 arrays[n] = c
+            elif isinstance(c, CSRMatrix):
+                objects[n] = c   # list(c) would densify it
             else:
                 objects[n] = list(c)
         np.savez(os.path.join(path, "columns.npz"), **arrays)
         with open(os.path.join(path, "objects.pkl"), "wb") as f:
-            pickle.dump(objects, f)
+            f.write(portable_dumps(objects))
         with open(os.path.join(path, "schema.json"), "w") as f:
             json.dump({"schema": self._schema.to_json(),
                        "order": self.column_names,
@@ -321,7 +340,8 @@ class DataTable:
     @staticmethod
     def load(path: str) -> "DataTable":
         """Load a saved table; its object columns unpickle through
-        ``serialize.restricted_loads`` (no JAX-package classes)."""
+        ``serialize.restricted_loads`` (no JAX-package classes; a JAX
+        package ``CSRMatrix`` loads as the port's)."""
         with open(os.path.join(path, "schema.json")) as f:
             meta = json.load(f)
         npz = np.load(os.path.join(path, "columns.npz"), allow_pickle=False)

@@ -14,9 +14,16 @@ APPLYING the bins has two paths:
   bounds matrix. Eligible when the cuts were snapped to float32
   (``f32_cuts_exact``), where the f32 compare equals the f64 one for
   every row by construction.
-- host (``transform*``): the vectorized numpy path, fanned over feature
-  blocks on a thread pool (numpy's searchsorted releases the GIL). The
-  JAX package's native OpenMP binning library is not ported yet.
+- host (``transform*``): on the card's fits (``native=True``) the
+  port's OpenMP library (``native_bins``, built from ``csrc/bins.cpp``),
+  which raises rather than fall back; otherwise the vectorized numpy
+  path (``_numpy_bin_block``, the library's plain version), fanned over
+  feature blocks on a thread pool (numpy's searchsorted releases the
+  GIL). CSR input bins from its nonzeros alone (``transform_sparse``).
+
+Fits: ``fit`` (dense, a bounded row sample), ``fit_sparse`` (CSR, the
+implicit zeros counted analytically) and ``fit_streaming`` (one pass of
+mergeable quantile sketches over a chunk stream, ``gbdt/sketch.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +64,26 @@ if hasattr(os, "register_at_fork"):   # POSIX only
     os.register_at_fork(after_in_child=_reset_pool_after_fork)
 
 
+def _chunk_matrix(chunk) -> np.ndarray:
+    """Coerce one stream element to a raw (N, F) feature block: ndarray
+    passes through, ``(X, y[, w])`` shard tuples take X, and DataTables
+    densify their features column through ``features_matrix`` (one chunk
+    at a time, never the whole table)."""
+    if isinstance(chunk, np.ndarray):
+        X = chunk
+    elif isinstance(chunk, (tuple, list)):
+        X = np.asarray(chunk[0])
+    else:
+        from mmlspark_tpu_torch.core.table import DataTable, features_matrix
+        if isinstance(chunk, DataTable):
+            X = features_matrix(chunk, "features")
+        else:
+            X = np.asarray(chunk)
+    if X.ndim != 2:
+        raise ValueError(f"chunk must be 2-D (N, F); got shape {X.shape}")
+    return X
+
+
 def _fanout_feature_blocks(run, j0: int, j1: int, n_rows: int) -> None:
     """Fan ``run(a, b)`` (features [a, b), disjoint writes) over the
     shared thread pool; serial when the block is small."""
@@ -93,6 +120,9 @@ class BinMapper:
         # True only when cuts were SNAPPED to f32-representable values
         # for f32 input (_snap_cuts_f32): the device-binning gate
         self.f32_cuts_exact = bool(f32_cuts_exact)
+        # measured rank-error certificate of a sketch fit (fit_streaming);
+        # 0.0 = exact fit
+        self.sketch_eps = 0.0
 
     @property
     def num_features(self) -> int:
@@ -133,6 +163,126 @@ class BinMapper:
         return BinMapper(bounds, max_bin, f32_values_safe=safe,
                          f32_cuts_exact=f32_exact)
 
+    @staticmethod
+    def fit_streaming(chunks, max_bin: int = 255,
+                      b: int = 512) -> "BinMapper":
+        """Fit bin boundaries in one bounded-memory pass over a chunk
+        stream (the out-of-core analog of ``fit``, which must see the
+        whole (N, F) matrix). ``chunks`` yields (N, F) arrays, ``(X,
+        y[, w])`` shard tuples or DataTables (``_chunk_matrix``). Each
+        feature feeds a mergeable ``QuantileSketch``; the cuts are
+        bitwise ``fit``'s on the same rows while no sketch has compacted,
+        and otherwise within 2 x ``sketch_eps`` (the measured rank-error
+        certificate, kept on the mapper) of their equal-frequency
+        targets. An all-float32 stream gets f32-snapped cuts, so the
+        device binning stays eligible; any float64 chunk keeps f64
+        cuts."""
+        from mmlspark_tpu_torch.gbdt.sketch import QuantileSketch
+        f32_exact = True
+        sketches: List[QuantileSketch] = []
+        seen = False
+        for chunk in chunks:
+            X = _chunk_matrix(chunk)
+            if not sketches:
+                sketches = [QuantileSketch(b=b) for _ in range(X.shape[1])]
+            elif X.shape[1] != len(sketches):
+                raise ValueError(f"chunk has {X.shape[1]} features; "
+                                 f"expected {len(sketches)}")
+            seen = True
+            f32_exact = f32_exact and X.dtype == np.float32
+            for j, sk in enumerate(sketches):
+                sk.update(X[:, j])
+        if not seen:
+            raise ValueError("empty chunk stream")
+        bounds: List[np.ndarray] = []
+        for sk in sketches:
+            cut = sk.cuts(max_bin)
+            bounds.append(_snap_cuts_f32(cut)
+                          if f32_exact and len(cut) else cut)
+        mapper = BinMapper(bounds, max_bin, f32_values_safe=f32_exact,
+                           f32_cuts_exact=f32_exact)
+        mapper.sketch_eps = max((sk.eps() for sk in sketches), default=0.0)
+        return mapper
+
+    @staticmethod
+    def fit_sparse(csr, max_bin: int = 255, sample_cnt: int = 200_000,
+                   seed: int = 2) -> "BinMapper":
+        """Fit boundaries straight from a ``CSRMatrix``: each feature's
+        nonzeros come from a one-shot CSC view and its implicit zeros
+        join the value counts analytically, so no dense float matrix
+        exists (the ``LGBM_DatasetCreateFromCSR`` analog). The same
+        row sample and f32 discipline as ``fit``: float32 nonzeros get
+        f32-snapped cuts; otherwise the gap check runs on the sample and
+        a holdout of unsampled rows is spot-checked."""
+        full = csr
+        f32_exact = np.asarray(csr.data).dtype == np.float32
+        n_full = csr.shape[0]
+        n = n_full
+        sampled_idx = None
+        if n > sample_cnt:
+            rng = np.random.default_rng(seed)
+            sampled_idx = rng.choice(n, size=sample_cnt, replace=False)
+            csr = csr.take(sampled_idx)
+            n = sample_cnt
+        col_ptr, _, vals = csr.csc()
+        bounds: List[np.ndarray] = []
+        safe = True
+        for j in range(csr.shape[1]):
+            v = vals[col_ptr[j]:col_ptr[j + 1]]
+            v = v[np.isfinite(v)]
+            distinct, counts = np.unique(v, return_counts=True)
+            counts = counts.astype(np.int64)
+            zeros = n - (int(col_ptr[j + 1]) - int(col_ptr[j]))
+            if zeros > 0:
+                pos = int(np.searchsorted(distinct, 0.0))
+                if pos < len(distinct) and distinct[pos] == 0.0:
+                    counts[pos] += zeros
+                else:
+                    distinct = np.insert(distinct, pos, 0.0)
+                    counts = np.insert(counts, pos, zeros)
+            b, ok = _bounds_from_counts(np.asarray(distinct, np.float64),
+                                        counts, max_bin, f32_exact)
+            bounds.append(b)
+            safe = safe and ok
+        if safe and not f32_exact and sampled_idx is not None:
+            rest = _holdout_rows(n_full, sampled_idx, rng)
+            hold_ptr, _, hold_vals = full.take(rest).csc()
+            safe = _holdout_f32_agrees(
+                bounds, ((j, hold_vals[hold_ptr[j]:hold_ptr[j + 1]])
+                         for j in range(csr.shape[1])))
+        return BinMapper(bounds, max_bin, f32_values_safe=safe,
+                         f32_cuts_exact=f32_exact)
+
+    def transform_sparse(self, csr, dtype=np.int32) -> np.ndarray:
+        """``CSRMatrix`` -> FEATURES-MAJOR (F, N) bins without a dense
+        float matrix: every row starts in its feature's zero bin, then
+        only the nonzeros are binned by searchsorted. Feature blocks fan
+        out over the shared thread pool (disjoint ``out`` rows).
+        ``dtype``: int32 as in the JAX package, or ``np.uint8`` when
+        every feature has at most 256 bins (the layout shipped to the
+        card, a quarter of the bytes; the values are the same)."""
+        n, f = csr.shape
+        if np.dtype(dtype) == np.uint8 and int(self.num_bins.max(
+                initial=1)) > 256:
+            raise ValueError("uint8 bins need every feature to have at "
+                             "most 256 bins")
+        out = np.empty((f, n), dtype)
+        col_ptr, rows, vals = csr.csc()
+
+        def run(a: int, b_: int) -> None:
+            for j in range(a, b_):
+                ub = self.upper_bounds[j]
+                out[j, :] = np.searchsorted(ub, 0.0, side="left")
+                lo, hi = int(col_ptr[j]), int(col_ptr[j + 1])
+                if hi > lo:
+                    b = np.searchsorted(ub, vals[lo:hi], side="left"
+                                        ).astype(np.int32)
+                    b[np.isnan(vals[lo:hi])] = 0
+                    out[j, rows[lo:hi]] = b
+
+        _fanout_feature_blocks(run, 0, f, n)
+        return out
+
     def _numpy_bin_block(self, X: np.ndarray, j0: int, j1: int,
                          out: Optional[np.ndarray] = None) -> np.ndarray:
         """Features [j0, j1) -> features-major (j1-j0, N) int32, each
@@ -154,18 +304,43 @@ class BinMapper:
         _fanout_feature_blocks(run, j0, j1, n)
         return out
 
-    def transform(self, X: np.ndarray) -> np.ndarray:
-        """Raw features -> int32 bin indices, shape (N, F)."""
+    def _u8_ok(self) -> bool:
+        return int(self.num_bins.max(initial=1)) <= 256
+
+    def transform(self, X: np.ndarray, native: bool = False) -> np.ndarray:
+        """Raw features -> int32 bin indices, shape (N, F); through the
+        OpenMP library with ``native`` (it raises if that fails)."""
         X = np.asarray(X, dtype=np.float64)
+        if native:
+            from mmlspark_tpu_torch.gbdt import native_bins
+            return native_bins.apply_bins(X, self.upper_bounds)
         out = np.empty(X.shape, np.int32)
         self._numpy_bin_block(X, 0, self.num_features, out=out.T)
         return out
 
-    def transform_fm(self, X: np.ndarray) -> np.ndarray:
-        """Raw features -> FEATURES-MAJOR (F, N) int32 bins, the
-        engine's device layout. f32 input widens per value to f64 before
-        the compare, so results equal the f64 path bit for bit."""
-        return self._numpy_bin_block(np.asarray(X), 0, self.num_features)
+    def transform_fm(self, X: np.ndarray, native: bool = False
+                     ) -> np.ndarray:
+        """Raw features -> FEATURES-MAJOR (F, N) bins, the engine's
+        device layout: int32, or with ``native`` the library's fused
+        bin + transpose + narrow into uint8 when every feature has at
+        most 256 bins (the same values). f32 input widens per value to
+        f64 before the compare, so results equal the f64 path bit for
+        bit."""
+        return self.transform_fm_range(X, 0, self.num_features, native)
+
+    def transform_fm_range(self, X: np.ndarray, j0: int, j1: int,
+                           native: bool = False) -> np.ndarray:
+        """Features [j0, j1) straight into the (j1 - j0, N) features-major
+        layout (``transform_fm`` of a feature block)."""
+        X = np.asarray(X)
+        if not native:
+            return self._numpy_bin_block(X, j0, j1)
+        from mmlspark_tpu_torch.gbdt import native_bins
+        if self._u8_ok():
+            return native_bins.apply_bins_t_u8(X, self.upper_bounds,
+                                               feature_range=(j0, j1))
+        return np.ascontiguousarray(native_bins.apply_bins(
+            X, self.upper_bounds)[:, j0:j1].T)
 
     def bounds_matrix(self, dtype=np.float32) -> np.ndarray:
         """Dense (F, B_max) ascending bounds, short features padded with
@@ -178,6 +353,22 @@ class BinMapper:
             if len(u):
                 out[j, :len(u)] = u.astype(dtype)
         return out
+
+    def to_json(self) -> dict:
+        return {"max_bin": self.max_bin,
+                "f32_values_safe": self.f32_values_safe,
+                "f32_cuts_exact": self.f32_cuts_exact,
+                "sketch_eps": self.sketch_eps,
+                "upper_bounds": [u.tolist() for u in self.upper_bounds]}
+
+    @staticmethod
+    def from_json(d: dict) -> "BinMapper":
+        m = BinMapper([np.asarray(u) for u in d["upper_bounds"]],
+                      d["max_bin"],
+                      f32_values_safe=d.get("f32_values_safe", False),
+                      f32_cuts_exact=d.get("f32_cuts_exact", False))
+        m.sketch_eps = float(d.get("sketch_eps", 0.0))
+        return m
 
     def threshold_matrix(self, num_bins: int) -> np.ndarray:
         """(F, num_bins) raw-value threshold of 'go left if bin <= b' for

@@ -1,10 +1,16 @@
 """Booster: GBDT training driver + serialized model.
 
-Port of ``mmlspark_tpu/gbdt/booster.py`` for dense, single-device
-training: the dataset is binned once (on the device when the cuts are
-float32-exact, on the host otherwise), kept on the device as a
-features-major (F, N) int32 matrix, and every boosting iteration is one
-Python step — sampling masks -> gradients -> K trees -> score update.
+Port of ``mmlspark_tpu/gbdt/booster.py`` for single-device training:
+the dataset is binned once and kept on the device as a features-major
+(F, N) int32 matrix, and every boosting iteration is one Python step —
+sampling masks -> gradients -> K trees -> score update. Dense input bins
+on the device when the cuts are float32-exact, on the host otherwise;
+CSR input (``core.sparse.CSRMatrix``) bins on the host from its
+nonzeros; a ``ChunkedTable`` or a stream of ``(X, y[, w])`` shards bins
+shard by shard on the host, its cuts from a reservoir sample
+(``bin_fit='sample'``) or a one-pass quantile sketch (``'sketch'``). A
+host-binned matrix crosses to the card as uint8 when every feature has
+at most 256 bins and widens there.
 Bagging, feature fraction, quantized ``hist_bits`` 16 / 8, validation
 with early stopping, warm start (``init_model``) and ``boost_more`` are
 the JAX package's, bit for bit on the same device. The JAX engine fuses
@@ -30,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.core.sparse import CSRMatrix
 from mmlspark_tpu_torch.device import DeviceLike, resolve_device
 from mmlspark_tpu_torch.gbdt.binning import BinMapper, bucketize_fm_device
 from mmlspark_tpu_torch.gbdt import prng
@@ -158,7 +165,19 @@ class Booster:
 
     def raw_score(self, X: np.ndarray,
                   num_iteration: Optional[int] = None) -> np.ndarray:
-        """Raw margin scores, shape (N,) or (K, N) for multiclass."""
+        """Raw margin scores, shape (N,) or (K, N) for multiclass. A
+        ``CSRMatrix`` scores through chunked densification (at most 8192
+        rows, or a 256 MB dense budget, at a time), each chunk walked as
+        dense rows are, so the result is bitwise the dense one."""
+        if isinstance(X, CSRMatrix):
+            if X.shape[0] == 0:
+                return self.raw_score(
+                    np.zeros((0, len(self.feature_names))), num_iteration)
+            step = max(1, min(8192, (256 << 20) // (4 * X.shape[1])))
+            outs = [self.raw_score(X[lo:min(lo + step, X.shape[0])]
+                                   .toarray(), num_iteration)
+                    for lo in range(0, X.shape[0], step)]
+            return np.concatenate(outs, axis=-1)
         X = np.asarray(X)
         n = X.shape[0]
         K = self.num_class
@@ -404,7 +423,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md, '{item}')")
 
 
-def _validate_params(p: Dict[str, Any], X, valid, mesh) -> None:
+def _validate_params(p: Dict[str, Any], mesh) -> None:
     """Fail fast on everything outside this slice of the port."""
     hist_bits = int(p["hist_bits"])
     if hist_bits not in (32, 16, 8):
@@ -429,15 +448,6 @@ def _validate_params(p: Dict[str, Any], X, valid, mesh) -> None:
         raise ValueError(
             "hist_comm='reduce_scatter' requires parallelism='data'")
     p["hist_comm"] = "psum"
-    if p["bin_fit"] == "sketch":
-        raise _not_ported("bin_fit='sketch'", "GBDT ingest beyond dense input")
-    if not isinstance(X, np.ndarray):
-        raise _not_ported(f"{type(X).__name__} input (CSR, ChunkedTable or "
-                          "streamed shards)", "GBDT ingest beyond dense input")
-    if valid is not None and not isinstance(valid[0],
-                                            (np.ndarray, list, tuple)):
-        raise _not_ported(f"{type(valid[0]).__name__} validation input",
-                          "GBDT ingest beyond dense input")
     if p["device_binning"] not in ("auto", "on", "off"):
         raise ValueError(f"device_binning={p['device_binning']!r}; expected "
                          "'auto', 'on' or 'off'")
@@ -539,15 +549,23 @@ def _stack_forest(trees: List[Tree], mapper: BinMapper, num_bins: int,
     return stacked, tree_depths
 
 
-def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
+def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
           sample_weight: Optional[np.ndarray] = None,
-          valid: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+          valid: Optional[Tuple[Any, np.ndarray]] = None,
           feature_names: Optional[List[str]] = None,
           mesh=None, init_model=None,
           bin_mapper: Optional[BinMapper] = None,
           device: DeviceLike = None) -> Booster:
-    """Train a Booster on a dense (N, F) matrix ``X`` with labels ``y``,
-    on ``device`` (default the card; ``'cpu'`` must be asked for).
+    """Train a Booster on ``device`` (default the card; ``'cpu'`` must
+    be asked for). ``X`` is a dense (N, F) matrix or a ``CSRMatrix``
+    with labels ``y``; or, with ``y=None``, a ``ChunkedTable`` (features
+    and label columns) or an iterable of ``(X_shard, y_shard[,
+    w_shard])`` tuples, of which only the binned matrix is kept. A list,
+    tuple or zero-arg factory of shards is replayed: its cuts come from
+    a reservoir sample of every row (``bin_fit='sample'``) or a quantile
+    sketch of every row (``'sketch'``); a one-shot iterator is binned
+    with its first shard's cuts, and a drift of more than 1 % against a
+    reservoir of the whole stream is logged as a warning.
 
     ``init_model`` (a Booster or a model string) warm-starts: boosting
     goes on from its effective forest's scores (``best_iteration`` trees
@@ -562,7 +580,8 @@ def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
     with a frozen mapper. With ``keep_training_data`` (no warm start, no
     early stopping) the run's device state stays on the Booster for
     ``boost_more()``. The returned Booster carries ``train_timing``
-    (per-phase wall seconds: bin, ship, boost, fetch) and ``train_info``
+    (per-phase wall seconds: bin (the cut fit and any host binning),
+    ship (to the device, device binning), boost, fetch) and ``train_info``
     (bin_path, histograms built and, with early stopping, valid_loss:
     the validation losses the stop decision read)."""
     dev = resolve_device(device)
@@ -581,40 +600,105 @@ def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
     p.update(params or {})
     p["hist_method"] = resolve_hist_method(p["hist_method"], dev,
                                            int(p["max_bin"]))
-    if isinstance(X, (list, tuple)) and y is not None:
-        X = np.asarray(X, dtype=np.float64)   # dense rows as lists
-    _validate_params(p, X, valid, mesh)
-    if y is None:
-        raise ValueError("y is required when X is a dense matrix")
+    _validate_params(p, mesh)
 
     objective = get_objective(
         p["objective"], num_class=p["num_class"], alpha=p["alpha"],
         tweedie_variance_power=p["tweedie_variance_power"])
     K = objective.num_class
+    # host binning on a card fit goes through the OpenMP library, which
+    # raises rather than fall back (gbdt/native_bins.py)
+    native = dev.type == "cuda"
 
-    # 1) bin once: float32 input stays float32 (binning widens per
-    # compare, exact)
-    if X.dtype not in (np.float32, np.float64):
-        X = X.astype(np.float64)
-    y = np.asarray(y, dtype=np.float64)
-    n, f = X.shape
-    w_base = (np.ones(n) if sample_weight is None
-              else np.asarray(sample_weight, dtype=np.float64))
+    # 1) bin once. Streaming = an iterable of shards passed WITHOUT y,
+    # told apart from dense list-of-lists and mislabelled iterators with
+    # the JAX package's errors
+    from mmlspark_tpu_torch.io.ooc import ChunkedTable
+    if isinstance(X, ChunkedTable):
+        # out-of-core ingest: chunks carry the features and label
+        # columns; decode runs on the source's prefetch worker
+        if y is not None:
+            raise ValueError(
+                "pass labels inside the ChunkedTable (label column), "
+                "not as a separate y")
+        X = X.as_xy()
+    streaming = y is None and not isinstance(X, (np.ndarray, CSRMatrix))
+    if streaming and isinstance(X, (list, tuple)):
+        try:
+            X = np.asarray(X, dtype=np.float64)   # dense rows as lists
+            streaming = False
+        except (TypeError, ValueError):
+            pass   # a genuine list of shard tuples / DataTables
+    if not streaming and y is None:
+        raise ValueError("y is required when X is a dense matrix")
+    if y is not None and not isinstance(X, np.ndarray) \
+            and hasattr(X, "__next__"):
+        raise ValueError(
+            "iterator X with a separate y is ambiguous: streaming mode "
+            "passes y=None and the iterator yields "
+            "(X_shard, y_shard[, w_shard]) tuples")
+    bins_fm: Optional[np.ndarray] = None   # host-binned (F, N), if any
+    if streaming:
+        if sample_weight is not None:
+            raise ValueError(
+                "pass per-shard weights inside the shard tuples in "
+                "streaming mode")
+        if init_model is not None:
+            # fail fast, before consuming the (possibly huge) stream
+            raise ValueError("init_model warm start requires dense X")
+        mapper, bins_fm, y, w_base = _bin_stream(
+            X, p["max_bin"], p["seed"], mapper=bin_mapper,
+            bin_fit=p["bin_fit"], native=native)
+        f, n = bins_fm.shape
+    elif isinstance(X, CSRMatrix):
+        # CSR ingest: bins straight from the sparse structure, no dense
+        # float matrix (the LGBM_DatasetCreateFromCSR analog); the
+        # device layout is still a dense (F, N) int32 matrix, so guard it
+        y = np.asarray(y, dtype=np.float64)
+        n, f = X.shape
+        if f * n * 4 > 8 << 30:
+            raise ValueError(
+                f"binned matrix for CSR input would need "
+                f"{f * n * 4 / 2**30:.1f} GB ({f} features x {n} "
+                f"rows); reduce the feature width (hashing) first")
+        mapper = bin_mapper or BinMapper.fit_sparse(
+            X, max_bin=p["max_bin"], seed=p["seed"])
+    else:
+        # float32 input stays float32 (binning widens per compare, exact)
+        X = np.asarray(X)
+        if X.dtype not in (np.float32, np.float64):
+            X = X.astype(np.float64)
+        y = np.asarray(y, dtype=np.float64)
+        n, f = X.shape
+        mapper = bin_mapper or BinMapper.fit(X, max_bin=p["max_bin"],
+                                             seed=p["seed"])
+    if not streaming:
+        w_base = (np.ones(n) if sample_weight is None
+                  else np.asarray(sample_weight, dtype=np.float64))
     if feature_names is None:
         feature_names = [f"Column_{i}" for i in range(f)]
-    mapper = bin_mapper or BinMapper.fit(X, max_bin=p["max_bin"],
-                                         seed=p["seed"])
     if len(mapper.num_bins) != f:
         raise ValueError(f"bin_mapper covers {len(mapper.num_bins)} "
                          f"features, X has {f}")
     num_bins = int(mapper.num_bins.max())
     p["f32_unsafe"] = not mapper.f32_values_safe
     # on-device binning when f32 compares provably equal f64 ones
-    # (f32-snapped cuts); host binning otherwise
-    use_device_bin = (p["device_binning"] != "off" and mapper.f32_cuts_exact)
+    # (f32-snapped cuts of dense input); host binning otherwise, shipped
+    # as uint8 when every feature has at most 256 bins
+    use_device_bin = (p["device_binning"] != "off" and not streaming
+                      and isinstance(X, np.ndarray)
+                      and mapper.f32_cuts_exact)
     if p["device_binning"] == "on" and not use_device_bin:
-        _log.warning("device_binning='on' requested but the cuts are not "
-                     "f32-exact (pass float32 features); binning on host")
+        _log.warning(
+            "device_binning='on' requested but ineligible (%s); binning on "
+            "host", "input is CSR / streaming" if not isinstance(
+                X, np.ndarray) or streaming else
+            "the cuts are not f32-exact (pass float32 features)")
+    narrow = np.uint8 if num_bins <= 256 else np.int32
+    if isinstance(X, CSRMatrix):
+        bins_fm = mapper.transform_sparse(X, dtype=narrow)
+    elif not use_device_bin and not streaming:
+        bins_fm = mapper.transform_fm(X, native=native)
     mark("bin")
     if use_device_bin:
         raw = torch.from_numpy(np.ascontiguousarray(
@@ -623,7 +707,9 @@ def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
         bins_d = bucketize_fm_device(raw, bounds)
         del raw
     else:
-        bins_d = torch.from_numpy(mapper.transform_fm(X)).to(dev)
+        # the narrow matrix crosses to the device and widens there
+        bins_d = torch.from_numpy(bins_fm).to(dev).to(torch.int32)
+        del bins_fm
 
     # 2) init scores: a fresh start, or a warm start from a base forest
     base_model: Optional[Booster] = None
@@ -666,15 +752,23 @@ def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
     use_valid = valid is not None and esr > 0
     lr = float(p["learning_rate"])
     if use_valid:
-        Xv = np.asarray(valid[0], dtype=np.float64)
-        if Xv.ndim != 2 or Xv.shape[1] != f:
-            raise ValueError(f"validation data has shape {Xv.shape}, X has "
-                             f"{f} features")
+        Xv = valid[0]
+        if isinstance(Xv, CSRMatrix):
+            if Xv.shape[1] != f:
+                raise ValueError(f"validation data has shape {Xv.shape}, "
+                                 f"X has {f} features")
+            bins_v = mapper.transform_sparse(Xv).T
+        else:
+            Xv = np.asarray(Xv, dtype=np.float64)
+            if Xv.ndim != 2 or Xv.shape[1] != f:
+                raise ValueError(f"validation data has shape {Xv.shape}, "
+                                 f"X has {f} features")
+            bins_v = mapper.transform(Xv, native=native)
         v_scores = (_base_raw_kn(base_model, Xv, K) if base_model is not None
                     else np.broadcast_to(np.asarray(
-                        init_score, np.float32)[:, None], (K, len(Xv))))
+                        init_score, np.float32)[:, None], (K, len(bins_v))))
         valid_eval = _ValidEval(
-            objective, lr, mapper.transform(Xv).astype(np.float32),
+            objective, lr, np.ascontiguousarray(bins_v, dtype=np.float32),
             np.asarray(valid[1], dtype=np.float32), v_scores,
             int(p["max_depth"]) if int(p["max_depth"]) > 0
             else int(p["num_leaves"]) - 1, dev)
@@ -771,6 +865,136 @@ def train(params: Dict[str, Any], X: np.ndarray, y: np.ndarray,
             "only retained for single-host runs without init_model or "
             "early stopping; boost_more(data=None) will be unavailable")
     return booster
+
+
+_RESERVOIR_CAP = 200_000
+
+
+def _reservoir_rows(shard_iter, cap: int, seed: int) -> np.ndarray:
+    """Uniform row sample of a whole shard stream in one pass and
+    bounded memory: Algorithm R over row blocks (LightGBM samples the
+    whole dataset for its cuts, not its head). Bitwise the JAX
+    package's sample for the same stream and seed."""
+    rng = np.random.default_rng(seed ^ 0x5EED)
+    buf: Optional[np.ndarray] = None
+    seen = 0
+    for shard in shard_iter:
+        Xs = np.asarray(shard[0], dtype=np.float64)
+        i = 0
+        if buf is None:
+            take = min(cap, len(Xs))
+            buf = Xs[:take].copy()
+            seen = take
+            i = take
+        elif len(buf) < cap:
+            take = min(cap - len(buf), len(Xs))
+            buf = np.concatenate([buf, Xs[:take]])
+            seen += take
+            i = take
+        rest = Xs[i:]
+        if len(rest):
+            t = seen + np.arange(1, len(rest) + 1)
+            accept = rng.random(len(rest)) < (cap / t)
+            n_acc = int(accept.sum())
+            if n_acc:
+                buf[rng.integers(0, cap, size=n_acc)] = rest[accept]
+            seen += len(rest)
+    if buf is None:
+        raise ValueError("empty shard stream")
+    return buf
+
+
+def _bin_stream(shards, max_bin: int, seed: int,
+                mapper: Optional[BinMapper] = None,
+                bin_fit: str = "sample", native: bool = False):
+    """Streaming ingest: ``shards`` yields (X, y[, w]) tuples, and only
+    the features-major binned matrix is kept (uint8 when every feature
+    has at most 256 bins, else int32), so the raw floats never sit in
+    memory at once. Returns (mapper, bins (F, N), y, w).
+
+    Replayable inputs (list / tuple or zero-arg factory) take two
+    passes: cuts from a reservoir sample of every row then ``fit``
+    (``bin_fit='sample'``), or from ``fit_streaming``'s sketches of
+    every row (``'sketch'``); then binning. A one-shot iterator is
+    binned with cuts from its first shard, while a reservoir of the
+    whole stream measures the drift that cost and warns above 1 %.
+    ``native``: bin through the OpenMP library (a card fit)."""
+    replayable = isinstance(shards, (list, tuple)) or callable(shards)
+    factory = (shards if callable(shards)
+               else (lambda: iter(shards)) if replayable else None)
+
+    forced = mapper is not None
+    if forced:
+        stream = factory() if replayable else shards
+    elif replayable and bin_fit == "sketch":
+        mapper = BinMapper.fit_streaming(
+            (s[0] for s in factory()), max_bin=max_bin)
+        stream = factory()
+    elif replayable:
+        sample = _reservoir_rows(factory(), _RESERVOIR_CAP, seed)
+        mapper = BinMapper.fit(sample, max_bin=max_bin, seed=seed)
+        stream = factory()
+    else:
+        stream = shards
+
+    rng = np.random.default_rng(seed ^ 0x5EED)
+    res_buf: Optional[np.ndarray] = None
+    res_seen = 0
+    first_shard_rows = 0
+    bins_parts, y_parts, w_parts = [], [], []
+    for shard in stream:
+        Xs = np.asarray(shard[0], dtype=np.float64)
+        ys = np.asarray(shard[1], dtype=np.float64)
+        ws = (np.asarray(shard[2], dtype=np.float64) if len(shard) > 2
+              else np.ones(len(ys)))
+        if mapper is None:
+            mapper = BinMapper.fit(Xs, max_bin=max_bin, seed=seed)
+            first_shard_rows = len(Xs)
+        if not replayable and not forced:
+            # the whole stream's reservoir for the drift check (the fill /
+            # top-up / replace discipline of _reservoir_rows)
+            i = 0
+            if res_buf is None:
+                take = min(_RESERVOIR_CAP, len(Xs))
+                res_buf, res_seen, i = Xs[:take].copy(), take, take
+            elif len(res_buf) < _RESERVOIR_CAP:
+                take = min(_RESERVOIR_CAP - len(res_buf), len(Xs))
+                res_buf = np.concatenate([res_buf, Xs[:take]])
+                res_seen += take
+                i = take
+            rest = Xs[i:]
+            if len(rest):
+                t = res_seen + np.arange(1, len(rest) + 1)
+                accept = rng.random(len(rest)) < (_RESERVOIR_CAP / t)
+                n_acc = int(accept.sum())
+                if n_acc and len(res_buf) >= 1:
+                    res_buf[rng.integers(0, len(res_buf), size=n_acc)] \
+                        = rest[accept]
+                res_seen += len(rest)
+        part = mapper.transform_fm(Xs, native=native)
+        if part.dtype != np.uint8 and mapper._u8_ok():
+            part = part.astype(np.uint8)
+        bins_parts.append(part)
+        y_parts.append(ys)
+        w_parts.append(ws)
+    if mapper is None:
+        raise ValueError("empty shard stream")
+    if (not replayable and not forced and res_buf is not None
+            and res_seen > first_shard_rows):
+        # did the one-shot stream's first shard misrepresent the data?
+        full_mapper = BinMapper.fit(res_buf, max_bin=max_bin, seed=seed)
+        drift = float(np.mean(mapper.transform(res_buf, native=native)
+                              != full_mapper.transform(res_buf,
+                                                       native=native)))
+        if drift > 0.01:
+            _log.warning(
+                "streaming binning drift: %.1f%% of sampled cells bin "
+                "differently under first-shard vs full-stream "
+                "boundaries — the shard order looks skewed/sorted. "
+                "Pass a list or zero-arg factory of shards for exact "
+                "two-pass quantiles.", 100 * drift)
+    return (mapper, np.concatenate(bins_parts, axis=1),
+            np.concatenate(y_parts), np.concatenate(w_parts))
 
 
 def _host_predict_trees(X: np.ndarray, trees: Dict[str, np.ndarray],

@@ -12,8 +12,10 @@ Bagging, feature fraction, quantized histograms (``histBits`` 16 / 8),
 validation data with early stopping, the ``initModelString`` warm start
 and ``keepTrainingData`` run as in the JAX package; the fitted model
 keeps the live booster, so ``model.get_booster().boost_more(...)``
-works. Out-of-slice settings (distributed modes, streamed or sparse
-input) raise ``NotImplementedError`` from ``booster.train``.
+works. A sparse (``CSRMatrix``) features column trains and scores
+without densifying the table, and ``fit`` also takes an out-of-core
+``ChunkedTable`` (``binFit='sketch'`` for one-pass sketch cuts).
+Distributed modes raise ``NotImplementedError`` from ``booster.train``.
 """
 
 from __future__ import annotations
@@ -29,8 +31,10 @@ from mmlspark_tpu_torch.core.params import (
 )
 from mmlspark_tpu_torch.core.schema import Field, Schema, VECTOR, F64
 from mmlspark_tpu_torch.core.stage import Estimator, Model
+from mmlspark_tpu_torch.core.sparse import CSRMatrix
 from mmlspark_tpu_torch.core.table import DataTable, features_matrix
 from mmlspark_tpu_torch.gbdt.booster import Booster, train
+from mmlspark_tpu_torch.io.ooc import ChunkedTable
 
 
 def _device_domain(v: str) -> bool:
@@ -99,8 +103,10 @@ class _BoostParams(HasFeaturesCol, HasLabelCol, HasPredictionCol,
         "bin raw features on the device ('auto' = when the mapper's cuts "
         "are f32-exact, i.e. float32 input)", default="auto")
     binFit = EnumParam(["sample", "sketch"],
-                       "streaming bin-boundary fit (in-memory dense fits "
-                       "use 'sample'; 'sketch' is not ported yet)",
+                       "streaming bin-boundary fit: 'sample' (reservoir "
+                       "sample of every row) or 'sketch' (one-pass "
+                       "mergeable quantile sketch); in-memory fits use "
+                       "'sample'",
                        default="sample")
     validationData = TableParam("held-out table for early stopping",
                                 default=None)
@@ -142,6 +148,8 @@ class _BoostParams(HasFeaturesCol, HasLabelCol, HasPredictionCol,
 
     def _features_matrix(self, table: DataTable) -> np.ndarray:
         col = table.column(self.get_features_col())
+        if isinstance(col, CSRMatrix):
+            return col    # booster.train bins CSR directly, no densify
         if isinstance(col, np.ndarray) and col.ndim == 2 \
                 and col.dtype == np.float32:
             # keep float32: the f32-exact cut snapping keeps on-device
@@ -149,28 +157,30 @@ class _BoostParams(HasFeaturesCol, HasLabelCol, HasPredictionCol,
             return col
         return features_matrix(table, self.get_features_col())
 
-    def _fit_arrays(self, table: DataTable):
-        if not isinstance(table, DataTable):
-            raise NotImplementedError(
-                f"fitting on a {type(table).__name__} is not ported to "
-                "mmlspark_tpu_torch yet (ROADMAP.md, 'GBDT ingest beyond "
-                "dense input')")
+    def _valid(self):
+        vt = self.get_or_none("validationData")
+        if vt is None:
+            return None
+        return (self._features_matrix(vt),
+                np.asarray(vt.column(self.get_label_col()), dtype=np.float64))
+
+    def _train(self, params: Dict[str, Any], table) -> Booster:
+        if isinstance(table, ChunkedTable):
+            # out-of-core fit through train()'s streaming ingest
+            if self.get("initModelString"):
+                raise ValueError(
+                    "init-model warm start requires an in-memory table "
+                    "(streaming ingest cannot warm-start)")
+            fac = table.as_xy(self.get_features_col(), self.get_label_col(),
+                              self.get_or_none("weightCol"))
+            return train(params, fac, y=None, valid=self._valid(),
+                         device=self.get("device"))
         X = self._features_matrix(table)
         y = np.asarray(table.column(self.get_label_col()), dtype=np.float64)
         wcol = self.get_or_none("weightCol")
         w = (np.asarray(table.column(wcol), dtype=np.float64)
              if wcol else None)
-        vt = self.get_or_none("validationData")
-        valid = None
-        if vt is not None:
-            valid = (self._features_matrix(vt),
-                     np.asarray(vt.column(self.get_label_col()),
-                                dtype=np.float64))
-        return X, y, w, valid
-
-    def _train(self, params: Dict[str, Any], table: DataTable) -> Booster:
-        X, y, w, valid = self._fit_arrays(table)
-        return train(params, X, y, sample_weight=w, valid=valid,
+        return train(params, X, y, sample_weight=w, valid=self._valid(),
                      init_model=self.get("initModelString") or None,
                      device=self.get("device"))
 
@@ -202,6 +212,17 @@ class _BoosterModel(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
         return self.get_booster().feature_importance(kind)
 
 
+def _chunked_classes(table: ChunkedTable, label_col: str) -> np.ndarray:
+    """The distinct labels of a chunk stream, in one pass that keeps no
+    chunk once it returns (a chunk left bound in the caller's frame would
+    stay in memory through the whole fit)."""
+    classes: np.ndarray = np.empty(0)
+    for chunk in table.chunks():
+        y = np.asarray(chunk[label_col], np.float64)
+        classes = np.union1d(classes, np.unique(y))
+    return classes
+
+
 class TPUBoostClassifier(Estimator, _BoostParams):
     """GBDT classifier (ref: LightGBMClassifier.scala:36)."""
 
@@ -212,11 +233,14 @@ class TPUBoostClassifier(Estimator, _BoostParams):
     rawPredictionCol = ColParam("raw score output column",
                                 default="rawPrediction")
 
-    def fit(self, table: DataTable) -> "TPUBoostClassificationModel":
-        if not isinstance(table, DataTable):
-            self._fit_arrays(table)      # raises NotImplementedError
-        y = np.asarray(table.column(self.get_label_col()), dtype=np.float64)
-        classes = np.unique(y)
+    def fit(self, table) -> "TPUBoostClassificationModel":
+        """Fit on a DataTable or a ``ChunkedTable`` (out of core: one
+        extra pass over the labels finds the class count)."""
+        if isinstance(table, ChunkedTable):
+            classes = _chunked_classes(table, self.get_label_col())
+        else:
+            classes = np.unique(np.asarray(
+                table.column(self.get_label_col()), dtype=np.float64))
         num_class = len(classes)
         if not np.array_equal(classes, np.arange(num_class)):
             raise ValueError(
@@ -292,7 +316,8 @@ class TPUBoostRegressor(Estimator, _BoostParams):
     tweedieVariancePower = FloatParam("tweedie variance power in (1,2)",
                                       default=1.5)
 
-    def fit(self, table: DataTable) -> "TPUBoostRegressionModel":
+    def fit(self, table) -> "TPUBoostRegressionModel":
+        """Fit on a DataTable or a ``ChunkedTable`` (out of core)."""
         params = self._train_params()
         params["objective"] = self.get("objective")
         params["alpha"] = self.get("alpha")

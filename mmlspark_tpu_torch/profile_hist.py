@@ -123,18 +123,27 @@ def hist_bound_ms(f, n, w, num_leaves, num_bins, sdt, with_count):
 def bincount_call(bins, grad, hess, w, leaf, num_leaves, num_bins, cv):
     """One torch.bincount with weights on precomputed segment ids — the
     library's way to the same (3, L, F, B) sums; timed as a yardstick,
-    never called by the port."""
+    never called by the port. The ids and weights are written 64
+    features at a time into their final buffers, so building them takes
+    no more memory than they hold (3 F N ids and weights: ~41 GB at
+    F = 968, N = 1.18M)."""
     import torch
     f, n = bins.shape
     lfb = num_leaves * f * num_bins
-    seg = ((leaf.long()[None, :] * f
-            + torch.arange(f, device=bins.device)[:, None]) * num_bins
-           + bins.long()).reshape(-1)
     vals = [grad * w, hess * w, w if cv is None else cv * w]
     wdt = torch.float32 if grad.is_floating_point() else torch.float64
-    seg3 = torch.cat([seg + c * lfb for c in range(3)])
-    wts = torch.cat([v.to(wdt)[None, :].expand(f, n).reshape(-1)
-                     for v in vals])
+    seg3 = torch.empty(3 * f * n, dtype=torch.long, device=bins.device)
+    wts = torch.empty(3 * f * n, dtype=wdt, device=bins.device)
+    for j0 in range(0, f, 64):
+        j1 = min(f, j0 + 64)
+        seg = ((leaf.long()[None, :] * f
+                + torch.arange(j0, j1, device=bins.device)[:, None])
+               * num_bins + bins[j0:j1].long()).reshape(-1)
+        for c, v in enumerate(vals):
+            lo = (c * f + j0) * n
+            seg3[lo:lo + seg.numel()] = seg + c * lfb
+            wts[lo:lo + seg.numel()] = v.to(wdt)[None, :].expand(
+                j1 - j0, n).reshape(-1)
     return lambda: torch.bincount(seg3, weights=wts, minlength=3 * lfb)
 
 

@@ -34,11 +34,13 @@ from mmlspark_tpu.gbdt.estimators import (
 
 import mmlspark_tpu_torch as mtt
 from mmlspark_tpu_torch import convert
+from mmlspark_tpu_torch.core.sparse import CSRMatrix
 from mmlspark_tpu_torch.gbdt import binning as tbinning
 from mmlspark_tpu_torch.gbdt import hist_kernels as HK
 from mmlspark_tpu_torch.gbdt import objectives as tobj
 from mmlspark_tpu_torch.gbdt import tree as ttree
 from mmlspark_tpu_torch.gbdt.booster import train as ttrain
+from mmlspark_tpu_torch.io.ooc import ChunkedTable
 
 REPO = Path(__file__).resolve().parent.parent
 TREE_KEYS = ("feature", "bin_threshold", "left", "right", "is_leaf")
@@ -437,6 +439,18 @@ m = mtt.TPUBoostClassifier(numIterations=20, numLeaves=7, maxBin=31,
                            device="cpu").fit(t)
 assert (m.transform(t)["prediction"] == y).mean() > 0.9
 assert m.get_booster().best_iteration > 0
+# sparse features (a CSR column) and an out-of-core sketch fit
+from mmlspark_tpu_torch.core.sparse import CSRMatrix
+from mmlspark_tpu_torch.io.ooc import ChunkedTable
+Xs = np.where(np.abs(X) > 0.7, X, 0).astype(np.float32)
+ts = mtt.DataTable({"features": CSRMatrix.from_dense(Xs), "label": y})
+ms = mtt.TPUBoostClassifier(numIterations=3, numLeaves=7, maxBin=31,
+                            device="cpu").fit(ts)
+assert (ms.transform(ts)["prediction"] == y).mean() > 0.8
+mc = mtt.TPUBoostClassifier(numIterations=3, numLeaves=7, maxBin=31,
+                            binFit="sketch", device="cpu").fit(
+    ChunkedTable.from_table(t, chunk_rows=100))
+assert (mc.transform(t)["prediction"] == y).mean() > 0.9
 assert not any(m.split(".")[0] in ("jax", "mmlspark_tpu")
                for m, v in sys.modules.items() if v is not None)
 print("OK")
@@ -471,8 +485,6 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card, higgs):
     ({"parallelism": "feature"}, "Distributed GBDT"),
     ({"parallelism": "voting"}, "Distributed GBDT"),
     ({"parallelism": "data", "hist_bits": 16}, "Distributed GBDT"),
-    ({"bin_fit": "sketch"}, "ingest beyond dense"),
-    ({"bin_fit": "sketch", "hist_bits": 8}, "ingest beyond dense"),
 ])
 def test_out_of_slice_options_raise(params, item):
     X = np.random.default_rng(0).normal(size=(50, 3))
@@ -506,13 +518,48 @@ def test_warm_start_validation_and_streaming_raise():
     with pytest.raises(ValueError):
         ttrain({"num_iterations": 1, "early_stopping_round": 2}, X, y,
                valid=(X[:, :2], y), device="cpu")
-    with pytest.raises(NotImplementedError, match="ingest beyond dense"):
+    with pytest.raises(ValueError, match="validation data has shape"):
         ttrain({"num_iterations": 1, "early_stopping_round": 2}, X, y,
-               valid=(iter([X]), y), device="cpu")
-    with pytest.raises(NotImplementedError, match="ingest beyond dense"):
-        ttrain({"num_iterations": 1}, iter([(X, y)]), None, device="cpu")
-    with pytest.raises(NotImplementedError, match="ingest beyond dense"):
-        mtt.TPUBoostRegressor(device="cpu").fit(object())
+               valid=(CSRMatrix.from_dense(X[:, :2]), y), device="cpu")
+    # streamed input cannot warm-start, as in the JAX package
+    with pytest.raises(ValueError, match="requires dense X"):
+        ttrain({"num_iterations": 1}, iter([(X, y)]), None,
+               init_model="{}", device="cpu")
+
+
+def _ingest_case(case):
+    """Inputs that raised NotImplementedError ("GBDT ingest beyond dense
+    input") until the port took them."""
+    X = np.random.default_rng(0).normal(size=(60, 3))
+    X[X < -0.5] = 0.0
+    y = X[:, 0]
+    kw = {"num_iterations": 2, "min_data_in_leaf": 5}
+    if case == "bin_fit_sketch":
+        return ttrain({**kw, "bin_fit": "sketch"}, X, y, device="cpu")
+    if case == "bin_fit_sketch_hist_bits_8":
+        return ttrain({**kw, "bin_fit": "sketch", "hist_bits": 8}, X, y,
+                      device="cpu")
+    if case == "csr_validation":
+        return ttrain({**kw, "early_stopping_round": 2}, X, y,
+                      valid=(CSRMatrix.from_dense(X), y), device="cpu")
+    if case == "one_shot_stream":
+        return ttrain(kw, iter([(X[:30], y[:30]), (X[30:], y[30:])]), None,
+                      device="cpu")
+    table = mtt.DataTable({"features": X, "label": y})
+    return mtt.TPUBoostRegressor(numIterations=2, minDataInLeaf=5,
+                                 device="cpu").fit(
+        ChunkedTable.from_table(table, chunk_rows=20)).get_booster()
+
+
+@pytest.mark.parametrize("case", [
+    "bin_fit_sketch", "bin_fit_sketch_hist_bits_8", "csr_validation",
+    "one_shot_stream", "chunked_table_fit"])
+def test_ingest_beyond_dense_no_longer_raises(case):
+    # these raised NotImplementedError (test_out_of_slice_options_raise's
+    # two bin_fit='sketch' cases and test_warm_start_validation_and_
+    # streaming_raise's three ingest raises) until the port took them
+    b = _ingest_case(case)
+    assert b.num_trees == 2
 
 
 @pytest.mark.parametrize("method", ["auto", "pallas"])
