@@ -145,6 +145,31 @@ Phases, one line each; any failure exits non-zero:
                bitwise equal to _numpy_bin_block on the 1M x 28 table in
                float32 and float64, all features and a range, with host
                ms and the OpenMP thread count.
+  9. zoo networks — at the widths the repo uses, step counts cut: (a)
+               bench.py's bench_cifar ConvNet ([64, 64, 64] / [256], 10
+               classes, inputShape [32, 32, 3], batch 1024, bf16, device
+               feed, lr 0.1, Nesterov momentum, cosine) on seeded
+               CIFAR-shaped data for 1 epoch of 32 steps (bench.py: 9 of
+               128); (b) bench_resnet's ResNet-20 the same way. Each prints
+               imgs/s, step ms, peak memory and MFU; losses finite, the
+               last below the first; ResNet-20's running statistics moved
+               and finite, and its model's logits of rows 0-7 alone within
+               2**-6 of theirs inside a 256-row batch (eval mode reads the
+               running statistics). (c) a ResNet [1, 1] / width 16 trained
+               2 SGD steps at batch 8 in f32 on the card and on the CPU
+               from the same weights (losses within rtol 1e-4, weights and
+               running statistics within 1e-3 of the largest update), and
+               one f32 forward of the ConvNet, ResNet-20 and BiLSTM card
+               vs CPU within 1e-4 of the output's scale, with the error
+               TF32 would have left printed beside it. (d) the BiLSTM at
+               examples/304_bilstm_tagger.py's shape (vocab 50, embed 32,
+               hidden 64, 3 tags, T = 12, 512 rows, batch 128, adam 0.01,
+               f32, 30 epochs): held-out per-token accuracy above 0.9,
+               step ms. (e) ResNet-18 (imagenet stem, [2, 2, 2, 2], width
+               64, 1000 classes, seeded weights): TPUModel.transform of
+               1024 224 x 224 x 3 images at batch 256 in bf16 and f32,
+               imgs/s of the second of two runs, finite logits of shape
+               (1024, 1000).
 Then one JSON line of per-kernel numbers (the hist rows include the int16
 and int8 launches of 7(b) and 7(c) and the F = 968 launches of 8(a)), the
 card's name and power limit, and as the last line
@@ -1186,6 +1211,210 @@ def host_ms(fn, reps: int = 5) -> float:
     return float(np.median(ts))
 
 
+ZOO_STEPS = 32              # phase 9's CIFAR fits: 1 epoch of 32 steps
+RESNET18 = {"type": "resnet", "stage_sizes": [2, 2, 2, 2], "width": 64,
+            "num_classes": 1000, "stem": "imagenet"}
+RESNET18_ROWS, RESNET18_BATCH = 1024, 256
+BILSTM = {"type": "bilstm", "vocab_size": 50, "embed_dim": 32, "hidden": 64,
+          "num_tags": 3}
+
+
+def bilstm_data(n: int, seed: int):
+    """examples/304_bilstm_tagger.py's tokens: the tag of a token depends
+    on it and on the token before it."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, BILSTM["vocab_size"], size=(n, 12))
+    prev = np.roll(toks, 1, axis=1)
+    prev[:, 0] = 0
+    return toks.astype(np.int64), ((toks + prev) % 3).astype(np.int64)
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def zoo_slice(dev, smi: str) -> None:
+    """Phase 9: the zoo's ConvNet, ResNet and BiLSTMTagger on the card."""
+    import contextlib
+    import copy
+
+    import torch
+
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.models import networks
+    from mmlspark_tpu_torch.models.learner import TPULearner
+    from mmlspark_tpu_torch.models.networks import build_network
+    from mmlspark_tpu_torch.models.tpu_model import TPUModel
+    from mmlspark_tpu_torch.profile_train import (
+        CIFAR_BATCH, CIFAR_SPECS, cifar_learner, cifar_table)
+
+    # (a), (b): bench.py's CIFAR configurations, 1 epoch of 32 steps
+    table = cifar_table(ZOO_STEPS * CIFAR_BATCH)
+    for net in ("convnet", "resnet20"):
+        learner = cifar_learner(net, 1, device=str(dev))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = learner.fit(table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in learner.history]
+        check(len(losses) == ZOO_STEPS and all(np.isfinite(losses)),
+              f"{net} losses {losses}")
+        check(losses[-1] < losses[0], f"{net} loss did not fall: {losses}")
+        tm = learner.timing
+        check("mfu" in tm, f"{net}: no MFU in learner.timing {tm}")
+        print(f"zoo (a/b) {net}: {ZOO_STEPS} steps of {CIFAR_BATCH} x 32 x "
+              f"32 x 3, bf16, device feed, in {fit_s:.3f} s (first step "
+              f"included); {tm['examples_per_sec']:.1f} imgs/s, "
+              f"{1e3 * tm['wall_s'] / tm['steps_timed']:.3f} ms per step "
+              f"after the first, peak memory {peak / 1e9:.3f} GB, MFU "
+              f"{tm['mfu']:.4f} ({tm['model_flops_per_step'] / 1e9:.2f} "
+              f"GFLOP a step); card {smi}")
+        print(f"zoo (a/b) {net}: losses first {losses[0]:.4f}, last "
+              f"{losses[-1]:.4f}")
+        if net == "resnet20":
+            w = model.get("weights")
+            stats = {k: v for k, v in w.items() if ".running_" in k}
+            check(all(bool(torch.isfinite(v).all()) for v in stats.values()),
+                  "ResNet-20 running statistics not finite")
+            still = [k for k, v in stats.items() if bool(torch.all(
+                v == (1.0 if k.endswith("running_var") else 0.0)))]
+            check(not still, f"ResNet-20 running statistics never moved: "
+                  f"{still}")
+            x = np.asarray(table["features"][:256])
+            full = torch.from_numpy(model.transform(DataTable(
+                {"features": x}))["scores"])
+            alone = torch.from_numpy(model.transform(DataTable(
+                {"features": x[:8]}))["scores"])
+            err = rel_err(alone, full[:8])
+            check(err <= 2.0 ** -6, f"ResNet-20 rows 0-7 alone vs in a "
+                  f"256-row batch differ by {err} of the scale")
+            print(f"zoo (b) resnet20: {len(stats)} running buffers moved, "
+                  f"finite; rows 0-7 alone vs in a 256-row batch: "
+                  f"{err:.3e} of the logits' scale (<= 2**-6)")
+        del learner, model
+        torch.cuda.empty_cache()
+    del table
+
+    # (c) card vs CPU in f32: 2 SGD steps of a small ResNet, then one
+    # forward of each network
+    spec_c = {"type": "resnet", "stage_sizes": [1, 1], "width": 16,
+              "num_classes": 10}
+    m0 = build_network(spec_c, device="cpu", seed=2)
+    w0 = {k: t.clone() for k, t in m0.state_dict().items()}
+    small = cifar_table(16, seed=3)
+
+    def fit_small(device):
+        lrn = TPULearner(moduleFactory=lambda: copy.deepcopy(m0),
+                         device=str(device), optimizer="sgd",
+                         schedule="constant", learningRate=0.1, batchSize=8,
+                         epochs=1, inputShape=[32, 32, 3],
+                         computeDtype="float32", logEvery=1)
+        mod = lrn.fit(small)
+        return [h["loss"] for h in lrn.history], {
+            k: t.detach().cpu() for k, t in mod.get("weights").items()}
+    l_card, w_card = fit_small(dev)
+    l_cpu, w_cpu = fit_small("cpu")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    upd = max(float((w_cpu[k] - w0[k]).abs().max()) for k in w0)
+    w_diff = max(float((w_card[k] - w_cpu[k]).abs().max()) for k in w0)
+    check(loss_rel <= 1e-4, f"ResNet card vs CPU losses {l_card} vs {l_cpu}")
+    check(w_diff <= 1e-3 * upd, f"ResNet card vs CPU weights differ by "
+          f"{w_diff}, largest update {upd}")
+    print(f"zoo (c): ResNet [1, 1] / 16, 2 SGD steps f32, card vs CPU: "
+          f"losses rel diff {loss_rel:.2e} (<= 1e-4), max |weight or running"
+          f" stat diff| {w_diff:.3e} vs largest update {upd:.3e} (<= 1e-3 "
+          "of it)")
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.uniform(
+        0, 1, size=(64, 32, 32, 3)).astype(np.float32))
+    tokens = torch.from_numpy(bilstm_data(64, 2)[0])
+    for name, spec, x in (("convnet", CIFAR_SPECS["convnet"], images),
+                          ("resnet20", CIFAR_SPECS["resnet20"], images),
+                          ("bilstm", BILSTM, tokens)):
+        module = build_network(spec, device="cpu", seed=5)
+        with torch.no_grad():
+            for buf_name, buf in module.named_buffers():
+                if buf_name.endswith("running_var"):
+                    buf.uniform_(0.5, 2.0)
+            want = module(x)
+            module = module.to(dev)
+            got = module(x.to(dev)).cpu()
+            err = rel_err(got, want)
+            saved = networks.strict_f32
+            tf32_before = torch.backends.cudnn.allow_tf32
+            try:      # the same forward with TF32 left on, for contrast
+                networks.strict_f32 = contextlib.nullcontext
+                torch.backends.cudnn.allow_tf32 = True
+                loose = rel_err(module(x.to(dev)).cpu(), want)
+            finally:
+                networks.strict_f32 = saved
+                torch.backends.cudnn.allow_tf32 = tf32_before
+        check(err <= 1e-4, f"{name} f32 forward card vs CPU: {err}")
+        print(f"zoo (c): {name} f32 forward of {tuple(x.shape)}, card vs "
+              f"CPU {err:.3e} of the output's scale (<= 1e-4); with cuDNN's "
+              f"TF32 left on it would be {loose:.3e}")
+    del m0, w0, w_card, w_cpu
+
+    # (d) the BiLSTM tagger at examples/304_bilstm_tagger.py's shape
+    toks, tags = bilstm_data(512, 0)
+    learner = TPULearner(networkSpec=BILSTM, loss="token_cross_entropy",
+                         epochs=30, batchSize=128, learningRate=0.01,
+                         optimizer="adam", computeDtype="float32",
+                         logEvery=50, device=str(dev))
+    t0 = time.perf_counter()
+    model = learner.fit(DataTable({"features": toks, "label": tags}))
+    fit_s = time.perf_counter() - t0
+    test_toks, test_tags = bilstm_data(128, 1)
+    pred = model.transform(DataTable({"features": test_toks}))["scores"]
+    acc = float(np.mean(np.argmax(pred, -1) == test_tags))
+    check(acc > 0.9, f"BiLSTM held-out per-token accuracy {acc}")
+    tm = learner.timing
+    step_ms = 1e3 * tm["wall_s"] / tm["steps_timed"]
+    # the LSTM products of a step (forward, and twice that backward),
+    # which FlopCounterMode cannot see in cuDNN's RNN op
+    lstm_flops = 3 * 2 * 2 * 12 * 128 * (BILSTM["embed_dim"]
+                                         + BILSTM["hidden"]) \
+        * 4 * BILSTM["hidden"]
+    check(tm.get("model_flops_per_step", 0) >= lstm_flops,
+          f"BiLSTM step flops {tm.get('model_flops_per_step')} leave out "
+          f"the LSTM's {lstm_flops}")
+    print(f"zoo (d) bilstm: 30 epochs x 4 steps of 128 x 12 tokens, f32, "
+          f"adam, in {fit_s:.3f} s; {step_ms:.3f} ms per step after the "
+          f"first; held-out per-token accuracy {acc:.4f} (> 0.9); "
+          f"{tm['model_flops_per_step'] / 1e9:.3f} GFLOP a step (the "
+          f"LSTM's {lstm_flops / 1e9:.3f}), MFU {tm['mfu']:.2e}")
+    del learner, model
+
+    # (e) ResNet-18 inference at 224 x 224
+    images = np.random.default_rng(6).normal(
+        size=(RESNET18_ROWS, 224, 224, 3)).astype(np.float32)
+    table = DataTable({"image": images})
+    state = build_network(RESNET18, device=dev, seed=11).state_dict()
+    for dtype in ("bfloat16", "float32"):
+        module = build_network(dict(RESNET18, dtype=dtype), device=dev)
+        module.load_state_dict(state)
+        model = TPUModel.from_module(module, device=dev, inputCol="image",
+                                     outputCol="logits",
+                                     batchSize=RESNET18_BATCH)
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            logits = model.transform(table)["logits"]
+            secs.append(time.perf_counter() - t0)
+        check(logits.shape == (RESNET18_ROWS, 1000)
+              and bool(np.isfinite(logits).all()),
+              f"ResNet-18 {dtype} logits {logits.shape}, finite "
+              f"{bool(np.isfinite(logits).all())}")
+        print(f"zoo (e) resnet18 {dtype}: transform of {RESNET18_ROWS} x 224 "
+              f"x 224 x 3 at batch {RESNET18_BATCH}: {secs[0]:.3f} s first, "
+              f"{secs[1]:.3f} s second = {RESNET18_ROWS / secs[1]:.1f} imgs/s;"
+              f" logits {logits.shape} finite")
+        del module, model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1800,6 +2029,11 @@ def main() -> int:
     # ---- 8. GBDT ingest beyond dense input --------------------------------
     ingest_routes = ingest_slice(auc255, Xtr, ytr, Xte, yte, test_t,
                                  measured, smi)
+
+    # ---- 9. the zoo's ConvNet, ResNet and BiLSTM ---------------------------
+    t0 = time.perf_counter()
+    zoo_slice(dev, smi)
+    print(f"zoo: phase 9 took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, route, key, launches, line in (

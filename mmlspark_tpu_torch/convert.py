@@ -55,54 +55,110 @@ def booster_from_model_string(s: str, device: DeviceLike = None) -> Booster:
 
 
 # flax leaf name -> torch parameter name, by module type; a Dense kernel
-# is (in, out) in flax and (out, in) in torch
+# is (in, out) in flax and (out, in) in torch, a Conv kernel HWIO in flax
+# and OIHW in torch
 _FLAX_LEAVES = {nn.Linear: (("kernel", "weight"), ("bias", "bias")),
                 nn.LayerNorm: (("scale", "weight"), ("bias", "bias")),
-                nn.Embedding: (("embedding", "weight"),)}
+                nn.Embedding: (("embedding", "weight"),),
+                networks.BatchNorm: (("scale", "weight"), ("bias", "bias"))}
+_BN_STATS = (("mean", "running_mean"), ("var", "running_var"))
+_GATES = ("i", "f", "g", "o")       # flax's and torch's LSTM gate order
+
+
+def _flax_sizes(spec: Dict[str, Any], params: Dict[str, Any]
+                ) -> Dict[str, Any]:
+    """``spec`` with the sizes flax inferred at init (which torch must know
+    to allocate) read from the weights; keys the spec has are kept."""
+    spec = dict(spec)
+    kind = spec["type"]
+
+    def fan_in(name: str, axis: int = 0) -> int:
+        return int(np.shape(params[name]["kernel"])[axis])
+
+    if kind == "mlp":
+        spec.setdefault("in_features",
+                        fan_in("dense_0" if "dense_0" in params else "head"))
+    elif kind == "convnet":
+        if "conv_0" in params:
+            spec.setdefault("in_channels", fan_in("conv_0", 2))
+        spec.setdefault("flat_features",
+                        fan_in("dense_0" if "dense_0" in params else "head"))
+    elif kind == "resnet":
+        spec.setdefault("in_channels", fan_in("stem", 2))
+    return spec
 
 
 def module_from_flax(spec: Dict[str, Any], variables: Dict[str, Any],
                      device: DeviceLike = None) -> nn.Module:
     """The port's module of ``spec`` (the JAX zoo's spec) holding the flax
-    ``variables`` (``{"params": {...}}`` or the params dict itself, nested
-    dicts of arrays), on ``device``. Every flax leaf must land on exactly
-    one torch parameter: a missing or extra leaf raises ``ValueError``."""
-    params = variables.get("params", variables)
-    spec = dict(spec)
-    if spec["type"] == "mlp" and "in_features" not in spec:
-        first = "dense_0" if "dense_0" in params else "head"
-        spec["in_features"] = int(np.shape(params[first]["kernel"])[0])
-    module = networks.make_network(spec, device)
+    ``variables`` (``{"params": ..., "batch_stats": ...}`` or the params
+    dict itself, nested dicts of arrays), on ``device``. Every flax leaf,
+    ``batch_stats`` included, must land on exactly one torch parameter or
+    buffer: a missing or extra leaf raises ``ValueError``. BatchNorm's
+    ``scale`` / ``bias`` become its weight and bias, its ``batch_stats``
+    ``mean`` / ``var`` its running buffers; an LSTM cell's gate kernels
+    stack into torch's fused layout."""
+    if "params" in variables:
+        collections = dict(variables)
+        unknown = sorted(set(collections) - {"params", "batch_stats"})
+        if unknown:
+            raise ValueError(f"flax variables hold collections the port "
+                             f"has no place for: {unknown}")
+    else:
+        collections = {"params": variables}
+    params = collections["params"]
+    collections.setdefault("batch_stats", {})
+    module = networks.make_network(_flax_sizes(spec, params), device)
     state: Dict[str, np.ndarray] = {}
     used = set()
 
-    def leaf(path):
-        node = params
+    def leaf(path, collection="params"):
+        node = collections[collection]
         for p in path:
             if not isinstance(node, dict) or p not in node:
-                raise ValueError(f"flax variables lack {'/'.join(path)}")
+                raise ValueError(f"flax variables lack {collection}/"
+                                 f"{'/'.join(path)}")
             node = node[p]
-        used.add(tuple(path))
+        used.add((collection,) + tuple(path))
         return np.array(node, dtype=np.float32)   # a writable copy
 
     for name, mod in module.named_modules():
+        path = name.split(".") if name else []
+        if isinstance(mod, networks.Conv):
+            state[f"{name}.weight"] = leaf(path + ["kernel"]).transpose(
+                3, 2, 0, 1)
+            if mod.bias is not None:
+                state[f"{name}.bias"] = leaf(path + ["bias"])
+            continue
+        if isinstance(mod, networks.LSTMCell):
+            state[f"{name}.weight_ih"] = np.concatenate(
+                [leaf(path + ["i" + g, "kernel"]).T for g in _GATES])
+            state[f"{name}.weight_hh"] = np.concatenate(
+                [leaf(path + ["h" + g, "kernel"]).T for g in _GATES])
+            state[f"{name}.bias_hh"] = np.concatenate(
+                [leaf(path + ["h" + g, "bias"]) for g in _GATES])
+            continue
         for kind, pairs in _FLAX_LEAVES.items():
             if isinstance(mod, kind):
-                path = name.split(".")
                 for flax_name, torch_name in pairs:
                     arr = leaf(path + [flax_name])
                     state[f"{name}.{torch_name}"] = \
                         arr.T if flax_name == "kernel" else arr
+        if isinstance(mod, networks.BatchNorm):
+            for flax_name, torch_name in _BN_STATS:
+                state[f"{name}.{torch_name}"] = leaf(path + [flax_name],
+                                                     "batch_stats")
     for name, _ in module.named_parameters(recurse=False):
         state[name] = leaf([name])
 
-    def leaves(node, path=()):
+    def leaves(node, path):
         if isinstance(node, dict):
             for k, v in node.items():
                 yield from leaves(v, path + (k,))
         else:
             yield path
-    extra = sorted("/".join(p) for p in leaves(params) if p not in used)
+    extra = sorted("/".join(p) for c, tree in collections.items()
+                   for p in leaves(tree, (c,)) if p not in used)
     if extra:
         raise ValueError(f"flax variables hold leaves the {spec['type']} "
                          f"module has no place for: {extra}")

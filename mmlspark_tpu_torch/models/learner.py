@@ -8,6 +8,12 @@ place) on one device, and returns a ``TPUModel`` over the trained module.
 The card is the default device (``device`` Param, ``None`` = cuda);
 without one it raises unless ``device='cpu'`` was asked for.
 
+The module is built after the table is read, from the shape of one row
+(``networks.sized_spec``), as the JAX learner's ``module.init(rng,
+sample)`` sizes it: an MLP's input width, a ConvNet's input channels and
+flattened width, a ResNet's input channels. Image columns are scaled by
+1/255 and stay NHWC; ``inputShape`` reshapes a flat column per row.
+
 What carries over from the JAX learner, so both packages take the same
 steps on the same data:
 - **Batches.** Host feed: each epoch's order is the same
@@ -30,13 +36,21 @@ steps on the same data:
   the update as optax does (so the default cosine schedule without
   warmup takes its first step at lr 0).
 - **Mixed precision**: ``computeDtype='bfloat16'`` sets the spec's
-  ``dtype``; parameters and optimizer state stay float32.
+  ``dtype``; parameters and optimizer state stay float32. A step's
+  forward and backward run under ``networks.strict_f32()``, so cuDNN's
+  float32 convolutions and LSTMs take no TF32.
+- **BatchNorm**: the module trains in train mode, so BatchNorm normalizes
+  with the batch's statistics (the edge-padded rows of a final batch
+  included, as in the JAX learner) and updates its running buffers on
+  the device; the returned model holds them and scores in eval mode with
+  them, as the JAX learner's ``batch_stats``.
 - **Logging**: losses stay on the device and are read one ``logEvery``
   interval late; ``history`` holds ``{step, loss, epoch, time}``.
 - **Timing**: ``timing`` has ``steps_timed``, ``wall_s`` and
   ``examples_per_sec`` after the first step; on an H100 also
   ``model_flops_per_step`` (``torch.utils.flop_counter`` over the first
-  step plus ``flash_attention.FLOPS``, which the counter cannot see),
+  step plus ``flash_attention.FLOPS`` and ``networks.RNN_FLOPS``, which
+  the counter cannot see),
   ``tflops_per_sec_per_chip`` and ``mfu`` against 989 TFLOP/s dense bf16.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP.md
@@ -67,6 +81,7 @@ from mmlspark_tpu_torch.core.schema import ImageSchema
 from mmlspark_tpu_torch.core.stage import Estimator
 from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.device import resolve_device
+from mmlspark_tpu_torch.models import networks
 from mmlspark_tpu_torch.models.networks import build_network
 from mmlspark_tpu_torch.models.tpu_model import TPUModel
 from mmlspark_tpu_torch.ops import flash_attention as FA
@@ -264,14 +279,15 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
             raise _not_ported("io.ooc.ChunkedTable input",
                               "Out-of-core ingest")
 
-    def _build_module(self, dev: torch.device) -> nn.Module:
+    def _build_module(self, dev: torch.device, row_shape) -> nn.Module:
+        """The module to train, sized from one input row's shape."""
         factory = self.get("moduleFactory")
         if factory is not None:
             return factory().to(dev)
         spec = self.get("networkSpec")
         if spec is None:
             raise ValueError("set networkSpec or moduleFactory")
-        spec = dict(spec)
+        spec = networks.sized_spec(spec, row_shape)
         if self.get("computeDtype") == "bfloat16":
             spec.setdefault("dtype", "bfloat16")
         return build_network(spec, device=dev, seed=self.get("seed"))
@@ -300,7 +316,6 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
         across shard boundaries)."""
         self._refuse_out_of_slice(table)
         dev = resolve_device(self.get("device"))
-        module = self._build_module(dev)
         input_shape = self.get("inputShape")
         fcol, lcol = self.get_features_col(), self.get_label_col()
         # int64 class / token ids: what torch's cross-entropy takes
@@ -321,13 +336,17 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
                 n += len(t)
             if n == 0:
                 raise ValueError("empty shard stream")
+            row_shape = table_to_xy(first_shard, fcol, lcol,
+                                    input_shape)[0].shape[1:]
             schema_src = first_shard
             x = y = None
         else:
             x, y = table_to_xy(table, fcol, lcol, input_shape)
             y = y.astype(y_cast)
             n = x.shape[0]
+            row_shape = x.shape[1:]
             schema_src = table
+        module = self._build_module(dev, row_shape)
 
         batch_size = self.get("batchSize")
         device_feed = self.get("dataFeed") == "device"
@@ -379,7 +398,7 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
             for group in opt.param_groups:
                 group["lr"] = lr
             opt.zero_grad(set_to_none=True)
-            with annotate("learner_step", ann_on):
+            with annotate("learner_step", ann_on), networks.strict_f32():
                 out = module(xb.long() if is_int_input else xb)
                 loss = self._loss_fn(out, yb, wb)
                 loss.backward()
@@ -397,11 +416,12 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
             nonlocal flops_per_step
             if t_first is None and count_flops:
                 from torch.utils.flop_counter import FlopCounterMode
-                flash0 = sum(FA.FLOPS.values())
+                unseen0 = sum(FA.FLOPS.values()) + networks.RNN_FLOPS["lstm"]
                 with FlopCounterMode(display=False) as counter:
                     loss = train_step(global_step, xb, yb, wb)
-                flops_per_step = float(counter.get_total_flops()
-                                       + sum(FA.FLOPS.values()) - flash0)
+                unseen = (sum(FA.FLOPS.values())
+                          + networks.RNN_FLOPS["lstm"] - unseen0)
+                flops_per_step = float(counter.get_total_flops() + unseen)
             else:
                 loss = train_step(global_step, xb, yb, wb)
             global_step += 1

@@ -807,3 +807,113 @@ def test_cuda_kernel_on_sparse_skew_bins_matches_plain(card, active):
         w.astype(np.float64), leaf]), 1, B)
     torch.testing.assert_close(out.double().cpu(), ref, rtol=1e-5,
                                atol=1e-3)
+
+
+# the zoo's image and sequence networks: (spec, one input row's shape)
+ZOO = {
+    "convnet": ({"type": "convnet", "conv_features": [16, 32],
+                 "dense_features": [32], "num_classes": 10}, (32, 32, 3)),
+    "resnet-cifar": ({"type": "resnet", "stage_sizes": [1, 1], "width": 16,
+                      "num_classes": 10}, (32, 32, 3)),
+    "resnet-imagenet": ({"type": "resnet", "stage_sizes": [1, 1, 1, 1],
+                         "width": 16, "num_classes": 10,
+                         "stem": "imagenet"}, (64, 64, 3)),
+    "bilstm": ({"type": "bilstm", "vocab_size": 50, "embed_dim": 32,
+                "hidden": 64, "num_tags": 3}, (12,)),
+}
+
+
+def _zoo_module(case, dtype="float32", seed=5):
+    """The case's module on the CPU with seeded weights, its BatchNorm
+    running buffers moved off 0 / 1, and an input batch of 16 rows."""
+    spec, row = ZOO[case]
+    module = build_network(dict(spec, dtype=dtype), device="cpu", seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, buf in module.named_buffers():
+            buf.copy_(torch.rand(buf.shape, generator=g) + 0.5
+                      if name.endswith("running_var")
+                      else 0.1 * torch.randn(buf.shape, generator=g))
+        for name, p in module.named_parameters():
+            if "BatchNorm" in name and name.endswith("weight"):
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=g))
+    rng = np.random.default_rng(seed)
+    if spec["type"] == "bilstm":
+        x = rng.integers(0, spec["vocab_size"], size=(16,) + row)
+        x = torch.from_numpy(x.astype(np.int64))
+    else:
+        x = torch.from_numpy(rng.normal(size=(16,) + row).astype(np.float32))
+    return module, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(ZOO))
+def test_cuda_zoo_forward_matches_cpu(card, case, dtype):
+    """Each network in eval mode on the card (cuDNN convolutions and LSTM)
+    against the same weights on the CPU, every capture layer. float32
+    within 1e-5 of the output's scale, which TF32 (1e-3) would miss;
+    bfloat16 within 2**-6 of it: the card and the CPU each round each
+    layer's products once to bfloat16, after sums in other orders."""
+    module, x = _zoo_module(case, dtype)
+    on_card = build_network(dict(ZOO[case][0], dtype=dtype), device=card)
+    on_card.load_state_dict(module.state_dict())
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -6
+    for capture in [None] + module.feature_layers():
+        with torch.no_grad():
+            want = module(x, capture=capture).float()
+            got = on_card(x.to(card), capture=capture).float().cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= tol, (capture, err)
+
+
+@pytest.mark.cuda
+def test_cuda_batchnorm_train_steps_match_cpu(card):
+    """A ResNet trained 2 SGD steps through TPULearner on the card and on
+    the CPU from the same weights, f32 (TF32 off): losses within rtol
+    1e-4, weights and running statistics within 1e-3 of the largest
+    update."""
+    from mmlspark_tpu_torch.models.learner import TPULearner
+    module, _ = _zoo_module("resnet-cifar")
+    init = {k: v.clone() for k, v in module.state_dict().items()}
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(16, 32, 32, 3)).astype(np.float32)
+    table = DataTable({"features": x.reshape(16, -1),
+                       "label": rng.integers(0, 10, 16).astype(np.int64)})
+
+    def fit(device):
+        m = build_network(ZOO["resnet-cifar"][0], device="cpu")
+        m.load_state_dict(init)
+        learner = TPULearner(moduleFactory=lambda: m, device=device,
+                             optimizer="sgd", schedule="constant",
+                             learningRate=0.1, batchSize=8, epochs=1,
+                             inputShape=[32, 32, 3], computeDtype="float32",
+                             logEvery=1)
+        model = learner.fit(table)
+        return [h["loss"] for h in learner.history], {
+            k: t.detach().cpu() for k, t in model.get("weights").items()}
+    l_card, w_card = fit("cuda")
+    l_cpu, w_cpu = fit("cpu")
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    upd = max(float((w_cpu[k] - init[k]).abs().max()) for k in init)
+    for k in init:
+        diff = float((w_card[k] - w_cpu[k]).abs().max())
+        assert diff <= 1e-3 * upd, (k, diff, upd)
+    assert not torch.equal(w_card["BatchNorm_0.running_var"],
+                           init["BatchNorm_0.running_var"])
+
+
+@pytest.mark.cuda
+def test_cuda_allow_tf32_restored_after_an_f32_forward(card):
+    module, x = _zoo_module("resnet-cifar")
+    module = module.to(card)
+    before = torch.backends.cudnn.allow_tf32
+    try:
+        for setting in (True, False):
+            torch.backends.cudnn.allow_tf32 = setting
+            with torch.no_grad():
+                module(x.to(card))
+            torch.cuda.synchronize()
+            assert torch.backends.cudnn.allow_tf32 is setting
+    finally:
+        torch.backends.cudnn.allow_tf32 = before

@@ -459,6 +459,21 @@ learner = mtt.TPULearner(
 model = learner.fit(mtt.DataTable({"features": x, "label": y}))
 out = model.transform(mtt.DataTable({"features": x}))
 assert (out["scores"].argmax(1) == y).mean() > 0.9
+imgs = rng.normal(size=(24, 8, 8, 3)).astype(np.float32)
+labels = (imgs[..., 0].mean((1, 2)) > 0).astype(np.int64)
+for spec in ({"type": "convnet", "conv_features": [4], "dense_features": [8],
+              "num_classes": 2},
+             {"type": "resnet", "stage_sizes": [1, 1], "width": 4,
+              "num_classes": 2}):
+    zoo = mtt.TPULearner(networkSpec=spec, inputShape=[8, 8, 3], epochs=2,
+                         batchSize=8, computeDtype="float32", device="cpu",
+                         logEvery=1)
+    model = zoo.fit(mtt.DataTable({"features": imgs.reshape(24, -1),
+                                   "label": labels}))
+    scores = model.transform(mtt.DataTable(
+        {"features": imgs.reshape(24, -1)}))["scores"]
+    assert scores.shape == (24, 2) and np.isfinite(scores).all()
+    assert len(zoo.history) == 6
 assert not any(m.split(".")[0] in ("jax", "optax", "flax", "mmlspark_tpu")
                for m, v in sys.modules.items() if v is not None)
 print("OK")
