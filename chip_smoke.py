@@ -170,6 +170,26 @@ Phases, one line each; any failure exits non-zero:
                1024 224 x 224 x 3 images at batch 256 in bf16 and f32,
                imgs/s of the second of two runs, finite logits of shape
                (1024, 1000).
+ 10. image path — at ResNet-18 width, on the card: (a) ImageTransformer
+               resize(224, 224).gaussian_kernel(5, 0).flip() on a uniform
+               batch of 256 seeded 375 x 500 x 3 uint8 images, ms a batch,
+               uint8 outputs against the same stage on the CPU (at most 1
+               apart in at most 0.1 % of the pixels). (d) a seeded
+               torchvision-layout resnet18 state dict saved as .pth and
+               as bf16 .safetensors, both imported
+               (import_torchvision_resnet; the bf16 import equal to the
+               .pth import rounded to bf16), published to a LocalRepo and
+               fetched through ModelDownloader bitwise. (b) ImageFeaturizer
+               (TORCHVISION_RESNET18_SPEC, cutOutputLayers=1: 512
+               features, strict f32) over 1024 seeded Flowers-sized uint8
+               images (heights 240-500, widths 320-500, two classes of
+               pixel mean 60 / 180; no decode) at batchSize 64 and 256:
+               imgs/s, the image_resize / image_forward medians, the
+               card's idle share of a profiled transform, one forward
+               shape each; images 0-7 against the CPU forward of the same
+               weights (rtol 1e-4, atol 1e-5 of the scale). (c)
+               TPUBoostClassifier on the card on those features: holdout
+               accuracy above 0.9 on the last 256 images.
 Then one JSON line of per-kernel numbers (the hist rows include the int16
 and int8 launches of 7(b) and 7(c) and the F = 968 launches of 8(a)), the
 card's name and power limit, and as the last line
@@ -1415,6 +1435,204 @@ def zoo_slice(dev, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+IMAGE_ROWS = 1024           # phase 10's Flowers-sized images
+IMAGE_BATCHES = (64, 256)   # ImageFeaturizer's default batchSize, and 256
+TRANSFORM_ROWS = 256        # phase 10(a)'s uniform 375 x 500 batch
+
+
+def u8_diff(got, want):
+    """(largest |difference|, share of differing values) of two uint8
+    arrays."""
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def image_slice(dev, smi: str) -> None:
+    """Phase 10: the transfer-learning image path on the card."""
+    import torch
+
+    from mmlspark_tpu_torch.core.metrics import automl_histograms
+    from mmlspark_tpu_torch.core.schema import ImageSchema
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.downloader import LocalRepo, ModelDownloader
+    from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+    from mmlspark_tpu_torch.importers.torch_import import (
+        TORCHVISION_RESNET18_SPEC, import_torchvision_resnet)
+    from mmlspark_tpu_torch.profile_featurize import (
+        device_busy, flowers_table, seeded_resnet18_state_dict)
+    from mmlspark_tpu_torch.stages.featurizer import (
+        RESIZE_WORKERS, ImageFeaturizer)
+    from mmlspark_tpu_torch.stages.image import ImageTransformer
+    from torch.profiler import ProfilerActivity, profile
+
+    # (a) ImageTransformer's uniform path: one upload, the op list on the
+    # card, uint8 there, one readback; against the same stage on the CPU
+    rng = np.random.default_rng(8)
+    photos = rng.integers(0, 256, (TRANSFORM_ROWS, 375, 500, 3),
+                          dtype=np.uint8)
+    table = DataTable({"image": [ImageSchema.make_row(f"p{i}", im)
+                                 for i, im in enumerate(photos)]})
+
+    def transformer(device):
+        return ImageTransformer(device=device).resize(224, 224) \
+            .gaussian_kernel(5, 0).flip()
+
+    def images(out):
+        return np.stack([r[ImageSchema.DATA] for r in out["image"]])
+    stage = transformer(str(dev))
+    secs = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        got = images(stage.transform(table))
+        secs.append(time.perf_counter() - t0)
+    want = images(transformer("cpu").transform(table))
+    worst, share = u8_diff(got, want)
+    check(got.shape == (TRANSFORM_ROWS, 224, 224, 3) and worst <= 1
+          and share <= 1e-3, f"image (a): card vs CPU uint8 {got.shape}, "
+          f"max diff {worst}, {100 * share:.4f} % of pixels differ")
+    print(f"image (a): ImageTransformer resize(224, 224).gaussian_kernel(5,"
+          f" 0).flip() of {TRANSFORM_ROWS} x 375 x 500 x 3 uint8 on the "
+          f"card: {1e3 * float(np.median(secs[1:])):.3f} ms a batch (median"
+          f" of 3 after one; upload, ops, readback); card vs CPU max diff "
+          f"{worst}, {100 * share:.5f} % of pixels differ (<= 1, <= 0.1 %)"
+          f"; card {smi}")
+    del photos, table, got, want
+
+    # (d) the weights: a seeded torchvision-layout state dict, saved as
+    # .pth and as bf16 .safetensors, imported, published, fetched
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_image")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    sd = seeded_resnet18_state_dict(seed=12)
+    pth = os.path.join(work, "resnet18.pth")
+    sft = os.path.join(work, "resnet18_bf16.safetensors")
+    torch.save(sd, pth)
+    header, blobs, off = {}, [], 0
+    for key, t in sd.items():
+        raw = t.to(torch.bfloat16).view(torch.int16).numpy().tobytes()
+        header[key] = {"dtype": "BF16", "shape": list(t.shape),
+                       "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    with open(sft, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head + b"".join(blobs))
+    t0 = time.perf_counter()
+    variables = import_torchvision_resnet(pth)
+    from_bf16 = import_torchvision_resnet(sft)
+    import_s = time.perf_counter() - t0
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield "/".join(path), tree
+    flat = dict(leaves(variables))
+    flat_bf16 = dict(leaves(from_bf16))
+    check(list(flat) == list(flat_bf16), "image (d): .pth and .safetensors "
+          "imports hold other leaves")
+    for k, a in flat.items():
+        rounded = torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+        check(np.array_equal(rounded, flat_bf16[k]), f"image (d): {k} of "
+              "the bf16 .safetensors import is not the .pth import rounded")
+    repo = LocalRepo(os.path.join(work, "repo"))
+    schema = repo.publish("ResNet18_seeded", TORCHVISION_RESNET18_SPEC,
+                          variables, dataset="seeded",
+                          model_type="vision/classification",
+                          input_shape=[224, 224, 3])
+    downloader = ModelDownloader(os.path.join(work, "cache"), repo=repo)
+    fetched = dict(leaves(downloader.load_variables(schema.name)))
+    check(list(fetched) == list(flat) and all(
+        fetched[k].dtype == a.dtype and np.array_equal(fetched[k], a)
+        for k, a in flat.items()), "image (d): the LocalRepo publish -> "
+        "download -> load round trip is not bitwise")
+    print(f"image (d): torchvision-layout ResNet-18 ({len(sd)} tensors) "
+          f"imported from .pth and bf16 .safetensors in {import_s:.3f} s: "
+          f"{len(flat)} leaves, the bf16 import equal to the .pth import "
+          f"rounded to bf16; publish -> download -> load bitwise "
+          f"({schema.size} bytes, sha256 {schema.sha256[:12]})")
+
+    # (b) ImageFeaturizer at full width, at two batch sizes
+    flowers = flowers_table(IMAGE_ROWS, seed=13)
+    hists = automl_histograms()
+    feats = {}
+    for bs in IMAGE_BATCHES:
+        feat = ImageFeaturizer.from_model_schema(
+            schema, downloader, cutOutputLayers=1, batchSize=bs)
+        secs = []
+        for _ in range(2):
+            for h in hists.values():
+                h.reset()
+            t0 = time.perf_counter()
+            out = feat.transform(flowers)["features"]
+            secs.append(time.perf_counter() - t0)
+        check(out.shape == (IMAGE_ROWS, 512) and bool(np.isfinite(out).all()),
+              f"image (b): features {out.shape}, finite "
+              f"{bool(np.isfinite(out).all())}")
+        check(feat.jit_cache_misses == 1, f"image (b): {feat.jit_cache_misses}"
+              " forward shapes at one batchSize")
+        rs, fw = hists["image_resize"].summary(), \
+            hists["image_forward"].summary()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            feat.transform(flowers)
+            torch.cuda.synchronize()
+            window_us = 1e6 * (time.perf_counter() - t0)
+        busy = device_busy(prof, window_us)
+        check(bool(busy), "image (b): the profiler saw no device activity")
+        print(f"image (b): ImageFeaturizer ResNet-18 (imagenet stem, strict "
+              f"f32, cut at the pool) over {IMAGE_ROWS} Flowers-sized images "
+              f"at batchSize {bs}: {secs[0]:.3f} s first, {secs[1]:.3f} s "
+              f"second = {IMAGE_ROWS / secs[1]:.1f} imgs/s; image_resize "
+              f"p50 {rs['p50']} ms (mean {rs['mean']}) and image_forward p50"
+              f" {fw['p50']} ms (mean {fw['mean']}) a batch (histogram); "
+              f"card idle {100 * busy['idle_share']:.1f} % of the profiled "
+              f"transform's {busy['window_us'] / 1e3:.3f} ms (host clock, "
+              f"call to last sync); resize "
+              f"pool {RESIZE_WORKERS} threads, torch intra-op threads "
+              f"{torch.get_num_threads()}; card {smi}")
+        feats[bs] = out
+        del feat
+    worst = rel_err(torch.from_numpy(feats[IMAGE_BATCHES[0]]),
+                    torch.from_numpy(feats[IMAGE_BATCHES[1]]))
+    check(worst <= 1e-4, f"image (b): batchSize {IMAGE_BATCHES} features "
+          f"differ by {worst} of the scale")
+    # 8 images' features against the CPU forward of the same weights
+    cpu = ImageFeaturizer.from_model_schema(
+        schema, downloader, cutOutputLayers=1, batchSize=8, device="cpu")
+    first8 = DataTable({"image": list(flowers["image"][:8])})
+    want = cpu.transform(first8)["features"]
+    got = feats[IMAGE_BATCHES[0]][:8]
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    check(np.allclose(got, want, rtol=1e-4, atol=1e-5 * scale),
+          f"image (b): card vs CPU features of 8 images: max |diff| {err}, "
+          f"scale {scale}")
+    print(f"image (b): features of images 0-7, card vs CPU: max |diff| "
+          f"{err:.3e} at scale {scale:.3e} (rtol 1e-4, atol 1e-5 of the "
+          f"scale); batchSize {IMAGE_BATCHES[0]} vs {IMAGE_BATCHES[1]} "
+          f"{worst:.3e} of the scale (<= 1e-4)")
+
+    # (c) a GBDT head on the card on those features
+    x, y = feats[IMAGE_BATCHES[0]], np.asarray(flowers["label"])
+    cut = 3 * IMAGE_ROWS // 4
+    t0 = time.perf_counter()
+    head = TPUBoostClassifier(numIterations=20, maxBin=32).fit(
+        DataTable({"features": x[:cut], "label": y[:cut]}))
+    fit_s = time.perf_counter() - t0
+    pred = head.transform(DataTable({"features": x[cut:]}))["prediction"]
+    acc = float(np.mean(pred == y[cut:]))
+    check(acc > 0.9, f"image (c): holdout accuracy {acc}")
+    print(f"image (c): TPUBoostClassifier (20 rounds, maxBin 32) on the "
+          f"card on {cut} x 512 features in {fit_s:.3f} s: holdout accuracy "
+          f"{acc:.4f} on {IMAGE_ROWS - cut} images (> 0.9)")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2034,6 +2252,11 @@ def main() -> int:
     t0 = time.perf_counter()
     zoo_slice(dev, smi)
     print(f"zoo: phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10. the transfer-learning image path -----------------------------
+    t0 = time.perf_counter()
+    image_slice(dev, smi)
+    print(f"image: phase 10 took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, route, key, launches, line in (

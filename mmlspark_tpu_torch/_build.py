@@ -1,9 +1,13 @@
-"""Build and load the port's CUDA kernels and its host library.
+"""Build and load the port's CUDA kernels and its host libraries.
 
 Each CUDA source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes`` at first use; the host binning source (``bins.cpp``) is
-compiled the same way by the host C++ compiler with OpenMP. Libraries
+compiled the same way by the host C++ compiler with OpenMP, as is the
+host image library (``image.cpp``: resize and unroll). The image codecs
+(``imgcodec.cpp``) link libjpeg and libpng, whose headers a machine may
+lack, so they build only when a decode first needs them, never in
+``build_all``'s default set. Libraries
 land in ``build/mmlspark_tpu_torch/`` at the root of the checkout, named
 by a hash of their source, the headers under ``csrc/`` (CUDA libraries)
 and the flags, so an edited source or header rebuilds and an unchanged
@@ -38,9 +42,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # host library name -> source under csrc/, built by the host compiler
-HOST_SOURCES: Dict[str, str] = {"bins": "bins.cpp"}
+HOST_SOURCES: Dict[str, str] = {"bins": "bins.cpp", "image": "image.cpp"}
 
 HOST_FLAGS = ["-std=c++17", "-O3", "-fopenmp", "-shared", "-fPIC"]
+
+# host libraries built only on first use (not by build_all() without
+# names): library name -> (source under csrc/, the libraries it links)
+ON_DEMAND_SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "imgcodec": ("imgcodec.cpp", ("-ljpeg", "-lpng"))}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
@@ -64,13 +73,19 @@ def _host_cxx() -> str:
         if found:
             return found
     raise RuntimeError(
-        "no host C++ compiler (g++ / c++) found: the port's host binning "
-        "library is built from csrc/bins.cpp")
+        "no host C++ compiler (g++ / c++) found: the port's host libraries "
+        "are built from csrc/*.cpp")
 
 
 def source_of(name: str) -> str:
     """The source file under ``csrc/`` of library ``name``."""
+    if name in ON_DEMAND_SOURCES:
+        return ON_DEMAND_SOURCES[name][0]
     return SOURCES.get(name) or HOST_SOURCES[name]
+
+
+def _link_flags(name: str) -> Tuple[str, ...]:
+    return ON_DEMAND_SOURCES[name][1] if name in ON_DEMAND_SOURCES else ()
 
 
 def library_path(name: str) -> Path:
@@ -83,7 +98,7 @@ def library_path(name: str) -> Path:
             h.update(header.name.encode() + b"\0" + header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
     else:
-        h.update(" ".join(HOST_FLAGS).encode())
+        h.update(" ".join(HOST_FLAGS + list(_link_flags(name))).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -98,7 +113,7 @@ def build_log(name: str) -> str:
 def build_all(names: Optional[Iterable[str]] = None
               ) -> Dict[str, Tuple[float, str]]:
     """Compile every requested library (by default every CUDA kernel and
-    the host library) whose file is missing, all in parallel. Returns
+    the ``HOST_SOURCES`` libraries) whose file is missing, all in parallel. Returns
     {name: (seconds, compiler log)} for the libraries it built; raises
     RuntimeError with the compiler output if any build fails."""
     names = ([*SOURCES, *HOST_SOURCES] if names is None else list(names))
@@ -115,7 +130,7 @@ def build_all(names: Optional[Iterable[str]] = None
             cmd = [_nvcc(), *NVCC_FLAGS]
         else:
             cmd = [_host_cxx(), *HOST_FLAGS]
-        cmd += ["-o", str(tmp), str(CSRC / source_of(n))]
+        cmd += ["-o", str(tmp), str(CSRC / source_of(n)), *_link_flags(n)]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

@@ -88,16 +88,9 @@ def _flax_sizes(spec: Dict[str, Any], params: Dict[str, Any]
     return spec
 
 
-def module_from_flax(spec: Dict[str, Any], variables: Dict[str, Any],
-                     device: DeviceLike = None) -> nn.Module:
-    """The port's module of ``spec`` (the JAX zoo's spec) holding the flax
-    ``variables`` (``{"params": ..., "batch_stats": ...}`` or the params
-    dict itself, nested dicts of arrays), on ``device``. Every flax leaf,
-    ``batch_stats`` included, must land on exactly one torch parameter or
-    buffer: a missing or extra leaf raises ``ValueError``. BatchNorm's
-    ``scale`` / ``bias`` become its weight and bias, its ``batch_stats``
-    ``mean`` / ``var`` its running buffers; an LSTM cell's gate kernels
-    stack into torch's fused layout."""
+def _collections(variables: Dict[str, Any]) -> Dict[str, Any]:
+    """``{"params": ..., "batch_stats": ...}`` of flax variables given as
+    such or as the params dict itself."""
     if "params" in variables:
         collections = dict(variables)
         unknown = sorted(set(collections) - {"params", "batch_stats"})
@@ -106,9 +99,14 @@ def module_from_flax(spec: Dict[str, Any], variables: Dict[str, Any],
                              f"has no place for: {unknown}")
     else:
         collections = {"params": variables}
-    params = collections["params"]
     collections.setdefault("batch_stats", {})
-    module = networks.make_network(_flax_sizes(spec, params), device)
+    return collections
+
+
+def _torch_state(module: nn.Module, collections: Dict[str, Any],
+                 kind: str) -> Dict[str, np.ndarray]:
+    """The torch state dict (numpy arrays) of ``module`` read from flax
+    ``collections``; a missing or extra flax leaf raises ``ValueError``."""
     state: Dict[str, np.ndarray] = {}
     used = set()
 
@@ -120,6 +118,8 @@ def module_from_flax(spec: Dict[str, Any], variables: Dict[str, Any],
                                  f"{'/'.join(path)}")
             node = node[p]
         used.add((collection,) + tuple(path))
+        if isinstance(node, torch.Tensor):
+            node = node.detach().cpu().float().numpy()
         return np.array(node, dtype=np.float32)   # a writable copy
 
     for name, mod in module.named_modules():
@@ -138,8 +138,8 @@ def module_from_flax(spec: Dict[str, Any], variables: Dict[str, Any],
             state[f"{name}.bias_hh"] = np.concatenate(
                 [leaf(path + ["h" + g, "bias"]) for g in _GATES])
             continue
-        for kind, pairs in _FLAX_LEAVES.items():
-            if isinstance(mod, kind):
+        for kind_, pairs in _FLAX_LEAVES.items():
+            if isinstance(mod, kind_):
                 for flax_name, torch_name in pairs:
                     arr = leaf(path + [flax_name])
                     state[f"{name}.{torch_name}"] = \
@@ -160,10 +160,57 @@ def module_from_flax(spec: Dict[str, Any], variables: Dict[str, Any],
     extra = sorted("/".join(p) for c, tree in collections.items()
                    for p in leaves(tree, (c,)) if p not in used)
     if extra:
-        raise ValueError(f"flax variables hold leaves the {spec['type']} "
+        raise ValueError(f"flax variables hold leaves the {kind} "
                          f"module has no place for: {extra}")
+    return state
+
+
+def module_from_flax(spec: Dict[str, Any], variables: Dict[str, Any],
+                     device: DeviceLike = None) -> nn.Module:
+    """The port's module of ``spec`` (the JAX zoo's spec) holding the flax
+    ``variables`` (``{"params": ..., "batch_stats": ...}`` or the params
+    dict itself, nested dicts of arrays), on ``device``. Every flax leaf,
+    ``batch_stats`` included, must land on exactly one torch parameter or
+    buffer: a missing or extra leaf raises ``ValueError``. BatchNorm's
+    ``scale`` / ``bias`` become its weight and bias, its ``batch_stats``
+    ``mean`` / ``var`` its running buffers; an LSTM cell's gate kernels
+    stack into torch's fused layout."""
+    collections = _collections(variables)
+    module = networks.make_network(_flax_sizes(spec, collections["params"]),
+                                   device)
+    state = _torch_state(module, collections, spec["type"])
     with torch.no_grad():
         module.load_state_dict(
             {k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in state.items()}, strict=True)
     return module
+
+
+def check_flax_variables(spec: Dict[str, Any], variables: Dict[str, Any],
+                         input_shape: Optional[List[int]] = None) -> None:
+    """Raise ``ValueError`` unless the flax ``variables`` hold exactly the
+    leaves, and the shapes, of the port's module of ``spec`` (the check
+    the JAX package makes against ``module.init``). The module's sizes
+    come from one input row of ``input_shape`` when given (as flax would
+    infer them at init), else from the weights. Nothing is allocated:
+    the module is built on the meta device."""
+    collections = _collections(variables)
+    sized = (networks.sized_spec(spec, input_shape) if input_shape
+             else _flax_sizes(spec, collections["params"]))
+    sized = dict(sized)
+    kind = sized.pop("type")
+    if kind not in networks.NETWORK_REGISTRY:
+        raise KeyError(f"unknown network type {kind!r}; "
+                       f"have {sorted(networks.NETWORK_REGISTRY)}")
+    with torch.device("meta"):
+        module = networks.NETWORK_REGISTRY[kind](**sized)
+    state = _torch_state(module, collections, kind)
+    want = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    missing = sorted(set(want) - set(state))
+    bad = sorted((k, state[k].shape, want[k]) for k in state
+                 if k in want and tuple(state[k].shape) != want[k])
+    if missing or bad:
+        raise ValueError(
+            f"flax variables do not match the {kind} module:\n"
+            f"  missing: {missing}\n"
+            f"  shape mismatches (torch name, got, want): {bad}")

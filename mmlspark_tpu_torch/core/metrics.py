@@ -1,11 +1,12 @@
 """Serving-path metrics of the PyTorch port: the part of
 ``mmlspark_tpu/core/metrics.py`` that the model stages and the serving
 engine read — latency histograms (mergeable, snapshot for exporters),
-the windowed counter, the process-wide warmup and ingress histograms,
-and the feature ``DriftMonitor``. The reference's ``LabelledHistograms``
+the windowed counter, the process-wide warmup, AutoML-phase (the
+image featurizer's) and ingress histograms, and the feature
+``DriftMonitor``. The reference's ``LabelledHistograms``
 and ``WindowedHistogram`` serve Prometheus ``/metrics`` and the SLO
-monitor, and its GBDT / AutoML / fusion / out-of-core / control-loop
-phase families belong to modules the port has not reached yet
+monitor, and its GBDT / fusion / control-loop phase families belong
+to modules the port has not reached yet
 (ROADMAP.md)."""
 
 from __future__ import annotations
@@ -244,6 +245,27 @@ _WARMUP_HISTS: Dict[str, LatencyHistogram] = histogram_set(
 def warmup_histograms() -> Dict[str, LatencyHistogram]:
     """The process-wide serving-warmup histogram family."""
     return _WARMUP_HISTS
+
+
+# ---------------------------------------------------------------------------
+# AutoML-phase histograms
+# ---------------------------------------------------------------------------
+
+# per-phase wall milliseconds across the convenience-layer hot paths, the
+# JAX package's family: featurize_fit, featurize_transform,
+# tune_fold_build, tune_trials and tune_refit belong to the AutoML
+# stages (not ported yet); image_resize (ImageFeaturizer's host decode /
+# resize / pad / upload of one batch, on the prefetch thread) and
+# image_forward (one batch's dispatch -> readback complete) are observed.
+AUTOML_PHASES = ("featurize_fit", "featurize_transform",
+                 "tune_fold_build", "tune_trials", "tune_refit",
+                 "image_resize", "image_forward")
+_AUTOML_HISTS: Dict[str, LatencyHistogram] = histogram_set(*AUTOML_PHASES)
+
+
+def automl_histograms() -> Dict[str, LatencyHistogram]:
+    """The process-wide AutoML-phase histogram family."""
+    return _AUTOML_HISTS
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,12 @@ Wire formats (negotiated per request via Content-Type):
   per request, exactly the pre-existing protocol. Columnar-path scores
   are pinned bit-identical to it (tests/test_ingress.py).
 - ``application/x-msgpack-columns`` — typed columns in a framed binary
-  layout: a small msgpack (or JSON, when msgpack is absent) header
-  describing dtype/shape/offset per column, followed by 8-byte-aligned
-  raw buffers. Numeric columns decode as ZERO-COPY views into the
+  layout: a small header describing dtype/shape/offset per column,
+  followed by 8-byte-aligned raw buffers. The port writes the header as
+  JSON (flag 0), which either package reads with or without the
+  ``msgpack`` package; it reads a msgpack header (flag 1) through its
+  own codec, ``core/flax_msgpack.py``. Numeric columns decode as
+  ZERO-COPY views into the
   request body; string/token columns ride arrow-style
   (offsets + utf-8 payload) and materialize in one pass for the host
   featurization kernels. Needs only numpy.
@@ -49,6 +52,8 @@ import struct
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
+
+from mmlspark_tpu_torch.core import flax_msgpack
 
 # ---------------------------------------------------------------------------
 # content types + negotiation
@@ -127,14 +132,6 @@ class ColumnarBatch:
 
 _MAGIC = b"MCOL"
 _HDR_JSON, _HDR_MSGPACK = 0, 1
-
-
-def _msgpack():
-    try:
-        import msgpack
-        return msgpack
-    except Exception:  # noqa: BLE001 — optional; JSON header fallback
-        return None
 
 
 def _align8(n: int) -> int:
@@ -267,11 +264,7 @@ def encode_columns(columns: Mapping[str, Any],
                 f"column {name!r}: unsupported value type "
                 f"{type(first).__name__} for columnar encoding")
     header = {"v": 1, "n": int(n_rows or 0), "cols": cols, "bufs": w.bufs}
-    mp = _msgpack()
-    if mp is not None:
-        hdr, flag = mp.packb(header, use_bin_type=True), _HDR_MSGPACK
-    else:
-        hdr, flag = json.dumps(header).encode("utf-8"), _HDR_JSON
+    hdr, flag = json.dumps(header).encode("utf-8"), _HDR_JSON
     prefix = _MAGIC + bytes([flag]) + struct.pack("<I", len(hdr)) + hdr
     pad = _align8(len(prefix)) - len(prefix)
     return (prefix + b"\x00" * pad + b"".join(w.parts)), CT_MSGPACK_COLUMNS
@@ -322,11 +315,7 @@ def _decode_msgpack_columns(body: bytes) -> ColumnarBatch:
     hdr_bytes = body[9:9 + hdr_len]
     try:
         if flag == _HDR_MSGPACK:
-            mp = _msgpack()
-            if mp is None:
-                raise CodecError(
-                    "msgpack header but msgpack is unavailable")
-            header = mp.unpackb(hdr_bytes, raw=False)
+            header = flax_msgpack.unpackb(bytes(hdr_bytes))
         else:
             # bytes() tolerates a memoryview body (the shm path decodes
             # frames in place over the shared segment)

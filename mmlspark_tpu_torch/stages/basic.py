@@ -3,7 +3,7 @@
 stage both serving scorers wrap. The other stages of the reference's
 module (Cacher, ClassBalancer, DropColumns, Explode, RenameColumn,
 Repartition, SelectColumns, TextPreprocessor, Timer, UDFTransformer)
-are ROADMAP item 14, 'Device pipeline and serving compilation'.
+are ROADMAP.md's 'Featurization and AutoML stages'.
 """
 
 from __future__ import annotations

@@ -917,3 +917,132 @@ def test_cuda_allow_tf32_restored_after_an_f32_forward(card):
             assert torch.backends.cudnn.allow_tf32 is setting
     finally:
         torch.backends.cudnn.allow_tf32 = before
+
+
+# ---------------------------------------------------------------------------
+# the transfer-learning image path: image ops, ImageTransformer and
+# ImageFeaturizer on the card against the port's CPU versions
+# ---------------------------------------------------------------------------
+
+
+def _photos(n, seed=0, shape=(375, 500, 3)):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, 256, shape, dtype=np.uint8)
+                     for _ in range(n)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,args", [
+    ("resize_batch", (224, 224)), ("resize_batch", (500, 333)),
+    ("box_blur_batch", (5, 4)), ("gaussian_blur_batch", (5, 0.0)),
+    ("threshold_batch", (127.5, 200.0, "trunc")),
+    ("color_convert_batch", ("BGR2GRAY",)),
+    ("color_convert_batch", ("GRAY2BGR",)), ("flip_batch", (-1,)),
+    ("crop_batch", (10, 20, 100, 150)), ("unroll_batch", ()),
+    ("normalize_batch", ([10.0, 20.0, 30.0], [2.0, 4.0, 8.0]))])
+def test_cuda_image_batch_ops_match_cpu(card, op, args):
+    """Each batch op on the card against the same op on the CPU, on 0-255
+    images: float results within 5e-3 absolute for the resize (torch's
+    CUDA antialiased kernel weighs the taps a little apart from its CPU
+    kernel: 1.8e-3 and 2.4e-3 measured on an H100 at these two sizes,
+    ~1e-5 of the range), within 1e-3 for the rest (the blurs in strict
+    f32 match; in TF32 they would miss by ~1e-1)."""
+    from mmlspark_tpu_torch.ops import image_ops
+    x = torch.from_numpy(_photos(4, seed=len(op)))
+    fn = getattr(image_ops, op)
+    want = fn(x, *args)
+    got = fn(x.to(card), *args).cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    atol = 5e-3 if op == "resize_batch" else 1e-3
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_image_transformer_uniform_matches_ragged_and_cpu(card):
+    """The uniform path on the card (one upload, the composed op list,
+    uint8 on the card, one readback) against the same stage on the CPU,
+    and, for a resize and a flip, against the ragged path (per image on
+    the host, the native uint8 resize): at most 1 apart in at most 0.1 %
+    of the pixels. (The ragged path rounds to uint8 after every op, so
+    after a resize and a blur it parts from the uniform path by more.)"""
+    from mmlspark_tpu_torch.core.schema import ImageSchema
+    from mmlspark_tpu_torch.stages.image import ImageTransformer
+    imgs = _photos(8, seed=3)
+    table = DataTable({"image": [ImageSchema.make_row(f"p{i}", im)
+                                 for i, im in enumerate(imgs)]})
+
+    def run(stage):
+        out = stage.transform(table)
+        return np.stack([r[ImageSchema.DATA] for r in out["image"]])
+
+    def close(got, want):
+        d = np.abs(got.astype(int) - want.astype(int))
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-3, \
+            (d.max(), (d > 0).mean())
+    full = [ImageTransformer(device=d).resize(224, 224)
+            .gaussian_kernel(5, 0).flip() for d in ("cuda", "cpu")]
+    close(run(full[0]), run(full[1]))
+    uniform = ImageTransformer(device="cuda").resize(224, 224).flip()
+    ragged = ImageTransformer(device="cuda").resize(224, 224).flip()
+    ragged._batchable = lambda: False            # force the host path
+    close(run(uniform), run(ragged))
+
+
+def _featurizer_weights():
+    from mmlspark_tpu_torch.importers.torch_import import (
+        TORCHVISION_RESNET18_SPEC, import_torchvision_resnet)
+    from mmlspark_tpu_torch.profile_featurize import (
+        seeded_resnet18_state_dict)
+    return TORCHVISION_RESNET18_SPEC, import_torchvision_resnet(
+        seeded_resnet18_state_dict(seed=4))
+
+
+@pytest.mark.cuda
+def test_cuda_featurizer_matches_cpu_forward(card):
+    """ResNet-18 features of Flowers-sized images on the card against the
+    same featurizer on the CPU (the same host resize): rtol 1e-4 and
+    atol 1e-5 of the features' scale, in strict f32."""
+    from mmlspark_tpu_torch.profile_featurize import flowers_table
+    from mmlspark_tpu_torch.stages.featurizer import ImageFeaturizer
+    spec, variables = _featurizer_weights()
+    table = flowers_table(12, seed=2)
+
+    def feats(device):
+        return ImageFeaturizer(networkSpec=spec, weights=variables,
+                               inputHeight=224, inputWidth=224,
+                               batchSize=8, device=device
+                               ).transform(table)["features"]
+    got, want = feats("cuda"), feats("cpu")
+    assert got.shape == (12, 512)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_cuda_featurizer_builds_and_ships_weights_once(card, monkeypatch):
+    """Three transforms of mixed sizes: the module is built from the
+    weights and put on the card once, and the forward runs at one
+    shape."""
+    from mmlspark_tpu_torch import convert
+    from mmlspark_tpu_torch.profile_featurize import flowers_table
+    from mmlspark_tpu_torch.stages import featurizer
+    builds = []
+    real = convert.module_from_flax
+
+    def counting(*a, **k):
+        builds.append(k.get("device"))
+        return real(*a, **k)
+    monkeypatch.setattr(featurizer.convert, "module_from_flax", counting)
+    spec, variables = _featurizer_weights()
+    feat = featurizer.ImageFeaturizer(networkSpec=spec, weights=variables,
+                                      inputHeight=224, inputWidth=224,
+                                      batchSize=8)
+    module = None
+    for n in (5, 8, 19):
+        out = feat.transform(flowers_table(n, seed=n))["features"]
+        assert out.shape == (n, 512) and np.isfinite(out).all()
+        module = module or feat._device_module
+        assert feat._device_module is module
+    assert len(builds) == 1 and torch.device(builds[0]).type == "cuda"
+    assert next(module.parameters()).is_cuda
+    assert feat.jit_cache_misses == 1

@@ -412,7 +412,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu"):
+                if top in ("jax", "jaxlib", "flax", "optax", "msgpack",
+                           "ml_dtypes", "mmlspark_tpu"):
                     bad.append(f"{path.relative_to(REPO)}: {name}")
     assert not bad, bad
 
