@@ -190,9 +190,44 @@ Phases, one line each; any failure exits non-zero:
                weights (rtol 1e-4, atol 1e-5 of the scale). (c)
                TPUBoostClassifier on the card on those features: holdout
                accuracy above 0.9 on the last 256 images.
+ 11. AutoML slice — on bench_automl's table (profile_automl.automl_table:
+               1M rows from seed 0 of x1 with 1 % NaN, x2, a 12-level
+               color and token lists of 5-12 words of 2,000; label
+               (x1 + x2) > 0.5): (a) Featurize (x1, x2, color, toks; hash
+               width 64) fit and transform seconds, the hashing path
+               (pyarrow or the numpy fallback), transform bitwise equal to
+               transform_rowloop on the first 100,000 rows and, where
+               pyarrow is installed, to the transform with it blocked
+               (the numpy path, timed); (b)
+               TrainClassifier with its default GBDT on the label as the
+               strings '>50K' / '<=50K' (the ValueIndexer path), fitted on
+               900,000 rows, scored on the other 100,000: hist launches
+               counted around the fit (above 0), holdout AUC from
+               ComputeModelStatistics within 0.005 of the same fit on the
+               GBDT's plain scatter path, scored_labels round-tripping to
+               the strings; the kernel on the fit's own bins at a root
+               against hist_plain in float64 (rtol 1e-5 / atol 1e-3), with
+               its time, the plain version's, a bincount's and the bound;
+               (c) TuneHyperparameters over bench_automl's space (8
+               TPULogisticRegression(maxIter=20) candidates, 3 folds,
+               accuracy) on the first 200,000 featurized rows: path
+               'vmap' in 3 dispatches, the same bestParams as with
+               batchTrials='off', walls and the tune_* histograms; (d)
+               Featurize(sparse=True) at the reference's width 262,144 on
+               200,000 rows and TPULogisticRegression on the CSR column
+               (the logistic backend's fit): two card fits bitwise equal,
+               holdout accuracy above 0.9, fit seconds; (e) a serial tune
+               of two GBDT candidates (numIterations 5 and 10,
+               minDataInLeaf 5, 2 folds, 100,000 rows) at parallelism 4 and
+               1: equal history; (f) a dense logistic and a linear
+               regression fit (maxIter 300, 20,000 rows) on the card and on
+               the CPU: weights within rtol 1e-4 / atol 1e-5 of their
+               largest magnitude, predictions equal (logistic) or within
+               that rule (linear) on at least 99.9 % of the rows.
 Then one JSON line of per-kernel numbers (the hist rows include the int16
-and int8 launches of 7(b) and 7(c) and the F = 968 launches of 8(a)), the
-card's name and power limit, and as the last line
+and int8 launches of 7(b) and 7(c), the F = 968 launches of 8(a) and the
+launches of 11(b)'s fit on its featurized bins), the card's name and
+power limit, and as the last line
 {"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -1633,6 +1668,291 @@ def image_slice(dev, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+AUTOML_TRAIN = 900_000      # phase 11(b): fit rows; the rest are held out
+AUTOML_SPARSE_ROWS = 200_000  # phase 11(d)
+AUTOML_THREAD_ROWS = 100_000  # phase 11(e)
+AUTOML_CPU_ROWS = 20_000      # phase 11(f)
+
+
+def automl_slice(dev, smi: str) -> dict:
+    """Phase 11: the AutoML path on bench_automl's 1M-row table (seed 0,
+    profile_automl.automl_table). Returns the hist kernel's row for the
+    kernels line, measured on 11(b)'s bins."""
+    import torch
+    from mmlspark_tpu_torch.automl import (
+        ComputeModelStatistics, DiscreteHyperParam, Featurize, GridSpace,
+        TrainClassifier, TuneHyperparameters)
+    from mmlspark_tpu_torch.core.metrics import automl_histograms
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.gbdt import hist_kernels as HK
+    from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+    from mmlspark_tpu_torch.models.linear import (
+        TPULinearRegression, TPULogisticRegression)
+    from mmlspark_tpu_torch.profile_automl import (
+        AUTOML_HASH_WIDTH, AUTOML_N, AUTOML_TUNE_ROWS, FEATURE_COLUMNS,
+        automl_table, hashing_path, transform_without_pyarrow, tuner)
+    from mmlspark_tpu_torch.profile_hist import (
+        bincount_call, device_ms, hist_bound_ms, hist_inputs, time_ms)
+    hists = automl_histograms()
+    t0 = time.perf_counter()
+    table, label = automl_table(AUTOML_N)
+    print(f"automl: bench_automl's table, {AUTOML_N} rows (x1 with 1 % "
+          f"NaN, x2, a 12-level color, 5-12 tokens of 2,000), made in "
+          f"{time.perf_counter() - t0:.1f} s; card: {smi}")
+
+    # ---- (a) Featurize ----------------------------------------------------
+    for h in hists.values():
+        h.reset()
+    feat = Featurize(featureColumns=FEATURE_COLUMNS,
+                     numberOfFeatures=AUTOML_HASH_WIDTH)
+    t0 = time.perf_counter()
+    fm = feat.fit(table)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    X = fm.transform(table)["features"]
+    tr_s = time.perf_counter() - t0
+    want = (AUTOML_N, 3 + AUTOML_HASH_WIDTH)
+    check(X.shape == want and X.dtype == np.float32
+          and bool(np.isfinite(X).all()),
+          f"(a): features {X.shape} {X.dtype}, want {want} finite float32")
+    t0 = time.perf_counter()
+    oracle = fm.transform_rowloop(table.slice(0, 100_000))["features"]
+    loop_s = time.perf_counter() - t0
+    check(np.array_equal(X[:100_000], oracle),
+          "(a): transform differs from transform_rowloop")
+    print(f"automl (a): Featurize fit {fit_s:.3f} s, transform "
+          f"{tr_s:.3f} s of {X.shape} (hashing path {hashing_path()}); "
+          f"the first 100,000 rows bitwise equal to transform_rowloop "
+          f"({loop_s:.3f} s); featurize_fit {hists['featurize_fit'].summary()}"
+          f", featurize_transform {hists['featurize_transform'].summary()}")
+    del oracle
+    if hashing_path() == "pyarrow":
+        # the numpy path too, held bitwise to the pyarrow one
+        Xn, np_s = transform_without_pyarrow(fm, table)
+        check(np.array_equal(X, Xn["features"]),
+              "(a): the numpy hashing path differs from pyarrow's")
+        print(f"automl (a): transform with pyarrow blocked (the numpy "
+              f"path) {np_s:.3f} s, bitwise equal to the pyarrow path")
+        del Xn
+
+    # ---- (b) TrainClassifier, default GBDT, string labels ---------------
+    str_label = np.where(label > 0.5, ">50K", "<=50K")
+    tc_table = table.with_column("label", str_label.tolist())
+    train_t = tc_table.slice(0, AUTOML_TRAIN)
+    hold_t = tc_table.slice(AUTOML_TRAIN, AUTOML_N)
+    y_hold = label[AUTOML_TRAIN:]
+
+    def classify(tag, model=None):
+        kw = {} if model is None else {"model": model}
+        HK.reset_launches()
+        t0 = time.perf_counter()
+        m = TrainClassifier(featureColumns=FEATURE_COLUMNS,
+                            numFeatures=AUTOML_HASH_WIDTH, **kw).fit(train_t)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(HK.LAUNCHES)
+        t0 = time.perf_counter()
+        scored = m.transform(hold_t)
+        tr_s = time.perf_counter() - t0
+        check(m.get("levels") == ["<=50K", ">50K"],
+              f"(b) {tag}: label levels {m.get('levels')}")
+        pred = np.asarray(scored["prediction"])
+        check(list(scored["scored_labels"]) ==
+              np.where(pred == 1.0, ">50K", "<=50K").tolist(),
+              f"(b) {tag}: scored_labels do not round-trip to the strings")
+        stats = ComputeModelStatistics().transform(DataTable({
+            "label": y_hold, "prediction": pred,
+            "probability": np.asarray(scored["probability"])}))
+        a = float(stats.row(0)["auc"])
+        acc = float(stats.row(0)["accuracy"])
+        print(f"automl (b) {tag}: fit {fit_s:.3f} s on {AUTOML_TRAIN} rows, "
+              f"transform {tr_s:.3f} s of {AUTOML_N - AUTOML_TRAIN}; holdout "
+              f"AUC {a:.5f}, accuracy {acc:.5f}; hist launches {launches}; "
+              f"predicted labels round-trip to '>50K' / '<=50K'")
+        return m, a, launches, fit_s
+
+    tc, auc_k, launches, fit_k = classify("default GBDT (kernel)")
+    check(sum(launches.values()) > 0, f"(b): the fit launched no hist "
+          f"kernel: {launches}")
+    check(auc_k > 0.9, f"(b): holdout AUC {auc_k}")
+    _, auc_p, l_plain, _ = classify(
+        "GBDT plain scatter path",
+        TPUBoostClassifier(histMethod="scatter"))
+    check(sum(l_plain.values()) == 0, f"(b): the plain path launched the "
+          f"kernel {l_plain}")
+    check(abs(auc_k - auc_p) < 0.005, f"(b): kernel AUC {auc_k} vs plain "
+          f"{auc_p}")
+    print(f"automl (b): kernel vs plain holdout AUC {auc_k:.5f} vs "
+          f"{auc_p:.5f} (|diff| {abs(auc_k - auc_p):.5f} < 0.005)")
+    # the kernel on this fit's bins: the featurized training rows binned
+    # by the fit's own mapper, at a root (every row active)
+    booster = tc.get("innerModel").get_booster()
+    Xtr = tc.get("featurizer").transform(train_t)[
+        "TrainClassifier_features"]
+    mapper = booster.bin_mapper
+    bins = torch.as_tensor(mapper.transform_fm(Xtr, native=True),
+                           device=dev).to(torch.int32)
+    F, N = bins.shape
+    B = int(mapper.num_bins.max())
+    route = HK.tpu_route(1, B)
+    _, grad, hess, w, leaf, _ = hist_inputs(dev, 1, N, 1, B, torch.float32,
+                                            seed=111, active=1.0)
+    out = HK.hist_device(bins, grad, hess, w, leaf, 1, B)
+    again = HK.hist_device(bins, grad, hess, w, leaf, 1, B)
+    ref = HK.hist_plain(bins, grad.double(), hess.double(), w.double(),
+                        leaf, 1, B)
+    err = float((out.double() - ref).abs().max())
+    check(torch.equal(out, again), "(b) hist: two launches differ")
+    check(torch.allclose(out.double(), ref, rtol=1e-5, atol=1e-3),
+          f"(b) hist: max_abs_err {err} beyond rtol 1e-5 / atol 1e-3")
+    k_ms = time_ms(lambda: HK.hist_device(bins, grad, hess, w, leaf, 1, B))
+    d_ms, _ = device_ms(lambda: HK.hist_device(bins, grad, hess, w, leaf,
+                                               1, B))
+    p_ms = time_ms(lambda: HK.hist_plain(bins, grad, hess, w, leaf, 1, B),
+                   reps=5)
+    lib = bincount_call(bins, grad, hess, w, leaf, 1, B, None)
+    l_ms = time_ms(lib, reps=5)
+    bd_ms, by = hist_bound_ms(F, N, w, 1, B, torch.float32, False)
+    row = {"name": f"hist (single leaf, B={B}, F={F} featurized AutoML "
+                   "bins, root)",
+           "route": "cuda", "source": "mmlspark_tpu_torch/csrc/hist.cu",
+           "replaces": "mmlspark_tpu/gbdt/pallas_hist.py:" + (
+               "67" if route == "_hist_kernel_nibble" else "117"),
+           "launches": launches[route], "max_abs_err": err, "ms": k_ms,
+           "plain_ms": p_ms, "bound_ms": bd_ms, "bound_by": by,
+           "library_ms": l_ms}
+    print(f"automl (b) kernel float32 on the fit's bins (F={F}, N={N}, "
+          f"B={B}, {route}, root): max_abs_err {err:.3e} vs float64 plain "
+          f"(rtol 1e-5, atol 1e-3); repeat launch bitwise equal; kernel "
+          f"{k_ms:.4f} ms (device time {d_ms:.4f} ms), plain index_add_ "
+          f"{p_ms:.4f} ms, bincount {l_ms:.4f} ms, bound {bd_ms:.4f} ms "
+          f"({by}); {launches[route]} launches in the {fit_k:.2f} s fit")
+    del bins, grad, hess, w, leaf, out, again, ref, lib, Xtr, tc
+    torch.cuda.empty_cache()
+
+    # ---- (c) TuneHyperparameters, batched against serial ----------------
+    tune_t = DataTable({"features": X[:AUTOML_TUNE_ROWS],
+                        "label": label[:AUTOML_TUNE_ROWS]})
+    runs = {}
+    for mode in ("auto", "off"):
+        for h in hists.values():
+            h.reset()
+        t0 = time.perf_counter()
+        tuned = tuner(mode).fit(tune_t)
+        secs = time.perf_counter() - t0
+        runs[mode] = tuned
+        summ = {n: hists[n].summary()
+                for n in ("tune_fold_build", "tune_trials", "tune_refit")}
+        print(f"automl (c) tune batchTrials={mode!r}: {secs:.3f} s, "
+              f"{tuned.search_info}, bestParams {tuned.get('bestParams')}, "
+              f"bestMetric {tuned.get('bestMetric'):.5f}; {summ}")
+    info = runs["auto"].search_info
+    check(info["path"] == "vmap" and info["dispatches"] == 3,
+          f"(c): batched search_info {info}")
+    check(runs["off"].search_info["path"] == "serial",
+          f"(c): off search_info {runs['off'].search_info}")
+    check(runs["auto"].get("bestParams") == runs["off"].get("bestParams"),
+          "(c): batched and serial tunes select different bestParams")
+    d_hist = max(abs(a["metric"] - b["metric"]) for a, b in zip(
+        runs["auto"].get("history"), runs["off"].get("history")))
+    print(f"automl (c): batched and serial select the same bestParams; "
+          f"max |CV metric diff| over the 8 candidates {d_hist:.3e}")
+
+    # ---- (d) the sparse logistic backend at width 262,144 ---------------
+    head = table.slice(0, AUTOML_SPARSE_ROWS)
+    t0 = time.perf_counter()
+    sfm = Featurize(featureColumns=FEATURE_COLUMNS, sparse=True).fit(head)
+    sparse_t = sfm.transform(head)
+    sf_s = time.perf_counter() - t0
+    csr = sparse_t["features"]
+    check(type(csr).__name__ == "CSRMatrix" and csr.shape ==
+          (AUTOML_SPARSE_ROWS, 3 + (1 << 18)),
+          f"(d): features {type(csr).__name__} {getattr(csr, 'shape', '')}")
+    cut = AUTOML_SPARSE_ROWS * 9 // 10
+    fit_t, test_t = sparse_t.slice(0, cut), sparse_t.slice(
+        cut, AUTOML_SPARSE_ROWS)
+    fits = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        m = TPULogisticRegression().fit(fit_t)
+        torch.cuda.synchronize()
+        fits.append((m, time.perf_counter() - t0))
+    (m1, s1), (m2, s2) = fits
+    w1, w2 = m1.get("weights"), m2.get("weights")
+    check(all(np.array_equal(w1[k], w2[k]) for k in ("W", "b")),
+          "(d): two sparse fits on the card differ")
+    pred = np.asarray(m1.transform(test_t)["prediction"])
+    acc = float((pred == label[cut:AUTOML_SPARSE_ROWS]).mean())
+    check(acc > 0.9, f"(d): holdout accuracy {acc}")
+    print(f"automl (d): Featurize(sparse=True) of {AUTOML_SPARSE_ROWS} rows "
+          f"{sf_s:.3f} s ({csr.nnz} nonzeros of width {csr.shape[1]}); "
+          f"TPULogisticRegression on the CSR column (maxIter 300) "
+          f"{s1:.3f} s / {s2:.3f} s, two card fits bitwise equal; "
+          f"holdout accuracy {acc:.5f}")
+    del sparse_t, csr, fit_t, test_t, fits, m1, m2
+
+    # ---- (e) two GBDT candidates fitted side by side in threads ---------
+    thr_t = DataTable({"features": X[:AUTOML_THREAD_ROWS],
+                       "label": label[:AUTOML_THREAD_ROWS]})
+    space = GridSpace({"numIterations": DiscreteHyperParam([5, 10])})
+    hist_by = {}
+    for par in (4, 1):
+        t0 = time.perf_counter()
+        tuned = TuneHyperparameters(
+            models=[TPUBoostClassifier(minDataInLeaf=5)], paramSpace=space,
+            numFolds=2, parallelism=par).fit(thr_t)
+        hist_by[par] = (tuned.get("history"), time.perf_counter() - t0)
+        check(tuned.search_info["path"] == "serial",
+              f"(e): {tuned.search_info}")
+    check(hist_by[4][0] == hist_by[1][0],
+          f"(e): history at parallelism 4 {hist_by[4][0]} differs from "
+          f"parallelism 1 {hist_by[1][0]}")
+    print(f"automl (e): serial tune of 2 GBDT candidates x 2 folds on "
+          f"{AUTOML_THREAD_ROWS} rows, parallelism 4 ({hist_by[4][1]:.3f} s)"
+          f" and 1 ({hist_by[1][1]:.3f} s): equal history "
+          f"{[round(h['metric'], 6) for h in hist_by[1][0]]}")
+
+    # ---- (f) dense linear fits, card against CPU -------------------------
+    n = AUTOML_CPU_ROWS
+    rng = np.random.default_rng(11)
+    Xs = X[:n]
+    y_reg = Xs.astype(np.float64) @ rng.normal(size=Xs.shape[1]) \
+        + rng.normal(size=n)
+    for est, y, wkey in ((TPULogisticRegression, label[:n], "W"),
+                         (TPULinearRegression, y_reg, "w")):
+        t = DataTable({"features": Xs, "label": y})
+        t0 = time.perf_counter()
+        mg = est(device="cuda").fit(t)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mc = est(device="cpu").fit(t)
+        cpu_s = time.perf_counter() - t0
+        wg, wc = mg.get("weights"), mc.get("weights")
+        scale = max(float(np.abs(wc[wkey]).max()),
+                    float(np.abs(wc["b"]).max()))
+        w_err = max(float(np.abs(wg[k] - wc[k]).max()) for k in (wkey, "b"))
+        ok = all(np.allclose(wg[k], wc[k], rtol=1e-4, atol=1e-5 * scale)
+                 for k in (wkey, "b"))
+        check(ok, f"(f) {est.__name__}: card vs CPU weights differ by "
+              f"{w_err} (scale {scale})")
+        pg = np.asarray(mg.transform(t)["prediction"])
+        pc = np.asarray(mc.transform(t)["prediction"])
+        if est is TPULogisticRegression:
+            agree = float((pg == pc).mean())
+        else:
+            agree = float(np.isclose(pg, pc, rtol=1e-4, atol=1e-5 * float(
+                np.abs(pc).max())).mean())
+        check(agree >= 0.999, f"(f) {est.__name__}: predictions agree on "
+              f"{agree}")
+        print(f"automl (f) {est.__name__} (maxIter 300, {n} rows x "
+              f"{Xs.shape[1]}): card {card_s:.3f} s, CPU {cpu_s:.3f} s; "
+              f"max |weight diff| {w_err:.3e} of scale {scale:.3e} (rtol "
+              f"1e-4, atol 1e-5 of it); predictions agree on "
+              f"{100 * agree:.2f} % of rows")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2258,6 +2578,11 @@ def main() -> int:
     image_slice(dev, smi)
     print(f"image: phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 11. the AutoML slice ---------------------------------------------
+    t0 = time.perf_counter()
+    automl_row = automl_slice(dev, smi)
+    print(f"automl: phase 11 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, route, key, launches, line in (
             (f"hist (single leaf, B={b255})", "_hist_kernel_nibble", b255,
@@ -2310,6 +2635,9 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+    # the kernel on phase 11(b)'s featurized bins, launched by its
+    # TrainClassifier fit; times from phase 11(b)
+    kernels.append(automl_row)
     # the forward in both types: f32 on the LM transform's path, bf16
     # (the tensor-core body) on the training slice's
     for dtype, tname, launches in (

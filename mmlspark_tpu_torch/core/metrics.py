@@ -1,9 +1,9 @@
-"""Serving-path metrics of the PyTorch port: the part of
-``mmlspark_tpu/core/metrics.py`` that the model stages and the serving
-engine read — latency histograms (mergeable, snapshot for exporters),
-the windowed counter, the process-wide warmup, AutoML-phase (the
-image featurizer's) and ingress histograms, and the feature
-``DriftMonitor``. The reference's ``LabelledHistograms``
+"""Metrics of the PyTorch port: the part of ``mmlspark_tpu/core/metrics.py``
+that the ported stages and the serving engine read — the evaluation
+metric names (the reference's MetricConstants), latency histograms
+(mergeable, snapshot for exporters), the windowed counter, the
+process-wide warmup, AutoML-phase and ingress histograms, and the
+feature ``DriftMonitor``. The reference's ``LabelledHistograms``
 and ``WindowedHistogram`` serve Prometheus ``/metrics`` and the SLO
 monitor, and its GBDT / fusion / control-loop phase families belong
 to modules the port has not reached yet
@@ -15,6 +15,42 @@ import math
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
+
+# regression
+MSE = "mse"
+RMSE = "rmse"
+R2 = "r2"
+MAE = "mae"
+REGRESSION_METRICS = [MSE, RMSE, R2, MAE]
+
+# classification
+AUC = "auc"
+ACCURACY = "accuracy"
+PRECISION = "precision"
+RECALL = "recall"
+F1 = "f1"
+CLASSIFICATION_METRICS = [AUC, ACCURACY, PRECISION, RECALL, F1]
+
+CONFUSION_MATRIX = "confusion_matrix"
+
+# per-instance
+L1_LOSS = "l1_loss"
+L2_LOSS = "l2_loss"
+LOG_LOSS = "log_loss"
+
+ALL_METRICS = "all"
+
+CLASSIFICATION_EVALUATION = "classification"
+REGRESSION_EVALUATION = "regression"
+
+
+def is_classification_metric(name: str) -> bool:
+    return name in CLASSIFICATION_METRICS or name == CONFUSION_MATRIX
+
+
+def is_regression_metric(name: str) -> bool:
+    return name in REGRESSION_METRICS
+
 
 # log-spaced upper bounds (1-2-5 decades): resolution tracks magnitude,
 # so the same 18 buckets cover a 50 us pad and a 5 s cold start
@@ -252,11 +288,11 @@ def warmup_histograms() -> Dict[str, LatencyHistogram]:
 # ---------------------------------------------------------------------------
 
 # per-phase wall milliseconds across the convenience-layer hot paths, the
-# JAX package's family: featurize_fit, featurize_transform,
-# tune_fold_build, tune_trials and tune_refit belong to the AutoML
-# stages (not ported yet); image_resize (ImageFeaturizer's host decode /
-# resize / pad / upload of one batch, on the prefetch thread) and
-# image_forward (one batch's dispatch -> readback complete) are observed.
+# JAX package's family: featurize_fit / featurize_transform (Featurize),
+# tune_fold_build / tune_trials / tune_refit (TuneHyperparameters),
+# image_resize (ImageFeaturizer's host decode / resize / pad / upload of
+# one batch, on the prefetch thread) and image_forward (one batch's
+# dispatch -> readback complete).
 AUTOML_PHASES = ("featurize_fit", "featurize_transform",
                  "tune_fold_build", "tune_trials", "tune_refit",
                  "image_resize", "image_forward")

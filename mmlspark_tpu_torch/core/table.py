@@ -268,6 +268,16 @@ class DataTable:
                   else self._schema.add(field))
         return DataTable(cols, schema, num_shards=self.num_shards)
 
+    def with_field_meta(self, name: str, **meta) -> "DataTable":
+        f = self._schema[name].with_meta(**meta)
+        return DataTable(self._columns, self._schema.replace(f),
+                         num_shards=self.num_shards)
+
+    def with_field(self, field: Field) -> "DataTable":
+        """Replace the schema Field for an existing column (data unchanged)."""
+        return DataTable(self._columns, self._schema.replace(field),
+                         num_shards=self.num_shards)
+
     def drop(self, *names: str) -> "DataTable":
         drop = set(names)
         cols = {n: c for n, c in self._columns.items() if n not in drop}
@@ -277,6 +287,11 @@ class DataTable:
     def select(self, *names: str) -> "DataTable":
         cols = {n: self.column(n) for n in names}
         return DataTable(cols, self._schema.select(*names),
+                         num_shards=self.num_shards)
+
+    def rename(self, mapping: Dict[str, str]) -> "DataTable":
+        cols = {mapping.get(n, n): c for n, c in self._columns.items()}
+        return DataTable(cols, self._schema.rename(mapping),
                          num_shards=self.num_shards)
 
     def _take_indices(self, idx) -> "DataTable":
@@ -300,13 +315,77 @@ class DataTable:
     def take(self, n: int) -> "DataTable":
         return self._take_indices(np.arange(min(n, self._n_rows)))
 
+    def head(self, n: int = 5) -> List[Dict[str, Any]]:
+        return self.take(n).to_rows()
+
     def slice(self, start: int, stop: int) -> "DataTable":
         start, stop, _ = slice(start, stop).indices(self._n_rows)
         return self._take_indices(np.arange(start, stop))
 
+    def shuffle(self, seed: int = 0) -> "DataTable":
+        """Rows in the order of ``default_rng(seed).permutation``: the
+        JAX package's draw, so seeded CV folds hold the same rows."""
+        rng = np.random.default_rng(seed)
+        idx = rng.permutation(self._n_rows)
+        return self._take_indices(idx)
+
+    def sample(self, fraction: float, seed: int = 0) -> "DataTable":
+        rng = np.random.default_rng(seed)
+        mask = rng.random(self._n_rows) < fraction
+        return self.filter(mask)
+
+    def sort_by(self, name: str, ascending: bool = True) -> "DataTable":
+        col = self._columns[name]
+        if not isinstance(col, np.ndarray):
+            order = np.asarray(sorted(range(len(col)), key=lambda i: col[i]))
+        else:
+            order = np.argsort(col, kind="stable")
+        if not ascending:
+            order = order[::-1]
+        return self._take_indices(order)
+
+    def map_rows(self, fn: Callable[[Dict[str, Any]], Dict[str, Any]],
+                 schema: Optional[Schema] = None) -> "DataTable":
+        return DataTable.from_rows([fn(r) for r in self.rows()], schema)
+
+    def append_rows(self, rows: Sequence[Mapping[str, Any]]) -> "DataTable":
+        return DataTable.concat([self, DataTable.from_rows(rows, self._schema)])
+
+    # -- partitioning ------------------------------------------------------
+
+    def repartition(self, n: int) -> "DataTable":
+        """Set the logical shard count (the Repartition stage's
+        analog of ``df.repartition``)."""
+        return DataTable(self._columns, self._schema, num_shards=n)
+
+    def shards(self, n: Optional[int] = None) -> List["DataTable"]:
+        """Split row-wise into n roughly-equal shards."""
+        n = n or self.num_shards
+        if n <= 1:
+            return [self]
+        bounds = np.linspace(0, self._n_rows, n + 1).astype(int)
+        return [self.slice(int(a), int(b))
+                for a, b in zip(bounds[:-1], bounds[1:])]
+
     def batches(self, batch_size: int) -> Iterator["DataTable"]:
         for start in range(0, self._n_rows, batch_size):
             yield self.slice(start, start + batch_size)
+
+    # -- misc --------------------------------------------------------------
+
+    def cache(self) -> "DataTable":
+        """No-op: DataTables are host-resident eagerly. Kept for the
+        Cacher / CheckpointData stages."""
+        return self
+
+    def distinct_values(self, name: str) -> List[Any]:
+        col = self._columns[name]
+        if isinstance(col, np.ndarray) and col.ndim == 1:
+            return list(np.unique(col))
+        seen: Dict[Any, None] = {}
+        for v in col:
+            seen.setdefault(v, None)
+        return list(seen.keys())
 
     def __repr__(self):
         return (f"DataTable[{self._n_rows} rows x {len(self._columns)} cols: "

@@ -12,7 +12,23 @@ from typing import Union
 
 import torch
 
+from mmlspark_tpu_torch.core.params import StringParam
+
 DeviceLike = Union[str, torch.device, None]
+
+
+def _device_domain(v: str) -> bool:
+    return v.split(":")[0] in ("cuda", "cpu")
+
+
+class HasDevice:
+    """The ``device`` param of every stage that trains or scores on a
+    device."""
+
+    device = StringParam(
+        "torch device to train and score on: 'cuda' (default; raises "
+        "when no card is present) or 'cpu' (explicit opt-in)",
+        default="cuda", domain=_device_domain)
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -33,23 +33,13 @@ from mmlspark_tpu_torch.core.schema import Field, Schema, VECTOR, F64
 from mmlspark_tpu_torch.core.stage import Estimator, Model
 from mmlspark_tpu_torch.core.sparse import CSRMatrix
 from mmlspark_tpu_torch.core.table import DataTable, features_matrix
+from mmlspark_tpu_torch.device import HasDevice
 from mmlspark_tpu_torch.gbdt.booster import Booster, train
 from mmlspark_tpu_torch.io.ooc import ChunkedTable
 
 
-def _device_domain(v: str) -> bool:
-    return v.split(":")[0] in ("cuda", "cpu")
-
-
-class _DeviceParam:
-    device = StringParam(
-        "torch device to train and score on: 'cuda' (default; raises "
-        "when no card is present) or 'cpu' (explicit opt-in)",
-        default="cuda", domain=_device_domain)
-
-
 class _BoostParams(HasFeaturesCol, HasLabelCol, HasPredictionCol,
-                   _DeviceParam):
+                   HasDevice):
     """Shared boosting params (the JAX package's names and defaults)."""
 
     numIterations = IntParam("number of boosting iterations", default=100,
@@ -185,7 +175,7 @@ class _BoostParams(HasFeaturesCol, HasLabelCol, HasPredictionCol,
                      device=self.get("device"))
 
 
-class _BoosterModel(Model, HasFeaturesCol, HasPredictionCol, _DeviceParam):
+class _BoosterModel(Model, HasFeaturesCol, HasPredictionCol, HasDevice):
     """Shared fitted-model plumbing: lazy booster from the model string."""
 
     modelString = StringParam("serialized booster", default="")

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -44,15 +45,25 @@ LAUNCHES: Dict[str, int] = {"_hist_kernel_nibble": 0, "_hist_kernel": 0}
 # the same launches keyed by the stats' type: float32, int16 (hist_bits
 # 16) or int8 (hist_bits 8)
 LAUNCHES_BY_TYPE: Dict[str, int] = {"float32": 0, "int16": 0, "int8": 0}
+# fits may run side by side in threads (TuneHyperparameters' serial
+# path): the counts and the entry points' one-time typing take this lock
+_LOCK = threading.Lock()
 
 _C_FUNCS = {torch.float32: "mml_hist_f32", torch.int16: "mml_hist_i16",
             torch.int8: "mml_hist_i8"}
 
 
+def _count_launch(route: str, stats_type: str) -> None:
+    with _LOCK:
+        LAUNCHES[route] += 1
+        LAUNCHES_BY_TYPE[stats_type] += 1
+
+
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_TYPE):
-        for k in counts:
-            counts[k] = 0
+    with _LOCK:
+        for counts in (LAUNCHES, LAUNCHES_BY_TYPE):
+            for k in counts:
+                counts[k] = 0
 
 
 def tpu_route(num_leaves: int, num_bins: int) -> str:
@@ -236,13 +247,15 @@ def hist_cuda(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                            num_leaves, f, num_bins), dtype=acc,
                           device=bins.device)
     fn = getattr(_build.load("hist"), _C_FUNCS[grad.dtype])
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8
-                       + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    with _LOCK:
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 8
+                           + [ctypes.c_int, ctypes.c_longlong,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_longlong,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
     with torch.cuda.device(bins.device):
         stream = torch.cuda.current_stream(bins.device).cuda_stream
         err = fn(bins.data_ptr(), grad.data_ptr(), hess.data_ptr(),
@@ -255,6 +268,6 @@ def hist_cuda(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         raise RuntimeError(f"histogram kernel launch failed: cudaError_t "
                            f"{err} (F={f}, N={n}, L={num_leaves}, "
                            f"B={num_bins})")
-    LAUNCHES[tpu_route(num_leaves, num_bins)] += 1
-    LAUNCHES_BY_TYPE[str(grad.dtype).split(".")[-1]] += 1
+    _count_launch(tpu_route(num_leaves, num_bins),
+                  str(grad.dtype).split(".")[-1])
     return out

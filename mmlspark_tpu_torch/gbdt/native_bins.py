@@ -20,6 +20,7 @@ card fit never runs its host binning on a path nobody measured.)
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -27,13 +28,19 @@ import numpy as np
 from mmlspark_tpu_torch import _build
 
 _BOUND = False
+_BIND_LOCK = threading.Lock()   # fits may bin from several threads
 
 
 def _lib() -> ctypes.CDLL:
-    """The loaded library, its entry points typed once."""
+    """The loaded library, its entry points typed once (under a lock, so
+    no thread calls an entry point another is still typing)."""
     global _BOUND
     lib = _build.load("bins")
-    if not _BOUND:
+    if _BOUND:
+        return lib
+    with _BIND_LOCK:
+        if _BOUND:
+            return lib
         dp = ctypes.POINTER(ctypes.c_double)
         lp = ctypes.POINTER(ctypes.c_long)
         lib.mml_bins_threads.restype = ctypes.c_int

@@ -481,3 +481,13 @@ def write_arrow_ipc(source, path: str,
         if writer is not None:
             writer.close()
     return rows
+
+
+def refuse_chunked(table: Any, what: str) -> None:
+    """Raise for a ``ChunkedTable`` handed to a stage whose streamed
+    path the port does not have yet (the AutoML fits and
+    ``SummarizeData``)."""
+    if isinstance(table, ChunkedTable):
+        raise NotImplementedError(
+            f"{what} on a ChunkedTable is not ported yet: ROADMAP.md, "
+            f"'Out-of-core ingest'")

@@ -1046,3 +1046,90 @@ def test_cuda_featurizer_builds_and_ships_weights_once(card, monkeypatch):
     assert len(builds) == 1 and torch.device(builds[0]).type == "cuda"
     assert next(module.parameters()).is_cuda
     assert feat.jit_cache_misses == 1
+
+
+# ---------------------------------------------------------------------------
+# the AutoML slice: batched tunes, the sparse logistic fit, threads
+# ---------------------------------------------------------------------------
+
+
+def _automl_rows(n, seed=0):
+    """A small bench_automl-shaped table and its float label."""
+    from mmlspark_tpu_torch.profile_automl import automl_table
+    return automl_table(n, seed)
+
+
+def _featurized(n, seed=0, **kw):
+    from mmlspark_tpu_torch.automl import Featurize
+    from mmlspark_tpu_torch.profile_automl import FEATURE_COLUMNS
+    table, label = _automl_rows(n, seed)
+    fm = Featurize(featureColumns=FEATURE_COLUMNS, numberOfFeatures=16,
+                   **kw).fit(table)
+    return fm.transform(table)["features"], label, table
+
+
+@pytest.mark.cuda
+def test_cuda_batched_tune_selects_as_on_the_cpu(card):
+    from mmlspark_tpu_torch.profile_automl import tuner
+    X, y, _ = _featurized(3000)
+    t = DataTable({"features": X, "label": y})
+    on_card = tuner("auto", device="cuda").fit(t)
+    on_cpu = tuner("auto", device="cpu").fit(t)
+    serial = tuner("off", device="cuda").fit(t)
+    assert on_card.search_info["path"] == "vmap"
+    assert on_card.search_info["dispatches"] == 3
+    assert on_card.get("bestParams") == on_cpu.get("bestParams")
+    assert on_card.get("bestParams") == serial.get("bestParams")
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_logistic_fit_bitwise_on_repeat(card):
+    from mmlspark_tpu_torch.automl import Featurize
+    from mmlspark_tpu_torch.models.linear import TPULogisticRegression
+    from mmlspark_tpu_torch.profile_automl import FEATURE_COLUMNS
+    table, y = _automl_rows(4000)
+    st = Featurize(featureColumns=FEATURE_COLUMNS,
+                   sparse=True).fit(table).transform(table)
+    w1 = TPULogisticRegression(maxIter=50).fit(st).get("weights")
+    w2 = TPULogisticRegression(maxIter=50).fit(st).get("weights")
+    wc = TPULogisticRegression(maxIter=50, device="cpu").fit(st).get(
+        "weights")
+    for k in ("W", "b"):
+        np.testing.assert_array_equal(w1[k], w2[k])
+        scale = float(np.abs(wc[k]).max())
+        np.testing.assert_allclose(w1[k], wc[k], rtol=1e-4,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_cuda_threaded_gbdt_tune_equals_one_thread(card):
+    from mmlspark_tpu_torch.automl import (
+        DiscreteHyperParam, GridSpace, TuneHyperparameters)
+    from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+    X, y, _ = _featurized(4000)
+    t = DataTable({"features": X, "label": y})
+    space = GridSpace({"numIterations": DiscreteHyperParam([3, 6]),
+                       "numLeaves": DiscreteHyperParam([7, 15])})
+    runs = [TuneHyperparameters(
+        models=[TPUBoostClassifier(minDataInLeaf=5)], paramSpace=space,
+        numFolds=2, parallelism=par).fit(t) for par in (4, 1)]
+    assert runs[0].get("history") == runs[1].get("history")
+    assert runs[0].get("bestParams") == runs[1].get("bestParams")
+    assert runs[0].get("bestMetric") == runs[1].get("bestMetric")
+
+
+@pytest.mark.cuda
+def test_cuda_train_classifier_launches_the_hist_kernel(card):
+    from mmlspark_tpu_torch.automl import TrainClassifier
+    from mmlspark_tpu_torch.profile_automl import FEATURE_COLUMNS
+    table, y = _automl_rows(5000)
+    t = table.with_column("label", np.where(y > 0.5, "yes", "no").tolist())
+    HK.reset_launches()
+    m = TrainClassifier(featureColumns=FEATURE_COLUMNS,
+                        numFeatures=16).fit(t)
+    assert sum(HK.LAUNCHES.values()) > 0
+    out = m.transform(t)
+    pred = np.asarray(out["prediction"])
+    assert (pred == y).mean() > 0.95
+    assert list(out["scored_labels"]) == \
+        np.where(pred == 1.0, "yes", "no").tolist()
