@@ -224,10 +224,45 @@ Phases, one line each; any failure exits non-zero:
                the CPU: weights within rtol 1e-4 / atol 1e-5 of their
                largest magnitude, predictions equal (logistic) or within
                that rule (linear) on at least 99.9 % of the rows.
-Then one JSON line of per-kernel numbers (the hist rows include the int16
-and int8 launches of 7(b) and 7(c), the F = 968 launches of 8(a) and the
-launches of 11(b)'s fit on its featurized bins), the card's name and
-power limit, and as the last line
+ 12. models in and out — (a) tests/onnx_writer.py's resnet18 graph at
+               width 64 / 1000 classes (seed 0) published with its
+               onnx_summary manifest (20 Conv nodes) into a LocalRepo
+               that the port's WebDAV server serves, read back through
+               HTTPRepo sha256-verified, import_onnx_model(batch_size=256,
+               input_shape=[3, 224, 224]) over 1024 seeded images: import
+               s, first batch s, imgs/s; card vs CPU on 8 rows within
+               rtol 2e-4 and atol 2e-4 of the logits' scale (the writer's
+               weights do not preserve variance: logits ~1e8), argmax
+               equal; the reference tests' BiLSTM, GRU and BERT-style
+               block graphs card vs CPU within rtol / atol 2e-4. (b)
+               LM_SPEC (seeded) quantized on 2 x 1024 tokens, 20 x 1024 at
+               batch 8: 8 flash launches and 33 int8 GEMMs a batch, finite
+               logits, rows 16-19 alone equal to the full run, seconds
+               against the f32 transform, argmax agreement with f32; each
+               int8 GEMM shape at M = 8192 bitwise equal to
+               int8_matmul_host (all rows through an exact float64
+               accumulator on the card, 16 rows literally) and its card
+               weight quantization to quantize_weight's, timed as
+               torch._int_mm, strict-f32 torch.matmul, its bound (1979
+               TOP/s int8, 3.35 TB/s), the quantize and epilogue passes;
+               a depth-2 int8 model card vs CPU: the first layer's int8
+               inputs equal but for <= 0.1 % one step apart, and no
+               further from the CPU than int8 is from f32 (argmax, max
+               |diff|). (c) bench_lm's fit (bf16, AdamW, constant
+               schedule, device feed, 32 x 1024 at batch 8,
+               checkpointEvery 4): 2 epochs, then 1 epoch into a fresh
+               directory and 2 epochs resuming from it, the last 4 losses
+               and final weights bitwise equal (or, if not, within the
+               full fit's own repeat difference); save / load seconds,
+               bytes, free disk; a truncated newest leaves.npz falls back
+               to step 4; bench.py's CIFAR ConvNet (batch 1024) through a
+               webdav:// checkpoint directory, the same check.
+Then one JSON line of the int8 GEMMs' times (a library call, not a
+ported kernel), one JSON line of per-kernel numbers (the hist rows
+include the int16 and int8 launches of 7(b) and 7(c), the F = 968
+launches of 8(a) and the launches of 11(b)'s fit on its featurized bins;
+the flash rows phase 12's launches), the card's name and power limit,
+and as the last line
 {"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -1953,7 +1988,598 @@ def automl_slice(dev, smi: str) -> dict:
     return row
 
 
+INTERCHANGE_DIR = os.path.join("build", "chip_smoke_interchange")
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core rate
+ONNX_ROWS = 1024            # phase 12(a)'s seeded 224 x 224 images
+CKPT_ROWS = 32              # phase 12(c)'s LM rows (4 steps an epoch)
+CIFAR_CKPT_ROWS = 4096      # phase 12(c)'s ConvNet rows at batch 1024
+
+
+def onnx_block_graph(path: str, ow, rng, T: int = 6, D: int = 16,
+                     H: int = 4) -> None:
+    """The BERT-style block of tests/test_onnx_import.py: LayerNorm as a
+    ReduceMean / Sub / Pow / Sqrt / Div chain, fused QKV + Split, masked
+    Softmax attention, erf GELU."""
+    hd = D // H
+
+    def w(shape, scale=0.25):
+        return rng.normal(scale=scale, size=shape).astype(np.float32)
+
+    inits = {"ln_g": np.ones(D, np.float32), "ln_b": w((D,), 0.1),
+             "wqkv": w((D, 3 * D)), "bqkv": w((3 * D,), 0.05),
+             "wo": w((D, D)), "bo": w((D,), 0.05),
+             "ln2_g": np.ones(D, np.float32), "ln2_b": w((D,), 0.1),
+             "w1": w((D, 4 * D)), "b1": w((4 * D,), 0.05),
+             "w2": w((4 * D, D)), "b2": w((D,), 0.05),
+             "eps": np.asarray([1e-5], np.float32),
+             "half": np.asarray([0.5], np.float32),
+             "one": np.asarray([1.0], np.float32),
+             "sqrt2": np.asarray([np.sqrt(2.0)], np.float32),
+             "scale": np.asarray([1.0 / np.sqrt(hd)], np.float32),
+             "neg": np.asarray([-1e9], np.float32),
+             "mask": np.tril(np.ones((T, T), bool)),
+             "h_shape": np.asarray([0, 0, H, hd], np.int64),
+             "m_shape": np.asarray([0, 0, D], np.int64),
+             "two": np.asarray([2.0], np.float32)}
+    n = ow.node
+
+    def ln(x, g, b, p):
+        return [n("ReduceMean", [x], [f"{p}mu"], axes=[-1], keepdims=1),
+                n("Sub", [x, f"{p}mu"], [f"{p}c"]),
+                n("Pow", [f"{p}c", "two"], [f"{p}c2"]),
+                n("ReduceMean", [f"{p}c2"], [f"{p}v"], axes=[-1],
+                  keepdims=1),
+                n("Add", [f"{p}v", "eps"], [f"{p}ve"]),
+                n("Sqrt", [f"{p}ve"], [f"{p}sd"]),
+                n("Div", [f"{p}c", f"{p}sd"], [f"{p}n"]),
+                n("Mul", [f"{p}n", g], [f"{p}ng"]),
+                n("Add", [f"{p}ng", b], [f"{p}out"])]
+    nodes = ln("x", "ln_g", "ln_b", "l1") + [
+        n("MatMul", ["l1out", "wqkv"], ["qkv0"]),
+        n("Add", ["qkv0", "bqkv"], ["qkv"]),
+        n("Split", ["qkv"], ["q", "k", "v"], axis=-1, num_outputs=3)]
+    for nm in ("q", "k", "v"):
+        nodes += [n("Reshape", [nm, "h_shape"], [f"{nm}h"]),
+                  n("Transpose", [f"{nm}h"], [f"{nm}t"], perm=[0, 2, 1, 3])]
+    nodes += [n("Transpose", ["kt"], ["ktt"], perm=[0, 1, 3, 2]),
+              n("MatMul", ["qt", "ktt"], ["sc0"]),
+              n("Mul", ["sc0", "scale"], ["sc"]),
+              n("Where", ["mask", "sc", "neg"], ["scm"]),
+              n("Softmax", ["scm"], ["attn"], axis=-1),
+              n("MatMul", ["attn", "vt"], ["ctx"]),
+              n("Transpose", ["ctx"], ["ctxt"], perm=[0, 2, 1, 3]),
+              n("Reshape", ["ctxt", "m_shape"], ["ctxm"]),
+              n("MatMul", ["ctxm", "wo"], ["proj0"]),
+              n("Add", ["proj0", "bo"], ["proj"]),
+              n("Add", ["x", "proj"], ["res1"])]
+    nodes += ln("res1", "ln2_g", "ln2_b", "l2") + [
+        n("MatMul", ["l2out", "w1"], ["m0"]), n("Add", ["m0", "b1"], ["m1"]),
+        n("Div", ["m1", "sqrt2"], ["g0"]), n("Erf", ["g0"], ["g1"]),
+        n("Add", ["g1", "one"], ["g2"]), n("Mul", ["m1", "g2"], ["g3"]),
+        n("Mul", ["g3", "half"], ["gelu"]),
+        n("MatMul", ["gelu", "w2"], ["m2"]), n("Add", ["m2", "b2"], ["m3"]),
+        n("Add", ["res1", "m3"], ["out"])]
+    with open(path, "wb") as f:
+        f.write(ow.model(nodes, inits, ("x", 1, ["N", T, D]),
+                         ("out", 1, ["N", T, D])))
+
+
+def int8_host_exact(x: np.ndarray, wq: np.ndarray, x_scale, w_scale,
+                    dev) -> np.ndarray:
+    """``int8_matmul_host``'s output at a size its numpy int32 product
+    cannot reach in a run: the same host quantization and f32 epilogue,
+    with the exact int32 accumulator taken from a float64 product (every
+    partial sum is an integer below 2**53, so float64 is exact) on the
+    card's float64 units, never through the int8 GEMM under test."""
+    import torch
+    from mmlspark_tpu_torch.core import quantize as PQ
+    q = (x.astype(np.float32) / np.float32(x_scale)).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        xq = np.clip(np.round(q), -PQ.QMAX, PQ.QMAX)
+    xq = np.nan_to_num(xq, nan=0.0).astype(np.int8)
+    acc = (torch.from_numpy(xq).to(dev, torch.float64)
+           @ torch.from_numpy(wq).to(dev, torch.float64))
+    acc = acc.to(torch.int32).cpu().numpy()
+    out = acc.astype(np.float32) * (
+        np.float32(x_scale) * np.asarray(w_scale, np.float32))
+    nan_row = np.isnan(x.astype(np.float32)).any(axis=-1, keepdims=True)
+    return np.where(nan_row, np.float32(np.nan), out)
+
+
+def interchange_slice(dev, smi: str) -> dict:
+    """Phase 12: models entering and leaving the system on the card — the
+    ONNX executor at ResNet-18 width, int8 at LM width, checkpoint /
+    resume at LM width and on a WebDAV store. Returns the phase's flash
+    launches: {"f32": forward launches of the int8 transform, "bf16":
+    each kernel's launches over the checkpointed LM fits}, and the int8
+    GEMMs' times."""
+    import torch
+
+    from mmlspark_tpu_torch.core import quantize as PQ
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.downloader import HTTPRepo, LocalRepo
+    from mmlspark_tpu_torch.importers import import_onnx_model, onnx_summary
+    from mmlspark_tpu_torch.models import learner as PLM
+    from mmlspark_tpu_torch.models import networks
+    from mmlspark_tpu_torch.models.learner import TPULearner
+    from mmlspark_tpu_torch.models.networks import build_network
+    from mmlspark_tpu_torch.models.tpu_model import TPUModel
+    from mmlspark_tpu_torch.ops import flash_attention as FA
+    from mmlspark_tpu_torch.profile_hist import time_ms
+    from mmlspark_tpu_torch.profile_train import (
+        CIFAR_BATCH, CIFAR_SPECS, cifar_table, slice_table)
+    from mmlspark_tpu_torch.profile_transform import (
+        BATCH as LM_BATCH, LM_SPEC, ROWS as LM_ROWS)
+    from mmlspark_tpu_torch.testing.webdav import serve_webdav
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "onnx_writer", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "onnx_writer.py"))
+    ow = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ow)      # the repo's numpy-only ONNX writer
+
+    shutil.rmtree(INTERCHANGE_DIR, ignore_errors=True)
+    os.makedirs(INTERCHANGE_DIR)
+    out = {"f32": 0, "bf16": {}, "int8_gemms": []}
+
+    # ---- (a) ONNX at full ResNet-18 width ---------------------------------
+    server, base = serve_webdav(os.path.join(INTERCHANGE_DIR, "dav"))
+    try:
+        src = os.path.join(INTERCHANGE_DIR, "resnet18.onnx")
+        t0 = time.perf_counter()
+        ow.resnet18_onnx(src, num_classes=1000, width=64, seed=0)
+        summary = onnx_summary(src)
+        check(summary["ops"].get("Conv") == 20,
+              f"resnet18 graph ops {summary['ops']}")
+        with open(src, "rb") as f:
+            blob = f.read()
+        # published into the directory the WebDAV server serves, read
+        # back over HTTP with sha256 verification
+        LocalRepo(os.path.join(INTERCHANGE_DIR, "dav", "zoo")).publish(
+            "onnx_resnet18", {"format": "onnx", "onnx_summary": summary},
+            blob=blob, model_type="classification")
+        repo = HTTPRepo(f"{base}/zoo")
+        schema = repo.get_schema("onnx_resnet18")
+        fetched = repo.read_blob(schema, verify=True)
+        check(fetched == blob and schema.network_spec["onnx_summary"]
+              == summary, "ONNX blob or manifest changed over WebDAV")
+        path = os.path.join(INTERCHANGE_DIR, "reload.onnx")
+        with open(path, "wb") as f:
+            f.write(fetched)
+        print(f"interchange (a): resnet18 ONNX (width 64, 1000 classes, "
+              f"{len(blob) / 1e6:.1f} MB, {summary['num_initializers']} "
+              f"initializers, ops {summary['ops']}) written, published "
+              f"and fetched sha256-verified over WebDAV in "
+              f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        server.shutdown()
+        server.server_close()
+    t0 = time.perf_counter()
+    model = import_onnx_model(path, batch_size=256,
+                              input_shape=[3, 224, 224])
+    import_s = time.perf_counter() - t0
+    rng = np.random.default_rng(11)
+    images = rng.normal(size=(ONNX_ROWS, 3 * 224 * 224)).astype(np.float32)
+    t0 = time.perf_counter()
+    first = model.transform(DataTable({"images": images[:256]}))["scores"]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = model.transform(DataTable({"images": images}))["scores"]
+    torch.cuda.synchronize()
+    onnx_s = time.perf_counter() - t0
+    check(scores.shape == (ONNX_ROWS, 1000)
+          and bool(np.isfinite(scores).all()),
+          f"ONNX resnet18 scores {scores.shape}")
+    check(np.array_equal(first, scores[:256]),
+          "ONNX first batch differs between two transforms")
+    cpu = import_onnx_model(path, batch_size=8, input_shape=[3, 224, 224],
+                            device="cpu")
+    ref = cpu.transform(DataTable({"images": images[:8]}))["scores"]
+    err = float(np.abs(scores[:8] - ref).max())
+    # the writer's seeded weights (normal(0.1), random BatchNorm
+    # statistics) are not variance-preserving: the logits reach ~1e8, so
+    # atol 2e-4 is taken of their scale
+    scale = float(np.abs(ref).max())
+    check(np.allclose(scores[:8], ref, rtol=2e-4, atol=2e-4 * scale)
+          and np.array_equal(scores[:8].argmax(1), ref.argmax(1)),
+          f"ONNX resnet18 card vs CPU: max |diff| {err} at scale {scale}")
+    print(f"interchange (a): import {import_s:.3f} s; first batch of 256 "
+          f"{first_s:.3f} s; {ONNX_ROWS} x 224 x 224 at batch 256 in "
+          f"{onnx_s:.3f} s ({ONNX_ROWS / onnx_s:.1f} imgs/s, strict f32); "
+          f"card vs CPU on 8 rows max |diff| {err:.3e} at a logit "
+          f"scale of {scale:.3e} ({err / scale:.2e} of it; rtol 2e-4, "
+          f"atol 2e-4 of the scale), argmax equal; card {smi}")
+    del model, cpu, images, scores
+    torch.cuda.empty_cache()
+
+    # the BiLSTM, GRU and Transformer-block graphs of the reference's tests
+    rng = np.random.default_rng(12)
+    graphs = {}
+    torch.manual_seed(0)
+    emb = torch.nn.Embedding(50, 16)
+    lstm = torch.nn.LSTM(16, 24, batch_first=True, bidirectional=True)
+    fc = torch.nn.Linear(48, 7)
+    sd = {f"embed.{k}": v for k, v in emb.state_dict().items()}
+    sd.update({f"lstm.{k}": v for k, v in lstm.state_dict().items()})
+    sd.update({f"fc.{k}": v for k, v in fc.state_dict().items()})
+    p = os.path.join(INTERCHANGE_DIR, "bilstm.onnx")
+    ow.bilstm_onnx(p, {k: v.detach().numpy() for k, v in sd.items()},
+                   seq_len=12)
+    graphs["bilstm"] = (p, rng.integers(0, 50, (5, 12)).astype(np.int32))
+    gru = torch.nn.GRU(12, 16, bidirectional=True)
+    gsd = {k: v.detach().numpy() for k, v in gru.state_dict().items()}
+
+    def zrn(t):
+        r, z, nn_ = np.split(t, 3, axis=0)
+        return np.concatenate([z, r, nn_], axis=0)
+    sfx = ("", "_reverse")
+    inits = {"W": np.stack([zrn(gsd[f"weight_ih_l0{s}"]) for s in sfx]),
+             "R": np.stack([zrn(gsd[f"weight_hh_l0{s}"]) for s in sfx]),
+             "B": np.stack([np.concatenate([zrn(gsd[f"bias_ih_l0{s}"]),
+                                            zrn(gsd[f"bias_hh_l0{s}"])])
+                            for s in sfx]),
+             "shape": np.asarray([0, 0, -1], np.int64)}
+    nodes = [ow.node("GRU", ["input", "W", "R", "B"], ["y", "yh"],
+                     hidden_size=16, linear_before_reset=1,
+                     direction="bidirectional"),
+             ow.node("Transpose", ["y"], ["yt"], perm=[0, 2, 1, 3]),
+             ow.node("Reshape", ["yt", "shape"], ["output"])]
+    p = os.path.join(INTERCHANGE_DIR, "gru.onnx")
+    with open(p, "wb") as f:
+        f.write(ow.model(nodes, inits, "input", "output"))
+    graphs["gru"] = (p, rng.normal(size=(10, 4, 12)).astype(np.float32))
+    p = os.path.join(INTERCHANGE_DIR, "block.onnx")
+    onnx_block_graph(p, ow, rng)
+    graphs["transformer block"] = (
+        p, rng.normal(size=(2, 6, 16)).astype(np.float32))
+    for name, (p, x) in graphs.items():
+        got = import_onnx_model(p, batch_size=8).transform(
+            DataTable({"images": x}))["scores"]
+        want = import_onnx_model(p, batch_size=8, device="cpu").transform(
+            DataTable({"images": x}))["scores"]
+        err = float(np.abs(got - want).max())
+        check(got.shape == want.shape and np.allclose(
+            got, want, rtol=2e-4, atol=2e-4),
+            f"ONNX {name} card vs CPU: max |diff| {err}")
+        print(f"interchange (a): ONNX {name} graph {got.shape}: card vs "
+              f"CPU max |diff| {err:.3e} (rtol 2e-4, atol 2e-4)")
+
+    # ---- (b) int8 at full LM width ----------------------------------------
+    lm = build_network(LM_SPEC, device="cuda", seed=0)
+    tokens = np.random.default_rng(7).integers(
+        0, LM_SPEC["vocab_size"], size=(LM_ROWS, LM_SPEC["max_len"]))
+    table = DataTable({"tokens": tokens})
+    f32m = TPUModel.from_module(lm, device="cuda", inputCol="tokens",
+                                outputCol="logits", batchSize=LM_BATCH)
+    f32m.transform(table)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f32_logits = f32m.transform(table)["logits"]
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q = f32m.quantize({"tokens": tokens[:2]})
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    paths = PQ.quantized_paths(q.get("weights"))
+    want_paths = sorted([f"block_{i}/{n}" for i in range(LM_SPEC["depth"])
+                         for n in ("qkv", "proj", "mlp_up", "mlp_down")]
+                        + ["lm_head"])
+    check(paths == want_paths, f"int8 LM quantized {paths}")
+    n_batches = -(-LM_ROWS // LM_BATCH)
+    FA.reset_launches()
+    PQ.reset_launches()
+    t0 = time.perf_counter()
+    logits = q.transform(table)["logits"]
+    torch.cuda.synchronize()
+    int8_first_s = time.perf_counter() - t0
+    flash_l = FA.LAUNCHES["_fwd_kernel"]
+    gemm_l = PQ.LAUNCHES["int8_mm"]
+    out["f32"] = flash_l
+    check(flash_l == LM_SPEC["depth"] * n_batches,
+          f"int8 LM transform: {flash_l} flash launches, not "
+          f"{LM_SPEC['depth']} x {n_batches}")
+    check(gemm_l == 33 * n_batches,
+          f"int8 LM transform: {gemm_l} int8 GEMMs, not 33 x {n_batches}")
+    check(logits.shape == f32_logits.shape
+          and bool(np.isfinite(logits).all()), "int8 LM logits not finite")
+    t0 = time.perf_counter()
+    q.transform(table)
+    torch.cuda.synchronize()
+    int8_s = time.perf_counter() - t0
+    tail = q.transform(DataTable({"tokens": tokens[16:20]}))["logits"]
+    tail_err = float(np.abs(tail - logits[16:20]).max())
+    check(tail_err <= 1e-5, f"int8 rows 16-19 alone differ by {tail_err}")
+    agree = float((logits.argmax(-1) == f32_logits.argmax(-1)).mean())
+    print(f"interchange (b): quantize (2 x 1024 calibration tokens, "
+          f"{len(paths)} layers) {quant_s:.3f} s; int8 transform of "
+          f"{LM_ROWS} x 1024 at batch {LM_BATCH}: {int8_first_s:.3f} s "
+          f"first, {int8_s:.3f} s warm, against the f32 transform's "
+          f"{f32_s:.3f} s warm; {flash_l} flash and {gemm_l} int8 GEMM "
+          f"launches ({n_batches} batches); rows 16-19 alone vs the full "
+          f"run {tail_err:.3e}; argmax equal to the f32 model's on "
+          f"{100 * agree:.2f} % of positions; card {smi}")
+    del logits, f32_logits, tail
+
+    # each distinct int8 GEMM shape of the forward, at M = 8192: bitwise
+    # to the host mirror, and timed against strict-f32 torch.matmul
+    qw = q.get("weights")
+    want_x = {"block_0/qkv": None, "block_0/proj": None,
+              "block_0/mlp_up": None, "block_0/mlp_down": None,
+              "lm_head": None}
+    paths_of = PQ.dense_paths(lm)
+
+    def capture(x, lin, dtype):
+        pth = paths_of.get(lin)
+        if pth in want_x and want_x[pth] is None:
+            want_x[pth] = x.detach().float().clone()
+        return None
+    token = networks.DENSE_HOOK.set(capture)
+    try:
+        with torch.inference_mode():
+            lm(torch.from_numpy(tokens[:LM_BATCH]).to(dev))
+    finally:
+        networks.DENSE_HOOK.reset(token)
+    gemm_rows = []
+    for pth, x in want_x.items():
+        x = x.reshape(-1, x.shape[-1])
+        qd = qw[PQ.QUANT_KEY][pth]
+        wq, xs, ws = qd["wq"], qd["x_scale"], qd["w_scale"]
+        op = PQ.mm_operand(wq)
+        m, k = x.shape
+        n = wq.shape[1]
+        got = PQ.int8_matmul(x, wq, xs, ws, operand=op).cpu().numpy()
+        x_np = x.cpu().numpy()
+        wq_np, xs_np, ws_np = (wq.cpu().numpy(), xs.cpu().numpy(),
+                               ws.cpu().numpy())
+        full = int8_host_exact(x_np, wq_np, xs_np, ws_np, dev)
+        rows = np.random.default_rng(3).choice(m, 16, replace=False)
+        host = PQ.int8_matmul_host(x_np[rows], wq_np, xs_np, ws_np)
+        check(np.array_equal(got, full)
+              and np.array_equal(got[rows], host),
+              f"int8 GEMM {pth} ({m} x {k} x {n}) differs from the host "
+              f"mirror")
+        # the card's weight quantization is the host's, bit for bit
+        kernel = qw[f"{pth.replace('/', '.')}.weight"].t().cpu().numpy()
+        hq, hs = PQ.quantize_weight(kernel, axis=-1)
+        check(np.array_equal(hq, wq_np) and np.array_equal(hs, ws_np),
+              f"{pth}: quantize_weight_t on the card differs from "
+              "quantize_weight on the host")
+        xq = PQ.quantize_act(x, xs)
+        acc = PQ.int8_mm(xq, op, n)
+        w32 = torch.from_numpy(wq_np.astype(np.float32) * ws_np).to(dev)
+        mm_ms = time_ms(lambda: torch._int_mm(xq, op))
+        f32_ms = time_ms(lambda: torch.matmul(x, w32))
+        qa_ms = time_ms(lambda: PQ.quantize_act(x, xs))
+        ep_ms = time_ms(lambda: acc.float() * (xs * ws))
+        bound = max(2.0 * m * n * k / INT8_OPS_PER_S,
+                    (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S) * 1e3
+        by = ("operations" if 2.0 * m * n * k / INT8_OPS_PER_S
+              > (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S else "bytes")
+        gemm_rows.append({"layer": pth, "m": m, "k": k, "n": n,
+                          "int_mm_ms": mm_ms, "f32_matmul_ms": f32_ms,
+                          "bound_ms": bound, "bound_by": by,
+                          "quantize_ms": qa_ms, "epilogue_ms": ep_ms})
+        print(f"interchange (b): int8 GEMM {pth} ({m} x {k} x {n}): "
+              f"bitwise equal to int8_matmul_host (all rows through the "
+              f"exact f64 accumulator, 16 rows literally), its int8 "
+              f"weights and scales to quantize_weight's; torch._int_mm "
+              f"{mm_ms:.4f} ms, strict-f32 torch.matmul {f32_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}); quantize {qa_ms:.4f} ms, "
+              f"epilogue {ep_ms:.4f} ms")
+        del got, full, acc, xq, w32
+    out["int8_gemms"] = gemm_rows
+    del q, f32m, lm, qw, want_x
+    torch.cuda.empty_cache()
+
+    # a depth-2 int8 model on the card against the CPU, quantized once on
+    # the CPU so both run the same int8 weights and scales. An f32
+    # activation that differs in its last bits between the two devices
+    # moves one step where it sits on a rounding boundary, and each such
+    # step shifts its whole output row, so the differences compound
+    # layer by layer (phase 4's f32 rule cannot hold): the first layer's
+    # int8 inputs are held to boundary flips (<= 0.1 %, one step), and
+    # the logits to no further from the CPU's than the int8 model is
+    # from the f32 one, in argmax agreement and in max |diff|
+    spec2 = dict(LM_SPEC, depth=2, head_dtype="float32")
+    row = DataTable({"tokens": tokens[:1]})
+    m2 = TPUModel.from_module(build_network(spec2, device="cpu", seed=1),
+                              device="cpu", inputCol="tokens",
+                              outputCol="logits", batchSize=1)
+    q2 = m2.quantize(row)
+    real_qa = PQ.quantize_act
+    res = {}
+    try:
+        for device in ("cpu", "cuda"):
+            seen = res[device + "_q"] = []
+
+            def recording(x, xs, _seen=seen):
+                xq = real_qa(x, xs)
+                _seen.append(xq.cpu())
+                return xq
+            PQ.quantize_act = recording
+            q2.set("device", device)
+            t0 = time.perf_counter()
+            res[device] = q2.transform(row)["logits"]
+            res[device + "_s"] = time.perf_counter() - t0
+    finally:
+        PQ.quantize_act = real_qa
+    f32_cpu = m2.transform(row)["logits"]
+    del q2, m2
+    layer_stats = []
+    for a, b in zip(res["cpu_q"], res["cuda_q"]):
+        d = (a.int() - b.int()).abs()
+        layer_stats.append((float((d > 0).double().mean()), int(d.max())))
+    print(f"interchange (b): depth-2 int8 layer inputs card vs CPU (share "
+          f"differing, largest step): {layer_stats}")
+    check(len(layer_stats) == 9 and layer_stats[0][0] <= 1e-3
+          and layer_stats[0][1] <= 1,
+          f"depth-2 int8 first layer's inputs card vs CPU: "
+          f"{layer_stats[0]}")
+    agree2 = float((res["cuda"].argmax(-1)
+                    == res["cpu"].argmax(-1)).mean())
+    own = float((res["cpu"].argmax(-1) == f32_cpu.argmax(-1)).mean())
+    d2 = float(np.abs(res["cuda"] - res["cpu"]).max())
+    q_err = float(np.abs(res["cpu"] - f32_cpu).max())
+    check(agree2 >= own and d2 <= q_err,
+          f"depth-2 int8 card vs CPU: argmax agree {agree2} (int8 vs f32 "
+          f"{own}), max |diff| {d2} (int8 vs f32 {q_err})")
+    print(f"interchange (b): depth-2 int8, 1 x 1024 tokens, card vs CPU "
+          f"(CPU {res['cpu_s']:.1f} s): argmax equal on "
+          f"{100 * agree2:.2f} % of positions (int8 vs "
+          f"f32 on the CPU: {100 * own:.2f} %), max |logit diff| "
+          f"{d2:.3e} (int8 vs f32: {q_err:.3e})")
+    torch.cuda.empty_cache()
+
+    # ---- (c) checkpoint / resume ------------------------------------------
+    saves, loads = [], []
+    real_save = PLM._save_checkpoint
+    real_load = PLM._load_checkpoint_pytree
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        real_save(*a, **kw)
+        saves.append(time.perf_counter() - t)
+
+    def timed_load(*a, **kw):
+        t = time.perf_counter()
+        r = real_load(*a, **kw)
+        loads.append(time.perf_counter() - t)
+        return r
+    PLM._save_checkpoint = timed_save
+    PLM._load_checkpoint_pytree = timed_load
+
+    def host_weights(model):
+        return {k: v.detach().cpu().clone()
+                for k, v in model.get("weights").items()}
+
+    def max_diff(a, b):
+        return max(float((a[k].float() - b[k].float()).abs().max())
+                   for k in a)
+
+    def held(tag, full, resumed, repeat):
+        """Bitwise, or within the repeat difference of the full fit."""
+        (lf, wf), (lr, wr) = full, resumed
+        if lf[-4:] == lr[-4:] and all(torch.equal(wf[k], wr[k])
+                                      for k in wf):
+            print(f"interchange (c) {tag}: the resumed fit's last 4 "
+                  "losses and final weights equal the uninterrupted "
+                  "fit's bitwise")
+            return
+        la, wa = repeat()
+        rep = max_diff(wf, wa)
+        got = max_diff(wf, wr)
+        check(rep > 0 and got <= rep,
+              f"{tag}: resumed fit differs by {got} (losses {lr[-4:]} vs "
+              f"{lf[-4:]}); the full fit's own repeat differs by {rep}")
+        print(f"interchange (c) {tag}: NOT bitwise — resumed vs full "
+              f"max |weight diff| {got:.3e}, within the full fit's own "
+              f"repeat difference {rep:.3e} (losses {lr[-4:]} vs "
+              f"{lf[-4:]})")
+
+    try:
+        table = slice_table(CKPT_ROWS)
+        kw = dict(networkSpec=LM_SPEC, loss="token_cross_entropy",
+                  optimizer="adamw", learningRate=1e-3, batchSize=LM_BATCH,
+                  computeDtype="bfloat16", dataFeed="device",
+                  schedule="constant", logEvery=1, checkpointEvery=4)
+        FA.reset_launches()
+
+        def lm_fit(epochs, ckpt=""):
+            learner = TPULearner(epochs=epochs, checkpointDir=ckpt, **kw)
+            model = learner.fit(table)
+            torch.cuda.synchronize()
+            w = host_weights(model)
+            del model
+            torch.cuda.empty_cache()
+            return [h["loss"] for h in learner.history], w
+
+        t0 = time.perf_counter()
+        full = lm_fit(2)
+        full_s = time.perf_counter() - t0
+        ck = os.path.join(INTERCHANGE_DIR, "lm_ckpt")
+        t0 = time.perf_counter()
+        lm_fit(1, ck)
+        part_s = time.perf_counter() - t0
+        step4 = os.path.join(ck, "step_00000004", "leaves.npz")
+        nbytes = os.path.getsize(step4)
+        free = shutil.disk_usage(INTERCHANGE_DIR).free
+        t0 = time.perf_counter()
+        resumed = lm_fit(2, ck)
+        res_s = time.perf_counter() - t0
+        check(len(resumed[0]) == 4 and all(np.isfinite(resumed[0])),
+              f"resumed LM fit losses {resumed[0]}")
+        held("LM (bf16, AdamW, device feed)", full, resumed,
+             lambda: lm_fit(2))
+        print(f"interchange (c): LM checkpoint of {nbytes / 1e9:.3f} GB "
+              f"(params + AdamW mu / nu, f32), {free / 1e9:.1f} GB free "
+              f"after it; saves {[round(s, 3) for s in saves]} s, loads "
+              f"{[round(s, 3) for s in loads]} s; fits: full 2 epochs "
+              f"{full_s:.2f} s, 1 epoch + save {part_s:.2f} s, resume + 1 "
+              f"epoch + save {res_s:.2f} s")
+        # truncate the newest leaves.npz: the resume falls back to step 4
+        newest = os.path.join(ck, "step_00000008", "leaves.npz")
+        with open(newest, "r+b") as f:
+            f.truncate(os.path.getsize(newest) // 2)
+        learner = TPULearner(epochs=2, checkpointDir=ck, **kw)
+        model = learner.fit(table)
+        torch.cuda.synchronize()
+        steps = [h["step"] for h in learner.history]
+        fb = [h["loss"] for h in learner.history]
+        check(steps == [5, 6, 7, 8] and fb == full[0][-4:],
+              f"fallback resume ran steps {steps}, losses {fb}")
+        print(f"interchange (c): newest leaves.npz truncated to half: the "
+              f"resume fell back to step 4 and replayed steps 5-8 "
+              f"(losses equal the full fit's)")
+        del model, learner, full, resumed
+        out["bf16"] = dict(FA.LAUNCHES)
+        shutil.rmtree(ck, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # bench.py's CIFAR ConvNet through a webdav:// checkpoint directory
+        server, base = serve_webdav(os.path.join(INTERCHANGE_DIR, "dav2"))
+        try:
+            ctable = cifar_table(CIFAR_CKPT_ROWS, seed=5)
+            ckw = dict(networkSpec=CIFAR_SPECS["convnet"],
+                       inputShape=[32, 32, 3], batchSize=CIFAR_BATCH,
+                       learningRate=0.1, computeDtype="bfloat16",
+                       dataFeed="device", schedule="constant", logEvery=1,
+                       checkpointEvery=2)
+
+            def cifar_fit(epochs, ckpt=""):
+                learner = TPULearner(epochs=epochs, checkpointDir=ckpt,
+                                     **ckw)
+                model = learner.fit(ctable)
+                torch.cuda.synchronize()
+                return ([h["loss"] for h in learner.history],
+                        host_weights(model))
+            n0 = len(saves)
+            cfull = cifar_fit(2)
+            cck = f"{base}/cifar_ckpt"
+            cifar_fit(1, cck)
+            cres = cifar_fit(2, cck)
+            check(PLM._remote_steps(cck) == ["step_00000004",
+                                             "step_00000006",
+                                             "step_00000008"],
+                  f"webdav checkpoints {PLM._remote_steps(cck)}")
+            held("CIFAR ConvNet (bf16, momentum, webdav://)", cfull, cres,
+                 lambda: cifar_fit(2))
+            print(f"interchange (c): ConvNet over WebDAV: saves "
+                  f"{[round(s, 3) for s in saves[n0:]]} s, load "
+                  f"{loads[-1]:.3f} s")
+        finally:
+            server.shutdown()
+            server.server_close()
+    finally:
+        PLM._save_checkpoint = real_save
+        PLM._load_checkpoint_pytree = real_load
+        shutil.rmtree(INTERCHANGE_DIR, ignore_errors=True)
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2583,6 +3209,16 @@ def main() -> int:
     automl_row = automl_slice(dev, smi)
     print(f"automl: phase 11 took {time.perf_counter() - t0:.1f} s")
 
+    # ---- 12. models entering and leaving the system -----------------------
+    t0 = time.perf_counter()
+    inter = interchange_slice(dev, smi)
+    print(f"interchange: phase 12 took {time.perf_counter() - t0:.1f} s")
+    for k, v in inter["bf16"].items():
+        train_launches[k] += v
+    print(json.dumps({"int8_gemms": inter["int8_gemms"]}))
+    print(f"chip_smoke: all phases took {time.perf_counter() - t_start:.1f} "
+          "s")
+
     kernels = []
     for name, route, key, launches, line in (
             (f"hist (single leaf, B={b255})", "_hist_kernel_nibble", b255,
@@ -2641,7 +3277,7 @@ def main() -> int:
     # the forward in both types: f32 on the LM transform's path, bf16
     # (the tensor-core body) on the training slice's
     for dtype, tname, launches in (
-            (torch.float32, "f32", lm_launches),
+            (torch.float32, "f32", lm_launches + inter["f32"]),
             (torch.bfloat16, "bf16", train_launches["_fwd_kernel"])):
         m = flash_measured[dtype]
         kernels.append({

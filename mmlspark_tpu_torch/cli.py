@@ -1,16 +1,18 @@
-"""Command line of the port: score or HTTP-serve a saved model.
+"""Command line of the port: import an ONNX graph, score or HTTP-serve a
+saved model.
 
+    python -m mmlspark_tpu_torch.cli import-onnx model.onnx --out M [--batch-size N] [--input-shape JSON] [--device cuda|cpu]
     python -m mmlspark_tpu_torch.cli score --model M --data D --out P [--device cuda|cpu]
     python -m mmlspark_tpu_torch.cli serve --model M [--host H] [--port N] [--device cuda|cpu]
 
-The port's copy of the ``score`` and ``serve`` commands of
-``mmlspark_tpu/cli.py``, with the same data IO (``load_table`` /
+The port's copy of the ``import-onnx``, ``score`` and ``serve`` commands
+of ``mmlspark_tpu/cli.py``, with the same data IO (``load_table`` /
 ``save_table``). ``--device`` (default ``cuda``) is set on every stage of
-the loaded model that has a ``device`` param: entry points of the port
-run on the card unless asked for the CPU. ``--port 0`` binds a free
-port; the line printed at start names the bound address. The JAX CLI's
-``run``, ``stages``, ``describe``, ``codegen`` and ``import-onnx`` are
-not registered here (ROADMAP.md).
+the loaded (or imported) model that has a ``device`` param: entry points
+of the port run on the card unless asked for the CPU. ``--port 0`` binds
+a free port; the line printed at start names the bound address. The JAX
+CLI's ``run``, ``stages``, ``describe`` and ``codegen`` are not
+registered here (ROADMAP.md).
 
 Data files: a DataTable directory (schema.json + columns.npz), an
 ``.npz`` of named columns, or a ``.csv`` with a header row (numeric
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import json
 import os
 import sys
 import threading
@@ -104,6 +107,29 @@ def cmd_score(args) -> int:
     return 0
 
 
+def cmd_import_onnx(args) -> int:
+    from mmlspark_tpu_torch.importers.onnx_import import import_onnx_model
+    model = import_onnx_model(
+        args.onnx, batch_size=args.batch_size,
+        input_shape=json.loads(args.input_shape)
+        if args.input_shape else None, device=args.device)
+    model.save(args.out)
+    # summarize from the model just built — re-parsing the protobuf
+    # would decode every initializer a second time
+    apply_fn = model.get("modelFn")
+    ops: Dict[str, int] = {}
+    for node in apply_fn.nodes:
+        ops[node.op_type] = ops.get(node.op_type, 0) + 1
+    print(json.dumps({"saved": args.out, "ops": dict(sorted(ops.items())),
+                      "opset": apply_fn.opset,
+                      "inputs": apply_fn.input_names}))
+    print(f"model saved to {args.out} — score it with "
+          f"`python -m mmlspark_tpu_torch.cli score --model {args.out} "
+          f"...` or serve it with `python -m mmlspark_tpu_torch.cli serve "
+          f"--model {args.out}`", file=sys.stderr)
+    return 0
+
+
 def cmd_serve(args) -> int:
     from mmlspark_tpu_torch.serving.fleet import json_row_scoring_pipeline
     from mmlspark_tpu_torch.serving.server import serve_model
@@ -130,9 +156,24 @@ def cmd_serve(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m mmlspark_tpu_torch.cli",
-        description="Score or HTTP-serve a saved model of the PyTorch "
-                    "port.")
+        description="Import an ONNX graph, score or HTTP-serve a saved "
+                    "model of the PyTorch port.")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser(
+        "import-onnx",
+        help="ONNX file -> saved TPUModel stage (then score/serve it)")
+    p.add_argument("onnx")
+    p.add_argument("--out", required=True,
+                   help="directory to save the imported model stage")
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--input-shape",
+                   help='JSON per-row shape, e.g. "[3,224,224]" or '
+                        '{"user": [6]} for multi-input graphs '
+                        '(default: inferred from the graph)')
+    p.add_argument("--device", default="cuda",
+                   help="torch device the model scores on (default: cuda)")
+    p.set_defaults(fn=cmd_import_onnx)
 
     p = sub.add_parser("score", help="transform data with a saved model")
     p.add_argument("--model", required=True)

@@ -104,9 +104,11 @@ def _collections(variables: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _torch_state(module: nn.Module, collections: Dict[str, Any],
-                 kind: str) -> Dict[str, np.ndarray]:
+                 kind: str, stats: bool = True) -> Dict[str, np.ndarray]:
     """The torch state dict (numpy arrays) of ``module`` read from flax
-    ``collections``; a missing or extra flax leaf raises ``ValueError``."""
+    ``collections``; a missing or extra flax leaf raises ``ValueError``.
+    ``stats=False`` reads the ``params`` collection alone (an optimizer
+    state laid out like the parameters)."""
     state: Dict[str, np.ndarray] = {}
     used = set()
 
@@ -144,7 +146,7 @@ def _torch_state(module: nn.Module, collections: Dict[str, Any],
                     arr = leaf(path + [flax_name])
                     state[f"{name}.{torch_name}"] = \
                         arr.T if flax_name == "kernel" else arr
-        if isinstance(mod, networks.BatchNorm):
+        if stats and isinstance(mod, networks.BatchNorm):
             for flax_name, torch_name in _BN_STATS:
                 state[f"{name}.{torch_name}"] = leaf(path + [flax_name],
                                                      "batch_stats")
@@ -162,6 +164,79 @@ def _torch_state(module: nn.Module, collections: Dict[str, Any],
     if extra:
         raise ValueError(f"flax variables hold leaves the {kind} "
                          f"module has no place for: {extra}")
+    return state
+
+
+def _sorted_tree(node: Any) -> Any:
+    if isinstance(node, dict):
+        return {k: _sorted_tree(node[k]) for k in sorted(node)}
+    return node
+
+
+def flax_collections(module: nn.Module, values: Dict[str, np.ndarray],
+                     stats: bool = True) -> Dict[str, Any]:
+    """The inverse of ``_torch_state``: ``{"params": ..., "batch_stats":
+    ...}`` in the flax layout (nested dicts, keys sorted as jax writes
+    them) from arrays keyed by ``module``'s torch parameter and buffer
+    names. ``stats=False`` maps the parameters alone (an optimizer state
+    such as Adam's moments, which follows the parameters' layout)."""
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
+
+    def put(tree, path, arr):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = arr
+
+    for name, mod in module.named_modules():
+        path = name.split(".") if name else []
+
+        def v(torch_name):
+            return values[f"{name}.{torch_name}"]
+        if isinstance(mod, networks.Conv):
+            put(params, path + ["kernel"], v("weight").transpose(2, 3, 1, 0))
+            if mod.bias is not None:
+                put(params, path + ["bias"], v("bias"))
+            continue
+        if isinstance(mod, networks.LSTMCell):
+            for w_name, pre in (("weight_ih", "i"), ("weight_hh", "h")):
+                for g, c in zip(_GATES, np.split(v(w_name), 4, axis=0)):
+                    put(params, path + [pre + g, "kernel"], c.T)
+            for g, c in zip(_GATES, np.split(v("bias_hh"), 4)):
+                put(params, path + ["h" + g, "bias"], c)
+            continue
+        for kind_, pairs in _FLAX_LEAVES.items():
+            if isinstance(mod, kind_):
+                for flax_name, torch_name in pairs:
+                    arr = v(torch_name)
+                    put(params, path + [flax_name],
+                        arr.T if flax_name == "kernel" else arr)
+        if stats and isinstance(mod, networks.BatchNorm):
+            for flax_name, torch_name in _BN_STATS:
+                put(batch_stats, path + [flax_name], v(torch_name))
+    for name, _ in module.named_parameters(recurse=False):
+        put(params, [name], values[name])
+    return {"params": _sorted_tree(params),
+            "batch_stats": _sorted_tree(batch_stats)}
+
+
+def params_from_flax(module: nn.Module, collections: Dict[str, Any],
+                     stats: bool = True) -> Dict[str, np.ndarray]:
+    """Torch-named arrays of ``module`` from flax ``collections`` (the
+    inverse of ``flax_collections``), each checked against the shape of
+    the module's tensor of that name; a missing or extra leaf, or a
+    shape that differs, raises ``ValueError``."""
+    coll = dict(collections)
+    coll.setdefault("batch_stats", {})
+    if not stats:
+        coll["batch_stats"] = {}
+    state = _torch_state(module, coll, type(module).__name__, stats=stats)
+    want = {**dict(module.named_parameters()),
+            **(dict(module.named_buffers()) if stats else {})}
+    for k, arr in state.items():
+        if k in want and tuple(arr.shape) != tuple(want[k].shape):
+            raise ValueError(f"{k}: shape {tuple(arr.shape)} where the "
+                             f"module has {tuple(want[k].shape)}")
     return state
 
 

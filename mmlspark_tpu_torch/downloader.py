@@ -20,9 +20,8 @@ checking it against the port module's parameter names and shapes
 ``ImageFeaturizer`` turns it into a torch module (the JAX package's
 ``build_module``, a flax module to init, has no counterpart here).
 
-``HTTPRepo`` needs the filesystem registry (``utils/filesystem.py``),
-which is not ported yet: it raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+``HTTPRepo`` reads (and, over ``webdav://``, publishes) the same layout
+through the port's filesystem registry (``utils/filesystem.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +34,6 @@ from typing import Any, Dict, Iterator, List, Optional
 from mmlspark_tpu_torch import convert
 from mmlspark_tpu_torch.core import flax_msgpack
 from mmlspark_tpu_torch.core.logging_utils import get_logger
-from mmlspark_tpu_torch.io.binary import FILESYSTEM_ITEM
 from mmlspark_tpu_torch.utils.file_utils import sha256_file
 
 log = get_logger("downloader")
@@ -172,13 +170,100 @@ def _blob_and_schema(name, network_spec, variables, blob, uri,
 
 
 class HTTPRepo:
-    """HTTP(S)-backed model repo of the JAX package: not ported yet."""
+    """HTTP(S)-backed model repo — the remote half of the reference's
+    downloader (ref: ModelDownloader.scala:54-124 HDFSRepo/DefaultModelRepo:
+    remote URI fetch, sha256 verify, retry with backoff). Expects the same
+    layout LocalRepo publishes: ``<base>/index.json`` + ``<name>.msgpack``.
+    """
+
+    handles_retries = True   # this repo owns its whole retry policy
 
     def __init__(self, base_url: str, retries: int = 3):
-        raise NotImplementedError(
-            "HTTPRepo reads through the filesystem registry "
-            "(utils/filesystem.py), which is not ported yet: ROADMAP.md, "
-            f"'{FILESYSTEM_ITEM}'")
+        self.base_url = base_url.rstrip("/")
+        self._fs = None
+        self.retries = retries
+
+    def _filesystem(self):
+        from mmlspark_tpu_torch.utils.filesystem import (
+            HTTPFileSystem, WebDAVFileSystem, scheme_of,
+        )
+        if self._fs is None:
+            # single transport attempt per try — OUR retry loop wraps
+            # fetch+verify together so corrupted-but-200 downloads are
+            # also re-fetched, without multiplying attempts
+            cls = WebDAVFileSystem if scheme_of(self.base_url).startswith(
+                "webdav") else HTTPFileSystem
+            self._fs = cls(retries=1)
+        return self._fs
+
+    def _fetch(self, rel: str) -> bytes:
+        fs = self._filesystem()
+        url = f"{self.base_url}/{rel}"
+        return retry_with_backoff(lambda: fs.read_bytes(url),
+                                  times=self.retries)
+
+    def _load_index(self) -> Dict[str, Dict[str, Any]]:
+        return json.loads(self._fetch("index.json").decode())
+
+    def list_schemas(self) -> Iterator[ModelSchema]:
+        for d in self._load_index().values():
+            yield ModelSchema.from_json(d)
+
+    def get_schema(self, name: str) -> ModelSchema:
+        idx = self._load_index()
+        if name not in idx:
+            raise KeyError(
+                f"model {name!r} not in repo {self.base_url}; "
+                f"have {sorted(idx)}")
+        return ModelSchema.from_json(idx[name])
+
+    def read_blob(self, schema: ModelSchema, verify: bool = True) -> bytes:
+        fs = self._filesystem()
+        url = f"{self.base_url}/{schema.name}.msgpack"
+
+        def fetch_and_verify() -> bytes:
+            blob = fs.read_bytes(url)
+            if verify and hashlib.sha256(blob).hexdigest() != schema.sha256:
+                raise IOError(
+                    f"sha256 mismatch for {schema.name} fetched from "
+                    f"{self.base_url} (corrupt or tampered download)")
+            return blob
+
+        # hash failures re-fetch too: a truncated 200 body is transient
+        return retry_with_backoff(fetch_and_verify, times=self.retries)
+
+    def publish(self, name: str, network_spec: Dict[str, Any],
+                variables: Any = None, dataset: str = "",
+                model_type: str = "",
+                input_shape: Optional[List[int]] = None,
+                layer_names: Optional[List[str]] = None,
+                blob: Optional[bytes] = None) -> ModelSchema:
+        """Publish to a WRITABLE remote repo (``webdav://`` base_url —
+        the HDFSRepo-publish analog, ref: ModelDownloader.scala:54-124).
+        Read-only ``http(s)://`` repos raise."""
+        fs = self._filesystem()
+        blob_url = f"{self.base_url}/{name}.msgpack"
+        blob, schema = _blob_and_schema(
+            name, network_spec, variables, blob, blob_url,
+            dataset, model_type, input_shape, layer_names)
+        fs.write_bytes(blob_url, blob)            # raises on read-only
+        import urllib.error
+        try:
+            # direct read (fs retries=1): a 404 means "first publish"
+            # and must not burn the repo-level retry budget
+            idx = json.loads(
+                fs.read_bytes(f"{self.base_url}/index.json").decode())
+        except (FileNotFoundError, urllib.error.HTTPError) as e:
+            # ONLY a missing index means "first publish" — any other
+            # failure must abort, or a transient fetch error would
+            # silently delist every previously published model
+            if isinstance(e, urllib.error.HTTPError) and e.code != 404:
+                raise
+            idx = {}
+        idx[name] = schema.to_json()
+        fs.write_bytes(f"{self.base_url}/index.json",
+                       json.dumps(idx, indent=1).encode("utf-8"))
+        return schema
 
 
 class ModelDownloader:

@@ -5,46 +5,63 @@ Analog of the reference's HadoopFsRelation binary source
 (ref: src/io/binary/src/main/scala/BinaryFileFormat.scala:116,
 BinaryFileReader.scala:18): directory-recursive, zip-inspecting, sampled
 reads into a {path, bytes} struct column. Local paths (bare or
-``file://``) only: the JAX package reads remote schemes through its
-filesystem registry (``utils/filesystem.py``), which the port has not
-ported yet, so a remote path raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+``file://``) walk the directory; remote schemes (``http(s)://`` with an
+``_index.json``, ``webdav(s)://``, or any registered scheme) list and
+read through the filesystem registry (``utils/filesystem.py``).
 """
 
 from __future__ import annotations
 
-import urllib.parse
+import fnmatch
+import io as _io
+import random
+import zipfile
 from typing import Iterator, Optional, Tuple
 
 from mmlspark_tpu_torch.core.schema import BinaryFileSchema, Schema
 from mmlspark_tpu_torch.core.table import DataTable
+from mmlspark_tpu_torch.utils import filesystem as fslib
 from mmlspark_tpu_torch.utils.file_utils import iter_binary_files
-
-FILESYSTEM_ITEM = "DNN training: checkpoint/resume"
-
-
-def local_path(path: str) -> str:
-    """``path`` as a local path (``file://`` stripped); a remote scheme
-    raises ``NotImplementedError`` (the scheme test of the JAX package's
-    ``filesystem.scheme_of``: one-letter schemes are drive letters)."""
-    scheme = urllib.parse.urlparse(path).scheme
-    if len(scheme) > 1 and scheme != "file":
-        raise NotImplementedError(
-            f"reading {scheme}:// paths needs the filesystem registry "
-            f"(utils/filesystem.py), which is not ported yet: ROADMAP.md, "
-            f"'{FILESYSTEM_ITEM}'")
-    return path[len("file://"):] if path.startswith("file://") else path
 
 
 def _iter_source(path: str, pattern: Optional[str] = None,
                  recursive: bool = True, inspect_zip: bool = True,
                  sample_ratio: float = 1.0, seed: int = 0
                  ) -> Iterator[Tuple[str, bytes]]:
-    """(path, bytes) of every file under a local ``path``, zip archives
-    descended into."""
-    yield from iter_binary_files(
-        local_path(path), pattern=pattern, recursive=recursive,
-        inspect_zip=inspect_zip, sample_ratio=sample_ratio, seed=seed)
+    """(path, bytes) of every file under ``path``. Local dirs use the
+    zip-inspecting iterator; remote schemes go through the filesystem
+    registry (ref: HadoopUtils / HDFSRepo remote reads,
+    ModelDownloader.scala:54-124). Zip archives are descended into on
+    both paths."""
+    if fslib.scheme_of(path) == "file":
+        yield from iter_binary_files(
+            fslib.LocalFileSystem._strip(path), pattern=pattern,
+            recursive=recursive, inspect_zip=inspect_zip,
+            sample_ratio=sample_ratio, seed=seed)
+        return
+    rng = random.Random(seed)
+    fs = fslib.get_filesystem(path)
+    for p in fs.list_files(path, None, recursive):
+        leaf = p.rsplit("/", 1)[-1]
+        if inspect_zip and p.lower().endswith(".zip"):
+            with zipfile.ZipFile(_io.BytesIO(fs.read_bytes(p))) as zf:
+                for info in zf.infolist():
+                    if info.is_dir():
+                        continue
+                    name = info.filename.rsplit("/", 1)[-1]
+                    if pattern and not fnmatch.fnmatch(name, pattern):
+                        continue
+                    if sample_ratio < 1.0 and rng.random() > sample_ratio:
+                        continue
+                    yield f"{p}/{info.filename}", zf.read(info)
+        else:
+            # filter BEFORE fetching — non-matching remote files must
+            # not be downloaded at all
+            if pattern and not fnmatch.fnmatch(leaf, pattern):
+                continue
+            if sample_ratio < 1.0 and rng.random() > sample_ratio:
+                continue
+            yield p, fs.read_bytes(p)
 
 
 def read_binary_files(path: str,

@@ -46,6 +46,27 @@ steps on the same data:
   them, as the JAX learner's ``batch_stats``.
 - **Logging**: losses stay on the device and are read one ``logEvery``
   interval late; ``history`` holds ``{step, loss, epoch, time}``.
+- **Checkpoint / resume** (``checkpointDir``, ``checkpointEvery``,
+  ``resume``), on a local path or any scheme of ``utils/filesystem.py``
+  (``webdav://``): the JAX learner's layout, ``step_XXXXXXXX/`` holding
+  ``leaves.npz`` and ``treedef.json`` (written last: it marks the
+  checkpoint complete), the 3 newest kept (remote pruning best-effort).
+  The tree is the JAX learner's ``{"batch_stats", "opt_state",
+  "params", "step"}``: ``params`` and ``batch_stats`` in the flax names
+  and layouts (``convert.flax_collections``), ``opt_state`` optax's tree
+  for the optimizer (``sgd``: no state; ``momentum``: the trace, torch's
+  ``momentum_buffer``; ``adam`` / ``adamw``: ``ScaleByAdamState(count,
+  mu, nu)``, torch's ``step``, ``exp_avg``, ``exp_avg_sq``; a
+  schedule's count where the learning rate is a schedule), so a
+  checkpoint written by either package resumes in the other. Resume
+  tries the checkpoints newest first and falls back to older ones, then
+  to a fresh init, when one is corrupt; an ``OSError`` (a store outage)
+  propagates. A resumed fit replays the uninterrupted one's batches
+  (the host feed's permutations are drawn and skipped; the device
+  feed's are seeded by the epoch), learning rates and dropout bits
+  (the dropout generator is reseeded from ``seed`` and the step before
+  each step). A final checkpoint is written at the end of the fit
+  unless its step was just saved.
 - **Timing**: ``timing`` has ``steps_timed``, ``wall_s`` and
   ``examples_per_sec`` after the first step; on an H100 also
   ``model_flops_per_step`` (``torch.utils.flop_counter`` over the first
@@ -55,8 +76,8 @@ steps on the same data:
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP.md
 item: ``meshAxes`` with an axis above 1, ``paramSharding='fsdp'``,
-``set_mesh`` and multi-process feeding ('DNN training across cards');
-``checkpointDir`` ('DNN training: checkpoint/resume'); an
+``set_mesh`` and multi-process feeding, with the same-resume-step check
+across hosts ('DNN training across cards'); an
 ``io.ooc.ChunkedTable`` ('Out-of-core ingest'). The port has no
 ``core/trace``, so a fit emits no framework spans.
 """
@@ -65,6 +86,10 @@ from __future__ import annotations
 
 import logging
 import math
+import os
+import re
+import shutil
+import tempfile
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -73,6 +98,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmlspark_tpu_torch import convert
+from mmlspark_tpu_torch.core import serialize as ser
 from mmlspark_tpu_torch.core.params import (
     BoolParam, DictParam, EnumParam, FloatParam, HasFeaturesCol, HasLabelCol,
     IntParam, StringParam, UDFParam,
@@ -272,9 +299,6 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
                 and torch.distributed.get_world_size() > 1):
             raise _not_ported("multi-process feeding",
                               "DNN training across cards")
-        if self.get("checkpointDir"):
-            raise _not_ported("checkpointDir", "DNN training: "
-                              "checkpoint/resume")
         if type(table).__name__ == "ChunkedTable":
             raise _not_ported("io.ooc.ChunkedTable input",
                               "Out-of-core ingest")
@@ -366,10 +390,19 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
             schedule=self.get("schedule"),
             warmup_steps=self.get("warmupSteps"), total_steps=total_steps)
         seed = self.get("seed")
+        sched_count = (self.get("schedule") == "cosine"
+                       or self.get("warmupSteps") > 0)
+        ckpt_dir = self.get("checkpointDir")
+        ckpt_every = self.get("checkpointEvery")
+        start_step = 0
+        if ckpt_dir and self.get("resume"):
+            start_step = _resume(ckpt_dir, module, opt,
+                                 self.get("optimizer"), sched_count)
         module.train()
+        dropout_gen = None
         if hasattr(module, "dropout_generator"):
-            module.dropout_generator = torch.Generator(
-                device=dev).manual_seed(seed + 1)
+            dropout_gen = torch.Generator(device=dev)
+            module.dropout_generator = dropout_gen
         is_int_input = bool(getattr(module, "int_input", False))
         on_card = dev.type == "cuda"
         count_flops = on_card and "H100" in torch.cuda.get_device_name(dev)
@@ -397,6 +430,9 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
             lr = lr_at(step)
             for group in opt.param_groups:
                 group["lr"] = lr
+            if dropout_gen is not None:
+                # per step, so a resumed fit draws the same bits
+                dropout_gen.manual_seed((seed + 1) * 1_000_003 + step)
             opt.zero_grad(set_to_none=True)
             with annotate("learner_step", ann_on), networks.strict_f32():
                 out = module(xb.long() if is_int_input else xb)
@@ -405,11 +441,18 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
                 opt.step()
             return loss.detach()
 
-        global_step = 0
+        global_step = start_step
+        last_saved = -1
         t_first: Optional[float] = None
-        first_timed_step = 0
+        first_timed_step = start_step
         examples_timed: Any = 0    # true (unpadded) rows after the first step
         flops_per_step: Optional[float] = None
+
+        def save(step: int) -> None:
+            nonlocal last_saved
+            _save_checkpoint(ckpt_dir, step, train_state_tree(
+                module, opt, self.get("optimizer"), sched_count, step))
+            last_saved = step
 
         def one_step(epoch: int, xb, yb, wb, true_rows) -> None:
             nonlocal global_step, t_first, first_timed_step, examples_timed
@@ -439,18 +482,23 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
                 if stats:
                     self.memory_samples.append({"step": global_step,
                                                 **stats})
+            if ckpt_dir and global_step % ckpt_every == 0:
+                save(global_step)
 
         with maybe_trace(self.get("profileDir")):
             if device_feed:
                 self._device_feed(x, y, dev, n, steps_per_epoch, epochs,
-                                  batch_size, seed, one_step)
+                                  batch_size, seed, one_step, start_step)
             else:
                 self._host_feed(x, y, factory if streaming else None, n,
                                 epochs, batch_size, dev, fcol, lcol,
-                                input_shape, y_cast, seed, one_step)
+                                input_shape, y_cast, seed, one_step,
+                                start_step)
         if on_card:
             torch.cuda.synchronize(dev)
         t_end = time.time()
+        if ckpt_dir and last_saved != global_step:
+            save(global_step)
         flush_logs(final=True)
         steps_timed = global_step - first_timed_step
         if t_first is not None and steps_timed > 0:
@@ -477,16 +525,22 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
 
     @staticmethod
     def _host_feed(x, y, factory, n, epochs, batch_size, dev, fcol, lcol,
-                   input_shape, y_cast, seed, one_step) -> None:
+                   input_shape, y_cast, seed, one_step,
+                   start_step: int = 0) -> None:
         """Host batches in the JAX learner's order, built and uploaded on
-        a prefetch thread (inline on the CPU)."""
+        a prefetch thread (inline on the CPU). After a resume, the first
+        ``start_step`` batches are drawn and skipped."""
         np_rng = np.random.default_rng(seed)
 
         def index_stream():
+            step = 0
             for epoch in range(epochs):
                 if factory is None:
                     order = np_rng.permutation(n)
                     for bstart in range(0, n, batch_size):
+                        step += 1
+                        if step <= start_step:
+                            continue      # fast-forward after a resume
                         idx = order[bstart:bstart + batch_size]
                         yield epoch, x[idx], y[idx]
                     continue
@@ -501,13 +555,18 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
                         ys = np.concatenate([carry_y, ys])
                     n_full = len(xs) // batch_size
                     for i in range(n_full):
+                        step += 1
+                        if step <= start_step:
+                            continue
                         sl = slice(i * batch_size, (i + 1) * batch_size)
                         yield epoch, xs[sl], ys[sl]
                     rest = len(xs) - n_full * batch_size
                     carry_x = xs[-rest:] if rest else None
                     carry_y = ys[-rest:] if rest else None
                 if carry_x is not None:
-                    yield epoch, carry_x, carry_y
+                    step += 1
+                    if step > start_step:
+                        yield epoch, carry_x, carry_y
 
         def make_batch(item):
             epoch, bx_np, by_np = item
@@ -528,9 +587,10 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
 
     @staticmethod
     def _device_feed(x, y, dev, n, steps_per_epoch, epochs, batch_size,
-                     seed, one_step) -> None:
+                     seed, one_step, start_step: int = 0) -> None:
         """The padded dataset on the device once; each epoch's
-        permutation drawn there; a step's batch is a gather."""
+        permutation drawn there; a step's batch is a gather. After a
+        resume, the run starts at step ``start_step`` of its epoch."""
         n_pad = steps_per_epoch * batch_size
         pad = n_pad - n
         if pad:
@@ -539,11 +599,242 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
         x_dev, y_dev = _upload(x, dev), _upload(y, dev)
         w_dev = _upload((np.arange(n_pad) < n).astype(np.float32), dev)
         for epoch in range(epochs):
+            first = start_step - epoch * steps_per_epoch
+            if first >= steps_per_epoch:
+                continue                  # a whole epoch done before
             g = torch.Generator(device=dev).manual_seed(
                 (seed + 17) * 1_000_003 + epoch)
             perm = torch.randperm(n_pad, generator=g, device=dev)
-            for i in range(steps_per_epoch):
+            for i in range(max(0, first), steps_per_epoch):
                 sel = perm[i * batch_size:(i + 1) * batch_size]
                 wb = w_dev[sel]
                 # true rows stay a device scalar until the clock stops
                 one_step(epoch, x_dev[sel], y_dev[sel], wb, wb.sum())
+
+
+# ---------------------------------------------------------------------------
+# checkpoint / resume (the JAX learner's layout and tree)
+# ---------------------------------------------------------------------------
+
+
+def _named_state(module: nn.Module, opt: torch.optim.Optimizer, key: str
+                 ) -> Dict[str, np.ndarray]:
+    """Per-parameter optimizer state ``key`` by torch parameter name, as
+    host arrays; zeros where the optimizer holds none yet (optax's
+    initial state)."""
+    out = {}
+    for name, p in module.named_parameters():
+        t = opt.state.get(p, {}).get(key)
+        out[name] = (t.detach().float().cpu().numpy() if t is not None
+                     else np.zeros(tuple(p.shape), np.float32))
+    return out
+
+
+def _flax_params(module: nn.Module, values: Dict[str, np.ndarray]):
+    return convert.flax_collections(module, values, stats=False)["params"]
+
+
+def train_state_tree(module: nn.Module, opt: torch.optim.Optimizer,
+                     optimizer: str, sched_count: bool, step: int
+                     ) -> Dict[str, Any]:
+    """The JAX learner's train state, host numpy, for ``module`` and its
+    optimizer after ``step`` updates: ``{"batch_stats", "opt_state",
+    "params", "step"}`` with ``opt_state`` in optax's tree for
+    ``optimizer`` (``sched_count``: the learning rate is a schedule, whose
+    state is its count)."""
+    values = {k: t.detach().float().cpu().numpy()
+              for k, t in {**dict(module.named_parameters()),
+                           **dict(module.named_buffers())}.items()}
+    coll = convert.flax_collections(module, values)
+    count = np.asarray(step, np.int32)
+    sched = (count,) if sched_count else ()
+    if optimizer == "sgd":
+        opt_state: Tuple = ((), sched)
+    elif optimizer == "momentum":
+        opt_state = ((_flax_params(module, _named_state(
+            module, opt, "momentum_buffer")),), sched)
+    elif optimizer in ("adam", "adamw"):
+        adam = (count,
+                _flax_params(module, _named_state(module, opt, "exp_avg")),
+                _flax_params(module, _named_state(module, opt,
+                                                  "exp_avg_sq")))
+        opt_state = ((adam, sched) if optimizer == "adam"
+                     else (adam, (), sched))
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    return {"batch_stats": coll["batch_stats"], "opt_state": opt_state,
+            "params": coll["params"], "step": count}
+
+
+def _expect_tuple(node, n: int, what: str) -> tuple:
+    if not isinstance(node, tuple) or len(node) != n:
+        raise ValueError(f"checkpoint {what}: expected a tuple of {n}, "
+                         f"got {type(node).__name__}"
+                         f"{len(node) if isinstance(node, tuple) else ''}")
+    return node
+
+
+def load_train_state(tree: Dict[str, Any], module: nn.Module,
+                     opt: torch.optim.Optimizer, optimizer: str,
+                     sched_count: bool) -> int:
+    """Set ``module`` and ``opt`` from a train-state tree written by
+    either package (``train_state_tree``'s layout); returns its step.
+    Everything is read and checked before anything is set, so a tree
+    that does not fit (``ValueError``) leaves the fresh init intact."""
+    step = int(np.asarray(tree["step"]))
+    coll = {"params": tree["params"],
+            "batch_stats": tree.get("batch_stats") or {}}
+    state = convert.params_from_flax(module, coll)
+    opt_state = tree["opt_state"]
+    n_sched = 1 if sched_count else 0
+    per_param: Dict[str, Dict[str, np.ndarray]] = {}
+    count = None
+    if optimizer == "sgd":
+        _expect_tuple(opt_state, 2, "opt_state")
+        _expect_tuple(opt_state[0], 0, "sgd state")
+        sched = opt_state[1]
+    elif optimizer == "momentum":
+        _expect_tuple(opt_state, 2, "opt_state")
+        (trace,) = _expect_tuple(opt_state[0], 1, "trace state")
+        per_param["momentum_buffer"] = convert.params_from_flax(
+            module, {"params": trace}, stats=False)
+        sched = opt_state[1]
+    elif optimizer in ("adam", "adamw"):
+        _expect_tuple(opt_state, 2 if optimizer == "adam" else 3,
+                      "opt_state")
+        count, mu, nu = _expect_tuple(opt_state[0], 3, "adam state")
+        if optimizer == "adamw":
+            _expect_tuple(opt_state[1], 0, "weight-decay state")
+        per_param["exp_avg"] = convert.params_from_flax(
+            module, {"params": mu}, stats=False)
+        per_param["exp_avg_sq"] = convert.params_from_flax(
+            module, {"params": nu}, stats=False)
+        sched = opt_state[-1]
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    _expect_tuple(sched, n_sched, "schedule state")
+    # all read: now set
+    named = {**dict(module.named_parameters()),
+             **dict(module.named_buffers())}
+    with torch.no_grad():
+        for k, arr in state.items():
+            named[k].copy_(torch.from_numpy(arr))
+    opt.state.clear()
+    if per_param:
+        for name, p in module.named_parameters():
+            st: Dict[str, torch.Tensor] = {}
+            for key, arrs in per_param.items():
+                st[key] = torch.from_numpy(
+                    np.ascontiguousarray(arrs[name])).to(p.device)
+            if count is not None:
+                st["step"] = torch.tensor(float(np.asarray(count)),
+                                          dtype=torch.float32)
+            opt.state[p] = st
+    return step
+
+
+def _is_remote(path: str) -> bool:
+    from mmlspark_tpu_torch.utils import filesystem as fslib
+    return fslib.scheme_of(path) != "file"
+
+
+def _remote_steps(ckpt_dir: str) -> List[str]:
+    """Sorted step_XXXXXXXX names that have a COMPLETE checkpoint
+    (treedef.json is uploaded last, so its presence marks done)."""
+    from mmlspark_tpu_torch.utils import filesystem as fslib
+    fs = fslib.get_filesystem(ckpt_dir)
+    steps = set()
+    for f in fs.list_files(ckpt_dir.rstrip("/"), recursive=True):
+        m = re.search(r"(step_\d{8})/treedef\.json$", f)
+        if m:
+            steps.add(m.group(1))
+    return sorted(steps)
+
+
+def _save_checkpoint(ckpt_dir: str, step: int, tree: Dict[str, Any]
+                     ) -> None:
+    """Write ``tree`` as ``<ckpt_dir>/step_XXXXXXXX/`` (``leaves.npz``,
+    then ``treedef.json``) and keep the 3 newest."""
+    if _is_remote(ckpt_dir):
+        from mmlspark_tpu_torch.utils import filesystem as fslib
+        fs = fslib.get_filesystem(ckpt_dir)
+        base = f"{ckpt_dir.rstrip('/')}/step_{step:08d}"
+        with tempfile.TemporaryDirectory() as td:
+            ser._save_pytree(tree, td)
+            # treedef.json LAST: it is the completeness marker that
+            # _remote_steps / resume key on
+            names = sorted(os.listdir(td),
+                           key=lambda n: n == "treedef.json")
+            for fn in names:
+                with open(os.path.join(td, fn), "rb") as f:
+                    fs.write_bytes(f"{base}/{fn}", f.read())
+        try:
+            for stale in _remote_steps(ckpt_dir)[:-3]:
+                fs.delete_path(f"{ckpt_dir.rstrip('/')}/{stale}/")
+        except (IOError, OSError, NotImplementedError):
+            pass                       # pruning (incl. listing) is
+            #                            best-effort — the save landed
+        return
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    os.makedirs(path, exist_ok=True)
+    ser._save_pytree(tree, path)
+    all_ckpts = sorted(d for d in os.listdir(ckpt_dir)
+                       if d.startswith("step_"))
+    for stale in all_ckpts[:-3]:
+        shutil.rmtree(os.path.join(ckpt_dir, stale), ignore_errors=True)
+
+
+def _checkpoint_candidates(ckpt_dir: str) -> List[str]:
+    """All retained checkpoint paths, NEWEST first — the corrupt-
+    checkpoint fallback order. A remote LISTING failure propagates (the
+    filesystem layer already retries): an unreachable store must fail
+    loudly, not silently restart training from scratch."""
+    if _is_remote(ckpt_dir):
+        steps = _remote_steps(ckpt_dir)
+        return [f"{ckpt_dir.rstrip('/')}/{s}" for s in reversed(steps)]
+    if not os.path.isdir(ckpt_dir):
+        return []
+    ckpts = sorted((d for d in os.listdir(ckpt_dir)
+                    if d.startswith("step_")), reverse=True)
+    return [os.path.join(ckpt_dir, d) for d in ckpts]
+
+
+def _load_checkpoint_pytree(path: str):
+    """``serialize._load_pytree`` from a local OR remote checkpoint
+    directory."""
+    if not _is_remote(path):
+        return ser._load_pytree(path)
+    from mmlspark_tpu_torch.utils import filesystem as fslib
+    fs = fslib.get_filesystem(path)
+    with tempfile.TemporaryDirectory() as td:
+        for fn in ("leaves.npz", "treedef.json"):
+            data = fs.read_bytes(f"{path.rstrip('/')}/{fn}")
+            with open(os.path.join(td, fn), "wb") as f:
+                f.write(data)
+        return ser._load_pytree(td)
+
+
+def _resume(ckpt_dir: str, module: nn.Module, opt: torch.optim.Optimizer,
+            optimizer: str, sched_count: bool) -> int:
+    """Load the newest loadable checkpoint of ``ckpt_dir`` into
+    ``module`` and ``opt``; returns its step (0: none, fresh init). A
+    corrupt or truncated checkpoint falls back to the previous one; an
+    ``OSError`` (a store outage, not a bad file) propagates."""
+    candidates = _checkpoint_candidates(ckpt_dir)
+    for candidate in candidates:
+        try:
+            tree = _load_checkpoint_pytree(candidate)
+            step = load_train_state(tree, module, opt, optimizer,
+                                    sched_count)
+        except OSError:
+            raise
+        except Exception as e:  # noqa: BLE001 — a corrupt checkpoint
+            logger.warning("failed to load checkpoint %s (%s); falling "
+                           "back to the previous one", candidate, e)
+            continue
+        logger.info("resumed from %s (step %d)", candidate, step)
+        return step
+    if candidates:
+        logger.warning("no loadable checkpoint in %s; training from "
+                       "fresh init", ckpt_dir)
+    return 0

@@ -29,8 +29,11 @@ Standardization (``_Standardizer``) runs in float64 on the host and the
 result goes to the device as float32, as in the reference. Scoring
 (``transform`` / ``transform_from_matrix``) stays host numpy in float64,
 so equal weights give bitwise equal scores in both packages. Int8
-quantization (``quantize``, ``precision='int8'``) raises: ROADMAP.md,
-'DNN int8 inference'. The fused ``device_op`` belongs to 'Device
+quantization (``quantize``) returns a new model with ``precision='int8'``
+that scores through ``core.quantize.int8_matmul_host``, the JAX
+package's host mirror, so a quantized model saved by either package
+scores bitwise equal in the other; ``precision='int8'`` cannot be set by
+hand on an f32 model. The fused ``device_op`` belongs to 'Device
 pipeline and serving compilation'.
 """
 
@@ -50,8 +53,8 @@ from mmlspark_tpu_torch.core.sparse import CSRMatrix
 from mmlspark_tpu_torch.core.stage import Estimator, Model
 from mmlspark_tpu_torch.core.table import DataTable, features_matrix as _features_matrix
 from mmlspark_tpu_torch.device import HasDevice, resolve_device
+from mmlspark_tpu_torch.core import quantize as QZ
 from mmlspark_tpu_torch.models.networks import strict_f32
-from mmlspark_tpu_torch.models.tpu_model import _not_ported
 
 _MOMENTUM = 0.9
 # nonzeros summed in one piece of a column's gradient: segment_reduce
@@ -60,9 +63,40 @@ _MOMENTUM = 0.9
 _PIECE = 256
 
 
-def _refuse_int8(model) -> None:
-    if model.get("precision") == "int8":
-        raise _not_ported("precision='int8'", "DNN int8 inference")
+def _refuse_hand_set_int8(model) -> None:
+    """``precision='int8'`` comes from ``quantize``: an f32 model (its
+    weights carry no ``wq``) refuses it. A stage being loaded sets its
+    params before its weights, so an unset ``weights`` passes."""
+    w = model.get("weights")
+    if model.get("precision") == "int8" and w is not None \
+            and "wq" not in w:
+        model._paramMap["precision"] = "f32"
+        raise ValueError(
+            "precision='int8' is set by quantize(calib), which returns a "
+            "new model with int8 weights; it cannot be set by hand on an "
+            "f32 model")
+
+
+def _quantized(model, calib, weight: np.ndarray, percentile: float):
+    """The int8 clone of a dense-featured linear model: ``weight`` (D, C)
+    per-channel quantized, the standardized features' clip calibrated on
+    ``calib`` (the JAX package's ``quantize``)."""
+    w = model.get("weights")
+    table = calib if isinstance(calib, DataTable) \
+        else DataTable(dict(calib))
+    X = _features_matrix(table, model.get_features_col())
+    if X.shape[0] == 0:
+        raise ValueError("quantize needs at least one calibration row")
+    Xs = (X - w["mu"]) / w["sd"]
+    wq, w_scale = QZ.quantize_weight(weight, axis=-1)
+    cal = QZ.ActivationCalibrator(percentile=percentile)
+    cal.observe("x", Xs)
+    qweights = {k: np.asarray(v) for k, v in w.items()}
+    qweights.update(wq=wq, w_scale=w_scale, x_scale=cal.scale("x"))
+    out = type(model)(weights=qweights, precision="int8")
+    out.set("featuresCol", model.get_features_col())
+    out.set("predictionCol", model.get_prediction_col())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -334,14 +368,33 @@ class TPULogisticRegression(Estimator, HasFeaturesCol, HasLabelCol,
 
 class TPULogisticRegressionModel(Model, HasFeaturesCol, HasPredictionCol):
     weights = PyTreeParam("W/b/mu/sd arrays", default=None)
-    # kept so a JAX-package model carrying it loads; 'int8' raises
+    # 'int8' models carry per-channel-quantized W (wq/w_scale) and a
+    # calibrated per-tensor activation scale (x_scale) next to the f32
+    # arrays; set by quantize(), surfaced as the serving precision label
     precision = EnumParam(["f32", "int8"],
                           "inference precision (set by quantize())",
                           default="f32")
 
-    def quantize(self, calib: DataTable, percentile: float = 100.0):
-        raise _not_ported("TPULogisticRegressionModel.quantize",
-                          "DNN int8 inference")
+    def _on_param_change(self, name: str) -> None:
+        if name in ("precision", "weights"):
+            _refuse_hand_set_int8(self)
+
+    def quantize(self, calib: DataTable, percentile: float = 100.0
+                 ) -> "TPULogisticRegressionModel":
+        """Int8 post-training quantization (core/quantize.py): W gets
+        per-class-channel symmetric scales, the standardized feature
+        activations get a per-tensor clip calibrated on ``calib``'s
+        feature rows, and the returned NEW model scores through an
+        int8 x int8 -> i32 matmul with an f32 dequant epilogue on the
+        host. This (f32) model is untouched — the accuracy oracle and
+        the rollback target."""
+        w = self.get("weights")
+        if w is None or "mu" not in w:
+            raise ValueError(
+                "quantize requires a dense-featured model (sparse models "
+                "score through the host CSR path and carry no "
+                "standardization stats to calibrate against)")
+        return _quantized(self, calib, np.asarray(w["W"]), percentile)
 
     def drift_monitor(self):
         """A ``core.metrics.DriftMonitor`` seeded with this model's
@@ -359,7 +412,6 @@ class TPULogisticRegressionModel(Model, HasFeaturesCol, HasPredictionCol):
         w = self.get("weights")
         feats = table.column(self.get_features_col())
         if isinstance(feats, CSRMatrix) and "mu" not in w:
-            _refuse_int8(self)
             logits = _sparse_logits(feats, np.asarray(w["W"]),
                                     np.asarray(w["b"]))
             return self._attach_scores(table, logits)
@@ -371,10 +423,15 @@ class TPULogisticRegressionModel(Model, HasFeaturesCol, HasPredictionCol):
         """``transform`` with the dense (N, D) extraction hoisted by the
         caller — the CV hot path scores every candidate against ONE
         cached fold matrix instead of re-extracting it per candidate."""
-        _refuse_int8(self)
         w = self.get("weights")
         if "mu" in w:
             X = (X - w["mu"]) / w["sd"]
+        if self.get("precision") == "int8":
+            # integer accumulation is exact: the same accumulator as the
+            # JAX package's host path, bit for bit
+            logits = QZ.int8_matmul_host(X, w["wq"], w["x_scale"],
+                                         w["w_scale"]) + w["b"]
+            return self._attach_scores(table, logits)
         return self._attach_scores(table, X @ w["W"] + w["b"])
 
     def _attach_scores(self, table: DataTable,
@@ -460,9 +517,22 @@ class TPULinearRegressionModel(Model, HasFeaturesCol, HasPredictionCol):
                           "inference precision (set by quantize())",
                           default="f32")
 
-    def quantize(self, calib: DataTable, percentile: float = 100.0):
-        raise _not_ported("TPULinearRegressionModel.quantize",
-                          "DNN int8 inference")
+    def _on_param_change(self, name: str) -> None:
+        if name in ("precision", "weights"):
+            _refuse_hand_set_int8(self)
+
+    def quantize(self, calib: DataTable, percentile: float = 100.0
+                 ) -> "TPULinearRegressionModel":
+        """Int8 PTQ of the regression weight vector (treated as a
+        (D, 1) matmul — one output channel, one weight scale) with the
+        standardized-feature activation clip calibrated on ``calib``.
+        See ``TPULogisticRegressionModel.quantize``."""
+        w = self.get("weights")
+        if w is None:
+            raise ValueError("quantize requires a fitted model "
+                             "(weights is None)")
+        return _quantized(self, calib, np.asarray(w["w"]).reshape(-1, 1),
+                          percentile)
 
     def drift_monitor(self):
         """Fit-time feature-stat DriftMonitor (see
@@ -479,10 +549,14 @@ class TPULinearRegressionModel(Model, HasFeaturesCol, HasPredictionCol):
                               X: np.ndarray) -> DataTable:
         """``transform`` with the (N, D) extraction hoisted by the
         caller (see TPULogisticRegressionModel.transform_from_matrix)."""
-        _refuse_int8(self)
         w = self.get("weights")
         Xs = (X - w["mu"]) / w["sd"]
-        pred = (Xs @ w["w"] + w["b"]) * w["y_sd"] + w["y_mu"]
+        if self.get("precision") == "int8":
+            dot = QZ.int8_matmul_host(Xs, w["wq"], w["x_scale"],
+                                      w["w_scale"])[:, 0]
+        else:
+            dot = Xs @ w["w"]
+        pred = (dot + w["b"]) * w["y_sd"] + w["y_mu"]
         return table.with_column(self.get_prediction_col(),
                                  np.asarray(pred, dtype=np.float64),
                                  Field(self.get_prediction_col(), F64))

@@ -55,6 +55,7 @@ Not ported yet, and raising ``NotImplementedError``: ``seq_axis``
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, \
@@ -82,9 +83,22 @@ def _dtype(d: Any) -> torch.dtype:
                      f"{sorted(_DTYPES)}")
 
 
+# the interceptor of one forward, set by core/quantize.py (calibration, or
+# an int8 model's forward): called as hook(x, lin, dtype), it returns the
+# layer's output, or None for the float path. Every dense layer of the
+# zoo goes through _dense, as every flax one through nn.Dense.
+DENSE_HOOK: contextvars.ContextVar = contextvars.ContextVar(
+    "dense_hook", default=None)
+
+
 def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype
            ) -> torch.Tensor:
     """flax ``Dense(dtype=...)``: input, kernel and bias in ``dtype``."""
+    hook = DENSE_HOOK.get()
+    if hook is not None:
+        out = hook(x, lin, dtype)
+        if out is not None:
+            return out
     return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
 
 

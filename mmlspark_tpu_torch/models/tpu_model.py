@@ -27,6 +27,13 @@ first ``warmup`` returns ``len(bucket_sizes())`` and a second 0;
 Saved with ``save``, the weights go as a pytree and a module's
 ``_ModuleApply`` as a pickle of its structure (parameters on the meta
 device; the weights restore them).
+
+``quantize(calib, percentile)`` returns a NEW model whose dense layers
+run int8 (``core/quantize.py``): ``precision='int8'``, ``computeDtype``
+pinned to float32, the quantized tensors in the weights pytree under
+``quantize.QUANT_KEY``; it saves and loads like any other. This model
+stays the f32 oracle. ``precision='int8'`` cannot be set by hand on a
+model whose ``modelFn`` is not a quantized one.
 """
 
 from __future__ import annotations
@@ -111,7 +118,14 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
         if name in ("weights", "device"):
             self._device_weights = None
         elif name == "precision" and self.get("precision") == "int8":
-            raise _not_ported("precision='int8'", "DNN int8 inference")
+            from mmlspark_tpu_torch.core.quantize import QuantizedModuleApply
+            fn = self.get("modelFn")
+            if fn is not None and not isinstance(fn, QuantizedModuleApply):
+                self._paramMap["precision"] = "f32"
+                raise ValueError(
+                    "precision='int8' is set by quantize(calib), which "
+                    "returns a new model with int8 weights; it cannot be "
+                    "set by hand on an f32 model")
 
     # -- constructors -------------------------------------------------------
 
@@ -151,8 +165,57 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
         raise _not_ported("device_op (pipeline fusion)", "Device pipeline "
                           "and serving compilation")
 
+    # -- post-training quantization -----------------------------------------
+
     def quantize(self, calib, percentile: float = 100.0) -> "TPUModel":
-        raise _not_ported("quantize", "DNN int8 inference")
+        """Int8 post-training quantization (core/quantize.py): calibrate
+        per-tensor activation clip ranges on the ``calib`` rows (a
+        DataTable or column->array dict holding a held-out batch for
+        every feed column; they go through one forward), quantize every
+        dense kernel per channel, and return a NEW ``TPUModel`` whose
+        forward runs int8 x int8 -> int32 matmuls with f32 dequant
+        epilogues, labelled ``precision='int8'``. This model (the f32
+        path) is untouched — the accuracy oracle and the rollback target.
+
+        Needs a module model (``from_module``, the JAX package's
+        ``from_flax``, or a learner's model): quantization intercepts
+        the network's dense layers. An ``OnnxApply`` graph or an
+        arbitrary callable raises ``ValueError``."""
+        from mmlspark_tpu_torch.core import quantize as QZ
+        model_fn = self.get("modelFn")
+        if not isinstance(model_fn, _ModuleApply):
+            raise ValueError(
+                "quantize() needs a module model (TPUModel.from_module — "
+                "the JAX package's from_flax — or a learner's model); "
+                "arbitrary callables and ONNX graphs cannot be "
+                "post-training quantized")
+        table = calib if isinstance(calib, DataTable) \
+            else DataTable(dict(calib))
+        if len(table) == 0:
+            raise ValueError("quantize needs at least one calibration row")
+        dev = self._device()
+        int_input = bool(model_fn.int_input)
+        inputs = {}
+        for model_in, col in self._feeds().items():
+            arr = _column_to_array(table[col], table.schema.get(col),
+                                   np.int32 if int_input else np.float32)
+            t = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+            inputs[model_in] = t.long() if int_input else t
+        qfn, qweights = QZ.quantize_module(
+            model_fn, self._weights_on_device(), inputs,
+            percentile=percentile)
+        # computeDtype pins to float32: the dequant epilogue contract is
+        # f32, and routing int8 dequant through bf16 would stack a
+        # second rounding on top of the quantization error
+        return TPUModel(modelFn=qfn, weights=qweights,
+                        feedDict=self.get("feedDict"),
+                        fetchDict=self.get("fetchDict"),
+                        batchSize=self.get("batchSize"),
+                        computeDtype="float32",
+                        inputCol=self.get("inputCol"),
+                        outputCol=self.get("outputCol"),
+                        device=self.get("device"),
+                        precision="int8")
 
     # -- device state -------------------------------------------------------
 
@@ -162,10 +225,13 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
     def _weights_on_device(self):
         if self._device_weights is None:
             dev = self._device()
-            w = self.get("weights")
-            self._device_weights = (
-                {k: t.to(dev) for k, t in w.items()}
-                if isinstance(w, dict) else w)
+
+            def to_dev(node):
+                if isinstance(node, dict):
+                    return {k: to_dev(v) for k, v in node.items()}
+                return node.to(dev) if isinstance(node, torch.Tensor) \
+                    else node
+            self._device_weights = to_dev(self.get("weights"))
         return self._device_weights
 
     def _feeds(self) -> Dict[str, str]:

@@ -1133,3 +1133,99 @@ def test_cuda_train_classifier_launches_the_hist_kernel(card):
     assert (pred == y).mean() > 0.95
     assert list(out["scored_labels"]) == \
         np.where(pred == 1.0, "yes", "no").tolist()
+
+
+# ---------------------------------------------------------------------------
+# models entering and leaving the system: int8, ONNX, checkpoint / resume
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 17])
+def test_cuda_int8_matmul_bitwise_to_host_at_padded_shapes(card, m):
+    """torch._int_mm needs > 16 rows, K and N multiples of 8: at M = 1,
+    8, 17, N = 10, K = 20 the zero-padded product still equals
+    int8_matmul_host bit for bit (NaN row included), and each call is
+    one counted launch."""
+    from mmlspark_tpu_torch.core import quantize as PQ
+    rng = np.random.default_rng(m)
+    x = rng.normal(size=(m, 20)).astype(np.float32)
+    x[0, 3] = np.nan
+    wq, ws = PQ.quantize_weight(rng.normal(size=(20, 10)))
+    xs = PQ.act_scale(np.nanmax(np.abs(x)))
+    PQ.reset_launches()
+    got = PQ.int8_matmul(torch.from_numpy(x).to(card),
+                         torch.from_numpy(wq).to(card), xs,
+                         torch.from_numpy(ws).to(card))
+    assert PQ.LAUNCHES["int8_mm"] == 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  PQ.int8_matmul_host(x, wq, xs, ws))
+    op = PQ.mm_operand(torch.from_numpy(wq).to(card))
+    assert op.shape == (24, 16) and op.stride() == (1, 24)
+    again = PQ.int8_matmul(torch.from_numpy(x).to(card),
+                           torch.from_numpy(wq).to(card), xs, ws,
+                           operand=op)
+    assert torch.equal(torch.nan_to_num(got, nan=7.0),
+                       torch.nan_to_num(again, nan=7.0))
+
+
+@pytest.mark.cuda
+def test_cuda_int8_tpumodel_matches_cpu(card):
+    """A quantized MLP on the card against the same int8 model on the
+    CPU: the accumulators are exact, the f32 epilogues equal."""
+    net = build_network({"type": "mlp", "features": [64, 32],
+                         "num_classes": 10, "in_features": 24},
+                        device="cpu", seed=3)
+    x = np.random.default_rng(4).normal(size=(50, 24)).astype(np.float32)
+    q = TPUModel.from_module(net, device="cpu", inputCol="x",
+                             outputCol="y", batchSize=32
+                             ).quantize({"x": x})
+    want = q.transform(DataTable({"x": x}))["y"]
+    q.set("device", "cuda")
+    got = q.transform(DataTable({"x": x}))["y"]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert np.array_equal(got.argmax(1), want.argmax(1))
+
+
+@pytest.mark.cuda
+def test_cuda_onnx_resnet_matches_cpu(card, tmp_path):
+    """The narrow resnet18 ONNX graph (width 8) on the card against the
+    CPU: rtol 2e-4 / atol 2e-4, equal argmax (strict f32 convolutions)."""
+    import onnx_writer as ow
+    from mmlspark_tpu_torch.importers import import_onnx_model
+    path = str(tmp_path / "r18.onnx")
+    ow.resnet18_onnx(path, num_classes=10, width=8, seed=3)
+    x = np.random.default_rng(1).normal(size=(12, 3 * 32 * 32)
+                                        ).astype(np.float32)
+    got, want = (import_onnx_model(path, batch_size=8,
+                                   input_shape=[3, 32, 32],
+                                   device=dev).transform(
+        DataTable({"images": x}))["scores"] for dev in ("cuda", "cpu"))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    assert np.array_equal(got.argmax(1), want.argmax(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feed", ["host", "device"])
+def test_cuda_checkpoint_resume_bitwise(card, tmp_path, feed):
+    """An interrupted fit on the card resumed from its checkpoint equals
+    the uninterrupted fit bit for bit: losses and weights."""
+    from mmlspark_tpu_torch.models.learner import TPULearner
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(256, 16)).astype(np.float32)
+    y = (x[:, 0] + x[:, 1] > 0).astype(np.int64)
+    t = DataTable({"features": x, "label": y})
+    kw = dict(networkSpec={"type": "mlp", "features": [32],
+                           "num_classes": 2},
+              optimizer="adamw", batchSize=64, learningRate=0.01,
+              schedule="constant", computeDtype="bfloat16", dataFeed=feed,
+              logEvery=1, checkpointEvery=4)
+    full = TPULearner(epochs=4, **kw)
+    wf = full.fit(t).get("weights")
+    ck = str(tmp_path / "ck")
+    TPULearner(epochs=2, checkpointDir=ck, **kw).fit(t)
+    resumed = TPULearner(epochs=4, checkpointDir=ck, **kw)
+    wr = resumed.fit(t).get("weights")
+    assert [h["loss"] for h in resumed.history] == \
+        [h["loss"] for h in full.history][8:]
+    for k in wf:
+        assert torch.equal(wf[k], wr[k]), k

@@ -250,10 +250,23 @@ class TestModelDownloader:
             ModelDownloader(str(tmp_path / "c3"), repo=repo
                             ).load_variables("m")
 
-    def test_list_models_and_http_repo(self, zoo):
+    def test_list_models_and_http_repo(self, zoo, tmp_path):
+        """The JAX-published repo lists through LocalRepo, and through
+        HTTPRepo over the port's WebDAV server, where a download verifies
+        the blob's sha256 as a local one does."""
+        from mmlspark_tpu_torch.testing.webdav import serve_webdav
         assert "ResNet_tiny" in [s.name for s in zoo["dl"].list_models()]
-        with pytest.raises(NotImplementedError, match="checkpoint/resume"):
-            HTTPRepo("http://localhost:1/zoo")
+        server, base = serve_webdav(str(zoo["tmp"] / "repo"))
+        try:
+            repo = HTTPRepo(base)
+            assert [s.name for s in repo.list_schemas()] == ["ResNet_tiny"]
+            dl = ModelDownloader(str(tmp_path / "cache"), repo=repo)
+            schema = dl.download_by_name("ResNet_tiny")
+            assert schema.sha256 == zoo["schema"].sha256
+            assert dl.local.read_blob(schema) == \
+                zoo["jrepo"].read_blob(zoo["schema"])
+        finally:
+            server.shutdown()
 
 
 # ---------------------------------------------------------------------------

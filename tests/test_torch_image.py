@@ -486,8 +486,11 @@ def test_read_images_and_binary_files_match_jax(tmp_path):
         read_binary_files(d))
     empty = read_binary_files(d, pattern="*.nothing")
     assert len(empty) == 0 and "value" in empty.schema.names
-    with pytest.raises(NotImplementedError, match="checkpoint/resume"):
+    # a scheme with no registered filesystem: the same refusal in both
+    with pytest.raises(KeyError, match="register_filesystem"):
         read_binary_files("s3://bucket/imgs")
+    with pytest.raises(KeyError, match="register_filesystem"):
+        jread_binary("s3://bucket/imgs")
 
 
 def test_write_images_round_trip(tmp_path):

@@ -378,7 +378,6 @@ def _chunked_table():
     ({"meshAxes": {"data": 2}}, "DNN training across cards"),
     ({"meshAxes": {"data": 1, "fsdp": 4}}, "DNN training across cards"),
     ({"paramSharding": "fsdp"}, "DNN training across cards"),
-    ({"checkpointDir": "ckpt"}, "DNN training: checkpoint/resume"),
     ({"table": "chunked"}, "Out-of-core ingest"),
     ({"table": "multi-process"}, "DNN training across cards"),
 ])

@@ -374,16 +374,20 @@ def test_drift_monitor_hook_matches_jax():
 
 @pytest.mark.parametrize("family", ["logistic", "linear"])
 def test_int8_raises_naming_the_roadmap_item(family):
+    """int8 is ported ('DNN int8 inference'): quantize returns a new
+    int8 model and leaves this one f32, and precision='int8' set by hand
+    on an f32 model is refused (it would have no int8 weights)."""
     X, y = blobs() if family == "logistic" else regression()
     t = PTable({"features": X, "label": y})
     est = (PL.TPULogisticRegression if family == "logistic"
            else PL.TPULinearRegression)(maxIter=5, device="cpu")
     m = est.fit(t)
-    with pytest.raises(NotImplementedError, match="DNN int8 inference"):
-        m.quantize(t)
-    m.set("precision", "int8")
-    with pytest.raises(NotImplementedError, match="DNN int8 inference"):
-        m.transform(t)
+    q = m.quantize(t)
+    assert q.get("precision") == "int8" and m.get("precision") == "f32"
+    with pytest.raises(ValueError, match="quantize"):
+        m.set("precision", "int8")
+    assert m.get("precision") == "f32"
+    assert len(q.transform(t)[m.get_prediction_col()]) == len(y)
 
 
 @pytest.mark.parametrize("family", ["logistic", "linear"])

@@ -237,12 +237,15 @@ def test_tpumodel_refuses_what_is_not_ported(lm_vars):
     model = _lm_model(lm_vars, SMALL)
     for call, item in ((lambda: model.set_mesh(None), "Device pipeline"),
                        (lambda: model.set_sharding(None), "Device pipeline"),
-                       (lambda: model.device_op(None), "Device pipeline"),
-                       (lambda: model.quantize({}), "DNN int8 inference"),
-                       (lambda: model.set("precision", "int8"),
-                        "DNN int8 inference")):
+                       (lambda: model.device_op(None), "Device pipeline")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # int8 is ported ('DNN int8 inference'): an empty calibration table
+    # and precision='int8' set by hand are refused
+    with pytest.raises(ValueError, match="calibration row"):
+        model.quantize({"tokens": np.zeros((0, 8), np.int64)})
+    with pytest.raises(ValueError, match="quantize"):
+        model.set("precision", "int8")
     with pytest.raises(ValueError, match="outside"):
         model.transform(mtt.DataTable({"tokens": _tokens(2, 8, vocab=65)
                                        + 1}))
