@@ -257,11 +257,57 @@ Phases, one line each; any failure exits non-zero:
                bytes, free disk; a truncated newest leaves.npz falls back
                to step 4; bench.py's CIFAR ConvNet (batch 1024) through a
                webdav:// checkpoint directory, the same check.
+ 13. fused and streamed pipelines — at the reference benchmarks' own
+               sizes: (a) bench.py's bench_pipeline (profile_pipeline.
+               pipeline_table: 1M raw rows of x1 with 1 % NaN, x2, a
+               128-level string, token lists of 3-6 words from 800;
+               Featurize(32, one-hot) -> StandardScaler ->
+               TPULogisticRegression(maxIter=40) -> DropColumns fitted
+               on 100,000 rows) through PipelineModel.transform
+               (staged_host), transform_staged (staged_device) and fused,
+               cold (a fresh table view) and warm: fused bitwise
+               staged_device, predictions equal staged_host but on
+               near ties (top-two margin under 1e-5), probabilities
+               within 1e-5, no new shape and no column re-shipped on
+               warm repeats, one device round trip a transform; the
+               warm transform profiled (torch.profiler) in a fresh
+               interpreter (profile_pipeline.warm_profile): one
+               device-to-host copy, its busy share printed; (e) that
+               pipeline behind
+               serve_model(json_scoring_pipeline(pm), port=0,
+               batch_size=256, workers=2, max_wait_ms=5): 2,000 one-row
+               raw JSON requests from 16 client threads of a spawned
+               process, every reply equal to the fused transform of its
+               row (near ties aside), one device-to-host copy a batch;
+               (b) bench_ooc: 10M rows made chunk by chunk (262,144,
+               prefetch 3), Featurize fitted streamed, StandardScaler
+               from a ChunkedTable, the logistic head, then
+               fuse([...]).transform_chunked: the 1.5 GB host budget
+               held on tracked_peak_bytes and on RSS growth (VmRSS
+               sampled every 5 ms), exceeded by the materialized
+               baseline, the first chunk's predictions bitwise its own
+               fused transform, prediction sums within 1e-6 x rows; the
+               decode / prepare / wait / dispatch sums, the overlap and
+               decode-hidden fractions; SummarizeData on a 1M-row
+               ChunkedTable against the materialized run (counts and
+               moments within 1e-6, sketch percentiles within 0.005 in
+               rank); (c) LM_SPEC's TPUModel (phase 4's seeded model,
+               20 x 1024 tokens) as a one-stage PipelineModel,
+               fused(batch_size=8): exactly 24 flash_fwd_tf32x3 launches,
+               logits bitwise TPUModel.transform's; (d) bench_lm's fit
+               (bf16, AdamW 1e-3, batch 8) on 32 rows x 1024 tokens from
+               ChunkedTable.from_npy in chunks of 8 for 2 epochs: exactly
+               64 launches of each bf16 flash kernel, 8 chunks decoded
+               (no counting pass), losses bitwise the same fit from the
+               list of the eight-row tables; (f) phase 3's max_bin 255
+               model as a one-stage fused pipeline over the holdout:
+               rawPrediction and prediction bitwise phase 3's transform.
 Then one JSON line of the int8 GEMMs' times (a library call, not a
 ported kernel), one JSON line of per-kernel numbers (the hist rows
 include the int16 and int8 launches of 7(b) and 7(c), the F = 968
 launches of 8(a) and the launches of 11(b)'s fit on its featurized bins;
-the flash rows phase 12's launches), the card's name and power limit,
+the flash rows phase 12's and phase 13's launches), the card's name and
+power limit,
 and as the last line
 {"ok": true, "device": {...}}.
 
@@ -2578,6 +2624,430 @@ def interchange_slice(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: fused and streamed pipelines
+# ---------------------------------------------------------------------------
+
+FUSED_REQUESTS = 2000       # phase 13(e)'s one-row raw JSON requests
+PROFILE_WARM = """
+import json
+from mmlspark_tpu_torch.profile_pipeline import warm_profile
+busy = warm_profile()
+top = sorted(busy.pop("by_name").items(), key=lambda kv: -kv[1][1])[:4]
+busy["top"] = [(k[:40], n, round(us / 1e3, 3)) for k, (n, us) in top]
+print(json.dumps(busy))
+"""
+SUMMARY_ROWS = 1_000_000    # phase 13(b)'s SummarizeData stream
+LM_STREAM_CHUNK = 8         # phase 13(d)'s .npy chunk rows
+
+
+def _status_kb(key: str) -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1])
+    return 0
+
+
+class RssPeak:
+    """The resident set's growth over a block: the largest VmRSS that a
+    sampler reads every 5 ms, less the resident set when the block
+    began. The peak is sampled, so a spike shorter than 5 ms can slip
+    between two reads. The process's own ru_maxrss and VmHWM cannot
+    serve: earlier phases left them higher than anything this block
+    reaches, and not every kernel lets /proc/self/clear_refs reset
+    VmHWM."""
+
+    def __enter__(self):
+        import threading
+        self.before = _status_kb("VmRSS") * 1024
+        self.sampled = self.before
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.005):
+                self.sampled = max(self.sampled,
+                                   _status_kb("VmRSS") * 1024)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.sampled = max(self.sampled, _status_kb("VmRSS") * 1024)
+        self.growth = self.sampled - self.before
+        return False
+
+
+def _near_tie_rule(label: str, got, want, prob) -> int:
+    """Predictions equal but on rows whose top-two probability margin is
+    under 1e-5; returns the near-tie rows that differ."""
+    top2 = np.sort(np.asarray(prob), axis=1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) < 1e-5
+    diff = np.asarray(got) != np.asarray(want)
+    check(not (diff & ~near).any(),
+          f"{label}: {int((diff & ~near).sum())} predictions differ off "
+          f"a near tie")
+    return int((diff & near).sum())
+
+
+def fused_slice(dev, smi: str, model255=None, out255=None,
+                test_t=None) -> dict:
+    """Phase 13: fused and streamed pipelines on the card — bench.py's
+    bench_pipeline and bench_ooc at their own sizes, the LM fused and
+    fitted from a chunk stream, the fused scorer, the fused forest.
+    Returns the phase's flash launches: {"f32": forward launches of the
+    fused LM transform, "bf16": each kernel's launches over the streamed
+    LM fit}."""
+    import gc
+    import torch
+
+    from mmlspark_tpu_torch import profile_pipeline as PP
+    from mmlspark_tpu_torch.core import metrics as MC
+    from mmlspark_tpu_torch.core.fusion import fuse
+    from mmlspark_tpu_torch.core.stage import PipelineModel
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.io.ooc import ChunkedTable, table_nbytes
+    from mmlspark_tpu_torch.models.learner import TPULearner
+    from mmlspark_tpu_torch.models.networks import build_network
+    from mmlspark_tpu_torch.models.tpu_model import TPUModel
+    from mmlspark_tpu_torch.ops import flash_attention as FA
+    from mmlspark_tpu_torch.profile_train import BATCH, slice_table
+    from mmlspark_tpu_torch.profile_transform import (
+        BATCH as LM_BATCH, LM_SPEC, ROWS as LM_ROWS)
+    from mmlspark_tpu_torch.serving import json_scoring_pipeline, serve_model
+    from mmlspark_tpu_torch.stages.dataprep import SummarizeData
+
+    t_phase = time.perf_counter()
+
+    # ---- (a) bench_pipeline: 1M raw rows three ways ----------------------
+    t0 = time.perf_counter()
+    table = PP.pipeline_table()
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pm = PP.pipeline_stages().fit(table.slice(0, PP.PIPELINE_FIT_N))
+    fit_s = time.perf_counter() - t0
+    fused = pm.fused()
+    warm = table.slice(0, 4096)
+    pm.transform(warm)
+    fused.transform(warm)
+    fused.transform_staged(warm)
+    fused.transform(PP.fresh_view(table))   # the 1M-row shape's first run
+    host_s, out_h = PP.best_of(lambda: pm.transform(PP.fresh_view(table)),
+                               2)
+    staged_s, out_d = PP.best_of(
+        lambda: fused.transform_staged(PP.fresh_view(table)), 2)
+    misses = fused.jit_cache_misses
+    cold_s, out_f = PP.best_of(lambda: fused.transform(PP.fresh_view(table)),
+                               2)
+    plan = fused.plan_for(table.schema)
+    fused.transform(table)
+    ships = plan.device_table.stats()["column_ships"]
+    warm_s, _ = PP.best_of(lambda: fused.transform(table), 3)
+    check(fused.jit_cache_misses == misses,
+          f"(a) fused repeats met {fused.jit_cache_misses - misses} new "
+          "shapes")
+    check(plan.device_table.stats()["column_ships"] == ships,
+          "(a) warm repeats shipped a column again")
+    check(plan.last_roundtrips == 1,
+          f"(a) {plan.last_roundtrips} device round trips a transform")
+    check(len(plan.segments) == 1 and len(plan.segments[0].ops) == 3,
+          f"(a) Featurize, the scaler and the head are not one fused "
+          f"segment: {plan.describe()}")
+    cols = ("rawPrediction", "probability", "prediction")
+    for c in cols:
+        check(np.array_equal(np.asarray(out_f[c]), np.asarray(out_d[c])),
+              f"(a) fused {c} differs from transform_staged")
+    flips = _near_tie_rule("(a) fused vs staged_host", out_f["prediction"],
+                           out_h["prediction"], out_h["probability"])
+    p_err = float(np.abs(np.asarray(out_f["probability"])
+                         - np.asarray(out_h["probability"])).max())
+    check(p_err <= 1e-5, f"(a) fused probabilities {p_err} from the host's")
+    # the busy share comes from a fresh interpreter: after phases 1-12
+    # torch.profiler recorded no device activity in this process
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", PROFILE_WARM], cwd=root,
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": root})
+    check(r.returncode == 0, f"(a) the profiled warm transform failed: "
+          f"{r.stderr[-2000:]}")
+    busy = json.loads(r.stdout.strip().splitlines()[-1])
+    check(busy["d2h_copies"] == 1 and busy["busy_us"] > 0,
+          f"(a) the profiled warm fused transform: {busy}")
+    print(f"fused (a) bench_pipeline: {len(table)} raw rows (made in "
+          f"{make_s:.1f} s), fit on {PP.PIPELINE_FIT_N} in {fit_s:.3f} s; "
+          f"plan {plan.describe()}; staged_host {host_s:.3f} s, "
+          f"staged_device {staged_s:.3f} s, fused cold {cold_s:.3f} s, "
+          f"warm {warm_s:.6f} s; fused == staged_device bitwise, "
+          f"predictions == staged_host ({flips} near-tie flips), max "
+          f"|prob diff| {p_err:.3e}; 0 new shapes, no column re-shipped")
+    print(f"fused (a) warm transform of {busy['rows']} rows profiled in a "
+          f"fresh process: window {busy['window_us'] / 1e3:.3f} ms, busy "
+          f"{busy['busy_us'] / 1e3:.3f} ms ({100 * (1 - busy['idle_share']):.1f}"
+          f" %), {busy['d2h_copies']} device-to-host copy; top kernels "
+          f"{busy['top']}")
+    del out_h, out_d, out_f, warm
+    gc.collect()
+
+    # ---- (e) the fused scorer over (a)'s fitted pipeline -----------------
+    rows = table.slice(0, FUSED_REQUESTS)
+    want = fused.transform(rows)
+    bodies = [json.dumps({"x1": float(rows["x1"][i]),
+                          "x2": float(rows["x2"][i]),
+                          "color": rows["color"][i],
+                          "toks": rows["toks"][i]}).encode()
+              for i in range(FUSED_REQUESTS)]
+    scorer = json_scoring_pipeline(pm, batch_size=256)
+    t0 = time.perf_counter()
+    warmed = scorer.warmup(DataTable({c: rows[c][:1] for c in
+                                      ("x1", "x2", "color", "toks")}))
+    warm_e = time.perf_counter() - t0
+    sc = scorer.scorer
+    m0 = sc.fused.jit_cache_misses
+    trips0, batches0 = sc.device_roundtrips, sc.batches_scored
+    engine = serve_model(scorer, port=0, batch_size=256, workers=2,
+                         max_wait_ms=5)
+    try:
+        replies = served(engine, "fused (e) json_scoring_pipeline(pm)",
+                         bodies, 16)
+    finally:
+        engine.stop()
+    got = np.asarray([r["prediction"] for r in replies], np.float64)
+    flips_e = _near_tie_rule("(e) replies vs fused transform", got,
+                             want["prediction"], want["probability"])
+    trips = sc.device_roundtrips - trips0
+    batches = sc.batches_scored - batches0
+    check(trips == batches > 0,
+          f"(e) {trips} device round trips over {batches} batches")
+    check(sc.fused.jit_cache_misses == m0,
+          "(e) serving met a shape warmup had not run")
+    print(f"fused (e): warmup ran {warmed} buckets in {warm_e:.3f} s; "
+          f"every reply equals the fused transform of its row "
+          f"({flips_e} near-tie flips); {trips / batches:.2f} "
+          f"device-to-host copies a batch over {batches} batches")
+    del pm, fused, table, rows, want, scorer, engine
+    gc.collect()
+
+    # ---- (b) bench_ooc: 10M rows streamed under a 1.5 GB budget ----------
+    ooc, fz_s = PP.ooc_pipeline()
+    chunk0 = PP.ooc_chunk(0, PP.OOC_CHUNK)
+    ooc_plan = ooc.plan_for(chunk0.schema)
+    check(len(ooc_plan.steps) == 1 and len(ooc_plan.segments[0].ops) == 3,
+          f"(b) the streamed plan is not one fused segment: "
+          f"{ooc_plan.describe()}")
+    for h in MC.ooc_histograms().values():
+        h.reset()
+    gc.collect()
+    src = PP.ooc_source()
+    rows_seen, pred_sum, first = 0, 0.0, None
+    with RssPeak() as rss:
+        t0, cpu0 = time.perf_counter(), time.process_time()
+        for out in ooc.transform_chunked(src):
+            p = np.asarray(out["prediction"])
+            if first is None:
+                first = p.copy()
+            rows_seen += len(p)
+            pred_sum += float(p.sum())
+            del out, p
+        streamed_s = time.perf_counter() - t0
+        cpu_s = time.process_time() - cpu0
+    check(rows_seen == PP.OOC_ROWS, f"(b) streamed {rows_seen} rows")
+    tracked = src.stats.tracked_peak_bytes()
+    check(tracked < PP.OOC_BUDGET_BYTES,
+          f"(b) streamed tracked bytes {tracked} over the budget")
+    check(rss.growth < PP.OOC_BUDGET_BYTES,
+          f"(b) streamed RSS growth {rss.growth} over the budget")
+    check(np.array_equal(first, np.asarray(
+        ooc.transform(chunk0)["prediction"])),
+        "(b) the first chunk's streamed predictions differ from its fused "
+        "transform")
+    ph = {k: h.snapshot() for k, h in MC.ooc_histograms().items()}
+    worker_s = (ph["decode"]["sum"] + ph["prepare"]["sum"]) / 1e3
+    consumer_s = ph["dispatch"]["sum"] / 1e3
+    overlap = 0.0
+    if min(worker_s, consumer_s) > 0:
+        overlap = max(0.0, min(1.0, (worker_s + consumer_s - streamed_s)
+                               / min(worker_s, consumer_s)))
+    hidden = (max(0.0, min(1.0, 1.0 - ph["wait"]["sum"]
+                           / ph["decode"]["sum"]))
+              if ph["decode"]["sum"] > 0 else 0.0)
+    gc.collect()
+    with RssPeak() as rss_m:
+        t0 = time.perf_counter()
+        mat = PP.ooc_source(depth=0).materialize()
+        scored = ooc.transform(mat)
+        mat_s = time.perf_counter() - t0
+    mat_pred = np.asarray(scored["prediction"])
+    mat_tracked = table_nbytes(mat) + sum(
+        np.asarray(scored[c]).nbytes for c in scored.column_names
+        if c not in mat.column_names)
+    check(mat_tracked > PP.OOC_BUDGET_BYTES,
+          f"(b) the materialized path fit the budget: {mat_tracked}")
+    check(rss_m.growth > PP.OOC_BUDGET_BYTES,
+          f"(b) the materialized RSS growth {rss_m.growth} is under the "
+          "budget")
+    sum_diff = abs(float(mat_pred.sum()) - pred_sum)
+    check(sum_diff < 1e-6 * PP.OOC_ROWS,
+          f"(b) prediction sums differ by {sum_diff}")
+    del mat, scored, mat_pred
+    gc.collect()
+    print(f"fused (b) bench_ooc: streamed Featurize fit {fz_s:.3f} s; "
+          f"{PP.OOC_ROWS} rows in chunks of {PP.OOC_CHUNK}, prefetch "
+          f"{PP.OOC_PREFETCH}: streamed {streamed_s:.3f} s, tracked peak "
+          f"{tracked / 1e9:.3f} GB, RSS growth {rss.growth / 1e9:.3f} GB "
+          f"(sampled every 5 ms; budget "
+          f"{PP.OOC_BUDGET_BYTES / 1e9:.1f} GB); materialized "
+          f"{mat_s:.3f} s, tracked {mat_tracked / 1e9:.3f} GB, RSS growth "
+          f"{rss_m.growth / 1e9:.3f} GB; first chunk bitwise its own "
+          f"transform, prediction sums {pred_sum:.0f} (diff {sum_diff:.0f})")
+    print(f"fused (b) phases (s): decode {ph['decode']['sum'] / 1e3:.3f}, "
+          f"prepare {ph['prepare']['sum'] / 1e3:.3f}, wait "
+          f"{ph['wait']['sum'] / 1e3:.3f}, dispatch {consumer_s:.3f}; "
+          f"overlap fraction {overlap:.3f}, decode hidden {hidden:.3f}; "
+          f"process CPU {cpu_s:.3f} s over the {streamed_s:.3f} s wall "
+          f"({cpu_s / streamed_s:.2f} cores)")
+    summ = PP.ooc_source(rows=SUMMARY_ROWS)
+    t0 = time.perf_counter()
+    chunked_sum = SummarizeData().transform(summ)
+    sum_c_s = time.perf_counter() - t0
+    mat = PP.ooc_source(rows=SUMMARY_ROWS, depth=0).materialize()
+    t0 = time.perf_counter()
+    exact = SummarizeData().transform(mat)
+    sum_e_s = time.perf_counter() - t0
+    for name in ("a", "b"):
+        i = list(exact["Feature"]).index(name)
+        for k in ("Count", "Mean", "Min", "Max", "Sample_Variance",
+                  "Sample_Skewness", "Sample_Kurtosis",
+                  "Unique_Value_Count", "Missing_Value_Count"):
+            a, b = float(exact[k][i]), float(chunked_sum[k][i])
+            check(abs(a - b) <= 1e-6 * (1.0 + abs(a)),
+                  f"(b) SummarizeData {name} {k}: {b} vs {a}")
+        xs = np.sort(np.asarray(mat[name], np.float64))
+        xs = xs[np.isfinite(xs)]
+        for label, q in (("Median", 0.5), ("P25", 0.25), ("P75", 0.75),
+                         ("P5", 0.05), ("P95", 0.95)):
+            v = float(chunked_sum[label][i])
+            rank = np.searchsorted(xs, v, side="right") / len(xs)
+            check(abs(rank - q) < 0.005,
+                  f"(b) SummarizeData {name} {label} at rank {rank}")
+    print(f"fused (b) SummarizeData on {SUMMARY_ROWS} rows: chunked "
+          f"{sum_c_s:.3f} s, materialized {sum_e_s:.3f} s; counts and "
+          "moments within 1e-6, sketch percentiles within 0.005 in rank")
+    del mat, exact, chunked_sum, ooc
+    gc.collect()
+
+    # ---- (c) the LM as a one-stage fused pipeline -------------------------
+    lm = build_network(LM_SPEC, device="cuda", seed=0)
+    tokens = np.random.default_rng(7).integers(
+        0, LM_SPEC["vocab_size"], size=(LM_ROWS, LM_SPEC["max_len"]))
+    lm_t = DataTable({"tokens": tokens})
+    model = TPUModel.from_module(lm, device="cuda", inputCol="tokens",
+                                 outputCol="logits", batchSize=LM_BATCH)
+    ref = model.transform(lm_t)["logits"]
+    lm_fused = PipelineModel(stages=[model]).fused(batch_size=8)
+    lm_fused.transform(lm_t)   # its first run
+    lm_plan = lm_fused.plan_for(lm_t.schema)
+    torch.cuda.synchronize()
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    got = lm_fused.transform(lm_t)["logits"]
+    lm_s = time.perf_counter() - t0
+    f32_launches = FA.LAUNCHES["_fwd_kernel"]
+    check(f32_launches == LM_SPEC["depth"] * -(-LM_ROWS // LM_BATCH),
+          f"(c) the fused LM launched flash_fwd {f32_launches} times")
+    check(len(lm_plan.steps) == 1 and len(lm_plan.segments) == 1
+          and lm_plan.last_roundtrips == 1,
+          f"(c) the LM did not run as one fused segment: plan "
+          f"{lm_plan.describe()}, {lm_plan.last_roundtrips} round trips")
+    check(got.shape == ref.shape and np.array_equal(got, ref),
+          f"(c) fused logits differ from phase 4's transform: max |diff| "
+          f"{float(np.abs(got - ref).max()) if got.shape == ref.shape else got.shape}")
+    print(f"fused (c) LM_SPEC as a one-stage PipelineModel, fused(batch_"
+          f"size=8): {LM_ROWS} x {LM_SPEC['max_len']} tokens in "
+          f"{lm_s:.3f} s, plan {lm_plan.describe()}, flash_fwd_tf32x3 "
+          f"launches {f32_launches}, logits bitwise TPUModel.transform's")
+    del lm, model, lm_fused, ref, got
+    torch.cuda.empty_cache()
+
+    # ---- (d) the LM fitted from a .npy chunk stream ----------------------
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_fused")
+    os.makedirs(work, exist_ok=True)
+    lm_rows = 32
+    lt = slice_table(lm_rows)
+    paths = {}
+    for c in ("features", "label"):
+        paths[c] = os.path.join(work, f"{c}.npy")
+        np.save(paths[c], np.asarray(lt[c]))
+    stream = ChunkedTable.from_npy(paths, chunk_rows=LM_STREAM_CHUNK)
+    check(stream.num_rows == lm_rows,
+          f"(d) from_npy read {stream.num_rows} rows from the headers")
+
+    def lm_learner():
+        return TPULearner(networkSpec=LM_SPEC, loss="token_cross_entropy",
+                          optimizer="adamw", learningRate=1e-3,
+                          batchSize=BATCH, computeDtype="bfloat16",
+                          epochs=2, logEvery=1)
+
+    streamed = lm_learner()
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    streamed.fit(stream)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    bf16_launches = dict(FA.LAUNCHES)
+    want_l = LM_SPEC["depth"] * 2 * lm_rows // BATCH
+    check(all(v == want_l for v in bf16_launches.values()),
+          f"(d) the streamed fit launched {bf16_launches}, not {want_l} "
+          "each")
+    decoded = stream.stats.snapshot()["chunks"]
+    check(decoded == 2 * lm_rows // LM_STREAM_CHUNK,
+          f"(d) the stream decoded {decoded} chunks over 2 epochs")
+    listed = lm_learner()
+    listed.fit([lt.slice(i, i + LM_STREAM_CHUNK)
+                for i in range(0, lm_rows, LM_STREAM_CHUNK)])
+    l_s = [h["loss"] for h in streamed.history]
+    l_l = [h["loss"] for h in listed.history]
+    check(len(l_s) == 2 * lm_rows // BATCH and l_s == l_l,
+          f"(d) streamed losses {l_s} vs the shard list's {l_l}")
+    print(f"fused (d) LM fit from ChunkedTable.from_npy (chunks of "
+          f"{LM_STREAM_CHUNK}, 2 epochs, bf16): {stream_s:.3f} s, flash "
+          f"launches {bf16_launches}, {decoded} chunks decoded (no "
+          f"counting pass), losses bitwise the shard list's: "
+          f"{[round(x, 4) for x in l_s]}")
+    del streamed, listed
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- (f) phase 3's forest as a one-stage fused pipeline ---------------
+    if model255 is not None:
+        fz255 = fuse([model255], batch_size=256)
+        t0 = time.perf_counter()
+        fout = fz255.transform(test_t)
+        torch.cuda.synchronize()
+        f_s = time.perf_counter() - t0
+        f_plan = fz255.plan_for(test_t.schema)
+        check(len(f_plan.steps) == 1 and len(f_plan.segments) == 1
+              and f_plan.last_roundtrips == 1,
+              f"(f) the forest did not run as one fused segment: plan "
+              f"{f_plan.describe()}, {f_plan.last_roundtrips} round trips")
+        for c in ("rawPrediction", "prediction"):
+            check(np.array_equal(np.asarray(fout[c]), np.asarray(out255[c])),
+                  f"(f) fused forest {c} differs from phase 3's transform")
+        p_err = float(np.abs(np.asarray(fout["probability"])
+                             - np.asarray(out255["probability"])).max())
+        check(p_err <= 1e-6, f"(f) fused forest probabilities {p_err} off")
+        print(f"fused (f) phase 3's max_bin 255 forest fused over "
+              f"{len(test_t)} holdout rows as {f_plan.describe()}: "
+              f"{f_s:.3f} s, rawPrediction and "
+              f"prediction bitwise phase 3's, max |prob diff| {p_err:.2e}")
+    print(f"fused: phase 13 took {time.perf_counter() - t_phase:.1f} s; "
+          f"card: {smi}")
+    return {"f32": f32_launches, "bf16": bf16_launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3215,6 +3685,11 @@ def main() -> int:
     print(f"interchange: phase 12 took {time.perf_counter() - t0:.1f} s")
     for k, v in inter["bf16"].items():
         train_launches[k] += v
+
+    # ---- 13. fused and streamed pipelines --------------------------------
+    fused_launches = fused_slice(dev, smi, model255, out255, test_t)
+    for k, v in fused_launches["bf16"].items():
+        train_launches[k] += v
     print(json.dumps({"int8_gemms": inter["int8_gemms"]}))
     print(f"chip_smoke: all phases took {time.perf_counter() - t_start:.1f} "
           "s")
@@ -3277,7 +3752,8 @@ def main() -> int:
     # the forward in both types: f32 on the LM transform's path, bf16
     # (the tensor-core body) on the training slice's
     for dtype, tname, launches in (
-            (torch.float32, "f32", lm_launches + inter["f32"]),
+            (torch.float32, "f32",
+             lm_launches + inter["f32"] + fused_launches["f32"]),
             (torch.bfloat16, "bf16", train_launches["_fwd_kernel"])):
         m = flash_measured[dtype]
         kernels.append({

@@ -22,9 +22,14 @@ transfer-learning image path: ``read_images`` / ``read_binary_files``,
 (``LocalRepo``, ``ModelDownloader``; the JAX package's flax msgpack
 blobs, read without flax), torchvision checkpoint import
 (``importers.torch_import``) and ``ImageFeaturizer`` (a truncated zoo
-network on the card). See ROADMAP.md for what comes next.
+network on the card). A fitted pipeline runs fused on the card:
+``fuse(pipeline)`` / ``PipelineModel.fused()`` -> ``FusedPipelineModel``
+(``transform``, ``transform_chunked`` over an ``io.ooc.ChunkedTable``),
+and serves from raw JSON rows through ``json_scoring_pipeline``. See
+ROADMAP.md for what comes next.
 """
 
+from mmlspark_tpu_torch.core.fusion import FusedPipelineModel, fuse
 from mmlspark_tpu_torch.core.schema import BinaryFileSchema, ImageSchema
 from mmlspark_tpu_torch.core.stage import Pipeline, PipelineModel, load_stage
 from mmlspark_tpu_torch.core.table import DataTable
@@ -48,4 +53,5 @@ __all__ = ["DataTable", "Pipeline", "PipelineModel", "load_stage",
            "TPUBoostRegressor", "TPUBoostRegressionModel", "TPUModel",
            "TPULearner", "build_network", "ImageSchema", "BinaryFileSchema",
            "read_images", "read_binary_files", "ImageTransformer",
-           "ImageFeaturizer", "LocalRepo", "ModelDownloader"]
+           "ImageFeaturizer", "LocalRepo", "ModelDownloader",
+           "FusedPipelineModel", "fuse"]

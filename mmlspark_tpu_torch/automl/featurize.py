@@ -21,11 +21,15 @@ probe, and fit's level scan uses np.unique. The pre-vectorization
 per-row loops survive as ``_build_parts_rowloop`` — the bit-parity
 oracle the tests and ``chip_smoke.py``'s AutoML phase measure against.
 
-A ``ChunkedTable`` given to ``Featurize.fit`` or
-``FeaturizeModel.transform`` raises (ROADMAP.md, 'Out-of-core ingest');
-the reference's ``core/trace`` spans and fused ``device_op`` are not
-ported ('Device pipeline and serving compilation'). The
-``featurize_fit`` / ``featurize_transform`` histograms are observed.
+A ``ChunkedTable`` given to ``Featurize.fit`` is fitted in one bounded
+pass (``_fit_streaming``); ``FeaturizeModel.transform`` maps one lazily,
+chunk by chunk. ``FeaturizeModel.device_op`` is the fusion hook
+(``core/fusion.py``): string codes and token hashing run as host
+``Feed``s that ship int32 codes / f32 counts, the impute / one-hot /
+assembly run as torch ops on the device, bitwise the host transform.
+The reference's ``core/trace`` spans are not ported ('Device pipeline
+and serving compilation'). The ``featurize_fit`` /
+``featurize_transform`` histograms are observed.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from mmlspark_tpu_torch.core import metrics as MC
 from mmlspark_tpu_torch.core.params import (
@@ -45,7 +50,6 @@ from mmlspark_tpu_torch.core.schema import (
 from mmlspark_tpu_torch.core.stage import Estimator, Model
 from mmlspark_tpu_torch.core.sparse import CSRMatrix
 from mmlspark_tpu_torch.core.table import DataTable
-from mmlspark_tpu_torch.io.ooc import refuse_chunked
 from mmlspark_tpu_torch.stages.text import (
     _hash_counts, _stable_hash, hash_counts_csr,
     hash_counts_dense, string_codes as _string_codes,
@@ -132,8 +136,22 @@ class Featurize(Estimator):
             return 1 << 18    # the reference's sparse default
         return self.get("numberOfFeatures")
 
+    def reads_columns(self, schema):
+        cols = self.get_or_none("featureColumns")
+        if cols is not None:
+            return list(cols)
+        if schema is None:
+            return None
+        return [c for c in schema.names if c != self.get("outputCol")]
+
+    def writes_columns(self, schema):
+        return [self.get("outputCol")]
+
     def fit(self, table: DataTable) -> "FeaturizeModel":
-        refuse_chunked(table, "Featurize.fit")
+        if not isinstance(table, DataTable):
+            from mmlspark_tpu_torch.io.ooc import ChunkedTable
+            if isinstance(table, ChunkedTable):
+                return self._fit_streaming(table)
         t0 = time.perf_counter()
         cols = self.get_or_none("featureColumns")
         if cols is None:
@@ -160,6 +178,57 @@ class Featurize(Estimator):
             (time.perf_counter() - t0) * 1e3)
         return FeaturizeModel(specs=specs,
                               outputCol=self.get("outputCol"))
+
+    def _fit_streaming(self, chunked) -> "FeaturizeModel":
+        """One bounded-memory pass over a ChunkedTable: every fit
+        statistic is streaming/mergeable — numeric impute means from
+        per-chunk finite sums (f64), string levels from per-chunk
+        distinct-set unions (same sorted-when-comparable discipline as
+        ``_distinct_levels``), everything else from the schema. The
+        resulting specs match the in-memory ``fit`` on the same rows
+        (means to f64 summation order)."""
+        t0 = time.perf_counter()
+        schema = chunked.schema
+        out_col = self.get("outputCol")
+        cols = self.get_or_none("featureColumns")
+        if cols is None:
+            cols = [c for c in schema.names if c != out_col]
+        sums: Dict[str, float] = {}
+        counts: Dict[str, int] = {}
+        levels: Dict[str, Dict[Any, None]] = {}
+        num_cols = [c for c in cols if schema[c].tag in _NUMERIC_TAGS]
+        str_cols = [c for c in cols if schema[c].tag == STRING]
+        for chunk in chunked.chunks():
+            for c in num_cols:
+                col = np.asarray(chunk[c], dtype=np.float64)
+                finite = col[np.isfinite(col)]
+                sums[c] = sums.get(c, 0.0) + float(finite.sum())
+                counts[c] = counts.get(c, 0) + int(finite.size)
+            for c in str_cols:
+                seen = levels.setdefault(c, {})
+                for v in _distinct_levels(chunk[c]):
+                    seen.setdefault(v, None)
+        specs: List[Dict[str, Any]] = []
+        for c in cols:
+            f = schema[c]
+            mean = (sums.get(c, 0.0) / counts[c]
+                    if counts.get(c) else 0.0)
+            lv: Optional[List[Any]] = None
+            if f.tag == STRING:
+                lv = list(levels.get(c, {}).keys())
+                try:
+                    lv = sorted(lv)
+                except TypeError:
+                    pass
+            spec = _column_spec(
+                c, f, one_hot=self.get("oneHotEncodeCategoricals"),
+                hash_width=self._hash_width(),
+                sparse=self.get("sparse"), mean=mean, levels=lv)
+            if spec is not None:
+                specs.append(spec)
+        MC.automl_histograms()["featurize_fit"].observe(
+            (time.perf_counter() - t0) * 1e3)
+        return FeaturizeModel(specs=specs, outputCol=out_col)
 
 def _spec_width(spec: Dict[str, Any], table: DataTable) -> int:
     """Output width of one spec's block in the assembled matrix."""
@@ -309,11 +378,111 @@ class FeaturizeModel(Model):
     specs = ListParam("per-column featurization specs", default=None)
     outputCol = ColParam("assembled features column", default="features")
 
+    def reads_columns(self, schema):
+        return [s["col"] for s in (self.get("specs") or [])]
+
+    def writes_columns(self, schema):
+        return [self.get("outputCol")]
+
+    def device_op(self, schema):
+        """Fusion hook (core/fusion.py): the host-only kernels (string
+        codes, FNV token hashing — the columnar paths) run as ``Feed``
+        loaders on the host; the impute / one-hot / assembly runs as
+        torch ops on the device, so the assembled (N, D) matrix is a
+        device intermediate flowing straight into the model, never a
+        host column. Every part is exact in f32 (selects, compares,
+        small-int counts), so the fused featurize is bitwise the host
+        ``transform``."""
+        from mmlspark_tpu_torch.core import fusion as FZ
+        specs = self.get("specs") or []
+        if not specs or any(s["kind"] == "hash" and s.get("sparse")
+                            for s in specs):
+            return None    # CSR assembly stays on the host
+        out_col = self.get("outputCol")
+        reads: List[str] = []
+        feeds: List[Any] = []
+        metas: List[Dict[str, Any]] = []
+        for i, spec in enumerate(specs):
+            c, kind = spec["col"], spec["kind"]
+            m: Dict[str, Any] = {"kind": kind}
+            if kind in ("numeric", "vector"):
+                if c not in reads:
+                    reads.append(c)
+                m["read"] = c
+            elif kind == "onehot":
+                name = f"{self.uid}:{i}:{c}:i32"
+                feeds.append(FZ.Feed(
+                    name, lambda t, _c=c: np.asarray(
+                        t[_c], dtype=np.int64).astype(np.int32)))
+                m["feed"] = name
+                m["size"] = int(spec["size"])
+            elif kind in ("string_index", "string_onehot"):
+                name = f"{self.uid}:{i}:{c}:codes"
+                levels = spec["levels"]
+                feeds.append(FZ.Feed(
+                    name, lambda t, _c=c, _lv=levels:
+                    _string_codes(t[_c], _lv).astype(np.int32)))
+                m["feed"] = name
+                if kind == "string_onehot":
+                    m["size"] = len(levels)
+            elif kind == "hash":
+                name = f"{self.uid}:{i}:{c}:hash"
+                size = spec["size"]
+                feeds.append(FZ.Feed(
+                    name, lambda t, _c=c, _m=size:
+                    hash_counts_dense(t[_c], _m, binary=False)))
+                m["feed"] = name
+            else:
+                return None
+            if kind == "numeric":
+                m["ci"] = sum(1 for mm in metas if mm["kind"] == "numeric")
+            metas.append(m)
+
+        def make_consts():
+            return {"fills": np.asarray(
+                [s["fill"] for s in specs if s["kind"] == "numeric"],
+                np.float32)}
+
+        def fn(consts, env, _metas=tuple(metas), _o=out_col):
+            parts = []
+            for m in _metas:
+                kind = m["kind"]
+                if kind == "numeric":
+                    x = env[m["read"]]
+                    parts.append(torch.where(
+                        torch.isfinite(x), x,
+                        consts["fills"][m["ci"]])[:, None])
+                elif kind == "vector":
+                    parts.append(env[m["read"]].to(torch.float32))
+                elif kind == "string_index":
+                    parts.append(env[m["feed"]]
+                                 .to(torch.float32)[:, None])
+                elif kind in ("onehot", "string_onehot"):
+                    codes = env[m["feed"]]
+                    levels = torch.arange(m["size"], dtype=codes.dtype,
+                                          device=codes.device)
+                    parts.append((codes[:, None] == levels)
+                                 .to(torch.float32))
+                else:   # hash counts, already (N, m) f32
+                    parts.append(env[m["feed"]])
+            return {_o: torch.cat(parts, dim=1)}
+
+        return FZ.DeviceOp(
+            self, reads=reads, writes=[out_col], fn=fn,
+            make_consts=make_consts, feeds=feeds,
+            out_fields={out_col: Field(out_col, VECTOR)})
+
     def transform(self, table: DataTable) -> DataTable:
         # all parts float32: device stages consume f32/bf16 anyway, and a
         # single float64 part would upcast the whole concatenate (doubling
         # the wide hashed block's footprint)
-        refuse_chunked(table, "FeaturizeModel.transform")
+        if not isinstance(table, DataTable):
+            from mmlspark_tpu_torch.io.ooc import ChunkedTable
+            if isinstance(table, ChunkedTable):
+                # a lazy per-chunk map — the (N, D) features matrix only
+                # ever exists chunk-sized
+                return table.map(self.transform,
+                                 label=f"{table.label}|featurize")
         t0 = time.perf_counter()
         specs = self.get("specs") or []
         if any(s["kind"] == "hash" and s.get("sparse") for s in specs):

@@ -308,19 +308,42 @@ def automl_histograms() -> Dict[str, LatencyHistogram]:
 # out-of-core ingest phase histograms (io/ooc.py)
 # ---------------------------------------------------------------------------
 
-# per-chunk wall milliseconds of chunked ingest: decode (the source read
-# — .npy slice, Arrow IPC batch, generator build — on the prefetch
-# worker) and wait (how long the consumer blocked on the prefetch queue;
-# near zero when ingest hides behind the consumer's work). The JAX
-# package's two other phases, prepare and dispatch, belong to its fused
-# chunked transform, which the port does not have yet.
-OOC_PHASES = ("decode", "wait")
+# per-chunk wall milliseconds of the chunked ingest pipeline: decode
+# (source read — .npy slice, Arrow IPC batch, generator build — on the
+# prefetch worker), prepare (host prefix stages + fused-feed kernels +
+# the H2D copy of the next chunk on a side stream, also on the worker),
+# wait (how long the consumer actually BLOCKED on the prefetch queue —
+# near zero when ingest hides behind the card's work), dispatch
+# (consumer-side fused dispatch + fetch + trailing host stages per
+# chunk). The overlap fraction is computed from these: worker-side wall
+# + consumer-side wall against the end-to-end wall.
+OOC_PHASES = ("decode", "prepare", "wait", "dispatch")
 _OOC_HISTS: Dict[str, LatencyHistogram] = histogram_set(*OOC_PHASES)
 
 
 def ooc_histograms() -> Dict[str, LatencyHistogram]:
     """The process-wide out-of-core ingest phase histogram family."""
     return _OOC_HISTS
+
+
+# ---------------------------------------------------------------------------
+# fused-pipeline phase histograms
+# ---------------------------------------------------------------------------
+
+# per-phase wall milliseconds across fused pipeline executions
+# (core/fusion.py): host_stage (unfused stages run on the host), prepare
+# (host feed kernels — string codes / token hashing), ship (H2D of the
+# external reads), device (fused-segment dispatch -> outputs on the
+# host), fetch (the D2H materialization of the live outputs — exactly
+# one copy per segment).
+PIPELINE_PHASES = ("host_stage", "prepare", "ship", "device", "fetch")
+_PIPELINE_HISTS: Dict[str, LatencyHistogram] = histogram_set(
+    *PIPELINE_PHASES)
+
+
+def pipeline_histograms() -> Dict[str, LatencyHistogram]:
+    """The process-wide fused-pipeline phase histogram family."""
+    return _PIPELINE_HISTS
 
 
 # ---------------------------------------------------------------------------

@@ -8,13 +8,12 @@ for load-time resolution; ``save``/``load`` go through
 ``core/serialize.py`` in the JAX package's on-disk format.
 
 ``Pipeline.fit`` and ``PipelineModel.transform`` run stage after stage
-on the host. The reference also drops, between stages, the columns no
-later stage reads (its fusion planner's liveness pass, fed by the
-stages' ``reads_columns`` / ``writes_columns`` / ``removes_columns``);
-that changes no output, and the port, which has no fusion planner yet,
-keeps every column and declares no column flow.
-``PipelineModel.fused()`` raises (ROADMAP.md, 'Device pipeline and
-serving compilation').
+on the host and drop, between stages, the columns no later stage reads:
+the liveness pass of ``core/fusion.py``, fed by the stages'
+``reads_columns`` / ``writes_columns`` / ``removes_columns``. A stage
+that declares nothing (a user ``Lambda``) disables the pruning across
+itself, so pruning changes no output. ``PipelineModel.fused()`` compiles
+the fitted stages into fused device segments (``core/fusion.py``).
 """
 
 from __future__ import annotations
@@ -155,6 +154,23 @@ class PipelineStage:
                 f"loaded {type(stage).__name__}, expected {cls.__name__}")
         return stage
 
+    # -- column-flow declaration (core/fusion.py liveness pass) ------------
+    # Stages that know exactly which columns they consume/produce/remove
+    # override these; ``None`` means "unknown" and disables pruning
+    # across the stage (the conservative default — a UDF/Lambda may
+    # touch anything). For Estimators, reads must cover everything
+    # fit() consumes AND the fitted model's transform inputs; writes
+    # are the fitted model's outputs. ``removes`` is always concrete.
+
+    def reads_columns(self, schema: Schema) -> Optional[List[str]]:
+        return None
+
+    def writes_columns(self, schema: Schema) -> Optional[List[str]]:
+        return None
+
+    def removes_columns(self, schema: Schema) -> List[str]:
+        return []
+
     def __repr__(self):
         set_params = ", ".join(
             f"{k}={v!r}" for k, v in sorted(self._paramMap.items())
@@ -214,9 +230,14 @@ class Pipeline(Estimator):
         return self.get("stages") or []
 
     def fit(self, table: DataTable) -> "PipelineModel":
+        # the intermediate tables threaded through fit only feed LATER
+        # stages (final_needed={}), so a wide hashed block or raw text
+        # column is dropped the moment no remaining stage reads it
+        from mmlspark_tpu_torch.core.fusion import column_liveness, prune_table
         fitted: List[Transformer] = []
         cur = table
         stages = self.get_stages()
+        needed = column_liveness(stages, table.schema, final_needed=set())
         for i, stage in enumerate(stages):
             last = i == len(stages) - 1
             if isinstance(stage, Estimator):
@@ -230,6 +251,8 @@ class Pipeline(Estimator):
                     cur = stage.transform(cur)
             else:
                 raise TypeError(f"stage {stage!r} is not Transformer/Estimator")
+            if not last:
+                cur = prune_table(cur, needed[i + 1])
         return PipelineModel(stages=fitted)
 
     def transform_schema(self, schema: Schema) -> Schema:
@@ -250,14 +273,44 @@ class PipelineModel(Model):
         return self.get("stages") or []
 
     def transform(self, table: DataTable) -> DataTable:
-        for stage in self.get_stages():
+        """Stage-at-a-time host execution; an intermediate column nothing
+        downstream reads is dropped as soon as its last reader ran. A
+        ``ChunkedTable`` maps lazily, chunk by chunk (the fused chunked
+        executor is ``FusedPipelineModel.transform_chunked``)."""
+        if not isinstance(table, DataTable):
+            from mmlspark_tpu_torch.io.ooc import ChunkedTable
+            if isinstance(table, ChunkedTable):
+                return table.map(self.transform,
+                                 label=f"{table.label}|pipeline")
+        from mmlspark_tpu_torch.core.fusion import column_liveness, prune_table
+        stages = self.get_stages()
+        # single-entry liveness cache: the walk is constant for a fixed
+        # (schema, stage epochs) pair, and per-batch callers (serving
+        # micro-batches, CV folds) transform the same shape repeatedly
+        key = (tuple((f.name, f.tag) for f in table.schema),
+               tuple((s.uid, getattr(s, "_param_epoch", 0))
+                     for s in stages))
+        cached = getattr(self, "_liveness_cache", None)
+        if cached is not None and cached[0] == key:
+            needed = cached[1]
+        else:
+            needed = column_liveness(stages, table.schema)
+            self._liveness_cache = (key, needed)
+        for i, stage in enumerate(stages):
             table = stage.transform(table)
+            if i < len(stages) - 1:
+                table = prune_table(table, needed[i + 1])
         return table
 
-    def fused(self, batch_size: int = 256):
-        raise NotImplementedError(
-            "PipelineModel.fused is not ported yet: ROADMAP.md, 'Device "
-            "pipeline and serving compilation'")
+    def fused(self, batch_size: int = 256, device=None):
+        """Compile this fitted pipeline for fused execution on ``device``
+        (None = the card): maximal runs of device-capable stages become
+        fused segments with device-resident constants
+        (``core/fusion.py``). Returns a ``FusedPipelineModel`` with the
+        same ``transform`` and the serving bucket discipline."""
+        from mmlspark_tpu_torch.core.fusion import FusedPipelineModel
+        return FusedPipelineModel(self.get_stages(), batch_size=batch_size,
+                                  device=device)
 
     def transform_schema(self, schema: Schema) -> Schema:
         for stage in self.get_stages():

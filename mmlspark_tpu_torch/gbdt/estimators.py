@@ -16,6 +16,14 @@ works. A sparse (``CSRMatrix``) features column trains and scores
 without densifying the table, and ``fit`` also takes an out-of-core
 ``ChunkedTable`` (``binFit='sketch'`` for one-pass sketch cuts).
 Distributed modes raise ``NotImplementedError`` from ``booster.train``.
+
+The fitted models carry the fusion hook ``device_op``
+(``core/fusion.py``): the forest walk (``tree.predict_trees``) and the
+objective transform as torch ops, with the stacked forest as device
+constants. The trees' outputs are summed one iteration after another,
+the order of the host path's numpy sum, so the fused raw scores are
+bitwise the host ones; forests that need f64 routing return None (host
+path).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from mmlspark_tpu_torch.core.sparse import CSRMatrix
 from mmlspark_tpu_torch.core.table import DataTable, features_matrix
 from mmlspark_tpu_torch.device import HasDevice
 from mmlspark_tpu_torch.gbdt.booster import Booster, train
+from mmlspark_tpu_torch.gbdt.tree import predict_trees
 from mmlspark_tpu_torch.io.ooc import ChunkedTable
 
 
@@ -195,6 +204,58 @@ class _BoosterModel(Model, HasFeaturesCol, HasPredictionCol, HasDevice):
 
     _features_matrix = _BoostParams._features_matrix
 
+    def reads_columns(self, schema):
+        return [self.get_features_col()]
+
+    def _forest_op(self, writes, out_fields, out_dtypes, head):
+        """The shared device op: ``head(raw, prob, K)`` turns the (K, N)
+        raw scores and their objective transform into the written
+        columns. None when the forest must score on the host."""
+        from mmlspark_tpu_torch.core import fusion as FZ
+        try:
+            booster = self.get_booster()
+        except Exception:  # noqa: BLE001 — unparseable model: host path
+            return None
+        if booster.num_trees == 0 or booster._needs_f64_inference():
+            return None
+        feat = self.get_features_col()
+        K = booster.num_class
+        it = booster._resolve_iterations(None)
+        t_limit = it * K
+        if t_limit <= 0:
+            return None
+        max_depth = booster._max_depth(t_limit)
+        obj = booster.objective
+        FZ.register_kernel(head, f"{type(self).__name__}:{self.uid}:head")
+
+        def make_consts():
+            b = self.get_booster()
+            trees = {k: np.asarray(b.trees[k][:t_limit])
+                     for k in ("feature", "left", "right", "value")}
+            # thresholds as float32, as the f32 walk receives them
+            trees["threshold"] = np.asarray(
+                b.trees["threshold"][:t_limit], np.float32)
+            return {"trees": trees,
+                    "init": np.asarray(b.init_score, np.float32)}
+
+        def fn(consts, env, _f=feat, _it=it, _K=K, _depth=max_depth):
+            X = env[_f]
+            tr = consts["trees"]
+            out = predict_trees(X, tr["feature"], tr["threshold"],
+                                tr["left"], tr["right"], tr["value"],
+                                max_depth=_depth)
+            per_it = out.reshape(_it, _K, X.shape[0])
+            acc = per_it[0]
+            for i in range(1, _it):
+                acc = acc + per_it[i]
+            raw = consts["init"][:, None] + acc
+            return head(raw, obj.transform(raw), _K)
+
+        return FZ.DeviceOp(
+            self, reads=[feat], writes=writes, fn=fn,
+            make_consts=make_consts, out_fields=out_fields,
+            out_dtypes=out_dtypes)
+
     def save_native_model(self, path: str) -> None:
         self.get_booster().save_native_model(path)
 
@@ -269,6 +330,35 @@ class TPUBoostClassificationModel(_BoosterModel):
     rawPredictionCol = ColParam("raw score output column",
                                 default="rawPrediction")
 
+    def writes_columns(self, schema):
+        return [self.get("rawPredictionCol"), self.get("probabilityCol"),
+                self.get_prediction_col()]
+
+    def device_op(self, schema):
+        """Fusion hook: the f32 forest walk + the objective transform
+        on the device; raw / probability stay float32 like the host
+        path's, the prediction widens to f64."""
+        raw_col = self.get("rawPredictionCol")
+        prob_col = self.get("probabilityCol")
+        pred_col = self.get_prediction_col()
+
+        def head(raw, prob, K, _r=raw_col, _pr=prob_col, _p=pred_col):
+            if K == 1:
+                raw2 = torch.stack([-raw[0], raw[0]], dim=1)
+                prob2 = torch.stack([1.0 - prob[0], prob[0]], dim=1)
+            else:
+                raw2 = raw.T
+                prob2 = prob.T
+            pred = torch.argmax(prob2, dim=1).to(torch.float32)
+            return {_r: raw2, _pr: prob2, _p: pred}
+
+        return self._forest_op(
+            [raw_col, prob_col, pred_col],
+            {raw_col: Field(raw_col, VECTOR),
+             prob_col: Field(prob_col, VECTOR),
+             pred_col: Field(pred_col, F64)},
+            {pred_col: np.float64}, head)
+
     def transform(self, table: DataTable) -> DataTable:
         X = self._features_matrix(table)
         booster = self.get_booster()
@@ -328,6 +418,21 @@ class TPUBoostRegressor(Estimator, _BoostParams):
 
 class TPUBoostRegressionModel(_BoosterModel):
     """Fitted GBDT regressor."""
+
+    def writes_columns(self, schema):
+        return [self.get_prediction_col()]
+
+    def device_op(self, schema):
+        """Fusion hook: forest walk + objective transform on the device
+        (see TPUBoostClassificationModel.device_op)."""
+        pred_col = self.get_prediction_col()
+
+        def head(raw, pred, K, _p=pred_col):
+            return {_p: pred[0]}
+
+        return self._forest_op(
+            [pred_col], {pred_col: Field(pred_col, F64)},
+            {pred_col: np.float64}, head)
 
     def transform(self, table: DataTable) -> DataTable:
         X = self._features_matrix(table)

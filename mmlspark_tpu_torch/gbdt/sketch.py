@@ -200,7 +200,7 @@ class QuantileSketch:
         if self._pending_n == 0:
             return
         vals = (self._pending[0] if len(self._pending) == 1
-                else np.concatenate(self._pending))  # bounded pending buffer
+                else np.concatenate(self._pending))  # ooc:materialize-ok (bounded pending buffer)
         self._pending, self._pending_n = [], 0
         self._carry(_exact_summary(vals), 0)
 
@@ -246,7 +246,7 @@ class QuantileSketch:
             acc: Optional[_Summary] = None
             if self._pending_n:
                 vals = (self._pending[0] if len(self._pending) == 1
-                        else np.concatenate(self._pending))  # bounded pending buffer
+                        else np.concatenate(self._pending))  # ooc:materialize-ok (bounded pending buffer)
                 acc = _exact_summary(vals)
             for s in self._levels:
                 if s is not None:
@@ -265,6 +265,17 @@ class QuantileSketch:
         if self.exact:
             return 0.0
         return _certificate(self.summary())
+
+    def query(self, q: float) -> float:
+        """Value whose rank is within ``eps()*count`` of quantile ``q``
+        (the entry whose rank-interval midpoint lands closest) — the
+        percentiles of ``SummarizeData``'s chunked path."""
+        s = self.summary()
+        if len(s) == 0:
+            return float("nan")
+        r = float(np.clip(q, 0.0, 1.0)) * s.w
+        mid = (s.rmin + s.rmax) * 0.5
+        return float(s.v[int(np.argmin(np.abs(mid - r)))])
 
     def cuts(self, max_bin: int) -> np.ndarray:
         """Equal-frequency cut values, mirroring

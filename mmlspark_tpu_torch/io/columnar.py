@@ -3,8 +3,10 @@ port's copy of ``mmlspark_tpu/io/columnar.py``, without its shared-
 memory transport (``application/x-shm-columns`` raises, naming ROADMAP
 item 15, 'The rest of the serving plane'), without the static-audit
 registry of ingress kernels, which serves a tool of the JAX package, and
-without the helpers no scorer of the port calls yet (``StagingPool``,
-``assemble_column``, ``columns_to_rows``).
+without ``StagingPool`` and ``columns_to_rows`` (the fused pipeline
+scorer stages its padded batches through ``core.fusion.HostStaging``,
+pinned on the card). ``assemble_column`` builds the fused scorer's batch
+columns.
 
 JSON decode + row batching + pad together can rival the device phase of
 a serving batch. This module retires the host side of that path the way Arrow
@@ -476,6 +478,56 @@ def decode_columnar(codec: str, body: Optional[bytes]) -> ColumnarBatch:
     if not body:
         raise CodecError("empty request body")
     return fn(bytes(body))
+
+
+# ---------------------------------------------------------------------------
+# assembly: per-request decoded values -> one batch column
+# ---------------------------------------------------------------------------
+
+
+def assemble_column(decoded: List[Any], name: str, total_rows: int):
+    """One batch column from per-request decoded items (``dict`` = a
+    JSON row, ``ColumnarBatch`` = a columnar request). The numeric fast
+    path concatenates buffer views without creating any per-row Python
+    object; a single-request batch returns the zero-copy view itself.
+    Mixed or non-numeric columns fall back to list assembly (the JSON
+    oracle's representation)."""
+    segs = []
+    fast = True
+    for item in decoded:
+        if isinstance(item, ColumnarBatch):
+            col = item.columns.get(name)
+            if isinstance(col, np.ndarray) and col.dtype != object:
+                segs.append(col)
+                continue
+        fast = False
+        break
+    if fast and segs:
+        if len(segs) == 1:
+            return segs[0]
+        try:
+            return np.concatenate(segs, axis=0)
+        except ValueError as e:
+            raise CodecError(
+                f"column {name!r}: per-request shapes disagree "
+                f"({e})") from e
+    out: List[Any] = []
+    for item in decoded:
+        if isinstance(item, ColumnarBatch):
+            col = item.columns.get(name)
+            if col is None:
+                out.extend([None] * item.n_rows)
+            elif isinstance(col, np.ndarray):
+                out.extend(list(col))
+            else:
+                out.extend(col)
+        else:
+            out.append(item.get(name))
+    if len(out) != total_rows:
+        raise CodecError(
+            f"column {name!r}: assembled {len(out)} rows; "
+            f"expected {total_rows}")
+    return out
 
 
 # ---------------------------------------------------------------------------

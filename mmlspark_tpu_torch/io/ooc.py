@@ -24,13 +24,19 @@ peaks, so a caller can assert its bounded-memory claim from tracked
 bytes (peak in flight = (depth + 2) x peak chunk bytes) beside the
 process RSS.
 
-Consumers: GBDT ``train`` through ``as_xy`` and the GBDT estimators'
-``fit``. (The JAX package's ``ReplayWindow``, which only its control
-plane reads, is not ported yet: ROADMAP.md §1 item 15.)
+Consumers: ``FusedPipelineModel.transform_chunked`` (fused pipelines
+chunk-at-a-time, with the next chunk's upload on a side stream),
+the ``Featurize`` / ``StandardScaler`` / ``ValueIndexer`` streaming
+fits, ``SummarizeData`` (sketch-backed percentiles), ``TPULearner.fit``
+(a ChunkedTable IS a replayable shard stream), GBDT ``train`` through
+``as_xy`` and the GBDT estimators' ``fit``. (The JAX package's
+``ReplayWindow``, which only its control plane reads, is not ported
+yet: ROADMAP.md, 'The rest of the serving plane'.)
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import (
@@ -61,6 +67,10 @@ def table_nbytes(table: DataTable) -> int:
             total += int(col.data.nbytes + col.indices.nbytes
                          + col.indptr.nbytes)
             continue
+        fast = _object_column_nbytes(col)
+        if fast is not None:
+            total += fast
+            continue
         for v in col:
             if v is None:
                 total += 8
@@ -77,6 +87,25 @@ def table_nbytes(table: DataTable) -> int:
             else:
                 total += 32
     return total
+
+
+def _object_column_nbytes(col) -> Optional[int]:
+    """``table_nbytes``'s estimate for a column of only strings, or of
+    only lists of strings (the text and token columns chunked ingest
+    carries), summed by C-level ``map`` passes instead of a per-value
+    Python loop (the same numbers: 49 + len per string; 56 + 8 per
+    element + 49 + len per token per list). None for any other column,
+    which takes the per-value loop."""
+    types = set(map(type, col))
+    if types == {str}:
+        return 49 * len(col) + sum(map(len, col))
+    if types <= {list, tuple}:
+        toks = itertools.chain.from_iterable(col)
+        if set(map(type, toks)) <= {str}:
+            n_toks = sum(map(len, col))
+            chars = sum(map(len, itertools.chain.from_iterable(col)))
+            return 56 * len(col) + 57 * n_toks + chars
+    return None
 
 
 def current_rss_bytes() -> int:
@@ -260,7 +289,9 @@ class ChunkedTable:
         """Chunk memory-mapped ``.npy`` columns: ``columns`` maps
         column name -> path (loaded with ``mmap_mode='r'``) or an
         already-loaded array/memmap. Chunks COPY their slice out of the
-        mapping (bounded by chunk_rows; the accounting stays honest)."""
+        mapping (bounded by chunk_rows; the accounting stays honest).
+        The row count comes from the ``.npy`` headers when the table is
+        built, so consumers skip a counting pass (``TPULearner.fit``)."""
         chunk_rows = max(1, int(chunk_rows))
 
         def open_cols() -> Dict[str, np.ndarray]:
@@ -278,8 +309,9 @@ class ChunkedTable:
                 yield DataTable({name: np.array(c[start:stop])
                                  for name, c in cols.items()})
 
+        num_rows = min(len(c) for c in open_cols().values())
         return ChunkedTable(factory, prefetch_depth=prefetch_depth,
-                            label="npy")
+                            num_rows=num_rows, label="npy")
 
     # -- stream access ------------------------------------------------------
 
@@ -405,11 +437,12 @@ class ChunkedTable:
     def materialize(self) -> DataTable:
         """Concatenate EVERY chunk into one in-memory DataTable — the
         explicit opt-out of bounded memory (parity baselines, small
-        streams). Hot paths never call this."""
-        parts = list(self.chunks(prefetch_depth=0))
+        streams). Hot paths must never call this (audited by
+        ``testing/fusion_check.py``)."""
+        parts = list(self.chunks(prefetch_depth=0))  # ooc:materialize-ok
         if not parts:
             raise ValueError(f"empty chunk stream ({self.label})")
-        return DataTable.concat(parts)
+        return DataTable.concat(parts)  # ooc:materialize-ok
 
     def __repr__(self) -> str:
         n = "?" if self._num_rows is None else self._num_rows
@@ -427,16 +460,16 @@ def _record_batch_to_table(rb) -> DataTable:
         t = arr.type
         if pt.is_floating(t) or pt.is_integer(t) or pt.is_boolean(t):
             try:
-                cols[name] = arr.to_numpy(zero_copy_only=True)
+                cols[name] = arr.to_numpy(zero_copy_only=True)  # ooc:materialize-ok (chunk-local view)
             except Exception:  # noqa: BLE001 — nulls: masked copy
-                cols[name] = arr.to_numpy(zero_copy_only=False)
+                cols[name] = arr.to_numpy(zero_copy_only=False)  # ooc:materialize-ok (chunk-local)
         elif pt.is_fixed_size_list(t) and (
                 pt.is_floating(t.value_type)
                 or pt.is_integer(t.value_type)):
-            flat = arr.flatten().to_numpy(zero_copy_only=False)
+            flat = arr.flatten().to_numpy(zero_copy_only=False)  # ooc:materialize-ok (chunk-local)
             cols[name] = flat.reshape(len(arr), t.list_size)
         else:
-            cols[name] = arr.to_pylist()
+            cols[name] = arr.to_pylist()  # ooc:materialize-ok (chunk-local strings/lists)
     return DataTable(cols)
 
 
@@ -481,13 +514,3 @@ def write_arrow_ipc(source, path: str,
         if writer is not None:
             writer.close()
     return rows
-
-
-def refuse_chunked(table: Any, what: str) -> None:
-    """Raise for a ``ChunkedTable`` handed to a stage whose streamed
-    path the port does not have yet (the AutoML fits and
-    ``SummarizeData``)."""
-    if isinstance(table, ChunkedTable):
-        raise NotImplementedError(
-            f"{what} on a ChunkedTable is not ported yet: ROADMAP.md, "
-            f"'Out-of-core ingest'")

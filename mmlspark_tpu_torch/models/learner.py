@@ -77,9 +77,10 @@ steps on the same data:
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP.md
 item: ``meshAxes`` with an axis above 1, ``paramSharding='fsdp'``,
 ``set_mesh`` and multi-process feeding, with the same-resume-step check
-across hosts ('DNN training across cards'); an
-``io.ooc.ChunkedTable`` ('Out-of-core ingest'). The port has no
-``core/trace``, so a fit emits no framework spans.
+across hosts ('DNN training across cards'). An ``io.ooc.ChunkedTable``
+is fitted as a replayable shard stream, in the shard-list path's batch
+order. The port has no ``core/trace``, so a fit emits no framework
+spans.
 """
 
 from __future__ import annotations
@@ -299,9 +300,6 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
                 and torch.distributed.get_world_size() > 1):
             raise _not_ported("multi-process feeding",
                               "DNN training across cards")
-        if type(table).__name__ == "ChunkedTable":
-            raise _not_ported("io.ooc.ChunkedTable input",
-                              "Out-of-core ingest")
 
     def _build_module(self, dev: torch.device, row_shape) -> nn.Module:
         """The module to train, sized from one input row's shape."""
@@ -334,10 +332,14 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
         return (losses * w).sum() / torch.clamp(w.sum(), min=1.0)
 
     def fit(self, table) -> TPUModel:
-        """``table`` is a DataTable, or a sequence of DataTable shards / a
-        zero-arg callable returning an iterable of shards (re-invoked each
-        epoch; shuffling is within-shard with remainder rows carried
-        across shard boundaries)."""
+        """``table`` is a DataTable, or — for data that should not live
+        in host RAM at once — an ``io.ooc.ChunkedTable``, a sequence of
+        DataTable shards or a zero-arg callable returning an iterable of
+        shards (re-invoked each epoch; shuffling is within-shard with
+        remainder rows carried across shard boundaries). A ChunkedTable
+        that knows its row count skips the counting pass; its epochs
+        replay the chunk stream, each chunk decoded on its prefetch
+        worker while the card steps."""
         self._refuse_out_of_slice(table)
         dev = resolve_device(self.get("device"))
         input_shape = self.get("inputShape")
@@ -350,14 +352,19 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
             if not callable(table) and iter(table) is table:
                 raise ValueError(
                     "streaming fit() needs to replay shards every epoch: "
-                    "pass a sequence of DataTables or a zero-arg callable "
-                    "returning a fresh iterator, not a one-shot generator")
+                    "pass a sequence of DataTables, an io.ooc."
+                    "ChunkedTable, or a zero-arg callable returning a "
+                    "fresh iterator, not a one-shot generator")
             factory = table if callable(table) else (lambda: iter(table))
-            n, first_shard = 0, None
-            for t in factory():
-                if first_shard is None:
-                    first_shard = t
-                n += len(t)
+            from mmlspark_tpu_torch.io.ooc import ChunkedTable
+            if isinstance(table, ChunkedTable) and table.num_rows:
+                n, first_shard = table.num_rows, table.peek()
+            else:
+                n, first_shard = 0, None
+                for t in factory():
+                    if first_shard is None:
+                        first_shard = t
+                    n += len(t)
             if n == 0:
                 raise ValueError("empty shard stream")
             row_shape = table_to_xy(first_shard, fcol, lcol,
@@ -551,8 +558,9 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
                     perm = np_rng.permutation(len(xs))
                     xs, ys = xs[perm], ys[perm]
                     if carry_x is not None:
-                        xs = np.concatenate([carry_x, xs])
-                        ys = np.concatenate([carry_y, ys])
+                        # the carried remainder + ONE shard
+                        xs = np.concatenate([carry_x, xs])  # ooc:materialize-ok
+                        ys = np.concatenate([carry_y, ys])  # ooc:materialize-ok
                     n_full = len(xs) // batch_size
                     for i in range(n_full):
                         step += 1

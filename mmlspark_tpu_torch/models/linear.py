@@ -33,8 +33,10 @@ quantization (``quantize``) returns a new model with ``precision='int8'``
 that scores through ``core.quantize.int8_matmul_host``, the JAX
 package's host mirror, so a quantized model saved by either package
 scores bitwise equal in the other; ``precision='int8'`` cannot be set by
-hand on an f32 model. The fused ``device_op`` belongs to 'Device
-pipeline and serving compilation'.
+hand on an f32 model. ``device_op`` is the fusion hook
+(``core/fusion.py``): standardize, product and scoring as f32 torch ops
+on the fused plan's device, with every weight and statistic a device
+tensor (an int8 model through ``core.quantize.int8_matmul``).
 """
 
 from __future__ import annotations
@@ -271,6 +273,29 @@ def _device_f32(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
 
+def _linear_consts(model, weight_key: str, int8: bool,
+                   scalars: Tuple[str, ...] = ()):
+    """The ``make_consts`` of a linear model's device op: the weights
+    read at call time as float32 host arrays (f32 scalars for the label
+    statistics), which the fused plan ships as device tensors; an int8
+    model's quantized weight, its scales and no f32 weight."""
+    def make_consts():
+        ww = model.get("weights")
+        consts = {"b": np.asarray(ww["b"], np.float32),
+                  "mu": np.asarray(ww["mu"], np.float32),
+                  "sd": np.asarray(ww["sd"], np.float32)}
+        for k in scalars:
+            consts[k] = np.float32(ww[k])
+        if int8:
+            consts.update(wq=np.asarray(ww["wq"], np.int8),
+                          w_scale=np.asarray(ww["w_scale"], np.float32),
+                          x_scale=np.float32(ww["x_scale"]))
+        else:
+            consts[weight_key] = np.asarray(ww[weight_key], np.float32)
+        return consts
+    return make_consts
+
+
 class TPULogisticRegression(Estimator, HasFeaturesCol, HasLabelCol,
                             HasPredictionCol, HasDevice):
     """Multinomial logistic regression; labels must be 0..K-1.
@@ -289,6 +314,13 @@ class TPULogisticRegression(Estimator, HasFeaturesCol, HasLabelCol,
     stepSize = FloatParam("learning rate (dense features are "
                           "standardized first; sparse are not — see "
                           "class docstring)", default=0.5)
+
+    def reads_columns(self, schema):
+        return [self.get_features_col(), self.get_label_col()]
+
+    def writes_columns(self, schema):
+        return ["rawPrediction", "probability",
+                self.get_prediction_col()]
 
     def fit(self, table: DataTable) -> "TPULogisticRegressionModel":
         dev = resolve_device(self.get("device"))
@@ -379,6 +411,64 @@ class TPULogisticRegressionModel(Model, HasFeaturesCol, HasPredictionCol):
         if name in ("precision", "weights"):
             _refuse_hand_set_int8(self)
 
+    def reads_columns(self, schema):
+        return [self.get_features_col()]
+
+    def writes_columns(self, schema):
+        return ["rawPrediction", "probability",
+                self.get_prediction_col()]
+
+    def device_op(self, schema):
+        """Fusion hook (core/fusion.py): standardize + logits + softmax
+        + argmax as f32 torch ops on the device. The host ``transform``
+        computes the same formulas in float64 numpy, so fused
+        predictions match except on near ties and probabilities agree
+        to f32 rounding; ``transform_staged`` (the same function run
+        stage-at-a-time) is bitwise the fused path."""
+        from mmlspark_tpu_torch.core import fusion as FZ
+        w = self.get("weights")
+        if w is None or "mu" not in w:
+            return None    # sparse-featured models score on the host
+        feat = self.get_features_col()
+        pred_col = self.get_prediction_col()
+        binary = int(np.asarray(w["W"]).shape[1]) == 2
+        int8 = self.get("precision") == "int8"
+        make_consts = _linear_consts(self, "W", int8)
+
+        def fn(consts, env, _f=feat, _p=pred_col, _bin=binary,
+               _int8=int8):
+            Xs = (env[_f] - consts["mu"]) / consts["sd"]
+            if _int8:
+                # int8 tensor-core product + f32 dequant epilogue
+                logits = QZ.int8_matmul(
+                    Xs, consts["wq"], consts["x_scale"],
+                    consts["w_scale"]) + consts["b"]
+            else:
+                logits = Xs @ consts["W"] + consts["b"]
+            m = torch.amax(logits, dim=1, keepdim=True)
+            e = torch.exp(logits - m)
+            prob = e / torch.sum(e, dim=1, keepdim=True)
+            pred = torch.argmax(prob, dim=1).to(torch.float32)
+            if _bin:
+                raw = torch.stack([logits[:, 0] - logits[:, 1],
+                                   logits[:, 1] - logits[:, 0]], dim=1)
+            else:
+                raw = logits
+            return {"rawPrediction": raw, "probability": prob, _p: pred}
+
+        return FZ.DeviceOp(
+            self, reads=[feat],
+            writes=["rawPrediction", "probability", pred_col],
+            fn=fn, make_consts=make_consts,
+            out_fields={"rawPrediction": Field("rawPrediction", VECTOR),
+                        "probability": Field("probability", VECTOR),
+                        pred_col: Field(pred_col, F64)},
+            out_dtypes={"rawPrediction": np.float64,
+                        "probability": np.float64,
+                        pred_col: np.float64},
+            name=(f"{type(self).__name__}:{self.uid}:int8"
+                  if int8 else None))
+
     def quantize(self, calib: DataTable, percentile: float = 100.0
                  ) -> "TPULogisticRegressionModel":
         """Int8 post-training quantization (core/quantize.py): W gets
@@ -465,6 +555,12 @@ class TPULinearRegression(Estimator, HasFeaturesCol, HasLabelCol,
     regParam = FloatParam("L2 regularization", default=1e-4)
     stepSize = FloatParam("learning rate", default=0.1)
 
+    def reads_columns(self, schema):
+        return [self.get_features_col(), self.get_label_col()]
+
+    def writes_columns(self, schema):
+        return [self.get_prediction_col()]
+
     def fit(self, table: DataTable) -> "TPULinearRegressionModel":
         dev = resolve_device(self.get("device"))
         X = _features_matrix(table, self.get_features_col())
@@ -520,6 +616,44 @@ class TPULinearRegressionModel(Model, HasFeaturesCol, HasPredictionCol):
     def _on_param_change(self, name: str) -> None:
         if name in ("precision", "weights"):
             _refuse_hand_set_int8(self)
+
+    def reads_columns(self, schema):
+        return [self.get_features_col()]
+
+    def writes_columns(self, schema):
+        return [self.get_prediction_col()]
+
+    def device_op(self, schema):
+        """Fusion hook: standardize + dot + un-standardize in f32 (see
+        ``TPULogisticRegressionModel.device_op``); int8 models route the
+        dot through the quantized matmul with its f32 dequant epilogue."""
+        from mmlspark_tpu_torch.core import fusion as FZ
+        if self.get("weights") is None:
+            return None
+        feat = self.get_features_col()
+        pred_col = self.get_prediction_col()
+        int8 = self.get("precision") == "int8"
+        make_consts = _linear_consts(self, "w", int8, ("y_mu", "y_sd"))
+
+        def fn(consts, env, _f=feat, _p=pred_col, _int8=int8):
+            Xs = (env[_f] - consts["mu"]) / consts["sd"]
+            if _int8:
+                dot = QZ.int8_matmul(Xs, consts["wq"],
+                                     consts["x_scale"],
+                                     consts["w_scale"])[:, 0]
+            else:
+                dot = Xs @ consts["w"]
+            pred = (dot + consts["b"]) * consts["y_sd"] \
+                + consts["y_mu"]
+            return {_p: pred}
+
+        return FZ.DeviceOp(
+            self, reads=[feat], writes=[pred_col], fn=fn,
+            make_consts=make_consts,
+            out_fields={pred_col: Field(pred_col, F64)},
+            out_dtypes={pred_col: np.float64},
+            name=(f"{type(self).__name__}:{self.uid}:int8"
+                  if int8 else None))
 
     def quantize(self, calib: DataTable, percentile: float = 100.0
                  ) -> "TPULinearRegressionModel":

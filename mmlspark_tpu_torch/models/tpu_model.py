@@ -28,6 +28,12 @@ Saved with ``save``, the weights go as a pytree and a module's
 ``_ModuleApply`` as a pickle of its structure (parameters on the meta
 device; the weights restore them).
 
+``device_op`` is the fusion hook (``core/fusion.py``): the forward as one
+op of a fused segment, under ``networks.strict_f32()``, run in blocks of
+``batchSize`` rows with the ragged last block edge-padded to its bucket
+— the shapes ``transform`` runs, so a fused forward issues the same
+kernels on the same shapes; token ids arrive through an int32 ``Feed``.
+
 ``quantize(calib, percentile)`` returns a NEW model whose dense layers
 run int8 (``core/quantize.py``): ``precision='int8'``, ``computeDtype``
 pinned to float32, the quantized tensors in the weights pytree under
@@ -78,6 +84,18 @@ def _column_to_array(col, field: Optional[Field], dtype) -> np.ndarray:
     if isinstance(first, np.ndarray):
         return np.stack([np.asarray(x) for x in col]).astype(dtype)
     return np.asarray(col, dtype=dtype)
+
+
+def _token_ids(col, field: Optional[Field], name: str,
+               vocab: Optional[int]) -> np.ndarray:
+    """A token column as int32 ids, refused when an id falls outside
+    ``[0, vocab)`` (the host check ``transform`` makes per batch)."""
+    arr = _column_to_array(col, field, np.int32)
+    if vocab is not None and arr.size and (arr.min() < 0
+                                           or arr.max() >= vocab):
+        raise ValueError(f"column {name!r} holds token ids outside "
+                         f"[0, {vocab})")
+    return arr
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -161,9 +179,84 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
         raise _not_ported("set_sharding", "Device pipeline and serving "
                           "compilation")
 
+    # -- fusion hook ---------------------------------------------------------
+
+    def reads_columns(self, schema):
+        return list(self._feeds().values())
+
+    def writes_columns(self, schema):
+        return list(self._fetches().keys())
+
     def device_op(self, schema):
-        raise _not_ported("device_op (pipeline fusion)", "Device pipeline "
-                          "and serving compilation")
+        """Fusion hook (core/fusion.py): the forward becomes one op in a
+        fused segment — upstream featurization flows into it on the
+        device. It runs in blocks of ``batchSize`` rows, the last one
+        edge-padded to its bucket, as ``transform`` does, so device
+        memory stays bounded by the model's batch and the kernels see
+        ``transform``'s shapes. Integer-token models feed through an
+        int32 Feed (range-checked on the host) so ids never round-trip
+        through float."""
+        from mmlspark_tpu_torch.core import fusion as FZ
+        from mmlspark_tpu_torch.models.networks import strict_f32
+        feeds_map = self._feeds()
+        fetches = self._fetches()
+        model_fn = self.get("modelFn")
+        if model_fn is None:
+            return None
+        dtype = _COMPUTE_DTYPES[self.get("computeDtype")]
+        int_input = bool(getattr(model_fn, "int_input", False))
+        vocab = getattr(model_fn, "vocab_size", None)
+        batch = int(self.get("batchSize"))
+        reads: List[str] = []
+        op_feeds: List[Any] = []
+        env_key: Dict[str, str] = {}
+        for model_in, col in feeds_map.items():
+            if int_input:
+                name = f"{self.uid}:{col}:i32"
+                op_feeds.append(FZ.Feed(
+                    name, lambda t, _c=col: _token_ids(
+                        t[_c], t.schema.get(_c), _c, vocab)))
+                env_key[model_in] = name
+            else:
+                reads.append(col)
+                env_key[model_in] = col
+
+        def fn(consts, env, _keys=tuple(env_key.items()),
+               _fetch=tuple(fetches.items()), _dtype=dtype,
+               _int=int_input, _batch=batch, _bucket=self.bucket_for):
+            n = env[_keys[0][1]].shape[0]
+            res = {}
+            with strict_f32():
+                for start in range(0, n, _batch):
+                    rows = min(_batch, n - start)
+                    pad = _bucket(rows) - rows
+                    inputs = {}
+                    for model_in, key in _keys:
+                        x = env[key][start:start + rows]
+                        if pad:
+                            x = torch.cat([x, x[-1:].expand(
+                                (pad,) + tuple(x.shape[1:]))])
+                        inputs[model_in] = x.long() if _int \
+                            else x.to(_dtype)
+                    out = model_fn(consts, inputs)
+                    if not isinstance(out, dict):
+                        out = {"output": out}
+                    for out_col, model_out in _fetch:
+                        val = out[model_out][:rows]
+                        if val.dtype == torch.bfloat16:
+                            val = val.to(torch.float32)
+                        if out_col not in res:
+                            res[out_col] = torch.empty(
+                                (n,) + tuple(val.shape[1:]),
+                                dtype=val.dtype, device=val.device)
+                        res[out_col][start:start + rows] = val
+            return res
+
+        return FZ.DeviceOp(
+            self, reads=reads, writes=list(fetches.keys()), fn=fn,
+            make_consts=lambda: self.get("weights"), feeds=op_feeds,
+            name=(f"{type(self).__name__}:{self.uid}:int8"
+                  if self.get("precision") == "int8" else None))
 
     # -- post-training quantization -----------------------------------------
 
@@ -317,14 +410,10 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
             rows = stop - start
             inputs = {}
             for model_in, col_name in feeds.items():
-                arr = _column_to_array(table[col_name][start:stop],
-                                       table.schema.get(col_name),
-                                       np.int32 if int_input else np.float32)
-                if int_input and vocab is not None and arr.size and (
-                        arr.min() < 0 or arr.max() >= vocab):
-                    raise ValueError(
-                        f"column {col_name!r} holds token ids outside "
-                        f"[0, {vocab})")
+                col, field = table[col_name][start:stop], \
+                    table.schema.get(col_name)
+                arr = (_token_ids(col, field, col_name, vocab) if int_input
+                       else _column_to_array(col, field, np.float32))
                 # edge-pad: padded rows stay valid inputs
                 arr, _ = pad_to_multiple(arr, self.bucket_for(rows), axis=0)
                 self._seen_shapes.add(

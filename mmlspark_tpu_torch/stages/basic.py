@@ -8,9 +8,9 @@ SelectColumns, TextPreprocessor, Timer, UDFTransformer — each a small,
 composable host table op. ``Timer``'s ``traceDir`` writes a
 ``torch.profiler`` trace of the wrapped stage
 (``utils/profiling.maybe_trace``) where the JAX package writes a
-``jax.profiler`` one. The column-flow declarations the reference's
-fusion planner reads belong to ROADMAP.md's 'Device pipeline and
-serving compilation'.
+``jax.profiler`` one. DropColumns, SelectColumns and RenameColumn
+declare their column flow for the liveness pass of ``core/fusion.py``;
+the other stages declare none, which disables pruning across them.
 """
 
 from __future__ import annotations
@@ -58,6 +58,15 @@ class DropColumns(Transformer):
     def transform_schema(self, schema: Schema) -> Schema:
         return schema.drop(*(self.get("cols") or []))
 
+    def reads_columns(self, schema):
+        return []
+
+    def writes_columns(self, schema):
+        return []
+
+    def removes_columns(self, schema):
+        return list(self.get("cols") or [])
+
 class SelectColumns(Transformer):
     """ref: SelectColumns.scala"""
 
@@ -71,6 +80,16 @@ class SelectColumns(Transformer):
     def transform_schema(self, schema: Schema) -> Schema:
         return schema.select(*(self.get("cols") or []))
 
+    def reads_columns(self, schema):
+        return list(self.get("cols") or [])
+
+    def writes_columns(self, schema):
+        return []
+
+    def removes_columns(self, schema):
+        keep = set(self.get("cols") or [])
+        return [n for n in schema.names if n not in keep]
+
 class RenameColumn(Transformer, HasInputCol, HasOutputCol):
     """ref: RenameColumn.scala"""
 
@@ -79,6 +98,15 @@ class RenameColumn(Transformer, HasInputCol, HasOutputCol):
 
     def transform_schema(self, schema: Schema) -> Schema:
         return schema.rename({self.get_input_col(): self.get_output_col()})
+
+    def reads_columns(self, schema):
+        return [self.get_input_col()]
+
+    def writes_columns(self, schema):
+        return [self.get_output_col()]
+
+    def removes_columns(self, schema):
+        return [self.get_input_col()]
 
 class Repartition(Transformer):
     """Set the logical shard count used for distributed feeding

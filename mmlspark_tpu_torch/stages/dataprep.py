@@ -13,13 +13,14 @@ EnsembleByKey (ref: src/ensemble/.../EnsembleByKey.scala:21),
 MultiColumnAdapter (ref: src/multi-column-adapter/.../MultiColumnAdapter.scala:17),
 FastVectorAssembler and StandardScaler.
 
-The reference's streamed fits over a ``ChunkedTable`` (ValueIndexer,
-StandardScaler, SummarizeData's one-pass summary, the scaler's lazy
-map) raise here (``io.ooc.refuse_chunked``, ROADMAP.md 'Out-of-core
-ingest'); ``_StreamingMoments``, that summary's mergeable accumulator,
-is kept and held to the JAX package's. The fused ``device_op`` hooks
-and column-flow declarations belong to 'Device pipeline and serving
-compilation'.
+A ``ChunkedTable`` takes the reference's streamed paths: ValueIndexer
+and StandardScaler fit in one bounded pass, SummarizeData summarizes in
+one pass (exact counts and moments through ``_StreamingMoments``,
+percentiles through ``gbdt/sketch.py``), and the scaler model maps one
+lazily. ValueIndexerModel, CleanMissingDataModel, FastVectorAssembler
+and StandardScalerModel carry the fusion hook ``device_op``
+(``core/fusion.py``), and every stage here that the planner reads
+declares its column flow.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from mmlspark_tpu_torch.core.params import (
     BoolParam, ColParam, DictParam, EnumParam, FloatParam, HasInputCol,
@@ -37,7 +39,6 @@ from mmlspark_tpu_torch.core.schema import (
 )
 from mmlspark_tpu_torch.core.stage import Estimator, Model, Transformer
 from mmlspark_tpu_torch.core.table import DataTable, features_matrix
-from mmlspark_tpu_torch.io.ooc import refuse_chunked
 from mmlspark_tpu_torch.stages.text import string_codes
 
 
@@ -46,9 +47,29 @@ class ValueIndexer(Estimator, HasInputCol, HasOutputCol):
     categorical codes, recording levels in column metadata
     (ref: ValueIndexer.scala:54; Categoricals.scala metadata)."""
 
+    def reads_columns(self, schema):
+        return [self.get_input_col()]
+
+    def writes_columns(self, schema):
+        return [self.get_output_col()]
+
     def fit(self, table: DataTable) -> "ValueIndexerModel":
-        refuse_chunked(table, "ValueIndexer.fit")
-        levels = table.distinct_values(self.get_input_col())
+        if not isinstance(table, DataTable):
+            from mmlspark_tpu_torch.io.ooc import ChunkedTable
+            if not isinstance(table, ChunkedTable):
+                raise TypeError(
+                    f"ValueIndexer.fit expects a DataTable or "
+                    f"ChunkedTable; got {type(table).__name__}")
+            # streaming dictionary build: per-chunk distinct-set union in
+            # first-seen order, sorted below exactly like the in-memory
+            # scan
+            seen: Dict[Any, None] = {}
+            for chunk in table.chunks():
+                for v in chunk.distinct_values(self.get_input_col()):
+                    seen.setdefault(v, None)
+            levels = list(seen.keys())
+        else:
+            levels = table.distinct_values(self.get_input_col())
         # nulls are not levels (ref: ValueIndexer verifies non-null)
         levels = [v for v in levels if v is not None]
         try:
@@ -63,6 +84,39 @@ class ValueIndexer(Estimator, HasInputCol, HasOutputCol):
 
 class ValueIndexerModel(Model, HasInputCol, HasOutputCol):
     levels = ListParam("ordered category levels", default=None)
+
+    def reads_columns(self, schema):
+        return [self.get_input_col()]
+
+    def writes_columns(self, schema):
+        return [self.get_output_col()]
+
+    def device_op(self, schema):
+        """Fusion hook (core/fusion.py): the string -> code lookup is host
+        work (a Feed running the columnar dictionary kernel); the code
+        column itself lands directly in the fused segment, so a
+        downstream assembler/model never materializes it."""
+        from mmlspark_tpu_torch.core import fusion as FZ
+        in_col, out_col = self.get_input_col(), self.get_output_col()
+        levels = list(self.get("levels") or [])
+        f = schema.get(in_col)
+        if f is None or f.tag != STRING:
+            return None
+        feed_name = f"{self.uid}:{in_col}:codes"
+
+        def load(table, _c=in_col, _lv=levels):
+            return string_codes(table[_c], _lv).astype(np.int32)
+
+        def fn(consts, env, _k=feed_name, _o=out_col):
+            return {_o: env[_k].to(torch.float32)}
+
+        field = Field(out_col, F64, {"categorical": True, "levels": levels})
+        return FZ.DeviceOp(
+            self, reads=[], writes=[out_col], fn=fn,
+            make_consts=lambda: (),
+            feeds=[FZ.Feed(feed_name, load)],
+            out_fields={out_col: field},
+            out_dtypes={out_col: np.float64})
 
     def transform(self, table: DataTable) -> DataTable:
         levels = self.get("levels") or []
@@ -113,6 +167,12 @@ class CleanMissingData(Estimator):
                              "imputation mode", default="Mean")
     customValue = FloatParam("custom fill value", default=0.0)
 
+    def reads_columns(self, schema):
+        return list(self.get("inputCols") or [])
+
+    def writes_columns(self, schema):
+        return list(self.get("outputCols") or self.get("inputCols") or [])
+
     def fit(self, table: DataTable) -> "CleanMissingDataModel":
         in_cols = self.get("inputCols") or []
         out_cols = self.get("outputCols") or in_cols
@@ -136,6 +196,41 @@ class CleanMissingDataModel(Model):
     inputCols = ListParam("columns to clean", default=None)
     outputCols = ListParam("output columns", default=None)
     fillValues = DictParam("column -> fill value", default=None)
+
+    def reads_columns(self, schema):
+        return list(self.get("inputCols") or [])
+
+    def writes_columns(self, schema):
+        return list(self.get("outputCols") or self.get("inputCols") or [])
+
+    def device_op(self, schema):
+        """Fusion hook: the impute is one ``where(isfinite)`` select per
+        column on the device (f32 on the fused path; the host path
+        computes in f64, so fused values are f32-rounded)."""
+        from mmlspark_tpu_torch.core import fusion as FZ
+        in_cols = list(self.get("inputCols") or [])
+        out_cols = list(self.get("outputCols") or in_cols)
+        fills = self.get("fillValues") or {}
+        if not in_cols or len(in_cols) != len(out_cols):
+            return None
+
+        def make_consts():
+            return {"fills": np.asarray(
+                [fills.get(c, 0.0) for c in in_cols], np.float32)}
+
+        def fn(consts, env, _in=tuple(in_cols), _out=tuple(out_cols)):
+            out = {}
+            for i, (c, oc) in enumerate(zip(_in, _out)):
+                x = env[c]
+                out[oc] = torch.where(torch.isfinite(x), x,
+                                      consts["fills"][i])
+            return out
+
+        return FZ.DeviceOp(
+            self, reads=in_cols, writes=out_cols, fn=fn,
+            make_consts=make_consts,
+            out_fields={oc: Field(oc, F64) for oc in out_cols},
+            out_dtypes={oc: np.float64 for oc in out_cols})
 
     def transform(self, table: DataTable) -> DataTable:
         fills = self.get("fillValues") or {}
@@ -228,7 +323,10 @@ class SummarizeData(Transformer):
     _CHUNKED_UNIQUE_CAP = 1_000_000
 
     def transform(self, table: DataTable) -> DataTable:
-        refuse_chunked(table, "SummarizeData.transform")
+        if not isinstance(table, DataTable):
+            from mmlspark_tpu_torch.io.ooc import ChunkedTable
+            if isinstance(table, ChunkedTable):
+                return self._transform_chunked(table)
         rows: List[Dict[str, Any]] = []
         for name in table.column_names:
             col = table[name]
@@ -267,6 +365,97 @@ class SummarizeData(Transformer):
                                      (0.75, "P75"), (0.05, "P5"),
                                      (0.95, "P95")):
                         row[label] = float(np.quantile(x, q))
+            rows.append(row)
+        return DataTable.from_rows(rows)
+
+    def _transform_chunked(self, chunked) -> DataTable:
+        """Summary stats in one bounded-memory pass over a
+        ChunkedTable: count/missing/min/max/moments stream exactly
+        (central-moment merge, Pébay combine formulas); percentiles go
+        through the mergeable quantile sketch (gbdt/sketch.py) instead
+        of ``np.quantile`` over a materialized column, so summarizing
+        never forces the table into RAM. Sketch percentiles answer
+        within the sketch's measured rank-error certificate (exact
+        until its first compaction); the exact path's ``np.quantile``
+        interpolates BETWEEN order stats, the sketch returns an
+        observed value — equal at scale, not bit-equal."""
+        from mmlspark_tpu_torch.gbdt.sketch import QuantileSketch
+        names = list(chunked.schema.names)
+        num: Dict[str, _StreamingMoments] = {}
+        sketches: Dict[str, QuantileSketch] = {}
+        missing: Dict[str, int] = {n: 0 for n in names}
+        uniques: Dict[str, Any] = {n: set() for n in names}
+        # NaN is counted ONCE like the exact path's distinct count —
+        # each chunk's nan floats would otherwise enter the set as
+        # distinct objects (nan != nan), inflating the count by #chunks
+        nan_seen: Dict[str, bool] = {n: False for n in names}
+        n_rows = 0
+        cap = self._CHUNKED_UNIQUE_CAP
+        want_pct = self.get("percentiles")
+        for chunk in chunked.chunks():
+            n_rows += len(chunk)
+            for name in names:
+                col = chunk[name]
+                is_num = isinstance(col, np.ndarray) and col.ndim == 1 \
+                    and np.issubdtype(col.dtype, np.number)
+                if is_num:
+                    x = col.astype(np.float64)
+                    missing[name] += int(np.sum(~np.isfinite(x)))
+                    finite = x[np.isfinite(x)]
+                    num.setdefault(
+                        name, _StreamingMoments()).update(finite)
+                    if want_pct:
+                        sketches.setdefault(
+                            name, QuantileSketch()).update(finite)
+                else:
+                    missing[name] += sum(1 for v in col if v is None)
+                u = uniques.get(name)
+                if u is not None:
+                    try:
+                        if is_num:
+                            vals = np.unique(col)
+                            if np.issubdtype(vals.dtype, np.floating):
+                                nans = np.isnan(vals)
+                                nan_seen[name] |= bool(nans.any())
+                                vals = vals[~nans]
+                            u.update(vals.tolist())
+                        else:
+                            u.update(chunk.distinct_values(name))
+                    except TypeError:   # unhashable values
+                        uniques[name] = None
+                        continue
+                    if len(u) > cap:
+                        uniques[name] = None   # bounded: report NaN
+        rows: List[Dict[str, Any]] = []
+        for name in names:
+            row: Dict[str, Any] = {"Feature": name}
+            if self.get("counts"):
+                u = uniques.get(name)
+                n_u = (len(u) + int(nan_seen[name])
+                       if u is not None else None)
+                row.update(Count=float(n_rows),
+                           Unique_Value_Count=(float(n_u)
+                                               if n_u is not None
+                                               else float("nan")),
+                           Missing_Value_Count=float(missing[name]))
+            mom = num.get(name)
+            if mom is not None and mom.n > 0:
+                if self.get("basic"):
+                    row.update(Max=mom.max, Min=mom.min,
+                               Mean=mom.mean,
+                               Range=mom.max - mom.min)
+                if self.get("sample") and mom.n > 1:
+                    row.update(
+                        Sample_Variance=mom.variance,
+                        Sample_Standard_Deviation=mom.std,
+                        Sample_Skewness=mom.skewness,
+                        Sample_Kurtosis=mom.kurtosis)
+                if want_pct:
+                    sk = sketches[name]
+                    for q, label in ((0.5, "Median"), (0.25, "P25"),
+                                     (0.75, "P75"), (0.05, "P5"),
+                                     (0.95, "P95")):
+                        row[label] = sk.query(q)
             rows.append(row)
         return DataTable.from_rows(rows)
 
@@ -496,6 +685,36 @@ class FastVectorAssembler(Transformer, HasOutputCol):
         kw.setdefault("outputCol", "features")
         super().__init__(**kw)
 
+    def reads_columns(self, schema):
+        return list(self.get("inputCols") or [])
+
+    def writes_columns(self, schema):
+        return [self.get_output_col()]
+
+    def device_op(self, schema):
+        """Fusion hook: assembly is one ``cat`` on the device — the
+        (N, D) matrix becomes a device intermediate feeding the next op
+        instead of a host materialization."""
+        from mmlspark_tpu_torch.core import fusion as FZ
+        cols = self.get("inputCols")
+        if not cols:
+            return None
+        out_col = self.get_output_col()
+
+        def fn(consts, env, _cols=tuple(cols), _o=out_col):
+            parts = []
+            for c in _cols:
+                a = env[c]
+                if a.ndim == 1:
+                    a = a[:, None]
+                parts.append(a.to(torch.float32))
+            return {_o: torch.cat(parts, dim=1)}
+
+        return FZ.DeviceOp(
+            self, reads=list(cols), writes=[out_col], fn=fn,
+            make_consts=lambda: (),
+            out_fields={out_col: Field(out_col, VECTOR)})
+
     def transform(self, table: DataTable) -> DataTable:
         cols = self.get("inputCols")
         if not cols:
@@ -552,8 +771,17 @@ class StandardScaler(Estimator, HasInputCol, HasOutputCol):
             self._paramMap["outputCol"] = self.get("inputCol")
             self._auto_output = True
 
+    def reads_columns(self, schema):
+        return [self.get_input_col()]
+
+    def writes_columns(self, schema):
+        return [self.get_output_col()]
+
     def fit(self, table: DataTable) -> "StandardScalerModel":
-        refuse_chunked(table, "StandardScaler.fit")
+        if not isinstance(table, DataTable):
+            from mmlspark_tpu_torch.io.ooc import ChunkedTable
+            if isinstance(table, ChunkedTable):
+                return self._fit_streaming(table)
         col = table[self.get_input_col()]
         if isinstance(col, np.ndarray) and col.ndim == 1:
             X = np.asarray(col, dtype=np.float64)[:, None]
@@ -575,6 +803,53 @@ class StandardScaler(Estimator, HasInputCol, HasOutputCol):
         model.set("outputCol", self.get_output_col())
         return model
 
+    def _fit_streaming(self, chunked) -> "StandardScalerModel":
+        """One bounded-memory pass over a ChunkedTable: per-chunk
+        (count, mean, M2) merge via the parallel-Welford combine —
+        numerically stable where a naive sum(x^2) - sum(x) would cancel,
+        and equal to the in-memory fit's mean / population std to f64
+        merge order (identical at the f32 dtype the model stores)."""
+        in_col = self.get_input_col()
+        tag = chunked.schema[in_col].tag
+        scalar = tag not in (VECTOR,)
+        n_tot = 0
+        mean = m2 = None
+        for chunk in chunked.chunks():
+            col = chunk[in_col]
+            if scalar and isinstance(col, np.ndarray) and col.ndim == 1:
+                X = np.asarray(col, dtype=np.float64)[:, None]
+            else:
+                X = features_matrix(chunk, in_col)
+                scalar = False
+            nc = X.shape[0]
+            if nc == 0:
+                continue
+            mc = X.mean(axis=0)
+            m2c = ((X - mc) ** 2).sum(axis=0)
+            if mean is None:
+                n_tot, mean, m2 = nc, mc, m2c
+            else:
+                delta = mc - mean
+                n_new = n_tot + nc
+                mean = mean + delta * (nc / n_new)
+                m2 = m2 + m2c + delta ** 2 * (n_tot * nc / n_new)
+                n_tot = n_new
+        if mean is None or n_tot == 0:
+            raise ValueError("empty chunk stream")
+        mu = mean
+        sd = np.sqrt(m2 / n_tot)
+        sd = np.where(sd < 1e-12, 1.0, sd)
+        if not self.get("withMean"):
+            mu = np.zeros_like(mu)
+        if not self.get("withStd"):
+            sd = np.ones_like(sd)
+        model = StandardScalerModel(
+            mu=mu.astype(np.float32), sd=sd.astype(np.float32),
+            scalarInput=scalar)
+        model.set("inputCol", in_col)
+        model.set("outputCol", self.get_output_col())
+        return model
+
 class StandardScalerModel(Model, HasInputCol, HasOutputCol):
     from mmlspark_tpu_torch.core.params import PyTreeParam as _PT
     inputCol = ColParam("column to standardize", default="features")
@@ -586,6 +861,12 @@ class StandardScalerModel(Model, HasInputCol, HasOutputCol):
     scalarInput = BoolParam("input was a scalar numeric column",
                             default=False)
 
+    def reads_columns(self, schema):
+        return [self.get_input_col()]
+
+    def writes_columns(self, schema):
+        return [self.get_output_col()]
+
     def _load(self, table: DataTable) -> np.ndarray:
         col = table[self.get_input_col()]
         if isinstance(col, np.ndarray):
@@ -593,7 +874,11 @@ class StandardScalerModel(Model, HasInputCol, HasOutputCol):
         return np.stack([np.asarray(v, dtype=np.float32) for v in col])
 
     def transform(self, table: DataTable) -> DataTable:
-        refuse_chunked(table, "StandardScalerModel.transform")
+        if not isinstance(table, DataTable):
+            from mmlspark_tpu_torch.io.ooc import ChunkedTable
+            if isinstance(table, ChunkedTable):
+                return table.map(self.transform,
+                                 label=f"{table.label}|scaler")
         x = self._load(table)
         mu = np.asarray(self.get("mu"), np.float32)
         sd = np.asarray(self.get("sd"), np.float32)
@@ -609,3 +894,26 @@ class StandardScalerModel(Model, HasInputCol, HasOutputCol):
         f = schema[self.get_input_col()]
         tag = VECTOR if f.tag == VECTOR else F32
         return schema.add_or_replace(Field(self.get_output_col(), tag))
+
+    def device_op(self, schema):
+        """Fusion hook: ``(x - mu) / sd`` — elementwise f32 with mu and
+        sd as device tensors, bitwise the host transform."""
+        from mmlspark_tpu_torch.core import fusion as FZ
+        in_col, out_col = self.get_input_col(), self.get_output_col()
+        f = schema.get(in_col)
+        vector = f is not None and f.tag == VECTOR
+
+        def make_consts():
+            return {"mu": np.asarray(self.get("mu"), np.float32),
+                    "sd": np.asarray(self.get("sd"), np.float32)}
+
+        def fn(consts, env, _i=in_col, _o=out_col, _vec=vector):
+            x = env[_i]
+            if _vec:
+                return {_o: (x - consts["mu"]) / consts["sd"]}
+            return {_o: (x - consts["mu"][0]) / consts["sd"][0]}
+
+        field = Field(out_col, VECTOR if vector else F32)
+        return FZ.DeviceOp(
+            self, reads=[in_col], writes=[out_col], fn=fn,
+            make_consts=make_consts, out_fields={out_col: field})

@@ -240,13 +240,19 @@ def test_featurize_observes_its_histograms():
 
 
 def test_featurize_on_chunked_tables_raises():
-    t = PTable({"x": np.arange(10.0)})
+    """A ChunkedTable raised here until 'Out-of-core ingest' was ported:
+    Featurize now fits it in one streamed pass and its model maps it
+    chunk by chunk, equal to the in-memory fit and transform."""
+    x = np.arange(10.0)
+    x[3] = np.nan
+    t = PTable({"x": x})
     chunked = ChunkedTable.from_table(t, chunk_rows=4)
-    with pytest.raises(NotImplementedError, match="Out-of-core ingest"):
-        PA.Featurize(featureColumns=["x"]).fit(chunked)
+    streamed = PA.Featurize(featureColumns=["x"]).fit(chunked)
     model = PA.Featurize(featureColumns=["x"]).fit(t)
-    with pytest.raises(NotImplementedError, match="Out-of-core ingest"):
-        model.transform(chunked)
+    assert streamed.get("specs") == model.get("specs")
+    np.testing.assert_array_equal(
+        model.transform(chunked).materialize()["features"],
+        model.transform(t)["features"])
 
 
 # ---------------------------------------------------------------------------

@@ -1229,3 +1229,129 @@ def test_cuda_checkpoint_resume_bitwise(card, tmp_path, feed):
         [h["loss"] for h in full.history][8:]
     for k in wf:
         assert torch.equal(wf[k], wr[k]), k
+
+
+# ---------------------------------------------------------------------------
+# fused and streamed pipelines (core/fusion.py) on the card
+# ---------------------------------------------------------------------------
+
+
+def _fused_pipeline(n=4096, seed=0):
+    """A fitted Featurize -> StandardScaler -> logistic pipeline over
+    raw rows (NaN numerics, a string, token lists), fitted on the CPU."""
+    from mmlspark_tpu_torch.automl.featurize import Featurize
+    from mmlspark_tpu_torch.core.stage import Pipeline
+    from mmlspark_tpu_torch.models.linear import TPULogisticRegression
+    from mmlspark_tpu_torch.stages.dataprep import StandardScaler
+    rng = np.random.default_rng(seed)
+    b = rng.normal(size=n)
+    b[rng.random(n) < 0.2] = np.nan
+    t = DataTable({
+        "a": rng.normal(size=n).astype(np.float32), "b": b,
+        "cat": [f"l{int(i)}" for i in rng.integers(0, 8, n)],
+        "toks": [[f"w{int(x)}" for x in rng.integers(0, 30, 4)]
+                 for _ in range(n)],
+        "label": rng.integers(0, 2, n).astype(np.float64)})
+    pm = Pipeline(stages=[
+        Featurize(featureColumns=["a", "b", "cat", "toks"],
+                  numberOfFeatures=16, oneHotEncodeCategoricals=True),
+        StandardScaler(inputCol="features"),
+        TPULogisticRegression(featuresCol="features", labelCol="label",
+                              maxIter=10, device="cpu"),
+    ]).fit(t)
+    return t.drop("label"), pm
+
+
+@pytest.mark.cuda
+def test_cuda_fused_pipeline_matches_cpu(card):
+    """The same fused pipeline on the card and on the CPU: the assembled
+    features bitwise (selects, compares, counts), probabilities within
+    rtol 1e-5 / atol 1e-6, predictions equal but on near ties (top-two
+    margin under 1e-5); fused bitwise transform_staged on the card."""
+    raw, pm = _fused_pipeline()
+    on_card, on_cpu = pm.fused(device="cuda"), pm.fused(device="cpu")
+    got, want = on_card.transform(raw), on_cpu.transform(raw)
+    np.testing.assert_array_equal(got["features"], want["features"])
+    np.testing.assert_allclose(got["probability"], want["probability"],
+                               rtol=1e-5, atol=1e-6)
+    top2 = np.sort(np.asarray(want["probability"]), axis=1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) < 1e-5
+    diff = np.asarray(got["prediction"]) != np.asarray(want["prediction"])
+    assert not (diff & ~near).any()
+    staged = on_card.transform_staged(raw)
+    for c in ("features", "rawPrediction", "probability", "prediction"):
+        np.testing.assert_array_equal(got[c], staged[c])
+    assert on_card.plan_for(raw.schema).last_roundtrips == 3
+
+
+@pytest.mark.cuda
+def test_cuda_execute_chunked_depths_agree(card):
+    """execute_chunked with prefetch depth 0 (inline uploads) and 3
+    (uploads on a side stream from the prefetch worker) gives the same
+    outputs, each bitwise the fused transform of its chunk."""
+    from mmlspark_tpu_torch.io.ooc import ChunkedTable
+    raw, pm = _fused_pipeline()
+    fused = pm.fused(device="cuda")
+    outs = {}
+    for depth in (0, 3):
+        ct = ChunkedTable.from_table(raw, chunk_rows=512)
+        outs[depth] = list(fused.transform_chunked(ct,
+                                                   prefetch_depth=depth))
+    assert len(outs[0]) == len(outs[3]) == 8
+    for i, (a, b) in enumerate(zip(outs[0], outs[3])):
+        ref = fused.transform(raw.slice(512 * i, 512 * (i + 1)))
+        for c in ("features", "probability", "prediction"):
+            np.testing.assert_array_equal(a[c], b[c])
+            np.testing.assert_array_equal(a[c], ref[c])
+
+
+@pytest.mark.cuda
+def test_cuda_reused_pinned_buffer_never_leaks_rows(card):
+    """A pinned staging buffer is reused every ``slots`` uploads; each
+    chunk's device tensor must hold that chunk's rows, never a previous
+    one's, also while the card is still busy with earlier copies."""
+    from mmlspark_tpu_torch.core.fusion import HostStaging, Upload, adopt
+    staging = HostStaging(2, pinned=True)
+    side = torch.cuda.Stream(card)
+    held = []
+    for k in range(12):
+        host = np.full((1 << 20,), k, np.float32)
+        up = Upload(card, staging, side)
+        t = up.ship("x", host)
+        ready = up.finish()
+        adopt({"x": t}, ready, card)
+        held.append(t)
+    torch.cuda.synchronize()
+    for k, t in enumerate(held):
+        vals = torch.unique(t).cpu().numpy()
+        assert vals.tolist() == [float(k)], (k, vals[:4])
+    assert staging.stats()["buffers"] == 2
+    # the edge pad of a short batch into a reused buffer
+    up = Upload(card, staging, side)
+    t = up.ship("y", np.arange(5, dtype=np.float32), rows=8)
+    adopt({"y": t}, up.finish(), card)
+    assert t.cpu().numpy().tolist() == [0, 1, 2, 3, 4, 4, 4, 4]
+
+
+@pytest.mark.cuda
+def test_cuda_fused_scorer_one_copy_a_batch(card):
+    """The fused scorer on the card: one device-to-host copy a batch,
+    replies equal to the fused transform of their rows."""
+    import json
+    from mmlspark_tpu_torch.serving.fleet import json_scoring_pipeline
+    raw, pm = _fused_pipeline(n=512)
+    fused = pm.fused(device="cuda", batch_size=64)
+    scorer = json_scoring_pipeline(fused).scorer
+    rows = [{"a": float(raw["a"][i]), "b": float(raw["b"][i]),
+             "cat": raw["cat"][i], "toks": raw["toks"][i]}
+            for i in range(40)]
+    table = DataTable({"id": [str(i) for i in range(40)],
+                       "request": [{"entity": json.dumps(r).encode()}
+                                   for r in rows]})
+    out = scorer.transform(table)
+    # the served batch runs edge-padded to its bucket (64 rows)
+    padded = raw.slice(0, 40)._take_indices(np.minimum(np.arange(64), 39))
+    want = fused.transform(padded)["prediction"][:40]
+    assert [r["prediction"] for r in out["reply"]] == \
+        [int(v) for v in want]
+    assert scorer.device_roundtrips == scorer.batches_scored == 1

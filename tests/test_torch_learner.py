@@ -370,8 +370,12 @@ def test_device_none_without_a_card_raises(no_card):
 
 
 def _chunked_table():
-    from mmlspark_tpu.io.ooc import ChunkedTable
-    return ChunkedTable.from_table(JTable(_mlp_table(n=8)), chunk_rows=4)
+    """The port's ChunkedTable over 8 rows in chunks of 4, and the list
+    of the same chunks."""
+    from mmlspark_tpu_torch.io.ooc import ChunkedTable
+    table = mtt.DataTable(_mlp_table(n=8))
+    return (ChunkedTable.from_table(table, chunk_rows=4),
+            [table.slice(0, 4), table.slice(4, 8)])
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -386,8 +390,17 @@ def test_out_of_slice_params_raise(kw, item, monkeypatch):
     table = mtt.DataTable(_mlp_table(n=8))
     what = kw.pop("table", None)
     if what == "chunked":
-        table = _chunked_table()
-    elif what == "multi-process":
+        # raised until 'Out-of-core ingest' was ported: a ChunkedTable
+        # now fits as the list of its chunks does, bitwise
+        chunked, parts = _chunked_table()
+        streamed, listed = _mlp_learner(epochs=2), _mlp_learner(epochs=2)
+        streamed.fit(chunked)
+        listed.fit(parts)
+        losses = [h["loss"] for h in streamed.history]
+        assert len(losses) == 2 and losses == \
+            [h["loss"] for h in listed.history]
+        return
+    if what == "multi-process":
         monkeypatch.setattr(torch.distributed, "is_initialized",
                             lambda: True)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)

@@ -236,10 +236,14 @@ def test_tpumodel_buckets_match_jax(lm_vars):
 def test_tpumodel_refuses_what_is_not_ported(lm_vars):
     model = _lm_model(lm_vars, SMALL)
     for call, item in ((lambda: model.set_mesh(None), "Device pipeline"),
-                       (lambda: model.set_sharding(None), "Device pipeline"),
-                       (lambda: model.device_op(None), "Device pipeline")):
+                       (lambda: model.set_sharding(None), "Device pipeline")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # device_op is ported ('Device pipeline and serving compilation'):
+    # the forward as one fused op, fed int32 token ids
+    op = model.device_op(None)
+    assert op.writes == tuple(model.writes_columns(None))
+    assert len(op.feeds) == 1 and not op.reads
     # int8 is ported ('DNN int8 inference'): an empty calibration table
     # and precision='int8' set by hand are refused
     with pytest.raises(ValueError, match="calibration row"):

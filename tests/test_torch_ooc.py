@@ -10,6 +10,18 @@ certificates, cuts and wire vectors bitwise; streaming cuts and
 ROADMAP.md §3's rule; the JAX package's errors for ambiguous input.
 Also: the port's host binning library (``csrc/bins.cpp``, built by the
 host compiler) bitwise against its plain numpy version.
+
+The scenarios of ``tests/test_ooc.py``'s ``TestChunkedPipelines`` and
+``TestOOCChecker`` run through the port: the fused chunked transform
+bitwise per chunk to the fused ``transform`` (prefetch depth 0 and 3),
+the streamed Featurize / StandardScaler / ValueIndexer fits equal to the
+JAX package's streamed fits and to the in-memory ones (specs and levels
+exactly, impute means within 1e-12, scaler statistics within 1e-6
+relative), ``SummarizeData`` on a chunk stream (counts and moments
+within 1e-6 relative of the JAX package's chunked summary, percentiles
+within the sketch's rank certificate), the learner's fit of a
+ChunkedTable bitwise the fit of the list of its chunks, and the port's
+no-materialize audit (``testing/fusion_check.py``).
 """
 
 import logging
@@ -208,7 +220,9 @@ def test_chunked_table_replays_like_jax(tmp_path, source):
     assert tc.stats.snapshot()["chunks"] == jc.stats.snapshot()["chunks"]
     assert tc.stats.peak_chunk_bytes == jc.stats.peak_chunk_bytes
     assert tc.stats.tracked_peak_bytes() == jc.stats.tracked_peak_bytes()
-    assert tc.num_rows == jc.num_rows
+    # the port's from_npy reads its row count from the .npy headers; the
+    # reference's knows it only after a counting pass
+    assert tc.num_rows == (3000 if source == "from_npy" else jc.num_rows)
     assert tc.count_rows() == jc.count_rows() == 3000
     assert tc.peek().column_names == jc.peek().column_names
     assert tc.schema.to_json() == jc.schema.to_json()
@@ -460,3 +474,280 @@ def test_host_binning_library_equals_numpy(dtype, max_bin):
     if max_bin > 255:
         with pytest.raises(ValueError, match="at most 256 bins"):
             native_bins.apply_bins_t_u8(X, m.upper_bounds)
+
+
+# ---------------------------------------------------------------------------
+# TestChunkedPipelines: fused and streamed pipelines over a ChunkedTable
+# ---------------------------------------------------------------------------
+
+
+def _pipeline_cols(n=2048, seed=0):
+    rng = np.random.default_rng(seed)
+    return {
+        "a": rng.normal(size=n).astype(np.float32),
+        "b": np.where(rng.random(n) < 0.2, np.nan, rng.normal(size=n)),
+        "cat": [f"l{int(i)}" for i in rng.integers(0, 8, n)],
+        "toks": [[f"w{int(x)}" for x in rng.integers(0, 30, 4)]
+                 for _ in range(n)],
+        "label": rng.integers(0, 2, n).astype(np.float64),
+    }
+
+
+def _fitted_pipeline(n=2048, seed=0):
+    from mmlspark_tpu_torch.automl.featurize import Featurize
+    from mmlspark_tpu_torch.models.linear import TPULogisticRegression
+    from mmlspark_tpu_torch.stages.dataprep import StandardScaler
+    t = mtt.DataTable(_pipeline_cols(n, seed))
+    pm = mtt.Pipeline(stages=[
+        Featurize(featureColumns=["a", "b", "cat", "toks"],
+                  numberOfFeatures=16),
+        StandardScaler(inputCol="features"),
+        TPULogisticRegression(featuresCol="features", labelCol="label",
+                              maxIter=5, device="cpu"),
+    ]).fit(t)
+    return t, pm
+
+
+@pytest.mark.parametrize("depth", [0, 3])
+def test_fused_chunked_bitwise_per_chunk(depth):
+    t, pm = _fitted_pipeline()
+    fused = pm.fused(device="cpu")
+    raw = t.drop("label")
+    full = fused.transform(raw)
+    ct = tooc.ChunkedTable.from_table(raw, chunk_rows=256)
+    parts = list(fused.transform_chunked(ct, prefetch_depth=depth))
+    assert len(parts) == 8
+    for col in ("prediction", "probability", "rawPrediction"):
+        got = np.concatenate([np.asarray(p[col]) for p in parts])
+        np.testing.assert_array_equal(got, np.asarray(full[col]))
+    np.testing.assert_array_equal(
+        parts[0]["probability"],
+        fused.transform(raw.slice(0, 256))["probability"])
+    from mmlspark_tpu_torch.core.metrics import ooc_histograms
+    assert ooc_histograms()["dispatch"].summary()["count"] > 0
+
+
+def test_fused_chunked_zero_recompiles_on_replay():
+    t, pm = _fitted_pipeline()
+    fused = pm.fused(device="cpu")
+    out = fused.transform_chunked(
+        tooc.ChunkedTable.from_table(t.drop("label"), chunk_rows=512))
+    for _ in out:
+        pass
+    misses = fused.jit_cache_misses
+    assert misses == 1
+    for _ in out:      # replay: same shapes, no first runs
+        pass
+    assert fused.jit_cache_misses == misses
+
+
+def test_pipeline_model_chunked_transform():
+    t, pm = _fitted_pipeline()
+    full = pm.transform(t.drop("label"))
+    got = pm.transform(tooc.ChunkedTable.from_table(
+        t.drop("label"), chunk_rows=777)).materialize()
+    np.testing.assert_array_equal(got["prediction"], full["prediction"])
+    # the host head is a float64 BLAS product: a chunk's row count may
+    # change its summation order in the last bit
+    np.testing.assert_allclose(got["probability"], full["probability"],
+                               rtol=1e-12, atol=1e-15)
+
+
+def test_featurize_streaming_fit_matches_jax_and_in_memory():
+    from mmlspark_tpu.automl.featurize import Featurize as JFeaturize
+    from mmlspark_tpu_torch.automl.featurize import Featurize
+    cols = _pipeline_cols(seed=3)
+    kw = dict(featureColumns=["a", "b", "cat", "toks"], numberOfFeatures=16)
+    pt, jt = mtt.DataTable(cols), JTable(cols)
+    streamed = Featurize(**kw).fit(
+        tooc.ChunkedTable.from_table(pt, chunk_rows=600))
+    jstreamed = JFeaturize(**kw).fit(
+        jooc.ChunkedTable.from_table(jt, chunk_rows=600))
+    assert streamed.get("specs") == jstreamed.get("specs")
+    mem = Featurize(**kw).fit(pt)
+    for e, s in zip(mem.get("specs"), streamed.get("specs")):
+        assert e["kind"] == s["kind"]
+        assert e.get("levels") == s.get("levels")
+        if "fill" in e:
+            assert abs(e["fill"] - s["fill"]) < 1e-12
+    out = streamed.transform(
+        tooc.ChunkedTable.from_table(pt, chunk_rows=600)).materialize()
+    np.testing.assert_array_equal(out["features"],
+                                  mem.transform(pt)["features"])
+
+
+def test_scaler_and_indexer_streaming_fits_match_jax():
+    from mmlspark_tpu.automl.featurize import Featurize as JFeaturize
+    from mmlspark_tpu.stages import dataprep as JD
+    from mmlspark_tpu_torch.automl.featurize import Featurize
+    from mmlspark_tpu_torch.stages import dataprep as PD
+    cols = _pipeline_cols(seed=4)
+    pt, jt = mtt.DataTable(cols), JTable(cols)
+    feat = Featurize(featureColumns=["a", "b", "cat"]).fit(pt).transform(pt)
+    jfeat = JFeaturize(featureColumns=["a", "b", "cat"]).fit(jt).transform(jt)
+    sc = PD.StandardScaler(inputCol="features")
+    ms = sc.fit(tooc.ChunkedTable.from_table(feat, chunk_rows=500))
+    me = sc.fit(feat)
+    js = JD.StandardScaler(inputCol="features").fit(
+        jooc.ChunkedTable.from_table(jfeat, chunk_rows=500))
+    for k in ("mu", "sd"):
+        np.testing.assert_allclose(ms.get(k), me.get(k), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(ms.get(k), js.get(k))
+    vi = PD.ValueIndexer(inputCol="cat", outputCol="ix")
+    assert vi.fit(tooc.ChunkedTable.from_table(pt, chunk_rows=300)).get(
+        "levels") == vi.fit(pt).get("levels") == JD.ValueIndexer(
+        inputCol="cat", outputCol="ix").fit(jooc.ChunkedTable.from_table(
+            jt, chunk_rows=300)).get("levels")
+
+
+def test_learner_fit_chunked_equals_shard_list():
+    """A ChunkedTable IS a replayable shard stream for TPULearner: the
+    same batches in the same order as the list of its chunks, so the
+    same losses bit for bit; no counting pass when num_rows is known."""
+    rng = np.random.default_rng(5)
+    n = 256
+    t = mtt.DataTable({
+        "features": rng.normal(size=(n, 8)).astype(np.float32),
+        "label": rng.integers(0, 2, n).astype(np.int64)})
+    decoded = []
+    ct = tooc.ChunkedTable.from_generator(
+        lambda: (decoded.append(i) or t.slice(i, i + 64)
+                 for i in range(0, n, 64)), num_rows=n, prefetch_depth=2)
+
+    def learner():
+        return mtt.TPULearner(
+            networkSpec={"type": "mlp", "features": [8], "num_classes": 2,
+                         "in_features": 8},
+            batchSize=64, epochs=2, logEvery=1, device="cpu",
+            computeDtype="float32")
+
+    streamed, listed = learner(), learner()
+    model = streamed.fit(ct)
+    listed.fit([t.slice(i, i + 64) for i in range(0, n, 64)])
+    assert [h["loss"] for h in streamed.history] == \
+        [h["loss"] for h in listed.history]
+    # one peek of the first chunk, then one pass per epoch
+    assert len(decoded) == 1 + 2 * 4
+    assert len(np.asarray(model.transform(t)["scores"])) == n
+
+
+def test_learner_fit_from_npy_reads_rows_from_headers(tmp_path):
+    """``from_npy`` knows its row count from the ``.npy`` headers, so a
+    learner's fit decodes the stream once per epoch and never counts."""
+    rng = np.random.default_rng(6)
+    n = 192
+    paths = {"features": str(tmp_path / "features.npy"),
+             "label": str(tmp_path / "label.npy")}
+    np.save(paths["features"], rng.normal(size=(n, 8)).astype(np.float32))
+    np.save(paths["label"], rng.integers(0, 2, n).astype(np.int64))
+    ct = tooc.ChunkedTable.from_npy(paths, chunk_rows=64)
+    assert ct.num_rows == n
+    assert ct.stats.snapshot()["chunks"] == 0
+    mtt.TPULearner(
+        networkSpec={"type": "mlp", "features": [8], "num_classes": 2,
+                     "in_features": 8},
+        batchSize=64, epochs=2, logEvery=1, device="cpu",
+        computeDtype="float32").fit(ct)
+    assert ct.stats.snapshot()["chunks"] == 2 * 3
+
+
+def _cdf(xs, v):
+    return np.searchsorted(xs, v, side="right") / len(xs)
+
+
+def test_summarize_chunked_matches_jax_and_exact():
+    from mmlspark_tpu.stages.dataprep import SummarizeData as JSummarize
+    from mmlspark_tpu_torch.stages.dataprep import SummarizeData
+    rng = np.random.default_rng(7)
+    n = 50_000
+    cols = {"x": rng.lognormal(size=n),
+            "s": [f"v{i % 3}" for i in range(n)]}
+    pt, jt = mtt.DataTable(cols), JTable(cols)
+    exact = SummarizeData().transform(pt)
+    chunked = SummarizeData().transform(
+        tooc.ChunkedTable.from_table(pt, chunk_rows=8_000))
+    jchunked = JSummarize().transform(
+        jooc.ChunkedTable.from_table(jt, chunk_rows=8_000))
+    ix = list(exact["Feature"]).index("x")
+    for k in ("Count", "Mean", "Min", "Max", "Sample_Variance",
+              "Sample_Skewness", "Sample_Kurtosis",
+              "Unique_Value_Count", "Missing_Value_Count"):
+        a, b = float(exact[k][ix]), float(chunked[k][ix])
+        assert abs(a - b) <= 1e-6 * (1.0 + abs(a)), (k, a, b)
+        c = float(jchunked[k][ix])
+        assert abs(c - b) <= 1e-6 * (1.0 + abs(c)), (k, c, b)
+    xs = np.sort(np.asarray(cols["x"]))
+    for label, q in (("Median", 0.5), ("P25", 0.25), ("P75", 0.75),
+                     ("P5", 0.05), ("P95", 0.95)):
+        v = float(chunked[label][ix])
+        assert abs(_cdf(xs, v) - q) < 0.005, (label, v)
+        assert v == float(jchunked[label][ix])
+
+
+def test_summarize_chunked_nan_unique_count_matches_exact():
+    from mmlspark_tpu_torch.stages.dataprep import SummarizeData
+    t = mtt.DataTable({"x": np.asarray(
+        [1.0, np.nan, 2.0, np.nan, 3.0, np.nan, 4.0, np.nan])})
+    sd = SummarizeData()
+    exact = float(sd.transform(t)["Unique_Value_Count"][0])
+    chunked = float(sd.transform(tooc.ChunkedTable.from_table(
+        t, chunk_rows=2))["Unique_Value_Count"][0])
+    assert chunked == exact == 5.0
+
+
+def test_transform_chunked_tracks_prefetch_depth():
+    t, pm = _fitted_pipeline(n=1024, seed=9)
+    ct = tooc.ChunkedTable.from_table(t.drop("label"), chunk_rows=128,
+                                      prefetch_depth=3)
+    for _ in pm.fused(device="cpu").transform_chunked(ct):
+        pass
+    assert ct.stats.depth == 3
+    s = ct.stats.snapshot()
+    assert s["tracked_peak_bytes"] == 5 * s["peak_chunk_bytes"]
+
+
+@pytest.mark.parametrize("col", [
+    ["a", "bcd", "", "ééé"],
+    [["x", "yy"], [], ["z"], ("t", "uu")],
+    ["a", None, "bcd", "e"],
+    [["x", 3], ["q"], None, []],
+    [b"ab", "c", np.arange(3.0), 7],
+], ids=["strings", "token_lists", "strings_none", "mixed_lists",
+        "mixed"])
+def test_table_nbytes_matches_jax(col):
+    """The port's C-level fast path over string and token columns gives
+    the JAX package's per-value estimate exactly."""
+    cols = {"c": col, "x": np.arange(len(col), dtype=np.float32)}
+    assert tooc.table_nbytes(mtt.DataTable(cols)) == \
+        jooc.table_nbytes(JTable(cols))
+
+
+# ---------------------------------------------------------------------------
+# TestOOCChecker: the port's no-materialize audit
+# ---------------------------------------------------------------------------
+
+
+def test_shipped_streamed_paths_are_clean():
+    from mmlspark_tpu_torch.testing import fusion_check as CHK
+    assert CHK.check_ooc_ingest() == []
+
+
+def test_checker_catches_materialization():
+    from mmlspark_tpu_torch.testing import fusion_check as CHK
+    bad = ("def hot(chunked):\n"
+           "    rows = list(chunked.chunks())\n"
+           "    big = np.concatenate([c['x'] for c in rows])\n"
+           "    return chunked.materialize()\n")
+    kinds = "\n".join(CHK.check_ooc_source("bad", bad, 1,
+                                           bad.splitlines()))
+    assert "list()" in kinds
+    assert "np.concatenate" in kinds
+    assert ".materialize()" in kinds
+
+
+def test_checker_honors_acknowledgment():
+    from mmlspark_tpu_torch.testing import fusion_check as CHK
+    ok = ("def hot(chunked):\n"
+          "    return chunked.materialize()  # ooc:materialize-ok\n")
+    assert CHK.check_ooc_source("ok", ok, 1, ok.splitlines()) == []

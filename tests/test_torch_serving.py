@@ -325,8 +325,14 @@ def test_swap_and_fused_scoring_raise(echo_server):
     with pytest.raises(NotImplementedError,
                        match="The rest of the serving plane"):
         echo_server.swap(Lambda.apply(_echo), "v1")
-    with pytest.raises(NotImplementedError, match="Device pipeline"):
-        json_scoring_pipeline(mtt.PipelineModel(stages=[]))
+    # fused pipeline scoring is ported ('Device pipeline and serving
+    # compilation'); swapping a fused pipeline in waits with swap()
+    scorer = json_scoring_pipeline(
+        mtt.PipelineModel(stages=[]).fused(device="cpu"))
+    assert scorer.scorer.reply_col == "prediction"
+    with pytest.raises(NotImplementedError,
+                       match="The rest of the serving plane"):
+        echo_server.swap(scorer, "v2")
 
 
 # ---------------------------------------------------------------------------

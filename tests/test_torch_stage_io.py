@@ -122,11 +122,17 @@ def test_pipeline_fit_transform_matches_jax(higgs):
 
 def test_pipeline_transform_schema_and_fused_raise(higgs):
     pm = mtt.PipelineModel(stages=[Lambda.apply(_scale)])
-    schema = mtt.DataTable({"features": higgs[2]}).schema
-    assert pm.transform_schema(schema) == schema
+    t = mtt.DataTable({"features": higgs[2]})
+    assert pm.transform_schema(t.schema) == t.schema
+    # fused() is ported ('Device pipeline and serving compilation'): a
+    # host-only stage runs as a host step; mesh sharding still raises
+    fused = pm.fused(device="cpu")
+    np.testing.assert_array_equal(fused.transform(t)["features"],
+                                  pm.transform(t)["features"])
+    assert fused.describe() == "Lambda"
     with pytest.raises(NotImplementedError,
                        match="Device pipeline and serving compilation"):
-        pm.fused()
+        fused.shard(None)
 
 
 # ---------------------------------------------------------------------------
