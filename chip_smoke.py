@@ -302,13 +302,49 @@ Phases, one line each; any failure exits non-zero:
                list of the eight-row tables; (f) phase 3's max_bin 255
                model as a one-stage fused pipeline over the holdout:
                rawPrediction and prediction bitwise phase 3's transform.
+ 14. request tracing and serving telemetry — on by default in the engine,
+               so phases 6 and 13(e) serve with it on and print their
+               traces, SLO samples and alerts beside requests/s. (a) in a
+               fresh interpreter (python3 -m
+               mmlspark_tpu_torch.profile_telemetry, where torch.profiler
+               sees the card): phase 3's 1M x 28 fit (63 leaves, max_bin
+               255, 5 rounds) timed with the process tracer on and off,
+               twice each, then traced under the profiler: one bin, ship
+               and boost span, boost_chunk spans within 5 % of
+               train_timing's boost, the gbdt_train_histograms counts up
+               by one fit, and on the timeline merged by a clock marker
+               every hist_partial / hist_reduce kernel inside a boost
+               span, as many hist_partial kernels as hist launches; then
+               that model served with phase 6's traffic (2,000 requests
+               from 16 threads of a spawned client process, replies
+               equal transform's), without and under the profiler, each
+               device span against the card work launched in it;
+               (b) bench_lm's bf16 fit (phase 5's 32 x 1024, 2 epochs)
+               with memoryStatsEvery 4: one learner.fit trace with a
+               step span a step, memory samples above 0 bytes, 64
+               launches of each flash kernel, each step span against
+               the card time it launched; (c)
+               phase 6's model and client, 2,000 requests each carrying a
+               traceparent, in four fresh engines through
+               profile_telemetry.onoff_turns: the defaults and tracing,
+               slo and flight_recorder False, in the turns on, off, off,
+               on: requests/s, p50 / p99, their medians and ratios;
+               replies equal transform's in every turn; in the first:
+               /debug/traces valid chrome JSON whose request roots
+               continue their client's trace under queue_wait, every
+               device span linking the roots it served; /metrics clean
+               under testing.metrics_check with the serving_slo_*, process and
+               device_memory_* families (bytes_in_use above 0); /healthz's
+               slo section; a log line from inside a request's device
+               span carrying its trace id; (d) a 1 us latency objective:
+               it fires, the recorder writes one bundle (traces, log
+               ring, SLO status), stop() leaves no hook.
 Then one JSON line of the int8 GEMMs' times (a library call, not a
 ported kernel), one JSON line of per-kernel numbers (the hist rows
 include the int16 and int8 launches of 7(b) and 7(c), the F = 968
-launches of 8(a) and the launches of 11(b)'s fit on its featurized bins;
-the flash rows phase 12's and phase 13's launches), the card's name and
-power limit,
-and as the last line
+launches of 8(a), the launches of 11(b)'s fit on its featurized bins and
+of 14(a)'s fit; the flash rows phase 12's, 13's and 14(b)'s launches),
+the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -485,56 +521,52 @@ def auc(y, p) -> float:
                  / (n_pos * n_neg))
 
 
-def served(engine, label: str, bodies, n_threads: int):
-    """Drive ``engine`` with ``bodies`` from ``n_threads`` keep-alive
-    client threads (60 s timeouts) of a spawned process, so that the
-    clients do not contend with the engine for its interpreter lock;
-    wait (polling) until its source has counted every reply, check its
-    threads, print the numbers. Any non-200 reply or client error, or a
-    client process that does not finish, fails the run."""
-    import multiprocessing
-    import queue
-    from mmlspark_tpu_torch.profile_serving import _client_process
-    ctx = multiprocessing.get_context("spawn")
-    out_q = ctx.Queue()
-    proc = ctx.Process(target=_client_process, args=(
-        bodies, engine.source.address, n_threads, out_q))
-    proc.start()
-    try:
-        replies, lat, wall, errors = out_q.get(timeout=300)
-    except queue.Empty:
-        fail(f"{label}: the client process sent no result")
-    finally:
-        proc.join(timeout=30)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-    check(proc.exitcode == 0, f"{label}: client process exit code "
-          f"{proc.exitcode}")
+def served(engine, label: str, bodies, n_threads: int,
+           traceparents=None):
+    """Drive ``engine`` with ``bodies`` through ``profile_serving.drive``
+    (``n_threads`` keep-alive client threads of a spawned process;
+    ``traceparents[i]`` rides request i), check that its source counted
+    every reply and its threads live, print the numbers and the engine's
+    telemetry (traces buffered, SLO samples, alerts). Returns (replies,
+    numbers). Any non-200 reply or client error, or a client process
+    that does not finish, fails the run."""
+    from mmlspark_tpu_torch.profile_serving import drive, latency_numbers
+    traces0 = (engine.tracer.buffer.stats()["added"]
+               if engine.tracer is not None else 0)
+    replies, lat, wall, errors = drive(engine, bodies, n_threads,
+                                       traceparents)
     check(not errors, f"{label}: serving errors {errors[:5]}")
     n = len(bodies)
-    deadline = time.monotonic() + 30
-    while engine.source.requests_answered < n and \
-            time.monotonic() < deadline:
-        time.sleep(0.01)
     check(engine.source.requests_answered == n,
           f"{label}: {engine.source.requests_answered} answered of {n}")
     check(engine.is_alive() and engine.workers_restarted == 0,
           f"{label}: an engine thread died "
           f"({engine.workers_restarted} restarts)")
     m = engine.metrics()
-    ms = np.sort(np.asarray(lat)) * 1e3
+    numbers = {**latency_numbers(lat, wall),
+               "traces": (engine.tracer.buffer.stats()["added"] - traces0
+                          if engine.tracer is not None else 0),
+               "slo_samples": (engine.slo.requests(3600.0)
+                               if engine.slo is not None else 0),
+               "alerts_fired": (engine.slo.alerts.stats()["fired_total"]
+                                if engine.slo is not None else 0)}
     print(f"{label}: {n} requests from {n_threads} clients (a second "
           f"process) in {wall:.3f} s "
-          f"({n / wall:.1f} requests/s), client p50 "
-          f"{ms[int(0.50 * (n - 1))]:.3f} ms, p99 "
-          f"{ms[int(0.99 * (n - 1))]:.3f} ms; {m['batches_processed']} "
+          f"({numbers['rps']:.1f} requests/s), client p50 "
+          f"{numbers['p50_ms']:.3f} ms, p99 "
+          f"{numbers['p99_ms']:.3f} ms; {m['batches_processed']} "
           f"batches, {m['batch_rows'].get('mean', 0):.2f} rows per batch; "
           f"p50 ms: queue_wait {m['queue_wait_ms'].get('p50')}, decode "
           f"{m['decode_ms'].get('p50')}, pipeline "
           f"{m['pipeline_ms'].get('p50')}, respond "
-          f"{m['respond_ms'].get('p50')}")
-    return replies
+          f"{m['respond_ms'].get('p50')}; telemetry: tracing "
+          f"{'on' if engine.tracer is not None else 'off'} "
+          f"({numbers['traces']} request traces finished), SLO monitor "
+          f"{'on' if engine.slo is not None else 'off'} "
+          f"({numbers['slo_samples']:.0f} samples, "
+          f"{numbers['alerts_fired']} alerts), flight recorder "
+          f"{'on' if engine.flight_recorder is not None else 'off'}")
+    return replies, numbers
 
 
 RELOAD_CHECK = """
@@ -597,7 +629,7 @@ def serving_slice(model, out, Xte, smi: str) -> None:
     try:
         bodies = [json.dumps({"features": Xte[i].tolist()}).encode()
                   for i in range(2000)]
-        replies = served(engine, "serving slice GBDT (json_scoring_"
+        replies, _ = served(engine, "serving slice GBDT (json_scoring_"
                          "pipeline)", bodies, 16)
     finally:
         engine.stop()
@@ -611,7 +643,7 @@ def serving_slice(model, out, Xte, smi: str) -> None:
     try:
         bodies = [json.dumps({"features": Xte[i].tolist()}).encode()
                   for i in range(200)]
-        replies = served(engine, "serving slice GBDT (json_row_scoring_"
+        replies, _ = served(engine, "serving slice GBDT (json_row_scoring_"
                          "pipeline, rawPrediction)", bodies, 16)
     finally:
         engine.stop()
@@ -646,7 +678,7 @@ def serving_slice(model, out, Xte, smi: str) -> None:
     try:
         bodies = [json.dumps({"features": row.tolist()}).encode()
                   for row in x]
-        replies = served(engine, "serving slice MLP (bench_serving "
+        replies, _ = served(engine, "serving slice MLP (bench_serving "
                          "scorer)", bodies, 16)
     finally:
         engine.stop()
@@ -2810,7 +2842,7 @@ def fused_slice(dev, smi: str, model255=None, out255=None,
     engine = serve_model(scorer, port=0, batch_size=256, workers=2,
                          max_wait_ms=5)
     try:
-        replies = served(engine, "fused (e) json_scoring_pipeline(pm)",
+        replies, _ = served(engine, "fused (e) json_scoring_pipeline(pm)",
                          bodies, 16)
     finally:
         engine.stop()
@@ -3046,6 +3078,252 @@ def fused_slice(dev, smi: str, model255=None, out255=None,
     print(f"fused: phase 13 took {time.perf_counter() - t_phase:.1f} s; "
           f"card: {smi}")
     return {"f32": f32_launches, "bf16": bf16_launches}
+
+
+class _LoggingScorer:
+    """A served scorer that logs one line per batch from inside the
+    worker's ``device`` span (phase 14(c)'s check of trace-correlated
+    logs); otherwise the scorer it wraps."""
+
+    def __init__(self, scorer):
+        from mmlspark_tpu_torch.core.logging_utils import get_logger
+        self.scorer = scorer
+        self.log = get_logger("chip_smoke")
+
+    def prepare_batch(self, table):
+        return self.scorer.prepare_batch(table)
+
+    def execute_prepared(self, table, prepped):
+        self.log.info("phase 14 batch of %d rows", len(table))
+        return self.scorer.execute_prepared(table, prepped)
+
+    def transform(self, table):
+        return self.scorer.transform(table)
+
+
+def _http(url: str):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.status, r.headers.get("Content-Type", ""), r.read()
+
+
+def telemetry_slice(smi: str, model255, out255, Xte) -> dict:
+    """Phase 14: the telemetry on the card. (a) and (b) run in a fresh
+    interpreter (``profile_telemetry``, where the profiler sees the
+    card); (c) serving with telemetry on and off, (d) an SLO the card
+    cannot meet. Returns the hist launches of (a)'s profiled fit (by
+    route) and the flash launches of (b)'s fit."""
+    import torch
+    from mmlspark_tpu_torch.core import trace as T
+    from mmlspark_tpu_torch.core.flightrecorder import (
+        FlightRecorder, get_recorder)
+    from mmlspark_tpu_torch.core.slo import SLO, BurnRateRule, SLOMonitor
+    from mmlspark_tpu_torch.profile_telemetry import onoff_turns
+    from mmlspark_tpu_torch.serving import json_scoring_pipeline, serve_model
+    from mmlspark_tpu_torch.testing import metrics_check as CHK
+
+    # ---- (a), (b): the traced GBDT fit and bench_lm fit, profiled --------
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "mmlspark_tpu_torch.profile_telemetry"], cwd=root,
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": root})
+    check(r.returncode == 0, "(a)/(b) profile_telemetry failed: "
+          f"{r.stdout[-1500:]} {r.stderr[-2500:]}")
+    prof = json.loads(r.stdout.strip().splitlines()[-1])
+    g, sv, lm = prof["gbdt"], prof["serving"], prof["lm"]
+    for line in r.stdout.strip().splitlines()[:-1]:
+        print(f"telemetry (a)-(b) {line}")
+    print(f"telemetry (a) GBDT 1M x 28, 63 leaves, max_bin 255, 5 rounds, "
+          f"in a fresh process ({time.perf_counter() - t0:.1f} s in all): "
+          f"fit s with the process tracer on {g['fit_s_tracer_on']}, off "
+          f"{g['fit_s_tracer_off']}: gap {g['fit_gap_s']:+.4f} s "
+          f"({g['fit_gap_pct']:+.2f} %); spans {g['spans']}; boost_chunk "
+          f"spans sum {g['boost_chunks_sum_s']:.4f} s against "
+          f"train_timing boost {g['boost_s']:.3f} s; histograms rose "
+          f"{g['histogram_rises']}; {g['launches']} hist launches, "
+          f"{g['profile_hist_partial']} hist_partial in the profile; every "
+          f"hist kernel inside a boost span on the merged timeline (worst "
+          f"{g['kernel_outside_boost_us']:.2f} us outside, marker "
+          f"+-{g['marker_half_width_us']:.2f} us); hist device "
+          f"{g['hist_device_ms']:.3f} ms")
+    print(f"telemetry (a) served batches ({sv['requests']} requests "
+          f"from 16 client threads of a second process, twice, replies "
+          f"equal transform's): device span "
+          f"{sv['device_span_ms_mean_unprofiled']:.4f} ms "
+          f"({sv['rows_mean_unprofiled']:.1f} rows) without the "
+          f"profiler; under it {sv['device_spans']} device spans of "
+          f"{sv['rows_mean']:.1f} rows: span {sv['device_span_ms_mean']:.4f}"
+          f" ms, card work launched inside {sv['device_time_ms_mean']:.4f} "
+          f"ms ({100 * sv['device_share_of_span']:.2f} % of the span)")
+    print(f"telemetry (b) bench_lm bf16 fit: {lm['steps']} learner.step "
+          f"spans, mean after the first "
+          f"{lm['step_span_ms_mean_after_first_unprofiled']:.3f} ms "
+          f"without the profiler, "
+          f"{lm['step_span_ms_mean_after_first']:.3f} ms under it, "
+          f"against {lm['step_device_ms_mean_after_first']:.3f} ms of "
+          f"card time launched inside them (per step "
+          f"{[round(x, 2) for x in lm['step_device_ms']]}); memory samples "
+          f"{[(m['step'], m['bytes_in_use']) for m in lm['memory_samples']]}"
+          f"; flash launches {lm['launches']}; root {lm['root']}")
+
+    # ---- (c) serving with telemetry on and off --------------------------
+    pred = np.asarray(out255["prediction"])
+    n = 2000
+    bodies = [json.dumps({"features": Xte[i].tolist()}).encode()
+              for i in range(n)]
+    tids = [f"c0ffee{i:026x}" for i in range(n)]
+    parents = {t: f"{i + 1:016x}" for i, t in enumerate(tids)}
+    tps = [f"00-{t}-{parents[t]}-01" for t in tids]
+    tracer = T.get_tracer()
+    tracer.buffer.clear()
+    scorer = json_scoring_pipeline(model255)
+    seen: dict = {}
+
+    def inspect(engine, mode, replies):
+        """Each turn: replies equal transform's. The first turn (on):
+        the telemetry checks, on its still-running engine."""
+        bad = [i for i, rep in enumerate(replies)
+               if rep != {"prediction": int(pred[i])}]
+        check(not bad, f"(c) {mode}: {len(bad)} replies differ from "
+              "transform")
+        if seen:
+            return
+        check(mode == "on" and engine.tracer is tracer
+              and engine.slo is not None
+              and engine.flight_recorder is get_recorder(),
+              "(c) the engine's telemetry is not on by default")
+        addr = engine.source.address
+        status, _, raw = _http(addr + "/debug/traces")
+        chrome = json.loads(raw)
+        xs = [e for e in chrome["traceEvents"] if e["ph"] == "X"]
+        check(status == 200 and xs and all(
+            isinstance(e["name"], str) and e["ts"] >= 0 and e["dur"] >= 0
+            and isinstance(e["pid"], int) and isinstance(e["tid"], int)
+            for e in xs), "(c) /debug/traces is not valid chrome JSON")
+        traces = [t for t in tracer.buffer.traces()
+                  if t.root.name == "request"]
+        check(traces and all(t.trace_id in parents and t.root.parent_id
+                             == parents[t.trace_id] for t in traces),
+              "(c) a request's trace id or parent is not its client's")
+        check(all(any(s.name == "queue_wait"
+                      and s.parent_id == t.root.span_id
+                      for s in t.spans()) for t in traces),
+              "(c) a request root has no queue_wait under it")
+        members: dict = {}
+        for t in traces:
+            for sp in t.spans():
+                if sp.name == "device":
+                    members.setdefault(sp.span_id, (sp, set()))[1].add(
+                        (t.trace_id, t.root.span_id))
+        check(members and all(mem <= set(sp.links) and len(sp.links)
+                              == sp.attrs["rows"]
+                              for sp, mem in members.values()),
+              "(c) a device span does not link the roots it served")
+        status, ctype, raw = _http(addr + "/metrics")
+        text = raw.decode()
+        violations = CHK.audit_text(text)
+        check(status == 200 and ctype.startswith("text/plain")
+              and not violations, f"(c) /metrics audit: {violations[:5]}")
+        mem = re.search(r"^device_memory_bytes_in_use (\S+)$", text, re.M)
+        for fam in ("serving_slo_burn_rate", "serving_slo_latency_p99_ms",
+                    "gbdt_train_phase_ms", "trace_buffer_traces",
+                    "device_memory_bytes_limit"):
+            check(f"# TYPE {fam} " in text, f"(c) /metrics lacks {fam}")
+        check(mem is not None and float(mem.group(1)) > 0,
+              "(c) device_memory_bytes_in_use is not above 0")
+        _, _, raw = _http(addr + "/healthz")
+        health = json.loads(raw)
+        check("slo" in health and health["slo"]["requests_1h"] >= n,
+              f"(c) /healthz slo section {health.get('slo')}")
+        # a log line from inside a request's device span carries its id
+        engine.pipeline = _LoggingScorer(scorer)
+        tp = "00-5ca1ab1e0000000000000000000000aa-00000000000000bb-01"
+        import urllib.request
+        req = urllib.request.Request(addr, data=bodies[0], headers={
+            "Content-Type": "application/json", "traceparent": tp})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            check(resp.headers["X-Trace-Id"]
+                  == "5ca1ab1e0000000000000000000000aa",
+                  "(c) the reply's X-Trace-Id is not the caller's")
+        logs = [rec for rec in get_recorder().dump_bundle("check")["logs"]
+                if rec["msg"] == "phase 14 batch of 1 rows"]
+        check(logs and logs[-1].get("trace_id")
+              == "5ca1ab1e0000000000000000000000aa",
+              f"(c) the log line inside the request carries {logs[-1:]}")
+        seen.update(traces=len(traces), devices=len(members),
+                    families=text.count("# TYPE "),
+                    bytes_in_use=float(mem.group(1)),
+                    slo_samples=health["slo"]["requests_1h"])
+
+    onoff = onoff_turns(scorer, bodies, tps, 4, inspect)
+    for k, r in enumerate(onoff["turns"]):
+        print(f"telemetry (c) turn {k + 1}, telemetry {r['mode']}: "
+              f"{r['rps']:.1f} requests/s, p50 {r['p50_ms']:.3f} ms, p99 "
+              f"{r['p99_ms']:.3f} ms, pipeline p50 {r['pipeline_p50_ms']} "
+              f"ms, {r['rows_per_batch']:.2f} rows a batch")
+    med = onoff["median"]
+    print(f"telemetry (c): 4 turns (on, off, off, on), medians: on "
+          f"{med['on']['rps']:.1f} requests/s, p50 {med['on']['p50_ms']:.3f}"
+          f" ms, p99 {med['on']['p99_ms']:.3f} ms; off "
+          f"{med['off']['rps']:.1f} requests/s, p50 "
+          f"{med['off']['p50_ms']:.3f} ms, p99 {med['off']['p99_ms']:.3f} "
+          f"ms; on / off: requests/s {onoff['rps_ratio']:.4f}, p50 "
+          f"{onoff['p50_ms_ratio']:.4f}, p99 {onoff['p99_ms_ratio']:.4f} "
+          f"(two turns a mode do not resolve a cost below the turns' "
+          f"spread; profile_telemetry --turns 12 runs more); first turn: "
+          f"{seen['traces']} traces and {seen['devices']} device spans "
+          f"checked, {seen['slo_samples']:.0f} SLO samples; /metrics "
+          f"{seen['families']} families, 0 audit violations, "
+          f"device_memory_bytes_in_use {seen['bytes_in_use']:.0f}; a log "
+          f"line inside a request carried its trace id")
+
+    # ---- (d) an SLO the card cannot meet --------------------------------
+    mon = SLOMonitor(
+        slos=[SLO("latency_1us", "latency", target=0.99,
+                  latency_threshold_ms=0.001)],
+        rules=[BurnRateRule("fast_burn", 60.0, 5.0, 14.4, min_events=10)],
+        windows=(5.0, 60.0), horizon_s=120.0)
+    rec = FlightRecorder(min_interval_s=60.0)
+    engine = serve_model(scorer, port=0, batch_size=256, workers=2,
+                         max_wait_ms=5, slo=mon, flight_recorder=rec,
+                         slo_eval_interval_s=0.1)
+    try:
+        served(engine, "telemetry (d) GBDT, a 1 us latency SLO",
+               bodies[:200], 16)
+        deadline = time.monotonic() + 30
+        while not rec.bundles and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(mon.alerts.stats()["fired_total"] >= 1,
+              "(d) the 1 us objective did not fire")
+        check(len(rec.bundles) == 1, f"(d) {len(rec.bundles)} bundles")
+        bundle = rec.bundles[0]
+        st = bundle["slo"][f"engine@{engine.source.address}"]["status"]
+        check(bundle["reason"] == "slo_breach:latency_1us:fast_burn"
+              and any(e["name"] == "request"
+                      for e in bundle["traces"]["traceEvents"])
+              and any("SLO alert FIRED" in x["msg"]
+                      for x in bundle["logs"])
+              and st["active_alerts"][0]["name"]
+              == "latency_1us:fast_burn",
+              f"(d) the bundle lacks traces, the log ring or the status: "
+              f"{bundle['reason']}, {st['active_alerts']}")
+        json.dumps(bundle)
+    finally:
+        engine.stop()
+    check(mon.on_fire is None and rec.stats()["tracers"] == 0
+          and rec.stats()["slos"] == [],
+          f"(d) stop() left hooks: on_fire {mon.on_fire}, {rec.stats()}")
+    rec.close()
+    print(f"telemetry (d): the 1 us objective fired "
+          f"({mon.alerts.stats()}) after 200 requests; one bundle "
+          f"({len(bundle['traces']['traceEvents'])} trace events, "
+          f"{len(bundle['logs'])} log records, burn "
+          f"{st['active_alerts'][0]['burn_short']}x); stop() left no hook; "
+          f"card: {smi}")
+    torch.cuda.empty_cache()
+    return {"hist": g["hist_launches"], "flash": lm["launches"]}
 
 
 def main() -> int:
@@ -3689,6 +3967,15 @@ def main() -> int:
     # ---- 13. fused and streamed pipelines --------------------------------
     fused_launches = fused_slice(dev, smi, model255, out255, test_t)
     for k, v in fused_launches["bf16"].items():
+        train_launches[k] += v
+
+    # ---- 14. request tracing and serving telemetry -----------------------
+    t0 = time.perf_counter()
+    tele = telemetry_slice(smi, model255, out255, Xte)
+    print(f"telemetry: phase 14 took {time.perf_counter() - t0:.1f} s")
+    for k, v in tele["hist"].items():
+        l255[k] += v
+    for k, v in tele["flash"].items():
         train_launches[k] += v
     print(json.dumps({"int8_gemms": inter["int8_gemms"]}))
     print(f"chip_smoke: all phases took {time.perf_counter() - t_start:.1f} "

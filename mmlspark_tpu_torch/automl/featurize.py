@@ -27,9 +27,10 @@ chunk by chunk. ``FeaturizeModel.device_op`` is the fusion hook
 (``core/fusion.py``): string codes and token hashing run as host
 ``Feed``s that ship int32 codes / f32 counts, the impute / one-hot /
 assembly run as torch ops on the device, bitwise the host transform.
-The reference's ``core/trace`` spans are not ported ('Device pipeline
-and serving compilation'). The ``featurize_fit`` /
-``featurize_transform`` histograms are observed.
+The ``featurize_fit`` / ``featurize_transform`` histograms are
+observed, and each fit / transform emits the JAX package's
+``automl.featurize_fit`` / ``automl.featurize_transform`` span (a
+single-span trace in the process tracer, ``core.trace``).
 """
 
 from __future__ import annotations
@@ -176,6 +177,10 @@ class Featurize(Estimator):
                 specs.append(spec)
         MC.automl_histograms()["featurize_fit"].observe(
             (time.perf_counter() - t0) * 1e3)
+        from mmlspark_tpu_torch.core.trace import get_tracer
+        get_tracer().emit("automl.featurize_fit", t0,
+                          attrs={"columns": len(cols),
+                                 "specs": len(specs)})
         return FeaturizeModel(specs=specs,
                               outputCol=self.get("outputCol"))
 
@@ -198,7 +203,9 @@ class Featurize(Estimator):
         levels: Dict[str, Dict[Any, None]] = {}
         num_cols = [c for c in cols if schema[c].tag in _NUMERIC_TAGS]
         str_cols = [c for c in cols if schema[c].tag == STRING]
+        n_chunks = 0
         for chunk in chunked.chunks():
+            n_chunks += 1
             for c in num_cols:
                 col = np.asarray(chunk[c], dtype=np.float64)
                 finite = col[np.isfinite(col)]
@@ -228,6 +235,11 @@ class Featurize(Estimator):
                 specs.append(spec)
         MC.automl_histograms()["featurize_fit"].observe(
             (time.perf_counter() - t0) * 1e3)
+        from mmlspark_tpu_torch.core.trace import get_tracer
+        get_tracer().emit("automl.featurize_fit", t0,
+                          attrs={"columns": len(cols),
+                                 "specs": len(specs),
+                                 "chunks": n_chunks})
         return FeaturizeModel(specs=specs, outputCol=out_col)
 
 def _spec_width(spec: Dict[str, Any], table: DataTable) -> int:
@@ -528,6 +540,10 @@ class FeaturizeModel(Model):
                                     Field(out_col, VECTOR))
         MC.automl_histograms()["featurize_transform"].observe(
             (time.perf_counter() - t0) * 1e3)
+        from mmlspark_tpu_torch.core.trace import get_tracer
+        get_tracer().emit("automl.featurize_transform", t0,
+                          attrs={"rows": len(table),
+                                 "specs": len(specs)})
         return out
 
     def transform_rowloop(self, table: DataTable) -> DataTable:

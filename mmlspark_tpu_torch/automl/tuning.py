@@ -24,10 +24,10 @@ call per (fold, maxIter group) — a handful of dispatches instead of
 C x k serial fits. A serial fit is the same function at one candidate.
 The serial thread-pool path stays as the general fallback (any
 estimator, sparse features, structural params); its GBDT candidates
-fit on the card side by side. The reference's ``core/trace`` spans are
-not ported (ROADMAP.md, 'Device pipeline and serving compilation'); the
-``tune_fold_build`` / ``tune_trials`` / ``tune_refit`` histograms are
-observed.
+fit on the card side by side. The ``tune_fold_build`` /
+``tune_trials`` / ``tune_refit`` histograms are observed, and a fit
+leaves one ``automl.tune`` trace (the JAX package's spans of those
+names under it, ``path`` on the root) in the process tracer.
 """
 
 from __future__ import annotations
@@ -310,6 +310,10 @@ class TuneHyperparameters(Estimator):
         "not, 'off' = always the serial thread pool)", default="auto")
 
     def fit(self, table: DataTable) -> "TuneHyperparametersModel":
+        from mmlspark_tpu_torch.core.trace import get_tracer
+        tracer = get_tracer()
+        tune_trace = tracer.new_trace("automl.tune") \
+            if tracer.enabled else None
         hists = MC.automl_histograms()
         models: List[Estimator] = self.get("models")
         space = self.get("paramSpace")
@@ -329,6 +333,9 @@ class TuneHyperparameters(Estimator):
             for i in range(k)]
         hists["tune_fold_build"].observe(
             (time.perf_counter() - t0) * 1e3)
+        if tune_trace is not None:
+            tracer.emit("tune_fold_build", t0, trace=tune_trace,
+                        attrs={"folds": k})
 
         candidates: List[Tuple[Estimator, Dict[str, Any]]] = []
         for est in models:
@@ -371,6 +378,10 @@ class TuneHyperparameters(Estimator):
             with ThreadPoolExecutor(self.get("parallelism")) as pool:
                 results = list(pool.map(eval_candidate, candidates))
         hists["tune_trials"].observe((time.perf_counter() - t0) * 1e3)
+        if tune_trace is not None:
+            tracer.emit("tune_trials", t0, trace=tune_trace,
+                        attrs={"path": info["path"],
+                               "candidates": info["candidates"]})
 
         best_i = int(np.argmax(results) if ascending
                      else np.argmin(results))
@@ -381,6 +392,10 @@ class TuneHyperparameters(Estimator):
         t0 = time.perf_counter()
         best_model = final.fit(table)
         hists["tune_refit"].observe((time.perf_counter() - t0) * 1e3)
+        if tune_trace is not None:
+            tracer.emit("tune_refit", t0, trace=tune_trace)
+            tune_trace.root.set("path", info["path"])
+            tracer.finish(tune_trace)
         history = [{"model": type(e).__name__, "params": pm,
                     "metric": r}
                    for (e, pm), r in zip(candidates, results)]

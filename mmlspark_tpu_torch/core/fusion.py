@@ -880,7 +880,9 @@ class FusionPlan:
         baseline: every op runs alone and materializes ALL its writes to
         the host before the next op ships them back (bitwise the same
         outputs, N round trips — what fusion deletes)."""
+        from mmlspark_tpu_torch.core.trace import get_tracer
         hists = pipeline_histograms()
+        tracer = get_tracer()
         self.last_roundtrips = 0
         cur = table
         for step, end_idx in zip(self.steps, self.step_boundaries):
@@ -892,7 +894,20 @@ class FusionPlan:
             elif staged:
                 cur = self._execute_segment_staged(cur, step)
             else:
-                cur = self._run_segment(cur, step)
+                env = step.build_env(cur, self.device_table)
+                misses0 = step.trace_count
+                t1 = time.perf_counter()
+                cur = self._run_segment(cur, step, env)
+                del env
+                if tracer.enabled:
+                    # jit_cache_miss: this run met a new input signature,
+                    # the first-run flag the serving device spans carry
+                    tracer.emit("pipeline.fused_segment", t1,
+                                attrs={"segment": step.name,
+                                       "rows": len(cur),
+                                       "outputs": len(step.writes_live),
+                                       "jit_cache_miss":
+                                           step.trace_count > misses0})
             cur = prune_table(cur, self._needed_after(end_idx))
         return cur
 

@@ -6,10 +6,9 @@ package's ``mmlspark_tpu.<subspace>``, so a process holding both keeps
 their records apart.
 
 ``log_format=json`` (via ``core.config`` / ``MMLSPARK_TPU_LOG_FORMAT``)
-switches every handler to one-line JSON records. The reference adds the
-active span's ``trace_id``/``span_id`` to each; the port has no request
-tracing yet (ROADMAP.md, 'Device pipeline and serving compilation'), so
-its records carry none.
+switches every handler to one-line JSON records that carry the active
+span's ``trace_id``/``span_id`` (and ``model_version`` when the span
+has one), so logs join traces on trace_id instead of timestamps.
 """
 
 from __future__ import annotations
@@ -23,7 +22,9 @@ _configured = False
 
 
 class JsonFormatter(logging.Formatter):
-    """One-line JSON log records."""
+    """One-line JSON log records, trace-correlated: when the emitting
+    context holds an active span (``core.trace.use_span``), the record
+    carries its trace_id/span_id and the span's model_version attr."""
 
     def format(self, record: logging.LogRecord) -> str:
         out = {
@@ -35,6 +36,17 @@ class JsonFormatter(logging.Formatter):
             "logger": record.name,
             "msg": record.getMessage(),
         }
+        try:
+            from mmlspark_tpu_torch.core.trace import current_span
+            span = current_span()
+        except Exception:  # noqa: BLE001 — logging must never raise
+            span = None
+        if span is not None:
+            out["trace_id"] = span.trace_id
+            out["span_id"] = span.span_id
+            version = span.attrs.get("model_version")
+            if version is not None:
+                out["model_version"] = version
         if record.exc_info:
             out["exc"] = self.formatException(record.exc_info)
         return json.dumps(out, default=str)

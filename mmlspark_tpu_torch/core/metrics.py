@@ -1,13 +1,13 @@
 """Metrics of the PyTorch port: the part of ``mmlspark_tpu/core/metrics.py``
-that the ported stages and the serving engine read — the evaluation
-metric names (the reference's MetricConstants), latency histograms
-(mergeable, snapshot for exporters), the windowed counter, the
-process-wide warmup, AutoML-phase and ingress histograms, and the
-feature ``DriftMonitor``. The reference's ``LabelledHistograms``
-and ``WindowedHistogram`` serve Prometheus ``/metrics`` and the SLO
-monitor, and its GBDT / fusion / control-loop phase families belong
-to modules the port has not reached yet
-(ROADMAP.md)."""
+that the ported stages, the serving engine, the SLO monitor and the
+Prometheus renderer read — the evaluation metric names (the reference's
+MetricConstants), latency histograms (mergeable, snapshot for
+exporters), the capped ``LabelledHistograms``, the windowed counter and
+histogram, the process-wide GBDT training-phase, GBDT histogram-phase
+and collective-byte families, the warmup, AutoML-phase, pipeline, ooc
+and ingress histograms, and the feature ``DriftMonitor``. The
+control-loop family waits for the control plane (ROADMAP.md, 'The rest
+of the serving plane')."""
 
 from __future__ import annotations
 
@@ -179,13 +179,59 @@ def histogram_set(*names: str) -> Dict[str, LatencyHistogram]:
     return {n: LatencyHistogram() for n in names}
 
 
+class LabelledHistograms:
+    """Per-label ``LatencyHistogram`` family with a HARD cardinality cap: the
+    first ``cap`` distinct labels get their own histogram, every later
+    label folds into the shared ``"_other"`` series. The multi-model
+    serving plane labels latency per model name, and a zoo of thousands
+    of models must not turn /metrics into thousands of 18-bucket series
+    (the Prometheus label-cardinality discipline). Thread-safe;
+    ``observe`` on an already-known label is lock-free on the read path."""
+
+    OTHER = "_other"
+
+    def __init__(self, cap: int = 64):
+        self.cap = max(1, int(cap))
+        self._hists: Dict[str, LatencyHistogram] = {}
+        self._lock = threading.Lock()
+
+    def hist(self, label: str) -> LatencyHistogram:
+        label = str(label)
+        h = self._hists.get(label)
+        if h is not None:
+            return h
+        with self._lock:
+            h = self._hists.get(label)
+            if h is None:
+                named = len(self._hists) - (
+                    1 if self.OTHER in self._hists else 0)
+                if named < self.cap:
+                    h = self._hists[label] = LatencyHistogram()
+                else:
+                    h = self._hists.get(self.OTHER)
+                    if h is None:
+                        h = self._hists[self.OTHER] = LatencyHistogram()
+        return h
+
+    def observe(self, label: str, value: float) -> None:
+        self.hist(label).observe(value)
+
+    def snapshot(self) -> Dict[str, LatencyHistogram]:
+        """label -> histogram (the live objects — exporters need exact
+        buckets), at most ``cap`` named series plus ``_other``."""
+        with self._lock:
+            return dict(self._hists)
+
+
 # ---------------------------------------------------------------------------
-# windowed (sliding-window) counter — the serving engine's drain rate
-# behind a live Retry-After
+# windowed (sliding-window) primitives — the serving engine's drain rate
+# behind a live Retry-After, and the SLO engine's measurement substrate
+# (core/slo.py)
 # ---------------------------------------------------------------------------
 
 # Cumulative counters answer "since process start"; a drain-rate
-# estimate needs "over the last N seconds". The counter ring-buffers
+# estimate or an SLO burn rate needs "over the last 1m/5m/1h". Both
+# classes ring-buffer
 # TIME buckets: each slot covers ``bucket_s`` seconds of wall clock and
 # carries the epoch (bucket index since clock zero) it was last written
 # for, so rotation is lazy — a slot is zeroed exactly once, by the
@@ -265,6 +311,182 @@ class WindowedCounter:
                      self._counts[e % self.n_slots]
                      if self._epochs[e % self.n_slots] == e else 0.0)
                     for e in range(lo, epoch + 1)]
+
+
+class WindowedHistogram:
+    """A latency histogram readable over sliding time windows.
+
+    Ring of time buckets, each holding a compact per-bound counts array
+    (same log-spaced layout as ``LatencyHistogram``); ``snapshot`` and
+    ``percentile`` merge the buckets covering the trailing window into
+    one consistent view, shaped exactly like
+    ``LatencyHistogram.snapshot()`` so the Prometheus renderer and the
+    percentile math are shared. Thread-safe; slots rotate lazily under
+    the lock (expire exactly once)."""
+
+    __slots__ = ("unit", "bounds", "bucket_s", "n_slots", "_counts",
+                 "_sums", "_maxes", "_ns", "_epochs", "_lock", "_clock")
+
+    def __init__(self, bucket_s: float = 5.0, horizon_s: float = 3660.0,
+                 unit: str = "ms",
+                 bounds: Sequence[float] = _DEFAULT_BOUNDS,
+                 clock=time.monotonic):
+        self.unit = unit
+        self.bounds = tuple(bounds)
+        if self.bounds[-1] != math.inf:
+            self.bounds = self.bounds + (math.inf,)
+        self.bucket_s = float(bucket_s)
+        if self.bucket_s <= 0:
+            raise ValueError("bucket_s must be positive")
+        self.n_slots = max(2, int(math.ceil(horizon_s / self.bucket_s)) + 1)
+        nb = len(self.bounds)
+        self._counts = [[0] * nb for _ in range(self.n_slots)]
+        self._sums = [0.0] * self.n_slots
+        self._maxes = [0.0] * self.n_slots
+        self._ns = [0] * self.n_slots
+        self._epochs = [-1] * self.n_slots
+        self._lock = threading.Lock()
+        self._clock = clock
+
+    def _epoch(self, now: Optional[float]) -> int:
+        return int((self._clock() if now is None else now)
+                   // self.bucket_s)
+
+    def observe(self, value: float, now: Optional[float] = None) -> None:
+        v = float(value)
+        i = 0
+        while self.bounds[i] < v:
+            i += 1
+        epoch = self._epoch(now)
+        slot = epoch % self.n_slots
+        with self._lock:
+            if self._epochs[slot] != epoch:
+                counts = self._counts[slot]
+                for j in range(len(counts)):
+                    counts[j] = 0
+                self._sums[slot] = 0.0
+                self._maxes[slot] = 0.0
+                self._ns[slot] = 0
+                self._epochs[slot] = epoch
+            self._counts[slot][i] += 1
+            self._sums[slot] += v
+            self._ns[slot] += 1
+            if v > self._maxes[slot]:
+                self._maxes[slot] = v
+
+    def snapshot(self, window_s: float = 300.0,
+                 now: Optional[float] = None) -> Dict[str, object]:
+        """One merged view of the trailing window, shaped like
+        ``LatencyHistogram.snapshot()`` (bounds/counts/count/sum/max)
+        so exporters treat windowed and cumulative histograms alike."""
+        epoch = self._epoch(now)
+        k = min(self.n_slots,
+                max(1, int(math.ceil(window_s / self.bucket_s))))
+        lo = epoch - k + 1
+        merged = [0] * len(self.bounds)
+        count, total, mx = 0, 0.0, 0.0
+        with self._lock:
+            for e in range(lo, epoch + 1):
+                slot = e % self.n_slots
+                if self._epochs[slot] != e:
+                    continue
+                counts = self._counts[slot]
+                for j, c in enumerate(counts):
+                    merged[j] += c
+                count += self._ns[slot]
+                total += self._sums[slot]
+                if self._maxes[slot] > mx:
+                    mx = self._maxes[slot]
+        return {"unit": self.unit, "bounds": list(self.bounds),
+                "counts": merged, "count": count, "sum": total,
+                "max": mx}
+
+    def percentile(self, q: float, window_s: float = 300.0,
+                   now: Optional[float] = None) -> float:
+        snap = self.snapshot(window_s, now)
+        return percentile_from_counts(
+            self.bounds, snap["counts"], snap["count"], snap["max"], q)
+
+    def count(self, window_s: float, now: Optional[float] = None) -> int:
+        return int(self.snapshot(window_s, now)["count"])
+
+
+# ---------------------------------------------------------------------------
+# GBDT training-phase histograms
+# ---------------------------------------------------------------------------
+
+# per-phase wall milliseconds across train() calls in this process:
+# bin (host staging / host binning), ship (H2D), bin_device (on-device
+# bucketize kernel), first_iter (compile + first chunk), boost
+# (remaining chunks), boost_chunk (host dispatch-enqueue wall per fused
+# chunk AFTER the first — back-pressure shows up here, device execution
+# does not; the compile-bearing first chunk lands under first_iter),
+# fetch (forest D2H). The booster observes into these at the end of
+# every train(); exporters read them like the serving engine's latency
+# family. The port's train() has no on-device bucketize phase of its
+# own and no compile-bearing first chunk: it marks bin, ship, boost and
+# fetch, and observes EVERY chunk under boost_chunk (bin_device and
+# first_iter keep the reference's names and stay empty).
+GBDT_TRAIN_PHASES = ("bin", "ship", "bin_device", "first_iter", "boost",
+                     "boost_chunk", "fetch")
+_GBDT_TRAIN_HISTS: Dict[str, LatencyHistogram] = histogram_set(
+    *GBDT_TRAIN_PHASES)
+
+
+def gbdt_train_histograms() -> Dict[str, LatencyHistogram]:
+    """The process-wide GBDT training-phase histogram family."""
+    return _GBDT_TRAIN_HISTS
+
+
+# ---------------------------------------------------------------------------
+# Distributed-GBDT histogram-build phases and collective payload bytes
+# ---------------------------------------------------------------------------
+
+# per-phase wall milliseconds of the histogram hot loop, micro-timed by
+# the distributed bench: build (local histogram kernel), reduce (the
+# cross-device collective), split (best-gain scan)
+GBDT_HIST_PHASES = ("build", "reduce", "split")
+_GBDT_HIST_HISTS: Dict[str, LatencyHistogram] = histogram_set(
+    *GBDT_HIST_PHASES)
+
+
+def gbdt_hist_histograms() -> Dict[str, LatencyHistogram]:
+    """The process-wide GBDT histogram-phase family."""
+    return _GBDT_HIST_HISTS
+
+
+# per-device collective payload bytes the training schedule shipped,
+# keyed by collective type. Computed from the collective schedule's
+# ring-payload model at the end of every distributed train(). The port
+# trains in one process, so they stay zero until distributed GBDT is
+# ported (ROADMAP.md, 'Distributed GBDT'); /metrics renders them.
+GBDT_COMM_COLLECTIVES = ("psum", "psum_scatter", "all_gather")
+_GBDT_COMM_LOCK = threading.Lock()
+_GBDT_COMM_BYTES: Dict[str, float] = {c: 0.0 for c in
+                                      GBDT_COMM_COLLECTIVES}
+
+
+def gbdt_comm_add(collective: str, nbytes: float) -> None:
+    """Accumulate modeled per-device payload bytes for one collective
+    type ('psum' | 'psum_scatter' | 'all_gather')."""
+    if collective not in _GBDT_COMM_BYTES:
+        raise ValueError(f"unknown collective {collective!r}; expected "
+                         f"one of {GBDT_COMM_COLLECTIVES}")
+    with _GBDT_COMM_LOCK:
+        _GBDT_COMM_BYTES[collective] += float(nbytes)
+
+
+def gbdt_comm_counters() -> Dict[str, float]:
+    """Snapshot of the per-collective payload-byte counters."""
+    with _GBDT_COMM_LOCK:
+        return dict(_GBDT_COMM_BYTES)
+
+
+def gbdt_comm_reset() -> None:
+    """Zero the counters (bench/test isolation)."""
+    with _GBDT_COMM_LOCK:
+        for c in _GBDT_COMM_BYTES:
+            _GBDT_COMM_BYTES[c] = 0.0
 
 
 # ---------------------------------------------------------------------------

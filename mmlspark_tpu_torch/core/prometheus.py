@@ -1,0 +1,282 @@
+"""Prometheus text-exposition rendering (format version 0.0.4): the port's
+copy of ``mmlspark_tpu/core/prometheus.py``.
+
+Renders the serving engine's counters and ``LatencyHistogram``s, the
+process-wide training-phase families, the trace buffer, the card's
+memory and the SLO monitor in the Prometheus text format, so a standard
+scraper can read ``/metrics`` on an engine. Stdlib only; the histogram
+renderer reads the raw bucket snapshot (exact cumulative counts). The
+families of the model zoo, variants, autoscaling and placement wait for
+the multi-model plane, and the drift, control-plane and ingress families
+for the control plane and host transports (ROADMAP.md, 'The rest of the
+serving plane'); ``mmlspark_tpu_torch.testing.metrics_check`` audits
+what is rendered here.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Dict, List, Optional
+
+# the scrape Content-Type the text format mandates
+PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+_NAME_OK = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_LABEL_OK = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+
+def sanitize_name(name: str) -> str:
+    """Coerce an arbitrary key into a legal metric/label name."""
+    out = re.sub(r"[^a-zA-Z0-9_:]", "_", str(name))
+    if not out or not re.match(r"[a-zA-Z_:]", out[0]):
+        out = "_" + out
+    return out
+
+
+def escape_label_value(value: Any) -> str:
+    return (str(value).replace("\\", "\\\\").replace("\n", "\\n")
+            .replace('"', '\\"'))
+
+
+def escape_help(text: str) -> str:
+    return str(text).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def format_value(value: Any) -> str:
+    if isinstance(value, bool):
+        return "1" if value else "0"
+    v = float(value)
+    if math.isinf(v):
+        return "+Inf" if v > 0 else "-Inf"
+    if math.isnan(v):
+        return "NaN"
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(v)
+
+
+def _labels_str(labels: Optional[Dict[str, Any]]) -> str:
+    if not labels:
+        return ""
+    parts = [f'{sanitize_name(k)}="{escape_label_value(v)}"'
+             for k, v in labels.items()]
+    return "{" + ",".join(parts) + "}"
+
+
+class PromRenderer:
+    """Accumulates metric families and renders the text exposition.
+    ``# HELP``/``# TYPE`` headers emit once per family regardless of how
+    many label sets sample into it (e.g. one histogram family with a
+    ``phase`` label fed by seven phase histograms)."""
+
+    def __init__(self):
+        self._lines: List[str] = []
+        self._seen: set = set()
+
+    def _header(self, name: str, mtype: str, help_text: str) -> None:
+        if name in self._seen:
+            return
+        self._seen.add(name)
+        self._lines.append(f"# HELP {name} {escape_help(help_text)}")
+        self._lines.append(f"# TYPE {name} {mtype}")
+
+    def sample(self, name: str, value: Any,
+               labels: Optional[Dict[str, Any]] = None) -> None:
+        self._lines.append(
+            f"{name}{_labels_str(labels)} {format_value(value)}")
+
+    def counter(self, name: str, help_text: str, value: Any,
+                labels: Optional[Dict[str, Any]] = None) -> None:
+        name = sanitize_name(name)
+        self._header(name, "counter", help_text)
+        self.sample(name, value, labels)
+
+    def gauge(self, name: str, help_text: str, value: Any,
+              labels: Optional[Dict[str, Any]] = None) -> None:
+        name = sanitize_name(name)
+        self._header(name, "gauge", help_text)
+        self.sample(name, value, labels)
+
+    def info(self, name: str, help_text: str,
+             labels: Dict[str, Any]) -> None:
+        """The `*_info` idiom: constant 1 gauge whose labels carry the
+        metadata (model version, swap state, …)."""
+        self.gauge(name, help_text, 1, labels)
+
+    def histogram(self, name: str, help_text: str, hist: Any,
+                  labels: Optional[Dict[str, Any]] = None) -> None:
+        """Render one ``LatencyHistogram`` (or anything exposing its
+        ``snapshot()`` contract: bounds/counts/count/sum) as a
+        Prometheus histogram family — cumulative ``_bucket{le=...}``
+        series ending at ``+Inf``, plus ``_sum`` and ``_count``."""
+        name = sanitize_name(name)
+        self._header(name, "histogram", help_text)
+        snap = hist.snapshot() if hasattr(hist, "snapshot") else dict(hist)
+        bounds = snap["bounds"]
+        counts = snap["counts"]
+        total = snap.get("count", sum(counts))
+        cum = 0
+        base = dict(labels or {})
+        for bound, c in zip(bounds, counts):
+            cum += c
+            le = "+Inf" if math.isinf(bound) else format_value(bound)
+            self.sample(f"{name}_bucket", cum, {**base, "le": le})
+        self.sample(f"{name}_sum", snap.get("sum", 0.0), base)
+        self.sample(f"{name}_count", total, base)
+
+    def render(self) -> str:
+        return "\n".join(self._lines) + "\n"
+
+
+def process_families(r: PromRenderer, tracer: Any = None) -> None:
+    """The process-wide (non-engine) families every exposition carries:
+    GBDT, AutoML, fusion and out-of-core phase histograms, trace-buffer
+    tail sampling stats, and the card's memory when this process has a
+    CUDA context — so one scrape correlates serving load, training
+    phases, and device memory. ``tracer`` is the tracer whose buffer
+    the caller actually traces into (an engine constructed with its own
+    Tracer must report THAT buffer, not the process-global one)."""
+    from mmlspark_tpu_torch.core import metrics as MC
+    for phase, hist in MC.gbdt_train_histograms().items():
+        r.histogram("gbdt_train_phase_ms",
+                    "GBDT train() per-phase wall milliseconds",
+                    hist, {"phase": phase})
+    for phase, hist in MC.gbdt_hist_histograms().items():
+        r.histogram("gbdt_hist_phase_ms",
+                    "distributed-GBDT histogram hot-loop per-phase "
+                    "wall milliseconds (build/reduce/split)",
+                    hist, {"phase": phase})
+    for coll, val in MC.gbdt_comm_counters().items():
+        r.counter("gbdt_comm_bytes_total",
+                  "modeled per-device collective payload bytes shipped "
+                  "by distributed GBDT training (ring model; zero "
+                  "in a one-process fit)",
+                  val, {"collective": coll})
+    for phase, hist in MC.automl_histograms().items():
+        r.histogram("automl_phase_ms",
+                    "AutoML hot-path per-phase wall milliseconds",
+                    hist, {"phase": phase})
+    for phase, hist in MC.pipeline_histograms().items():
+        r.histogram("pipeline_fusion_phase_ms",
+                    "fused-pipeline per-phase wall milliseconds "
+                    "(core/fusion.py)", hist, {"phase": phase})
+    for phase, hist in MC.ooc_histograms().items():
+        r.histogram("ooc_ingest_phase_ms",
+                    "out-of-core chunked ingest per-phase wall "
+                    "milliseconds (io/ooc.py)", hist, {"phase": phase})
+    for name, hist in MC.warmup_histograms().items():
+        r.histogram(f"serving_{name}",
+                    "per-bucket serving warmup wall (core/warmup.py)",
+                    hist)
+    if tracer is None:
+        from mmlspark_tpu_torch.core.trace import get_tracer
+        tracer = get_tracer()
+    stats = tracer.buffer.stats()
+    r.gauge("trace_buffer_traces", "completed traces currently buffered",
+            stats["buffered"])
+    r.counter("trace_traces_added_total",
+              "traces ever offered to the buffer", stats["added"])
+    r.counter("trace_traces_error_kept_total",
+              "error traces tail-kept", stats["errors_kept"])
+    r.counter("trace_traces_slow_kept_total",
+              "slow-percentile traces tail-kept", stats["slow_kept"])
+    from mmlspark_tpu_torch.utils.profiling import device_memory_stats
+    mem = device_memory_stats()
+    if mem:
+        for key in ("bytes_in_use", "bytes_limit", "peak_bytes_in_use"):
+            if key in mem:
+                r.gauge(f"device_memory_{key}",
+                        "accelerator memory stats (device 0)", mem[key])
+
+
+def pipeline_families(r: PromRenderer, pipeline: Any,
+                      labels: Optional[Dict[str, Any]] = None) -> None:
+    """The duck-typed pipeline surface (model histograms, first-run
+    shape misses) rendered once, so a new pipeline hook is wired in ONE
+    place. A pipeline's drift monitor renders with the drift families
+    (ROADMAP.md, 'The rest of the serving plane')."""
+    model_hists = getattr(pipeline, "histograms", None)
+    if callable(model_hists):
+        try:
+            for name, hist in model_hists().items():
+                r.histogram(f"serving_model_{sanitize_name(name)}",
+                            "model-stage latency distribution", hist,
+                            labels)
+        except Exception:  # noqa: BLE001 — stats stay partial
+            pass
+    miss_fn = getattr(pipeline, "jit_cache_miss_count", None)
+    if callable(miss_fn):
+        try:
+            r.counter("serving_jit_cache_misses_total",
+                      "first-run input shapes met by the serving forward "
+                      "(steady state should be flat)", miss_fn(), labels)
+        except Exception:  # noqa: BLE001 — stats stay partial
+            pass
+
+
+def slo_families(r: PromRenderer, monitor: Any,
+                 labels: Optional[Dict[str, Any]] = None) -> None:
+    """The windowed SLO engine's families (core/slo.py): per-objective
+    burn rates over the monitor's windows, windowed error rate and p99,
+    active-alert gauges, and the alert totals. Per-model series render
+    only the short-window burn rate, and only for the monitor's
+    HARD-CAPPED label set (``label_cap`` + ``_other``)."""
+    base = dict(labels or {})
+    # the three scalars are free (no windowed aggregation): going
+    # through monitor.status() here would compute every burn/error/p99
+    # window just to throw it away — and the per-window gauges below
+    # recompute exactly what each sample needs, once
+    alert_stats = monitor.alerts.stats()
+    r.gauge("serving_slo_degraded",
+            "1 while any burn-rate alert is active", monitor.degraded,
+            base)
+    r.counter("serving_slo_alerts_fired_total",
+              "burn-rate alerts ever fired", alert_stats["fired_total"],
+              base)
+    r.counter("serving_slo_alerts_resolved_total",
+              "burn-rate alerts ever resolved",
+              alert_stats["resolved_total"], base)
+    for slo in monitor.slos:
+        slo_labels = {**base, "slo": slo.name}
+        r.gauge("serving_slo_target",
+                "declared objective (good-event fraction)", slo.target,
+                {**slo_labels, "kind": slo.kind})
+        for w in monitor.windows:
+            wl = _slo_window_label(w)
+            r.gauge("serving_slo_burn_rate",
+                    "error-budget burn rate over the trailing window "
+                    "(1.0 = sustainable pace)",
+                    monitor.burn_rate(slo, w),
+                    {**slo_labels, "window": wl})
+    for w in monitor.windows:
+        wl = _slo_window_label(w)
+        r.gauge("serving_slo_error_rate",
+                "5xx fraction over the trailing window",
+                monitor.error_rate(w), {**base, "window": wl})
+        r.gauge("serving_slo_latency_p99_ms",
+                "p99 reply latency over the trailing window",
+                monitor.latency_p99(w), {**base, "window": wl})
+        r.gauge("serving_slo_requests_window",
+                "requests observed in the trailing window",
+                monitor.requests(w), {**base, "window": wl})
+    for alert in monitor.alerts.active():
+        r.gauge("serving_slo_alert_active",
+                "active burn-rate alert (labels carry identity)", 1,
+                {**base, "slo": alert.slo, "rule": alert.rule,
+                 **({"model": alert.model} if alert.model else {})})
+    # per-model: ONE gauge family over the capped label set
+    short_w = min((rule.short_window_s for rule in monitor.rules),
+                  default=300.0)
+    for model in monitor.model_labels():
+        for slo in monitor.slos:
+            r.gauge("serving_slo_model_burn_rate",
+                    "short-window burn rate per model (cardinality-"
+                    'capped: overflow folds into model="_other")',
+                    monitor.burn_rate(slo, short_w, model=model),
+                    {**base, "slo": slo.name, "model": model})
+
+
+def _slo_window_label(window_s: float) -> str:
+    from mmlspark_tpu_torch.core.slo import _window_label
+    return _window_label(window_s)

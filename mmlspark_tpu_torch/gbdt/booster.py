@@ -583,9 +583,22 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
     (per-phase wall seconds: bin (the cut fit and any host binning),
     ship (to the device, device binning), boost, fetch) and ``train_info``
     (bin_path, histograms built and, with early stopping, valid_loss:
-    the validation losses the stop decision read)."""
+    the validation losses the stop decision read).
+
+    Each call leaves one ``gbdt.train`` trace in the process tracer
+    (``core.trace.get_tracer()``, when enabled): the phases as spans, a
+    ``boost_chunk`` span per chunk of iterations (host wall; the grower
+    reads every split back, so it tracks the card), and the root
+    attributes ``bin_path``, ``boost_chunks`` and ``trees``. The phases
+    and chunks are observed into ``core.metrics.gbdt_train_histograms()``."""
+    from mmlspark_tpu_torch.core.metrics import gbdt_train_histograms
+    from mmlspark_tpu_torch.core.trace import get_tracer
     dev = resolve_device(device)
+    tracer = get_tracer()
+    # one trace per train(): the phase marks double as spans
+    trace = tracer.new_trace("gbdt.train") if tracer.enabled else None
     phases: Dict[str, float] = {}
+    phase_s: Dict[str, float] = {}
     t_phase = time.perf_counter()
 
     def mark(name: str) -> None:
@@ -594,6 +607,9 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
             torch.cuda.synchronize(dev)
         now = time.perf_counter()
         phases[name] = round(now - t_phase, 3)
+        phase_s[name] = now - t_phase
+        if trace is not None:
+            tracer.emit(name, t_phase, now, trace=trace)
         t_phase = now
 
     p = dict(DEFAULTS)
@@ -811,13 +827,24 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
     best_loss, best_iter = np.inf, -1
     pending: List[Tuple[int, torch.Tensor]] = []
     read_losses: List[float] = []
+    boost_chunk_hist = gbdt_train_histograms()["boost_chunk"]
+    n_chunks = 0
     it0, stop = 0, False
     while it0 < n_iter and not stop:
         S = min(S_cfg, n_iter - it0)
+        t_chunk = time.perf_counter()
         for it in range(it0, it0 + S):
             trees_it = run.step(it)
             if use_valid:
                 pending.append((it, valid_eval.add(trees_it)))
+        # host wall of the chunk; no compile-bearing first chunk here,
+        # so every chunk is observed (the JAX engine skips its first)
+        t_chunk_end = time.perf_counter()
+        n_chunks += 1
+        boost_chunk_hist.observe((t_chunk_end - t_chunk) * 1e3)
+        if trace is not None:
+            tracer.emit("boost_chunk", t_chunk, t_chunk_end, trace=trace,
+                        attrs={"it0": int(it0), "length": int(S)})
         if use_valid and (len(pending) >= esr_sync or it0 + S >= n_iter):
             losses = torch.stack([v for _, v in pending]).cpu().numpy()
             for (it, _), cur in zip(pending, losses.tolist()):
@@ -864,6 +891,14 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
             "keep_training_data requested but continuation state is "
             "only retained for single-host runs without init_model or "
             "early stopping; boost_more(data=None) will be unavailable")
+    hists = gbdt_train_histograms()
+    for phase_name, secs in phase_s.items():
+        hists[phase_name].observe(secs * 1e3)
+    if trace is not None:
+        trace.root.set("bin_path", booster.train_info["bin_path"])
+        trace.root.set("boost_chunks", n_chunks)
+        trace.root.set("trees", len(run.trees))
+        tracer.finish(trace)
     return booster
 
 

@@ -79,8 +79,17 @@ item: ``meshAxes`` with an axis above 1, ``paramSharding='fsdp'``,
 ``set_mesh`` and multi-process feeding, with the same-resume-step check
 across hosts ('DNN training across cards'). An ``io.ooc.ChunkedTable``
 is fitted as a replayable shard stream, in the shard-list path's batch
-order. The port has no ``core/trace``, so a fit emits no framework
-spans.
+order.
+
+**Traces**: each fit leaves one ``learner.fit`` trace in the process
+tracer (``core.trace.get_tracer()``, when enabled) with a
+``learner.step`` span per step (the host's dispatch wall: steps run
+asynchronously on the card, so a span shows host stalls, and the
+profiler's ``learner_step`` range the card's time), a ``memory`` span
+per ``memoryStatsEvery`` sample, at most 2,048 spans, and the root
+attributes ``steps``, ``feed`` and ``examples_per_sec``. The port runs
+one step per call on both feeds (the JAX package's device feed runs a
+scanned chunk and spans it as ``learner.chunk``).
 """
 
 from __future__ import annotations
@@ -416,6 +425,19 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
         ann_on = bool(self.get("traceAnnotations"))
         mem_every = int(self.get("memoryStatsEvery") or 0)
         log_every = self.get("logEvery")
+        # fit-scoped trace: per-step spans + the memory samples, in the
+        # buffer serving spans land in (span count capped so a long fit
+        # cannot balloon it)
+        from mmlspark_tpu_torch.core.trace import get_tracer
+        tracer = get_tracer()
+        fit_trace = tracer.new_trace("learner.fit") \
+            if tracer.enabled else None
+        span_cap = 2048
+
+        def emit_span(name: str, t0: float, **attrs) -> None:
+            if fit_trace is not None and \
+                    len(fit_trace._spans) < span_cap:
+                tracer.emit(name, t0, trace=fit_trace, attrs=attrs)
 
         self.history = []
         self.timing = {}
@@ -464,6 +486,7 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
         def one_step(epoch: int, xb, yb, wb, true_rows) -> None:
             nonlocal global_step, t_first, first_timed_step, examples_timed
             nonlocal flops_per_step
+            t_step = time.perf_counter()
             if t_first is None and count_flops:
                 from torch.utils.flop_counter import FlopCounterMode
                 unseen0 = sum(FA.FLOPS.values()) + networks.RNN_FLOPS["lstm"]
@@ -475,6 +498,7 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
             else:
                 loss = train_step(global_step, xb, yb, wb)
             global_step += 1
+            emit_span("learner.step", t_step, step=global_step, epoch=epoch)
             if t_first is None:
                 float(loss)     # the first step (set-up included) ends here
                 t_first = time.time()
@@ -487,8 +511,9 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
             if mem_every and global_step % mem_every == 0:
                 stats = device_memory_stats(dev)
                 if stats:
-                    self.memory_samples.append({"step": global_step,
-                                                **stats})
+                    sample = {"step": global_step, **stats}
+                    self.memory_samples.append(sample)
+                    emit_span("memory", time.perf_counter(), **sample)
             if ckpt_dir and global_step % ckpt_every == 0:
                 save(global_step)
 
@@ -519,6 +544,14 @@ class TPULearner(Estimator, HasFeaturesCol, HasLabelCol):
                     model_flops_per_step=flops_per_step,
                     tflops_per_sec_per_chip=tflops,
                     mfu=tflops * 1e12 / H100_PEAK_BF16_FLOPS)
+        if fit_trace is not None:
+            fit_trace.root.set("steps", int(global_step))
+            fit_trace.root.set("feed", "device" if device_feed else "host")
+            if self.timing:
+                fit_trace.root.set(
+                    "examples_per_sec",
+                    round(self.timing.get("examples_per_sec", 0.0), 1))
+            tracer.finish(fit_trace)
 
         field = schema_src.schema.get(fcol)
         img_scale = (1.0 / 255.0) if (field is not None

@@ -45,11 +45,12 @@ def higgs_shape(n: int, seed: int = 7):
     return X, y
 
 
-def post_json(bodies, address: str, n_threads: int):
+def post_json(bodies, address: str, n_threads: int, traceparents=None):
     """POST each body (bytes) to ``address`` from ``n_threads`` client
-    threads, each on its own keep-alive connection with a 60 s timeout.
-    Returns (replies in body order as parsed JSON or None, per-request
-    seconds, wall seconds, errors)."""
+    threads, each on its own keep-alive connection with a 60 s timeout;
+    ``traceparents[i]``, when given, rides request i as its
+    ``traceparent`` header. Returns (replies in body order as parsed
+    JSON or None, per-request seconds, wall seconds, errors)."""
     url = urllib.parse.urlsplit(address)
     replies = [None] * len(bodies)
     lat = [0.0] * len(bodies)
@@ -60,9 +61,11 @@ def post_json(bodies, address: str, n_threads: int):
                                           timeout=60)
         try:
             for i in range(k, len(bodies), n_threads):
+                headers = {"Content-Type": "application/json"}
+                if traceparents is not None:
+                    headers["traceparent"] = traceparents[i]
                 t0 = time.perf_counter()
-                conn.request("POST", "/", body=bodies[i], headers={
-                    "Content-Type": "application/json"})
+                conn.request("POST", "/", body=bodies[i], headers=headers)
                 r = conn.getresponse()
                 data = r.read()
                 lat[i] = time.perf_counter() - t0
@@ -88,14 +91,61 @@ def post_json(bodies, address: str, n_threads: int):
     return replies, lat, wall, errors
 
 
-def _client_process(bodies, address, n_threads, out_q) -> None:
+def _client_process(bodies, address, n_threads, out_q,
+                    traceparents=None) -> None:
     """Spawned child: the same clients, outside the engine's process."""
-    out_q.put(post_json(bodies, address, n_threads))
+    out_q.put(post_json(bodies, address, n_threads, traceparents))
+
+
+def drive(engine, bodies, n_threads: int, traceparents=None):
+    """POST ``bodies`` to ``engine`` from ``n_threads`` client threads of
+    a spawned process (as ``post_json`` does), so that the clients do
+    not share the engine's interpreter lock; then wait, polling for at
+    most 30 s, until the engine's source has counted every reply.
+    Returns what ``post_json`` returns. A client process that sends no
+    result within 300 s or exits non-zero is reported among the
+    errors."""
+    import queue
+    n0 = engine.source.requests_answered
+    ctx = multiprocessing.get_context("spawn")
+    out_q = ctx.Queue()
+    proc = ctx.Process(target=_client_process, args=(
+        bodies, engine.source.address, n_threads, out_q, traceparents))
+    proc.start()
+    replies, lat, wall, errors = [None] * len(bodies), [], 0.0, []
+    try:
+        replies, lat, wall, errors = out_q.get(timeout=300)
+    except queue.Empty:
+        errors = ["the client process sent no result"]
+    finally:
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if proc.exitcode != 0:
+        errors = errors + [f"client process exit code {proc.exitcode}"]
+    wait_answered(engine, n0 + len(bodies))
+    return replies, lat, wall, errors
+
+
+def wait_answered(engine, n: int) -> None:
+    """Poll, for at most 30 s, until the engine's source has counted
+    ``n`` replies: the handler counts a reply just after sending it."""
+    deadline = time.monotonic() + 30
+    while engine.source.requests_answered < n and \
+            time.monotonic() < deadline:
+        time.sleep(0.01)
 
 
 def _percentile_ms(lat, q: float) -> float:
     ms = np.sort(np.asarray(lat)) * 1e3
     return float(ms[int(q * (len(ms) - 1))])
+
+
+def latency_numbers(lat, wall: float) -> dict:
+    """requests/s and client p50 / p99 (ms) of one driven run."""
+    return {"rps": len(lat) / wall, "p50_ms": _percentile_ms(lat, 0.50),
+            "p99_ms": _percentile_ms(lat, 0.99)}
 
 
 def main() -> int:
@@ -173,7 +223,6 @@ def main() -> int:
           f"{dict(sorted(kinds.items(), key=lambda kv: -kv[1])[:8])}")
 
     # -- 2. loaded: clients in this process, then in another ---------------
-    ctx = multiprocessing.get_context("spawn")
     for where in ("same process", "second process"):
         engine = serve_model(json_scoring_pipeline(model), port=0,
                              batch_size=256, workers=2, max_wait_ms=5)
@@ -181,17 +230,10 @@ def main() -> int:
             if where == "same process":
                 replies, lat, wall, errors = post_json(
                     bodies, engine.source.address, args.clients)
+                wait_answered(engine, len(bodies))
             else:
-                q = ctx.Queue()
-                proc = ctx.Process(target=_client_process, args=(
-                    bodies, engine.source.address, args.clients, q))
-                proc.start()
-                replies, lat, wall, errors = q.get(timeout=600)
-                proc.join(timeout=60)
-            deadline = time.monotonic() + 30
-            while engine.source.requests_answered < len(bodies) and \
-                    time.monotonic() < deadline:
-                time.sleep(0.01)
+                replies, lat, wall, errors = drive(
+                    engine, bodies, args.clients)
             m = engine.metrics()
         finally:
             engine.stop()

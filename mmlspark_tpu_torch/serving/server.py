@@ -16,24 +16,41 @@ What the port keeps, as the reference has it: the adaptive
 micro-batcher, the ``prepare_batch`` / ``execute_prepared`` split,
 in-flight gating, per-row poison isolation, ``error_col``, codec
 rejects, the supervisor, parked-table shedding with a live
-``Retry-After``, ``/healthz`` and ``metrics()``.
+``Retry-After``, ``/healthz`` and ``metrics()``, and the telemetry the
+reference turns on by default:
 
-Where the port differs (the reference's default path reaches modules
-the port has not ported yet):
+- **Request tracing** (``core/trace.py``): each request's root span is
+  continued from its ``traceparent`` (or ``X-Trace-Id``) header and
+  answered with ``X-Trace-Id``; the batcher adds ``queue_wait`` per
+  request and one shared ``decode`` span per batch, the worker one
+  shared ``device`` span that links every request root it served, then
+  a ``respond`` span per request. ``tracing`` overrides config
+  ``trace.enabled``; ``tracer`` defaults to the process-wide one;
+  ``tracing=False`` turns it off (the hot path then pays one attribute
+  check). Spans are host intervals: the ``device`` span ends when the
+  pipeline returns, which for the port's scorers is after the result
+  has come back to the host.
+- **The SLO monitor** (``core/slo.py``): one sample per answered
+  request at the HTTP handler, a rate-gated burn-rate evaluation on the
+  batcher tick, the status on ``/healthz`` and ``metrics()`` under
+  ``slo``. ``slo=False`` turns it off; an ``SLOMonitor`` may be shared.
+- **The flight recorder** (``core/flightrecorder.py``): the
+  process-wide recorder by default; an SLO alert triggers a bundle, and
+  ``stop()`` removes exactly the hooks this engine installed.
+  ``flight_recorder=False`` turns it off.
+- ``GET /metrics`` (Prometheus text, ``core/prometheus.py``),
+  ``/debug/traces`` (chrome trace JSON, ``?limit=``) and
+  ``/debug/bundle`` (``?confirm=1``) answer 200.
 
-- **Request tracing, the SLO monitor and the flight recorder default to
-  off.** Passing ``tracer=``, ``tracing=True``, an ``slo`` monitor or a
-  ``flight_recorder`` raises ``NotImplementedError`` naming ROADMAP item
-  14 ('Device pipeline and serving compilation', which holds
-  ``core/trace.py``) or 15 ('The rest of the serving plane'); so do
-  ``zoo=``, ``admission=``, ``variants=`` and ``swap()`` (the reference
-  runs admission decisions only in a zoo engine's model-routing
-  batcher). ``GET /metrics`` (Prometheus),
-  ``/debug/traces`` and ``/debug/bundle`` answer 501 with the same kind
-  of message.
-- Replies do not change. Only the telemetry sections of ``/healthz`` and
-  ``metrics()`` are missing (``slo``, ``controlplane``, ``zoo``,
-  ``admission``, ``swap``, ``variants`` and the swap counters).
+What still raises ``NotImplementedError``, naming its ROADMAP.md item
+'The rest of the serving plane': the model zoo (``zoo=``) and admission
+control (``admission=``), with 'The multi-model plane'; variant routing
+(``variants=``), with the same; zero-downtime ``swap()``, with 'Model
+lifecycle and the client fleet' (the reference runs admission decisions
+only in a zoo engine's model-routing batcher). So ``metrics()`` has no
+``zoo``, ``admission``, ``swap``, ``variants`` or ``controlplane``
+section, and ``/metrics`` none of their families.
+
 - ``HTTPSource`` drains only through ``drain_parked`` (the engine's
   path); the reference's ``get_batch`` / ``get_batch_adaptive`` and
   ``ServingEngine.process_one_batch`` embedder calls and the chaos hook
@@ -44,13 +61,16 @@ the port has not ported yet):
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
+import os
 import queue
 import secrets
 import threading
 import time
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -63,13 +83,14 @@ from mmlspark_tpu_torch.io.http import HTTPSchema, _jsonable as _to_jsonable
 
 log = get_logger("serving")
 
-_TRACING = "Device pipeline and serving compilation"
 _SERVING_PLANE = "The rest of the serving plane"
+_MULTI_MODEL = "The multi-model plane"
+_LIFECYCLE = "Model lifecycle and the client fleet"
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
+def _not_ported(what: str, part: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP.md, "
-                               f"'{item}'")
+                               f"'{_SERVING_PLANE}', '{part}'")
 
 
 def _request_id_factory():
@@ -128,6 +149,10 @@ class _ParkedRequest:
         # drain_parked/top_up, the two exits from the source queue)
         self.enqueued_at: float = 0.0
         self.dequeued_at: float = 0.0
+        # the request's Trace (core.trace) when the engine traces; the
+        # handler thread is the single finalization point (success,
+        # shed, timeout, client-gone — every exit buffers the trace)
+        self.trace = None
 
     def respond(self, response: Dict[str, Any]) -> None:
         self.response = response
@@ -137,14 +162,6 @@ class _ParkedRequest:
         if self._event.wait(timeout):
             return self.response
         return None
-
-
-# GET paths of the reference whose providers are not ported: 501 + item
-_UNPORTED_GETS = {
-    "/metrics": ("the Prometheus exposition", _SERVING_PLANE),
-    "/debug/traces": ("request tracing", _TRACING),
-    "/debug/bundle": ("the flight recorder", _SERVING_PLANE),
-}
 
 
 class HTTPSource:
@@ -177,6 +194,17 @@ class HTTPSource:
         # () -> dict of latency-histogram summaries; /healthz folds both
         self.health_probe: Optional[Callable[[], bool]] = None
         self.metrics_probe: Optional[Callable[[], Dict[str, Any]]] = None
+        # set by ServingEngine.start(): the engine's Tracer (ingress
+        # creates each request's trace, honoring traceparent /
+        # X-Trace-Id), the /debug/traces exporter, the /metrics
+        # Prometheus renderer, the windowed SLO monitor (one sample per
+        # answered request, status folded into /healthz) and the
+        # flight-recorder bundle probe behind /debug/bundle
+        self.tracer = None
+        self.trace_probe: Optional[Callable[..., Dict[str, Any]]] = None
+        self.prom_probe: Optional[Callable[[], str]] = None
+        self.slo = None
+        self.bundle_probe: Optional[Callable[..., Dict[str, Any]]] = None
         self._pending: Dict[str, _ParkedRequest] = {}
         self._lock = threading.Lock()
         self._new_rid = _request_id_factory()
@@ -216,12 +244,86 @@ class HTTPSource:
                           "retry_after": source.retry_after_s},
                     {"Retry-After": str(source.retry_after_s)})
 
+            def _send_text(self, code: int, text: str,
+                           content_type: str = "text/plain"):
+                body = text.encode("utf-8")
+                self.send_response(code)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _query_limit(self):
+                """``?limit=`` parsed strictly: (ok, value). A
+                non-integer or negative limit is the CALLER's mistake
+                and answers 400, not a full-buffer dump or a 500."""
+                query = urllib.parse.parse_qs(
+                    urllib.parse.urlsplit(self.path).query,
+                    keep_blank_values=True)
+                vals = query.get("limit")
+                if vals is None:
+                    return True, None
+                try:
+                    limit = int(vals[0])
+                except (TypeError, ValueError):
+                    return False, None
+                if limit < 0:
+                    return False, None
+                return True, limit
+
+            def _query_flag(self, name: str) -> bool:
+                query = urllib.parse.parse_qs(
+                    urllib.parse.urlsplit(self.path).query)
+                vals = query.get(name)
+                return bool(vals) and vals[0] not in ("0", "false", "")
+
+            def _debug_json(self, probe, what: str,
+                            needs_confirm: bool = False):
+                """/debug/traces and /debug/bundle: strict ``?limit=``,
+                and the bundle (multi-MB on a busy engine) only with
+                ``?confirm=1``."""
+                if probe is None:
+                    self.send_error(404, f"no engine attached ({what})")
+                    return
+                ok, limit = self._query_limit()
+                if not ok:
+                    self._send_json(400, {
+                        "error": "limit must be a non-negative integer"})
+                    return
+                if needs_confirm and not self._query_flag("confirm"):
+                    self._send_json(400, {
+                        "error": "bundle dumps are large; re-request"
+                                 " with ?confirm=1"})
+                    return
+                try:
+                    payload = probe(limit)
+                except Exception as e:  # noqa: BLE001
+                    self.send_error(500, f"{what} export: {e}")
+                    return
+                self._send_json(200, payload)
+
             def do_GET(self):  # noqa: N802 (http.server API)
                 path_only = self.path.split("?", 1)[0].rstrip("/")
-                if path_only in _UNPORTED_GETS:
-                    what, item = _UNPORTED_GETS[path_only]
-                    self._send_json(
-                        501, {"error": str(_not_ported(what, item))})
+                if path_only == "/metrics":
+                    if source.prom_probe is None:
+                        self.send_error(
+                            404, "no engine attached (metrics)")
+                        return
+                    try:
+                        text = source.prom_probe()
+                    except Exception as e:  # noqa: BLE001
+                        self.send_error(500, f"metrics render: {e}")
+                        return
+                    from mmlspark_tpu_torch.core.prometheus import \
+                        PROM_CONTENT_TYPE
+                    self._send_text(200, text, PROM_CONTENT_TYPE)
+                    return
+                if path_only == "/debug/traces":
+                    self._debug_json(source.trace_probe, "trace")
+                    return
+                if path_only == "/debug/bundle":
+                    self._debug_json(source.bundle_probe, "bundle",
+                                     needs_confirm=True)
                     return
                 if path_only != "/healthz":
                     self.send_error(404, f"unknown path {path_only}")
@@ -238,9 +340,25 @@ class HTTPSource:
                         metrics = source.metrics_probe()
                     except Exception:  # noqa: BLE001 — stats stay partial
                         metrics = {"error": "metrics probe failed"}
+                slo_status: Optional[Dict[str, Any]] = None
+                if source.slo is not None:
+                    try:
+                        # a scrape-driven evaluation (tightly gated) so
+                        # alert state is fresh even on an idle engine
+                        source.slo.evaluate(min_interval_s=0.2)
+                        slo_status = source.slo.status()
+                    except Exception:  # noqa: BLE001 — stats stay partial
+                        slo_status = {"error": "slo probe failed"}
+                # DEGRADED: alive and serving, but an SLO is burning —
+                # stays HTTP 200 (a degraded engine must keep taking
+                # traffic) with the machine-readable verdict
+                status = "ok" if healthy else "unhealthy"
+                if healthy and slo_status is not None and \
+                        slo_status.get("degraded"):
+                    status = "degraded"
                 with source._lock:
                     stats = {
-                        "status": "ok" if healthy else "unhealthy",
+                        "status": status,
                         "seen": source.requests_seen,
                         "accepted": source.requests_accepted,
                         "answered": source.requests_answered,
@@ -250,6 +368,8 @@ class HTTPSource:
                     }
                 if metrics is not None:
                     stats["metrics"] = metrics
+                if slo_status is not None:
+                    stats["slo"] = slo_status
                 self._send_json(200 if healthy else 503, stats)
 
             def do_POST(self):  # noqa: N802 (http.server API)
@@ -265,6 +385,7 @@ class HTTPSource:
                     return
                 with source._lock:
                     source.requests_seen += 1
+                t_req = time.perf_counter()
                 path_only = self.path.split("?", 1)[0]
                 if source.api_path not in ("/", "") and \
                         path_only.rstrip("/") != source.api_path.rstrip("/"):
@@ -276,6 +397,46 @@ class HTTPSource:
                     self.path, "POST", body,
                     {k: v for k, v in self.headers.items()})
                 parked = _ParkedRequest(source._new_rid(), req)
+                tracer = source.tracer
+                if tracer is not None and tracer.enabled:
+                    # request-scoped trace: root span from ingress. A
+                    # traceparent header (or the legacy X-Trace-Id
+                    # alias) CONTINUES the caller's trace as a child of
+                    # the remote client span. This handler is the
+                    # single finalization point — every exit below
+                    # buffers it.
+                    ctx = tracer.extract(self.headers)
+                    parked.trace = tracer.continue_trace("request", ctx)
+                    parked.trace.root.set("path", self.path)
+                    if ctx is not None and ctx.parent_id:
+                        parked.trace.root.set("remote_parent", True)
+
+                def _finalize(code: int) -> None:
+                    # every exit records exactly one SLO sample: the
+                    # caller-observed verdict (5xx = unavailability,
+                    # shed 503s included) and wall latency
+                    if source.slo is not None:
+                        try:
+                            source.slo.record(
+                                code < 500,
+                                (time.perf_counter() - t_req) * 1e3)
+                        except Exception:  # noqa: BLE001 — best-effort
+                            pass
+                    tr = parked.trace
+                    if tr is None:
+                        return
+                    from mmlspark_tpu_torch.core.trace import \
+                        SHED_STATUSES
+                    tr.root.set("http_status", code)
+                    if code in SHED_STATUSES:
+                        # load shedding is EXPECTED back-pressure, not
+                        # a failure: error-marking it would let an
+                        # overload flood the protected tail ring
+                        tr.root.set("shed", True)
+                    elif code >= 500:
+                        tr.root.error()
+                    tracer.finish(tr)
+
                 with source._lock:
                     if len(source._pending) >= source.max_parked:
                         shed = True
@@ -284,6 +445,7 @@ class HTTPSource:
                         shed = False
                 if shed:
                     self._shed("parked-request table full")
+                    _finalize(503)
                     return
                 parked.enqueued_at = time.perf_counter()
                 try:
@@ -294,6 +456,7 @@ class HTTPSource:
                     with source._lock:
                         source._pending.pop(parked.id, None)
                     self._shed("queue full")
+                    _finalize(503)
                     return
                 resp = parked.wait(reply_timeout)
                 with source._lock:
@@ -301,6 +464,7 @@ class HTTPSource:
                 try:
                     if resp is None:
                         self.send_error(504, "serving timeout")
+                        _finalize(504)
                         return
                     code = resp["statusLine"]["statusCode"]
                     entity = resp.get("entity") or b""
@@ -312,17 +476,29 @@ class HTTPSource:
                     # duplicate/conflict
                     _framing = {"content-length", "transfer-encoding",
                                 "connection"}
+                    sent_trace_id = False
                     for k, v in (resp.get("headers") or {}).items():
                         if k.lower() not in _framing:
+                            if k.lower() == "x-trace-id":
+                                sent_trace_id = True
                             self.send_header(k, v)
+                    if parked.trace is not None and not sent_trace_id:
+                        self.send_header("X-Trace-Id",
+                                         parked.trace.trace_id)
                     self.send_header("Content-Length", str(len(entity)))
                     self.end_headers()
                     self.wfile.write(entity)
                 except OSError:
                     # client gave up (timeout/disconnect) before the
                     # reply flushed: fold the connection quietly
+                    if parked.trace is not None:
+                        parked.trace.root.set("client_disconnected", True)
+                    _finalize(499)
                     self.close_connection = True
                     return
+                # trace and SLO sample first: a caller that polls
+                # requests_answered then finds this request's telemetry
+                _finalize(code)
                 with source._lock:
                     source.requests_answered += 1
 
@@ -435,6 +611,54 @@ class PipelineHandle:
         self.execute = getattr(pipeline, "execute_prepared", None)
 
 
+class _BatchTraceCtx:
+    """Per-micro-batch tracing context, riding the dispatch item from
+    the batcher to the worker (and through per-row retries) so every
+    stage lands spans on the right request traces.
+
+    Batch-join semantics: ``batch_span`` creates ONE span that is
+    shared by every member trace and ``links`` each request's root
+    span — one decode/device span explains all N rows it served."""
+
+    __slots__ = ("tracer", "traces", "by_rid", "primary", "roots",
+                 "dispatched_at")
+
+    def __init__(self, tracer, parked: List[_ParkedRequest]):
+        self.tracer = tracer
+        self.traces = []
+        self.by_rid: Dict[str, Any] = {}
+        self.roots = []
+        # stamped when the batcher hands the item to the dispatch
+        # queue; the FIRST device span starts here so the worker-wake
+        # handoff is attributed instead of falling between spans
+        self.dispatched_at: Optional[float] = None
+        for p in parked:
+            if p.trace is not None:
+                self.traces.append(p.trace)
+                self.by_rid[p.id] = p.trace
+                self.roots.append(p.trace.root)
+        self.primary = self.traces[0] if self.traces else None
+
+    def batch_span(self, name: str, start: Optional[float] = None):
+        if self.primary is None:
+            return None
+        span = self.tracer.start_span(name, self.primary,
+                                      parent=self.primary.root,
+                                      start=start)
+        for root in self.roots:
+            span.link(root.trace_id, root.span_id)
+        for tr in self.traces[1:]:
+            tr.add(span)
+        return span
+
+    def request_span(self, rid: str, name: str,
+                     start: Optional[float] = None):
+        tr = self.by_rid.get(rid)
+        if tr is None:
+            return None
+        return self.tracer.start_span(name, tr, start=start)
+
+
 class ServingEngine:
     """The streaming loop: source → adaptive micro-batcher → user
     pipeline → sink (the structured-streaming query of ref:
@@ -461,7 +685,9 @@ class ServingEngine:
 
     The whole path is instrumented with latency histograms
     (queue-wait / decode / pipeline / respond, plus the model's own
-    pad / device split) exported through ``metrics()`` and /healthz.
+    pad / device split) exported through ``metrics()``, /healthz and
+    /metrics, with request traces, the SLO monitor and the flight
+    recorder on by default (module docstring).
     """
 
     def __init__(self, source: HTTPSource,
@@ -475,29 +701,66 @@ class ServingEngine:
                  tracing: Optional[bool] = None,
                  zoo=None, admission=None,
                  slo=None, flight_recorder=None,
+                 slo_eval_interval_s: float = 0.25,
                  variants=None,
                  retry_after_max_s: float = 30.0):
+        from mmlspark_tpu_torch.core import trace as trace_mod
         from mmlspark_tpu_torch.core.metrics import WindowedCounter, \
             histogram_set
-        if tracer is not None or tracing:
-            raise _not_ported("request tracing (tracer=, tracing=True)",
-                              _TRACING)
-        if slo not in (None, False):
-            raise _not_ported("the SLO monitor (slo=)", _SERVING_PLANE)
-        if flight_recorder not in (None, False):
-            raise _not_ported("the flight recorder (flight_recorder=)",
-                              _SERVING_PLANE)
         if zoo is not None:
-            raise _not_ported("the model zoo (zoo=)", _SERVING_PLANE)
+            raise _not_ported("the model zoo (zoo=)", _MULTI_MODEL)
         if admission is not None:
             raise _not_ported("admission control (admission=)",
-                              _SERVING_PLANE)
+                              _MULTI_MODEL)
         if variants is not None:
             raise _not_ported("variant routing (variants=)",
-                              _SERVING_PLANE)
+                              _MULTI_MODEL)
         if pipeline is None:
             raise ValueError("ServingEngine needs a pipeline")
         self.source = source
+        # request tracing: ``tracing`` overrides config
+        # ``trace.enabled``; the tracer (and so the completed-trace
+        # buffer) defaults to the process-wide one, so training spans
+        # land beside serving spans. ``self.tracer is None`` == tracing
+        # off — the hot path pays one attribute check.
+        if tracing is None:
+            from mmlspark_tpu_torch.core import config as _config
+            tracing = bool(_config.get("trace.enabled", True))
+        self.tracer = (tracer if tracer is not None
+                       else trace_mod.get_tracer()) if tracing else None
+        if self.tracer is not None and not self.tracer.enabled:
+            self.tracer = None
+        # windowed SLO engine (core/slo.py): on by default. ``slo=False``
+        # disables; pass an SLOMonitor to share/customize objectives.
+        if slo is None:
+            from mmlspark_tpu_torch.core.slo import SLOMonitor
+            slo = SLOMonitor()
+        elif slo is False:
+            slo = None
+        self.slo = slo
+        self._slo_eval_interval_s = float(slo_eval_interval_s)
+        # flight recorder (core/flightrecorder.py): the process-wide
+        # recorder by default, so one bundle tells the whole process's
+        # story. ``False`` disables.
+        if flight_recorder is None:
+            from mmlspark_tpu_torch.core.flightrecorder import get_recorder
+            flight_recorder = get_recorder()
+        elif flight_recorder is False:
+            flight_recorder = None
+        self.flight_recorder = flight_recorder
+        # hooks THIS engine installs on the monitor are remembered so
+        # stop() can uninstall exactly them: a shared SLOMonitor reused
+        # by a later engine must not keep routing bundles to a stopped
+        # engine's recorder
+        self._slo_hooks_installed: List[str] = []
+        if self.slo is not None and self.flight_recorder is not None \
+                and self.slo.on_fire is None:
+            # SLO breach => auto-captured post-mortem bundle
+            # (rate-limited inside the recorder)
+            rec = self.flight_recorder
+            self.slo.on_fire = (
+                lambda alert: rec.trigger(f"slo_breach:{alert.name}"))
+            self._slo_hooks_installed.append("on_fire")
         # dynamic Retry-After: shed replies quote the live backlog /
         # drain-rate estimate instead of a constant, clamped to
         # [1, retry_after_max_s]
@@ -560,8 +823,7 @@ class ServingEngine:
 
     def swap(self, pipeline: Transformer, version: str,
              warmup_example: Any = None, policy: Any = None):
-        raise _not_ported("zero-downtime model swap (swap)",
-                          _SERVING_PLANE)
+        raise _not_ported("zero-downtime model swap (swap)", _LIFECYCLE)
 
     def _respond_ok(self, rid: str, rep: Any) -> None:
         body = rep if isinstance(rep, (bytes, str)) \
@@ -571,11 +833,34 @@ class ServingEngine:
             200, "OK", body if isinstance(body, bytes)
             else body.encode("utf-8"), headers))
 
-    def _answer_output(self, out: DataTable, ids: List[str]) -> None:
+    def _finish_request_trace(self, tctx: Optional[_BatchTraceCtx],
+                              rid: str, t_answer: float,
+                              error: bool = False) -> None:
+        """Trace bookkeeping for one reply, BEFORE the respond() event
+        fires: a ``respond`` span covering wait-for-my-turn in the
+        answer loop + this row's flush, then the root closes at
+        reply-enqueue. All trace writes happen before the handler
+        thread (which buffers the finished trace) can wake."""
+        if tctx is None:
+            return
+        span = tctx.request_span(rid, "respond", start=t_answer)
+        if span is None:
+            return
+        if error:
+            span.error()
+        span.finish()
+        root = tctx.by_rid[rid].root
+        if error:
+            root.error()
+        root.finish()
+
+    def _answer_output(self, out: DataTable, ids: List[str],
+                       tctx: Optional[_BatchTraceCtx] = None) -> None:
         """Answer one transformed batch, splitting per-row errors: a
         non-null ``error_col`` value means that row failed and gets a
         500 while its batchmates still get their 200s
         (ref: SimpleHTTPTransformer.scala:104-150 error-split pipeline)."""
+        t_answer = time.perf_counter()
         replies = out[self.reply_col]
         out_ids = out[self.id_col]
         errors = (out[self.error_col]
@@ -584,41 +869,92 @@ class ServingEngine:
         for i, (rid, rep) in enumerate(zip(out_ids, replies)):
             err = errors[i] if errors is not None else None
             if err is not None and err == err:  # non-null, non-NaN
+                self._finish_request_trace(tctx, rid, t_answer,
+                                           error=True)
                 self.source.respond(rid, HTTPSchema.response(
                     500, f"row error: {err}", None))
             else:
+                self._finish_request_trace(tctx, rid, t_answer)
                 self._respond_ok(rid, rep)
             answered.add(rid)
         for rid in ids:
             if rid not in answered:
+                self._finish_request_trace(tctx, rid, t_answer,
+                                           error=True)
                 self.source.respond(rid, HTTPSchema.response(
                     500, "row dropped by pipeline", None))
 
+    def _device_span(self, tctx: Optional[_BatchTraceCtx],
+                     handle: PipelineHandle, rows: int):
+        """The batch-join device span: ONE span shared by every request
+        trace in the micro-batch, linking their root spans and carrying
+        the model version, rows, bucket and first-run flag. Returns
+        (span, miss_probe, misses_before)."""
+        if tctx is None or tctx.primary is None:
+            return None, None, None
+        start = tctx.dispatched_at     # consumed once: a per-row retry
+        tctx.dispatched_at = None      # re-run starts its span at now
+        ds = tctx.batch_span("device", start=start)
+        ds.set("model_version", handle.version)
+        ds.set("rows", rows)
+        bucket_for = getattr(handle.pipeline, "bucket_for", None)
+        if callable(bucket_for):
+            try:
+                ds.set("bucket", int(bucket_for(rows)))
+            except Exception:  # noqa: BLE001 — annotation only
+                pass
+        miss_fn = getattr(handle.pipeline, "jit_cache_miss_count", None)
+        miss0 = None
+        if callable(miss_fn):
+            try:
+                miss0 = int(miss_fn())
+            except Exception:  # noqa: BLE001 — annotation only
+                miss_fn = None
+        return ds, miss_fn, miss0
+
     def _execute_batch(self, table: DataTable, ids: List[str],
                        prepped: Any,
-                       handle: Optional[PipelineHandle] = None) -> None:
+                       handle: Optional[PipelineHandle] = None,
+                       tctx: Optional[_BatchTraceCtx] = None) -> None:
         """Stage 2 of the pipeline: device execution + reply flush for
         one micro-batch (``prepped`` carries stage 1's decode output
         when the pipeline supports the split). The whole batch runs on
-        ``handle``'s pipeline version, retries included."""
+        ``handle``'s pipeline version, retries included. The ``device``
+        span is the active span while the pipeline runs, so its log
+        lines carry the trace id."""
+        from mmlspark_tpu_torch.core.trace import use_span
         if handle is None:
             handle = self._active
+        ds, miss_fn, miss0 = self._device_span(tctx, handle, len(ids))
+        span_ctx = use_span(ds) if ds is not None \
+            else contextlib.nullcontext()
         t0 = time.perf_counter()
         try:
-            if prepped is not None and handle.execute is not None:
-                out = handle.execute(table, prepped)
-            else:
-                out = handle.pipeline.transform(table)
+            with span_ctx:
+                if prepped is not None and handle.execute is not None:
+                    out = handle.execute(table, prepped)
+                else:
+                    out = handle.pipeline.transform(table)
         except Exception as e:  # noqa: BLE001 — isolate the poison row(s)
+            if ds is not None:
+                ds.error(e).finish()
             log.warning("serving batch failed (%s); retrying per-row", e)
-            self._process_rows_individually(table, ids, handle)
+            self._process_rows_individually(table, ids, handle, tctx)
             with self._stats_lock:
                 self.batches_processed += 1
             return
-        self.hists["pipeline_ms"].observe((time.perf_counter() - t0) * 1e3)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        if ds is not None:
+            if miss_fn is not None:
+                try:
+                    ds.set("jit_cache_miss", bool(miss_fn() - miss0))
+                except Exception:  # noqa: BLE001 — annotation only
+                    pass
+            ds.finish()
+        self.hists["pipeline_ms"].observe(dt_ms)
         t1 = time.perf_counter()
         try:
-            self._answer_output(out, ids)
+            self._answer_output(out, ids, tctx)
         except Exception as e:  # noqa: BLE001 — e.g. missing reply column
             log.warning("answering batch failed (%s); sending 500s", e)
             for rid in ids:
@@ -632,59 +968,110 @@ class ServingEngine:
     def _process_rows_individually(self, table: DataTable,
                                    ids: List[str],
                                    handle: Optional[PipelineHandle] = None,
+                                   tctx: Optional[_BatchTraceCtx] = None,
                                    ) -> None:
         """Batch-failure fallback: run each row alone so one poison
         request cannot 500 its batchmates (the per-row half of the
-        reference's error isolation, SimpleHTTPTransformer.scala:104-150)."""
+        reference's error isolation, SimpleHTTPTransformer.scala:104-150).
+        Each retried row gets its OWN device span (retry=true) on its
+        trace — the poison row's trace shows the failed batch span AND
+        its lone-row verdict."""
         if handle is None:
             handle = self._active
         requests = table["request"]
         for rid, req in zip(ids, requests):
             row = DataTable({"id": [rid], "request": [req]})
+            span = tctx.request_span(rid, "device") if tctx is not None \
+                else None
+            if span is not None:
+                span.set("model_version", handle.version)
+                span.set("rows", 1)
+                span.set("retry", True)
             try:
                 out = handle.pipeline.transform(row)
-                self._answer_output(out, [rid])
+                if span is not None:
+                    span.finish()
+                self._answer_output(out, [rid], tctx)
             except Exception as e:  # noqa: BLE001
+                if span is not None:
+                    span.error(e).finish()
                 self.source.respond(rid, HTTPSchema.response(
                     500, f"pipeline error: {e}", None))
 
     def _build_item(self, parked: List[_ParkedRequest],
                     handle: PipelineHandle) -> Optional[Tuple]:
         """Assemble + (optionally) decode one collected batch: the host
-        half of the two-stage pipeline, run on the batcher thread."""
+        half of the two-stage pipeline, run on the batcher thread.
+        Tracing: each member request gets a ``queue_wait`` span
+        (ingress enqueue → batch assembly, covering both the source
+        queue AND the adaptive collect window) and the batch gets a
+        shared ``decode`` span; both ride the returned item so the
+        worker's device/respond spans land on the same traces."""
         table = DataTable({"id": [p.id for p in parked],
                            "request": [p.request for p in parked]})
         ids = [p.id for p in parked]
+        tctx: Optional[_BatchTraceCtx] = None
+        if self.tracer is not None:
+            ctx = _BatchTraceCtx(self.tracer, parked)
+            if ctx.primary is not None:
+                tctx = ctx
+                t_build = time.perf_counter()
+                for p in parked:
+                    if p.trace is not None:
+                        self.tracer.start_span(
+                            "queue_wait", p.trace,
+                            start=p.enqueued_at).finish(t_build)
         prepped = None
         if handle.prepare is not None and handle.execute is not None:
             t0 = time.perf_counter()
+            dspan = tctx.batch_span("decode", start=t0) \
+                if tctx is not None else None
+            if dspan is not None:
+                dspan.set("rows", len(ids))
             try:
                 prepped = handle.prepare(table)
+                if dspan is not None:
+                    codecs = getattr(prepped, "codecs", None)
+                    if codecs:
+                        dspan.set("codec", ",".join(sorted(codecs)))
+                    dspan.finish()
                 self.hists["decode_ms"].observe(
                     (time.perf_counter() - t0) * 1e3)
-            except Exception:  # noqa: BLE001 — poison rows can die
+            except Exception as e:  # noqa: BLE001 — poison rows can die
                 # in decode too: hand the batch over un-prepared so the
                 # worker's per-row retry isolates the offender
+                if dspan is not None:
+                    dspan.error(e).finish()
                 prepped = None
         # per-request codec rejects (columnar ingress, io/columnar.py):
         # a malformed or schema-mismatched body 400s exactly ITS
-        # request while batch-mates proceed to dispatch
+        # request — its trace finalizes as an error — while batch-mates
+        # proceed to dispatch
         rejects = getattr(prepped, "rejects", None)
         if rejects:
-            table, ids = self._apply_rejects(parked, table, ids, rejects)
+            table, ids, tctx = self._apply_rejects(parked, table, ids,
+                                                   rejects, tctx)
             if not ids:
                 return None   # nothing survived decode — no dispatch
-        return table, ids, prepped, handle
+        if tctx is not None:
+            tctx.dispatched_at = time.perf_counter()
+        return table, ids, prepped, handle, tctx
 
     def _apply_rejects(self, parked: List[_ParkedRequest],
                        table: DataTable, ids: List[str],
-                       rejects: Dict[str, str]):
-        """Answer 400 for every codec-rejected request and return the
-        filtered (table, ids) the surviving batch dispatches with."""
+                       rejects: Dict[str, str], tctx):
+        """Answer 400 for every codec-rejected request (finalizing its
+        trace with error=true) and return the filtered (table, ids,
+        trace-context) the surviving batch dispatches with."""
+        kept: List[_ParkedRequest] = []
         for p in parked:
             msg = rejects.get(p.id)
             if msg is None:
+                kept.append(p)
                 continue
+            if p.trace is not None:
+                p.trace.root.set("codec_error", msg)
+                p.trace.root.error()
             self.source.respond(p.id, HTTPSchema.response(
                 400, "bad request",
                 json.dumps({"error": msg}).encode("utf-8"),
@@ -692,7 +1079,12 @@ class ServingEngine:
         keep_idx = [i for i, rid in enumerate(ids) if rid not in rejects]
         ids = [ids[i] for i in keep_idx]
         table = table._take_indices(np.asarray(keep_idx, dtype=np.int64))
-        return table, ids
+        new_tctx = None
+        if self.tracer is not None and kept:
+            ctx = _BatchTraceCtx(self.tracer, kept)
+            if ctx.primary is not None:
+                new_tctx = ctx
+        return table, ids, new_tctx
 
     def _batcher_loop(self):
         """Stage 1 of the pipeline: adaptive collect + (optional) host
@@ -710,6 +1102,16 @@ class ServingEngine:
                 log.error("serving batcher error (continuing): %s", e)
                 time.sleep(0.005)
                 continue
+            if self.slo is not None:
+                # burn-rate evaluation tick: the batcher is the one
+                # thread that is always awake (drain polls 50 ms even
+                # idle), so alerts fire DURING a burn and resolve after
+                # recovery without waiting for a scrape
+                try:
+                    self.slo.evaluate(
+                        min_interval_s=self._slo_eval_interval_s)
+                except Exception as e:  # noqa: BLE001 — keep serving
+                    log.error("slo evaluate failed (continuing): %s", e)
             self._update_retry_after()
             if parked:
                 self._dispatch_parked(parked)
@@ -883,6 +1285,11 @@ class ServingEngine:
         shape counter). Exported on /healthz."""
         active, out = self._lifecycle_snapshot()
         out.update({k: h.summary() for k, h in self.hists.items()})
+        if self.slo is not None:
+            try:
+                out["slo"] = self.slo.status()
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
         out["retry_after_s"] = self._retry_after_s
         stage = getattr(active.pipeline, "metrics", None)
         if callable(stage):
@@ -891,6 +1298,88 @@ class ServingEngine:
             except Exception:  # noqa: BLE001 — stats stay partial
                 pass
         return out
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition (format 0.0.4) of everything the
+        engine knows: source/engine counters, the per-stage latency
+        histograms with exact buckets, the model version as an
+        ``_info`` series, the pipeline's histograms and first-run shape
+        counter, the SLO families, and the process-wide GBDT / AutoML /
+        fusion / ooc phase, trace-buffer and card-memory families.
+        Served on ``/metrics``."""
+        from mmlspark_tpu_torch.core.prometheus import (
+            PromRenderer, pipeline_families, process_families,
+            slo_families,
+        )
+        r = PromRenderer()
+        src = self.source
+        with src._lock:
+            seen, accepted = src.requests_seen, src.requests_accepted
+            answered, rejected = src.requests_answered, \
+                src.requests_rejected
+            parked = len(src._pending)
+        r.counter("serving_requests_seen_total",
+                  "requests hitting the HTTP source", seen)
+        r.counter("serving_requests_accepted_total",
+                  "requests parked + enqueued", accepted)
+        r.counter("serving_requests_answered_total",
+                  "requests answered through the held connection",
+                  answered)
+        r.counter("serving_requests_rejected_total",
+                  "requests shed with 503 + Retry-After", rejected)
+        r.gauge("serving_parked_requests",
+                "connections currently held open", parked)
+        r.gauge("serving_queue_depth", "source queue depth",
+                src.queue.qsize())
+        active, snap = self._lifecycle_snapshot()
+        r.counter("serving_batches_processed_total",
+                  "micro-batches executed", snap["batches_processed"])
+        r.counter("serving_workers_restarted_total",
+                  "worker/batcher threads respawned by the supervisor",
+                  snap["workers_restarted"])
+        # no swap can be in flight: swap() is not ported
+        r.info("serving_model_info",
+               "active model version, precision, aot, swap state (labels)",
+               {"version": snap["model_version"],
+                "precision": snap["precision"],
+                "aot": "true" if snap["aot"] else "false",
+                "swap_state": "idle"})
+        for name, hist in self.hists.items():
+            r.histogram(f"serving_{name}",
+                        "engine hot-path stage distribution", hist)
+        if self.slo is not None:
+            try:
+                slo_families(r, self.slo)
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
+        r.gauge("serving_retry_after_s",
+                "live drain-estimate Retry-After quoted on sheds",
+                self._retry_after_s)
+        pipeline_families(r, active.pipeline)
+        process_families(r, tracer=self.tracer)
+        return r.render()
+
+    # -- trace export -------------------------------------------------------
+
+    def traces(self, limit: Optional[int] = None) -> List[Any]:
+        """Completed (tail-sampled) traces from this engine's buffer,
+        oldest first."""
+        if self.tracer is None:
+            return []
+        return self.tracer.buffer.traces(limit)
+
+    def export_traces(self, limit: Optional[int] = None) -> Dict[str, Any]:
+        """The buffer as Chrome trace-event JSON (the /debug/traces
+        payload — save it and open in Perfetto), with a
+        ``process_name`` event naming this engine + pid."""
+        from mmlspark_tpu_torch.core.trace import to_chrome_trace
+        return to_chrome_trace(
+            self.traces(limit),
+            process_name=f"engine {self.source.address} "
+                         f"pid={os.getpid()}")
+
+    def _recorder_key(self) -> str:
+        return f"engine@{self.source.address}"
 
     def start(self) -> "ServingEngine":
         with self._threads_lock:
@@ -902,10 +1391,41 @@ class ServingEngine:
         self._supervisor.start()
         self.source.health_probe = self.is_alive
         self.source.metrics_probe = self.metrics
+        self.source.tracer = self.tracer
+        self.source.trace_probe = self.export_traces
+        self.source.prom_probe = self.metrics_text
+        self.source.slo = self.slo
+        rec = self.flight_recorder
+        if rec is not None:
+            # the black box sees this engine's traces, SLO state and a
+            # metrics snapshot; keys carry the address so stop() can
+            # detach cleanly
+            key = self._recorder_key()
+            rec.attach_tracer(
+                self.tracer,
+                label=f"engine {self.source.address} pid={os.getpid()}",
+                key=f"{key}:tracer")
+            if self.slo is not None:
+                rec.attach_slo(key, self.slo)
+            rec.add_stats_source(key, self.metrics)
+            self.source.bundle_probe = (
+                lambda limit=None: rec.dump_bundle(
+                    reason="http_request", trace_limit=limit))
         return self
 
     def stop(self) -> None:
         self._stop.set()
+        if self.flight_recorder is not None:
+            # drop this engine's recorder hooks (a process recorder
+            # outlives engines; stale closures would leak them)
+            self.flight_recorder.detach(self._recorder_key())
+        if self.slo is not None:
+            # uninstall exactly the monitor hooks THIS engine wired: a
+            # shared monitor handed to a later engine must re-wire to
+            # that engine's recorder, not keep ours
+            for hook in self._slo_hooks_installed:
+                setattr(self.slo, hook, None)
+            self._slo_hooks_installed = []
         if self._supervisor is not None:
             self._supervisor.join(timeout=5)
         with self._threads_lock:
@@ -927,6 +1447,7 @@ def serve_model(pipeline: Optional[Transformer] = None,
                 tracing: Optional[bool] = None,
                 zoo=None, admission=None,
                 slo=None, flight_recorder=None,
+                slo_eval_interval_s: float = 0.25,
                 variants=None) -> ServingEngine:
     """One-call serving: the ``.server()`` DSL analog
     (ref: ServingImplicits.scala:10-50). Batches flush on
@@ -934,7 +1455,9 @@ def serve_model(pipeline: Optional[Transformer] = None,
     the batcher thread decodes the next batch while a worker drives the
     device for the current one. ``workers`` > 1 additionally overlaps
     device round-trips; the pipeline's ``transform`` must then be
-    thread-safe. ``port=0`` binds a free port (``engine.source.address``)."""
+    thread-safe. ``port=0`` binds a free port (``engine.source.address``).
+    Tracing, the SLO monitor and the flight recorder are on unless
+    ``tracing=False`` / ``slo=False`` / ``flight_recorder=False``."""
     source = HTTPSource(host=host, port=port)
     try:
         engine = ServingEngine(source, pipeline, reply_col=reply_col,
@@ -945,6 +1468,7 @@ def serve_model(pipeline: Optional[Transformer] = None,
                                tracing=tracing, zoo=zoo,
                                admission=admission, slo=slo,
                                flight_recorder=flight_recorder,
+                               slo_eval_interval_s=slo_eval_interval_s,
                                variants=variants)
     except BaseException:
         source.close()       # a refused option must not leak a listener

@@ -1,7 +1,7 @@
-"""Unified fault-tolerance primitives: RetryPolicy and Deadline — the
-port's copy of ``mmlspark_tpu/utils/resilience.py``, without the
-``CircuitBreaker`` (and ``RetryPolicy.call``'s ``breaker=``), which only
-the serving fleet uses (ROADMAP item 15, 'The rest of the serving plane').
+"""Unified fault-tolerance primitives: RetryPolicy, CircuitBreaker and
+Deadline — the port's copy of ``mmlspark_tpu/utils/resilience.py``.
+``CircuitBreaker.on_open`` is the flight recorder's trigger on a
+closed-to-open transition.
 
 The single retry implementation of the port (ref: FaultToleranceUtils
 ModelDownloader.scala:37-50 and HandlingUtils HTTPClients.scala:47-98):
@@ -21,8 +21,9 @@ worst-case timeouts.
 from __future__ import annotations
 
 import random
+import threading
 import time
-from typing import Any, Callable, Optional, Sequence, Tuple, Type
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 from mmlspark_tpu_torch.core.logging_utils import get_logger
 
@@ -31,6 +32,16 @@ log = get_logger("resilience")
 
 class DeadlineExceeded(TimeoutError):
     """The total request budget ran out (possibly mid-backoff)."""
+
+
+class CircuitOpenError(RuntimeError):
+    """A call was refused because the circuit breaker is open."""
+
+    def __init__(self, name: str, retry_after: float):
+        super().__init__(
+            f"circuit {name!r} open; retry after {retry_after:.2f}s")
+        self.name = name
+        self.retry_after = retry_after
 
 
 class Deadline:
@@ -150,22 +161,36 @@ class RetryPolicy:
              deadline: Optional[Deadline] = None,
              on_retry: Optional[Callable[[Exception, int], None]] = None,
              retry_result: Optional[Callable[[Any], bool]] = None,
+             breaker: Optional["CircuitBreaker"] = None,
              sleep: Optional[Callable[[float], None]] = None) -> Any:
-        """Run ``fn`` under this policy. ``sleep`` is injectable for
-        deterministic tests (defaults to ``time.sleep``)."""
+        """Run ``fn`` under this policy.
+
+        ``breaker`` (optional) gates every attempt: an open circuit
+        raises ``CircuitOpenError`` without calling ``fn``, and each
+        attempt's outcome is recorded. ``sleep`` is injectable for
+        deterministic tests (defaults to ``time.sleep``).
+        """
         dl = deadline if deadline is not None else Deadline(self.deadline_s)
         do_sleep = sleep if sleep is not None else time.sleep
         last_exc: Optional[Exception] = None
         result: Any = None
         for attempt in range(self.max_attempts):
             dl.check()
+            if breaker is not None and not breaker.allow():
+                raise CircuitOpenError(breaker.name, breaker.retry_after())
             try:
                 result = fn()
             except self.no_retry:
-                # deterministic client-side failure (a 4xx means "you
-                # asked wrong", not "I'm down"): no backoff budget burnt
+                # deterministic client-side failure: the backend is
+                # answering (a 4xx means "you asked wrong", not "I'm
+                # down") — it must not burn the circuit any more than
+                # it burns the backoff budget
+                if breaker is not None:
+                    breaker.record_success()
                 raise
             except self.retry_on as e:
+                if breaker is not None:
+                    breaker.record_failure()
                 last_exc = e
                 if attempt == self.max_attempts - 1:
                     raise
@@ -182,6 +207,8 @@ class RetryPolicy:
                 do_sleep(delay)
                 continue
             if retry_result is not None and retry_result(result):
+                if breaker is not None:
+                    breaker.record_failure()
                 if attempt == self.max_attempts - 1:
                     return result      # HTTP semantics: hand back the error
                 delay = dl.clamp(self.backoff(attempt))
@@ -189,8 +216,174 @@ class RetryPolicy:
                     return result
                 do_sleep(delay)
                 continue
+            if breaker is not None:
+                breaker.record_success()
             return result
         # only reachable when max_attempts exhausted via retry_result
         if last_exc is not None:
             raise last_exc
         return result
+
+
+class CircuitBreaker:
+    """closed → open → half-open breaker with failure-rate threshold.
+
+    - CLOSED: calls flow; ``failure_threshold`` CONSECUTIVE failures, or
+      a failure rate >= ``failure_rate`` over the last ``window``
+      outcomes (once at least ``min_calls`` are recorded), trips OPEN.
+    - OPEN: ``allow()`` is False until ``cooldown`` elapses, then the
+      breaker moves to HALF_OPEN.
+    - HALF_OPEN: up to ``half_open_max`` concurrent probe calls are let
+      through; a success closes the breaker, a failure re-opens it with
+      a fresh cooldown.
+
+    Thread-safe; the serving fleet keeps one per engine.
+    """
+
+    CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+
+    def __init__(self, failure_threshold: int = 5,
+                 failure_rate: Optional[float] = None,
+                 window: int = 20, min_calls: int = 5,
+                 cooldown: float = 5.0, half_open_max: int = 1,
+                 clock: Callable[[], float] = time.monotonic,
+                 name: str = "breaker"):
+        self.failure_threshold = failure_threshold
+        self.failure_rate = failure_rate
+        self.window = window
+        self.min_calls = min_calls
+        self.cooldown = cooldown
+        self.half_open_max = half_open_max
+        self.name = name
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = self.CLOSED
+        self._consecutive_failures = 0
+        self._outcomes: List[bool] = []   # sliding window, True = failure
+        self._opened_at = 0.0
+        self._half_open_inflight = 0
+        self.times_opened = 0
+        # optional closed->open transition hook (the flight recorder's
+        # auto-capture trigger rides it): called OUTSIDE the breaker
+        # lock, exceptions swallowed — a sick observer must never wedge
+        # the breaker
+        self.on_open: Optional[Callable[["CircuitBreaker"], None]] = None
+
+    # -- state --------------------------------------------------------------
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            self._maybe_half_open()
+            return self._state
+
+    def retry_after(self) -> float:
+        """Seconds until an open breaker will admit a probe (0 if it
+        already would)."""
+        with self._lock:
+            if self._state != self.OPEN:
+                return 0.0
+            return max(0.0, self._opened_at + self.cooldown - self._clock())
+
+    def _maybe_half_open(self) -> None:
+        if self._state == self.OPEN and \
+                self._clock() - self._opened_at >= self.cooldown:
+            self._state = self.HALF_OPEN
+            self._half_open_inflight = 0
+
+    def _trip(self) -> None:
+        self._state = self.OPEN
+        self._opened_at = self._clock()
+        self.times_opened += 1
+        log.warning("circuit %s OPEN (consecutive=%d, window=%s)",
+                    self.name, self._consecutive_failures,
+                    self._outcomes[-self.window:])
+
+    # -- the gate -----------------------------------------------------------
+
+    def allow(self) -> bool:
+        """True if a call may proceed now. Half-open admissions count
+        against ``half_open_max`` until an outcome is recorded."""
+        with self._lock:
+            self._maybe_half_open()
+            if self._state == self.CLOSED:
+                return True
+            if self._state == self.HALF_OPEN:
+                if self._half_open_inflight < self.half_open_max:
+                    self._half_open_inflight += 1
+                    return True
+                return False
+            return False
+
+    def reset(self) -> None:
+        """Force CLOSED — an out-of-band success observation (e.g. a
+        last-resort probe answered while the breaker was still OPEN)."""
+        with self._lock:
+            self._state = self.CLOSED
+            self._consecutive_failures = 0
+            self._half_open_inflight = 0
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._consecutive_failures = 0
+            self._outcomes.append(False)
+            del self._outcomes[:-self.window]
+            if self._state == self.HALF_OPEN:
+                self._state = self.CLOSED
+                self._half_open_inflight = 0
+                log.info("circuit %s CLOSED after successful probe",
+                         self.name)
+
+    def record_failure(self) -> None:
+        # ``tripped`` drives on_open and is set ONLY on the
+        # closed->open transition: a half-open probe failing during a
+        # sustained outage re-trips every cooldown, and firing the
+        # hook each time would churn the flight recorder's bounded
+        # bundle deque until the ORIGINAL incident's bundle — the
+        # evidence the hook exists to capture — is evicted
+        tripped = False
+        with self._lock:
+            self._consecutive_failures += 1
+            self._outcomes.append(True)
+            del self._outcomes[:-self.window]
+            if self._state == self.HALF_OPEN:
+                self._trip()
+            elif self._state == self.CLOSED:
+                if self._consecutive_failures >= self.failure_threshold:
+                    self._trip()
+                    tripped = True
+                elif (self.failure_rate is not None
+                      and len(self._outcomes) >= self.min_calls
+                      and (sum(self._outcomes) / len(self._outcomes)
+                           >= self.failure_rate)):
+                    self._trip()
+                    tripped = True
+        if tripped and self.on_open is not None:
+            try:
+                self.on_open(self)
+            except Exception as e:  # noqa: BLE001 — observer only
+                log.error("circuit %s on_open hook failed: %s",
+                          self.name, e)
+
+    def call(self, fn: Callable[[], Any]) -> Any:
+        """One gated call: open circuit raises CircuitOpenError; the
+        outcome (exception vs return) is recorded."""
+        if not self.allow():
+            raise CircuitOpenError(self.name, self.retry_after())
+        try:
+            result = fn()
+        except Exception:
+            self.record_failure()
+            raise
+        self.record_success()
+        return result
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            self._maybe_half_open()
+            n = len(self._outcomes)
+            return {"state": self._state,
+                    "consecutive_failures": self._consecutive_failures,
+                    "window_failure_rate":
+                        (sum(self._outcomes) / n) if n else 0.0,
+                    "times_opened": self.times_opened}

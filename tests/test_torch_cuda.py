@@ -1355,3 +1355,128 @@ def test_cuda_fused_scorer_one_copy_a_batch(card):
     assert [r["prediction"] for r in out["reply"]] == \
         [int(v) for v in want]
     assert scorer.device_roundtrips == scorer.batches_scored == 1
+
+
+@pytest.fixture
+def own_tracer():
+    """A fresh process tracer for the test (the process-wide buffer is
+    shared by every test of a worker), the old one put back after."""
+    from mmlspark_tpu_torch.core import trace as T
+    old = T.get_tracer()
+    tracer = T.Tracer(enabled=True)
+    T.set_tracer(tracer)
+    yield tracer
+    T.set_tracer(old)
+
+
+@pytest.mark.cuda
+def test_cuda_traced_hist_fit(card, own_tracer):
+    """A fit on the card leaves one gbdt.train trace whose phase spans
+    and boost_chunk spans enclose the hist launches: the launches happen
+    inside the boost span (their count read around it), the chunks lie
+    inside it, and the phase histograms rise by one fit."""
+    from mmlspark_tpu_torch.core import metrics as MC
+    from mmlspark_tpu_torch.gbdt.booster import train
+    X, y = _gbdt_table(50_000)
+    before = {k: h.snapshot()["count"]
+              for k, h in MC.gbdt_train_histograms().items()}
+    HK.reset_launches()
+    booster = train({"objective": "binary", "num_iterations": 3,
+                     "num_leaves": 15, "max_bin": 255}, X, y,
+                    device="cuda")
+    launches = sum(HK.LAUNCHES.values())
+    assert launches > 0
+    traces = [t for t in own_tracer.buffer.traces()
+              if t.root.name == "gbdt.train"]
+    assert len(traces) == 1
+    tr = traces[0]
+    names = [s.name for s in tr.spans()[1:]]
+    assert [n for n in names if n != "boost_chunk"] == \
+        ["bin", "ship", "boost", "fetch"]
+    boost = next(s for s in tr.spans() if s.name == "boost")
+    chunks = [s for s in tr.spans() if s.name == "boost_chunk"]
+    assert len(chunks) == tr.root.attrs["boost_chunks"] == 3
+    assert all(boost.start <= c.start <= c.end <= boost.end
+               for c in chunks)
+    assert tr.root.attrs["trees"] == 3
+    assert tr.root.attrs["bin_path"] == booster.train_info["bin_path"]
+    assert abs(boost.duration_ms / 1e3
+               - booster.train_timing["boost"]) < 2e-3
+    rises = {k: h.snapshot()["count"] - before[k]
+             for k, h in MC.gbdt_train_histograms().items()}
+    assert rises["boost"] == rises["bin"] == 1 and rises["boost_chunk"] == 3
+
+
+@pytest.mark.cuda
+def test_cuda_traced_flash_step(card, own_tracer):
+    """A fit of a small L = 512 Transformer on the card: one
+    learner.fit trace with one learner.step span a step, memory samples
+    read from the card (bytes_in_use above 0) as memory spans, and the
+    flash kernels launched each step."""
+    from mmlspark_tpu_torch.models.learner import TPULearner
+    spec = {"type": "transformer", "vocab_size": 64, "dim": 32, "depth": 2,
+            "heads": 4, "max_len": 512}
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, 64, size=(8, 512)).astype(np.float32)
+    table = DataTable({"features": toks,
+                       "label": np.roll(toks.astype(np.int64), -1, 1)})
+    FA.reset_launches()
+    learner = TPULearner(networkSpec=spec, device="cuda",
+                         loss="token_cross_entropy", batchSize=4, epochs=1,
+                         computeDtype="bfloat16", logEvery=1,
+                         memoryStatsEvery=1, dataFeed="device")
+    learner.fit(table)
+    assert FA.LAUNCHES == {"_fwd_kernel": 4, "_dq_kernel": 4,
+                           "_dkv_kernel": 4}
+    tr = next(t for t in own_tracer.buffer.traces()
+              if t.root.name == "learner.fit")
+    steps = [s for s in tr.spans() if s.name == "learner.step"]
+    mems = [s for s in tr.spans() if s.name == "memory"]
+    assert len(steps) == 2 and tr.root.attrs["steps"] == 2
+    assert tr.root.attrs["feed"] == "device"
+    assert [m["step"] for m in learner.memory_samples] == [1, 2]
+    assert all(m["bytes_in_use"] > 0 and m["bytes_limit"] > 0
+               for m in learner.memory_samples)
+    assert [m.attrs["bytes_in_use"] for m in mems] == \
+        [m["bytes_in_use"] for m in learner.memory_samples]
+
+
+@pytest.mark.cuda
+def test_cuda_device_memory_stats_keys(card):
+    """The card's allocator counters under the JAX package's keys, once
+    this process has a CUDA context; the one-card mesh sums equal."""
+    from mmlspark_tpu_torch.utils import profiling
+    x = torch.ones(1 << 20, device=card)
+    stats = profiling.device_memory_stats()
+    assert set(stats) == {"bytes_in_use", "peak_bytes_in_use",
+                          "bytes_limit"}
+    assert stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    mesh = profiling.mesh_memory_stats()
+    assert mesh["devices"] == torch.cuda.device_count()
+    assert mesh["per_device"]["cuda:0"] > 0
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    """The AST scan of test_torch_gbdt.py, in this JAX-free file: the
+    port's package, its telemetry modules included, and chip_smoke.py
+    import nothing of JAX or the JAX package."""
+    import ast
+    from pathlib import Path
+    repo = Path(__file__).resolve().parent.parent
+    files = sorted((repo / "mmlspark_tpu_torch").rglob("*.py")) + \
+        [repo / "chip_smoke.py"]
+    assert repo / "mmlspark_tpu_torch" / "core" / "trace.py" in files
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "flax",
+                                           "mmlspark_tpu")]
+    assert not bad, bad

@@ -190,15 +190,20 @@ def test_healthz_and_unported_endpoints(echo_server):
         assert key in body, body
     m = body["metrics"]
     assert m["model_version"] == "v0"
-    assert not {"swap_state", "admission", "slo", "zoo"} & set(m), m
+    # telemetry is on by default: the SLO monitor's section is in
+    # metrics() and /healthz; the unported planes' sections are not
+    assert not {"swap_state", "admission", "zoo"} & set(m), m
+    assert m["slo"]["objectives"] and body["slo"]["degraded"] is False
     assert m["precision"] == "f32" and m["retry_after_s"] >= 1
-    for path, item in (("/metrics", "The rest of the serving plane"),
-                       ("/debug/traces", "Device pipeline"),
-                       ("/debug/bundle", "The rest of the serving plane")):
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(addr + path, timeout=10)
-        assert ei.value.code == 501
-        assert item in json.loads(ei.value.read())["error"]
+    with urllib.request.urlopen(addr + "/metrics", timeout=10) as r:
+        assert r.status == 200
+        assert r.headers["Content-Type"].startswith("text/plain")
+        assert "serving_slo_burn_rate" in r.read().decode()
+    for path in ("/debug/traces", "/debug/bundle?confirm=1"):
+        status, payload = _get(addr + path)
+        assert status == 200
+        assert "traceEvents" in (payload if path == "/debug/traces"
+                                 else payload["traces"])
     with pytest.raises(urllib.error.HTTPError) as ei:
         urllib.request.urlopen(f"{addr}/other", timeout=10)
     assert ei.value.code == 404
@@ -308,22 +313,55 @@ def test_shared_variable_and_singleton():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"tracing": True}, "Device pipeline and serving compilation"),
-    ({"tracer": object()}, "Device pipeline and serving compilation"),
-    ({"slo": object()}, "The rest of the serving plane"),
-    ({"flight_recorder": object()}, "The rest of the serving plane"),
-    ({"zoo": object()}, "The rest of the serving plane"),
-    ({"admission": object()}, "The rest of the serving plane"),
-    ({"variants": object()}, "The rest of the serving plane"),
+    ({"tracing": True}, None),
+    ({"tracer": "tracer"}, None),
+    ({"slo": "slo"}, None),
+    ({"flight_recorder": "recorder"}, None),
+    ({"zoo": object()}, "The multi-model plane"),
+    ({"admission": object()}, "The multi-model plane"),
+    ({"variants": object()}, "The multi-model plane"),
 ])
 def test_unported_serving_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve_model(Lambda.apply(_echo), port=0, **kw)
+    """The telemetry options are ported and in force; the multi-model
+    plane's options still raise, naming their ROADMAP item."""
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match="The rest of the serving plane"):
+            serve_model(Lambda.apply(_echo), port=0, **kw)
+        with pytest.raises(NotImplementedError, match=item):
+            serve_model(Lambda.apply(_echo), port=0, **kw)
+        return
+    from mmlspark_tpu_torch.core.flightrecorder import FlightRecorder
+    from mmlspark_tpu_torch.core.slo import SLOMonitor
+    from mmlspark_tpu_torch.core.trace import Tracer, get_tracer
+    given = {"tracer": Tracer(enabled=True), "slo": SLOMonitor(),
+             "recorder": FlightRecorder(min_interval_s=0.0)}
+    kw = {k: given.get(v, v) for k, v in kw.items()}
+    engine = serve_model(Lambda.apply(_echo), port=0, **kw)
+    try:
+        assert _post(engine.source.address, {"x": 4})[1] == {"doubled": 8}
+        want_tracer = kw.get("tracer", get_tracer())
+        assert engine.tracer is want_tracer
+        assert _poll(lambda: any(t.root.name == "request"
+                                 for t in want_tracer.buffer.traces()),
+                     True)
+        if "slo" in kw:
+            assert engine.slo is kw["slo"]
+            assert _poll(lambda: kw["slo"].requests(60.0), 1.0) == 1.0
+        if "flight_recorder" in kw:
+            rec = kw["flight_recorder"]
+            assert engine.flight_recorder is rec
+            assert engine.slo.on_fire is not None
+            assert rec.stats()["tracers"] == 1
+    finally:
+        engine.stop()
+        if "flight_recorder" in kw:
+            kw["flight_recorder"].close()
 
 
 def test_swap_and_fused_scoring_raise(echo_server):
     with pytest.raises(NotImplementedError,
-                       match="The rest of the serving plane"):
+                       match="Model lifecycle and the client fleet"):
         echo_server.swap(Lambda.apply(_echo), "v1")
     # fused pipeline scoring is ported ('Device pipeline and serving
     # compilation'); swapping a fused pipeline in waits with swap()
