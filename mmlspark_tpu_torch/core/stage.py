@@ -115,6 +115,20 @@ class PipelineStage:
             param = self.param(param)
         return param.name in self._paramMap
 
+    def is_defined(self, param) -> bool:
+        if isinstance(param, str):
+            param = self.param(param)
+        return param.name in self._paramMap or param.has_default
+
+    def clear(self, param) -> "PipelineStage":
+        """Unset ``param`` (back to its default); bumps the param epoch
+        that keys the fusion planner's cached consts, as ``set`` does."""
+        if isinstance(param, str):
+            param = self.param(param)
+        self._paramMap.pop(param.name, None)
+        self._param_epoch = getattr(self, "_param_epoch", 0) + 1
+        return self
+
     def copy(self, extra: Optional[Dict[str, Any]] = None) -> "PipelineStage":
         other = type(self).__new__(type(self))
         other.__dict__.update(

@@ -175,6 +175,27 @@ class DataTable:
         return DataTable(cols, schema)
 
     @staticmethod
+    def from_pandas(df, schema: Optional[Schema] = None) -> "DataTable":
+        cols = {}
+        for name in df.columns:
+            s = df[name]
+            if s.dtype == object:
+                cols[name] = list(s)
+            else:
+                cols[name] = s.to_numpy()
+        return DataTable(cols, schema)
+
+    def to_pandas(self):
+        import pandas as pd
+        data = {}
+        for name, col in self._columns.items():
+            if isinstance(col, np.ndarray) and col.ndim > 1:
+                data[name] = list(col)
+            else:
+                data[name] = col
+        return pd.DataFrame(data)
+
+    @staticmethod
     def concat(tables: Sequence["DataTable"]) -> "DataTable":
         tables = [t for t in tables if t is not None]
         if not tables:
@@ -370,6 +391,25 @@ class DataTable:
     def batches(self, batch_size: int) -> Iterator["DataTable"]:
         for start in range(0, self._n_rows, batch_size):
             yield self.slice(start, start + batch_size)
+
+    # -- fluent sugar (ref: core/spark FluentAPI.scala:12-24
+    # df.mlTransform(stage, ...)) --------------------------------------
+
+    def ml_transform(self, *stages) -> "DataTable":
+        """Apply transformers (or fitted models) in sequence:
+        ``table.ml_transform(resize, unroll, model)``. An Estimator in
+        the chain is fitted on the current table first."""
+        from mmlspark_tpu_torch.core.stage import Estimator
+        out = self
+        for stage in stages:
+            if isinstance(stage, Estimator):
+                stage = stage.fit(out)
+            out = stage.transform(out)
+        return out
+
+    def ml_fit(self, estimator):
+        """``table.ml_fit(est)`` -> fitted model."""
+        return estimator.fit(self)
 
     # -- misc --------------------------------------------------------------
 

@@ -370,6 +370,20 @@ class BinMapper:
         m.sketch_eps = float(d.get("sketch_eps", 0.0))
         return m
 
+    def bin_threshold_value(self, feature: int, bin_idx: int) -> float:
+        """The raw-value threshold for 'go left if bin <= bin_idx':
+        the upper boundary of that bin, +inf at or past the feature's
+        top bin (every value goes left there during binned training)."""
+        ub = self.upper_bounds[feature]
+        if len(ub) == 0 or int(bin_idx) >= len(ub):
+            return np.inf
+        return float(ub[int(bin_idx)])
+
+    def f32_safe(self) -> bool:
+        """True when binning / threshold comparison can run in float32
+        without changing assignments (the fit's ``f32_values_safe``)."""
+        return self.f32_values_safe
+
     def threshold_matrix(self, num_bins: int) -> np.ndarray:
         """(F, num_bins) raw-value threshold of 'go left if bin <= b' for
         every (feature, bin) pair: the upper boundary of bin b, +inf at or

@@ -277,6 +277,16 @@ class QuantileSketch:
         mid = (s.rmin + s.rmax) * 0.5
         return float(s.v[int(np.argmin(np.abs(mid - r)))])
 
+    @property
+    def min(self) -> float:
+        s = self.summary()
+        return float(s.v[0]) if len(s) else float("nan")
+
+    @property
+    def max(self) -> float:
+        s = self.summary()
+        return float(s.v[-1]) if len(s) else float("nan")
+
     def cuts(self, max_bin: int) -> np.ndarray:
         """Equal-frequency cut values, mirroring
         ``binning._bounds_from_counts``: while the sketch is EXACT this

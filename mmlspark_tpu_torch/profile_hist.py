@@ -150,13 +150,14 @@ def bincount_call(bins, grad, hess, w, leaf, num_leaves, num_bins, cv):
 SLEEP_CYCLES = 2_000_000     # ~1 ms of the card's clock
 
 
-def time_ms(fn, reps=20):
-    """Median of ``reps`` CUDA-event timings of fn(), after 3 warm-ups.
+def time_ms(fn, reps=20, warmups=3):
+    """Median of ``reps`` CUDA-event timings of fn(), after ``warmups``
+    calls (fewer for a call that takes seconds).
     Before each, the card spins for ~1 ms (``torch.cuda._sleep``), so the
     host has issued all of fn() before the first event runs: the time is
     the card's, without the host's time to issue the call."""
     import torch
-    for _ in range(3):
+    for _ in range(warmups):
         fn()
     torch.cuda.synchronize()
     ts = []

@@ -1,5 +1,6 @@
-"""The standard model-behind-HTTP scorers: the part of
-``mmlspark_tpu/serving/fleet.py`` the port holds so far.
+"""Multi-host serving: the standard scorers, the fleet client and
+partition consolidation — the port's copy of
+``mmlspark_tpu/serving/fleet.py``.
 
 ``json_scoring_pipeline`` wraps one fitted model (a ``TPUModel``, or a
 GBDT / other estimator model that emits one prediction per row) and
@@ -9,22 +10,59 @@ that ``serve_model`` serves. ``json_scoring_pipeline`` over a fitted
 through the fused plan (``_FusedPipelineScorer``): the batcher thread
 runs the host prefix, the Feeds and the upload of the padded batch on a
 side stream; a worker runs the fused segment and makes exactly one
-device-to-host copy per batch. The multi-engine client ``ServingFleet``
-and ``PartitionConsolidator`` are not ported yet (ROADMAP.md, 'The rest
-of the serving plane').
+device-to-host copy per batch.
+
+``ServingFleet`` runs N engines over one pipeline (N ports of one host
+here; one engine per host in a deployment) behind the reference's
+client: a keep-alive connection pool per thread, a ``CircuitBreaker``
+per engine, failover of idempotent requests, hedging after a latency
+percentile, one client trace per logical post with a sibling span per
+leg, and ``rolling_swap`` through the lifecycle protocol
+(``serving/lifecycle.py``). ``ServingFleet.connect(addresses)`` is the
+same client over engines in other processes. ``PartitionConsolidator``
+keeps each process's own contiguous row range of a table.
+
+What still raises ``NotImplementedError``, naming its ROADMAP.md item
+'The rest of the serving plane': ``post_columns`` and the shm transport
+('The control plane and host transports'), and the autoscaler's
+membership surface ``add_engine`` / ``remove_engine`` /
+``demand_rate`` / ``attach_placement`` ('The multi-model plane').
 """
 
 from __future__ import annotations
 
+import http.client
+import io
+import itertools
 import json
 import threading
 import time
-from typing import Any, Dict, List, Optional
+import urllib.error
+import urllib.parse
+import urllib.request
+from collections import deque
+from concurrent.futures import (
+    FIRST_COMPLETED, Future, TimeoutError as _FutureTimeout,
+    wait as _futures_wait,
+)
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.core.logging_utils import get_logger
+from mmlspark_tpu_torch.core.params import IntParam
+from mmlspark_tpu_torch.core.schema import Schema
+from mmlspark_tpu_torch.core.stage import Transformer
 from mmlspark_tpu_torch.core.table import DataTable
+from mmlspark_tpu_torch.serving.server import (
+    _MULTI_MODEL, HTTPSource, ServingEngine, _not_ported,
+)
+from mmlspark_tpu_torch.utils.resilience import CircuitBreaker
+
+log = get_logger("serving.fleet")
+
+_HOST_TRANSPORTS = "The control plane and host transports"
 
 
 class ServingUnavailable(RuntimeError):
@@ -635,3 +673,1114 @@ class _FusedPipelineScorer:
         lam.aot = bool(self.fused.aot)
         lam.scorer = self
         return lam
+
+# engine-reported statuses worth failing over for: overload/shedding
+# (503 + Retry-After), serving timeout (504), and gateway-ish 502.
+# Anything else 4xx/5xx is the REQUEST's problem (poison row -> 500) and
+# must surface to the caller unchanged — retrying it on another replica
+# would just poison that one too. 429 is deliberately NOT here: the
+# admission layer's tenant quotas (serving/admission.py) are fleet-wide,
+# so replaying an over-quota request on the next replica would only
+# spend the tenant's tokens everywhere — the 429 surfaces to the caller.
+_FAILOVER_CODES = frozenset({502, 503, 504})
+
+
+class ServingFleet:
+    """N serving engines over one pipeline — one per host in a real
+    deployment, N ports on one host in simulation/tests. Replies always
+    flow through the engine that accepted the request (the reference's
+    reply-routing invariant, DistributedHTTPSource.scala:188-192).
+
+    The client side (``post``) is a resilient stand-in for an external
+    load balancer: round-robin with a per-engine ``CircuitBreaker`` (a
+    dead or shedding engine stops receiving traffic after
+    ``failure_threshold`` failures until ``breaker_cooldown`` elapses),
+    failover of idempotent scoring requests onto the next replica, and
+    optional request hedging (Dean & Barroso, *The Tail at Scale*): when
+    ``hedge_percentile`` is set, a request still unanswered after that
+    latency percentile fires a duplicate on another replica and the first
+    reply wins.
+
+    ``base_port=0`` binds every engine on a free port of the OS's
+    choosing (``addresses`` carries them). ``zoo=`` / ``admission=``
+    raise in the engine, and ``shm_transport=True`` here, naming their
+    ROADMAP.md items."""
+
+    def __init__(self, pipeline=None, n_engines: int = 2,
+                 host: str = "127.0.0.1", base_port: int = 18700,
+                 batch_size: int = 64, reply_col: str = "reply",
+                 workers: int = 1,
+                 failure_threshold: int = 3,
+                 breaker_cooldown: float = 2.0,
+                 hedge_percentile: Optional[float] = None,
+                 hedge_min_s: float = 0.02,
+                 max_parked: Optional[int] = None,
+                 max_wait_ms: float = 5.0,
+                 pipeline_depth: int = 2,
+                 version: str = "v0", tracer=None,
+                 tracing: Optional[bool] = None,
+                 zoo=None, admission=None,
+                 slo=None, flight_recorder=None,
+                 shm_transport: bool = False):
+        if shm_transport:
+            raise _not_ported("the shared-memory transport "
+                              "(shm_transport=True)", _HOST_TRANSPORTS)
+        self._init_client(tracer=tracer, tracing=tracing,
+                          hedge_percentile=hedge_percentile,
+                          hedge_min_s=hedge_min_s)
+        port = base_port
+        try:
+            for _ in range(n_engines):
+                source = HTTPSource(host=host, port=port,
+                                    max_parked=max_parked)
+                if port:                    # 0 = the OS picks each port
+                    port = source.port + 1  # skip whatever port-scan used
+                try:
+                    engine = ServingEngine(
+                        source, pipeline, reply_col=reply_col,
+                        batch_size=batch_size, workers=workers,
+                        max_wait_ms=max_wait_ms,
+                        pipeline_depth=pipeline_depth,
+                        version=version, tracer=self.tracer,
+                        tracing=self.tracer is not None,
+                        zoo=zoo, admission=admission,
+                        slo=slo, flight_recorder=flight_recorder).start()
+                except Exception:
+                    source.close()   # don't orphan the bound port
+                    raise
+                self.engines.append(engine)
+        except Exception:
+            # partial construction must not leak threads/bound ports
+            self.stop_all()
+            raise
+        self._build_breakers(failure_threshold, breaker_cooldown)
+        log.info("fleet of %d engines: %s", n_engines, self.addresses)
+
+    def _init_client(self, tracer=None, tracing: Optional[bool] = None,
+                     hedge_percentile: Optional[float] = None,
+                     hedge_min_s: float = 0.02) -> None:
+        """Client-side state shared by the in-process fleet and the
+        remote-address client (``connect``)."""
+        from mmlspark_tpu_torch.core import trace as trace_mod
+        # ONE tracer across the fleet: every engine's completed traces
+        # land in the same tail-sampled buffer, so fleet.traces() is
+        # the whole fleet's story (default: the process-wide tracer)
+        if tracing is None:
+            from mmlspark_tpu_torch.core import config as _config
+            tracing = bool(_config.get("trace.enabled", True))
+        self.tracer = (tracer if tracer is not None
+                       else trace_mod.get_tracer()) if tracing else None
+        if self.tracer is not None and not self.tracer.enabled:
+            self.tracer = None
+        self.engines: List[ServingEngine] = []
+        self._remote_addresses: Optional[List[str]] = None
+        self.transport_errors = 0
+        self.hedged_requests = 0
+        self._stats_lock = threading.Lock()
+        self.hedge_percentile = hedge_percentile
+        self.hedge_min_s = hedge_min_s
+        self._latencies: "deque[float]" = deque(maxlen=256)
+        self._probe_lock = threading.Lock()   # single-flight all-open probe
+        # itertools.count: next() is atomic under the GIL, so
+        # concurrent client threads can't tear the round-robin
+        self._next = itertools.count()
+        self.breakers: List[CircuitBreaker] = []
+
+    def _build_breakers(self, failure_threshold: int,
+                        breaker_cooldown: float) -> None:
+        self.breakers = [
+            CircuitBreaker(failure_threshold=failure_threshold,
+                           cooldown=breaker_cooldown,
+                           name=f"engine{i}@{addr}")
+            for i, addr in enumerate(self.addresses)]
+        # an opening circuit is exactly the moment evidence matters:
+        # auto-capture a flight-recorder bundle (rate-limited) on the
+        # closed->open transition of any engine's breaker. on_open is
+        # a single slot, so ONE recorder gets the hook — the fleet's
+        # engines share one (the constructor arg or the process-wide
+        # default), so take the first engine's.
+        rec = next((e.flight_recorder for e in self.engines
+                    if getattr(e, "flight_recorder", None) is not None),
+                   None)
+        if rec is not None:
+            for breaker in self.breakers:
+                breaker.on_open = (
+                    lambda b, _rec=rec: _rec.trigger(
+                        f"circuit_open:{b.name}"))
+
+    @classmethod
+    def connect(cls, addresses: List[str],
+                failure_threshold: int = 3,
+                breaker_cooldown: float = 2.0,
+                hedge_percentile: Optional[float] = None,
+                hedge_min_s: float = 0.02,
+                tracer=None,
+                tracing: Optional[bool] = None,
+                wait_ready_s: float = 0.0,
+                ready_poll_timeout_s: float = 1.0,
+                shm_transport: bool = False) -> "ServingFleet":
+        """A CLIENT-ONLY fleet over engines that live in OTHER
+        processes (or hosts): the same round-robin + circuit-breaking
+        + failover + hedging client, pointed at explicit addresses
+        instead of in-process engines. This is the multi-process
+        deployment shape (one OS process per engine — the ROADMAP
+        sharded-serving direction): each leg injects the traceparent
+        context, so a request that retries/hedges across processes
+        still reassembles into ONE trace from the engines' exported
+        buffers (``core.trace.merge_chrome_traces``).
+
+        ``wait_ready_s`` > 0 runs a STARTUP probe: poll each address's
+        ``/healthz`` with backoff until it answers or the budget runs
+        out. Engine processes spawn slowly (a replica pays its Python/
+        torch import before it listens), and without the probe the first
+        real requests against a not-yet-listening worker burn the
+        breaker's whole failure budget — the fleet opens the circuit
+        of an engine that was never down, then serves degraded until
+        the cooldown. Probe failures touch NO breaker (breakers are
+        built after the wait); addresses still unreachable when the
+        budget ends just log — the normal breaker/failover path owns
+        them from there.
+
+        Engine-management surfaces (``rolling_swap``, ``metrics``,
+        ``kill_engine``) are inert on a connected client — scrape the
+        remote engines' own ``/metrics``/``/healthz`` instead."""
+        if shm_transport:
+            raise _not_ported("the shared-memory transport "
+                              "(shm_transport=True)", _HOST_TRANSPORTS)
+        fleet = cls.__new__(cls)
+        fleet._init_client(tracer=tracer, tracing=tracing,
+                           hedge_percentile=hedge_percentile,
+                           hedge_min_s=hedge_min_s)
+        fleet._remote_addresses = [str(a).rstrip("/") for a in addresses]
+        if not fleet._remote_addresses:
+            raise ValueError("connect() needs at least one address")
+        if wait_ready_s > 0:
+            fleet._wait_ready(wait_ready_s, ready_poll_timeout_s)
+        fleet._build_breakers(failure_threshold, breaker_cooldown)
+        log.info("fleet client connected to %d remote engines: %s",
+                 len(fleet._remote_addresses), fleet.addresses)
+        return fleet
+
+    def _wait_ready(self, budget_s: float,
+                    probe_timeout_s: float = 1.0,
+                    addresses: Optional[List[str]] = None) -> List[str]:
+        """Bounded startup probe: poll every address's /healthz under
+        ONE shared deadline with jittered backoff (utils/resilience
+        discipline) until each answers anything at all — an HTTP
+        status means the process is listening, which is all the probe
+        establishes. Returns the addresses that never came up (logged;
+        callers' breakers take over)."""
+        from mmlspark_tpu_torch.utils.resilience import Deadline, RetryPolicy
+        deadline = Deadline.after(float(budget_s))
+        policy = RetryPolicy(max_attempts=1_000_000, base_delay=0.05,
+                             multiplier=1.5, max_delay=0.5,
+                             name="fleet.wait_ready")
+        pending = list(addresses if addresses is not None
+                       else self._remote_addresses)
+        not_ready: List[str] = []
+        for addr in pending:
+
+            def probe(_addr=addr):
+                timeout = max(0.05,
+                              deadline.clamp(float(probe_timeout_s)))
+                try:
+                    with urllib.request.urlopen(f"{_addr}/healthz",
+                                                timeout=timeout):
+                        pass
+                except urllib.error.HTTPError:
+                    pass   # an HTTP status = listening; ready enough
+
+            try:
+                if deadline.expired:
+                    # budget spent on earlier addresses: one immediate
+                    # probe each, no backoff — a worker that came up
+                    # meanwhile must not be written off unprobed
+                    probe()
+                else:
+                    policy.call(probe, deadline=deadline)
+            except Exception:  # noqa: BLE001 — budget spent / refused
+                not_ready.append(addr)
+        if not_ready:
+            log.warning(
+                "fleet.connect: %d/%d engines not listening after "
+                "%.1fs startup probe (%s); their breakers will own "
+                "them from here", len(not_ready), len(pending),
+                budget_s, ", ".join(not_ready))
+        return not_ready
+
+    @property
+    def addresses(self) -> List[str]:
+        if self._remote_addresses is not None:
+            return list(self._remote_addresses)
+        return [e.source.address for e in self.engines]
+
+    # -- transport ---------------------------------------------------------
+
+    # keep-alive connection pool: one persistent HTTPConnection per
+    # (thread, engine address). thread-local => no locking, and a
+    # connection is never shared across concurrent requests
+    _conn_pool = threading.local()
+
+    @classmethod
+    def _pooled_conn(cls, addr: str,
+                     timeout: float) -> "http.client.HTTPConnection":
+        conns = getattr(cls._conn_pool, "conns", None)
+        if conns is None:
+            conns = cls._conn_pool.conns = {}
+        conn = conns.get(addr)
+        if conn is None:
+            u = urllib.parse.urlsplit(addr)
+            conn = http.client.HTTPConnection(u.hostname, u.port,
+                                              timeout=timeout)
+            conns[addr] = conn
+        conn.timeout = timeout
+        if conn.sock is not None:
+            conn.sock.settimeout(timeout)
+        return conn
+
+    @classmethod
+    def _drop_conn(cls, addr: str) -> None:
+        conns = getattr(cls._conn_pool, "conns", {})
+        conn = conns.pop(addr, None)
+        if conn is not None:
+            try:
+                conn.close()
+            except Exception:  # noqa: BLE001
+                pass
+
+    @classmethod
+    def _http_post(cls, addr: str, body: bytes, timeout: float,
+                   replayable: bool = True, pooled: bool = True,
+                   content_type: str = "application/json",
+                   extra_headers: Optional[Dict[str, str]] = None,
+                   ) -> Dict[str, Any]:
+        """POST over a pooled keep-alive connection (HTTP/1.1): the
+        serving hot path pays no TCP handshake and spawns no server
+        thread per request. App-level statuses surface as
+        ``urllib.error.HTTPError`` (the breaker/failover contract).
+
+        A pooled connection the server closed while idle fails either
+        on the SEND or — when the buffered write slips through before
+        the RST — as RemoteDisconnected on the response; both retry
+        once on a fresh connection, else a whole healthy fleet looks
+        down after an idle gap (every thread-local conn went stale at
+        once). The response-phase retry could re-execute a request the
+        engine processed but never answered, so it is gated on
+        ``replayable`` (post's ``idempotent`` flag). ``pooled=False``
+        uses a one-shot connection closed before return — for spawned
+        hedge threads, whose thread-local pool would otherwise leak
+        one connection per call. Other failures propagate — the
+        caller's failover policy decides."""
+        import time as _time
+        t0 = _time.perf_counter()
+        headers = {"Content-Type": content_type, **(extra_headers or {})}
+        for attempt in (0, 1):
+            if pooled:
+                conn = cls._pooled_conn(addr, timeout)
+            else:
+                u = urllib.parse.urlsplit(addr)
+                conn = http.client.HTTPConnection(u.hostname, u.port,
+                                                  timeout=timeout)
+                headers = dict(headers, Connection="close")
+
+            def _discard():
+                if pooled:
+                    cls._drop_conn(addr)
+                else:
+                    try:
+                        conn.close()
+                    except Exception:  # noqa: BLE001
+                        pass
+
+            fresh = conn.sock is None
+            try:
+                conn.request("POST", "/", body, headers)
+            except Exception:
+                _discard()
+                if fresh or attempt:
+                    raise
+                continue   # stale keep-alive socket: one fresh retry
+            try:
+                resp = conn.getresponse()
+                data = resp.read()
+                if not pooled or resp.will_close:
+                    _discard()
+            except (http.client.RemoteDisconnected,
+                    http.client.BadStatusLine):
+                _discard()
+                if fresh or attempt or not replayable:
+                    raise
+                continue   # idle-closed socket ate the send: retry
+            except Exception:
+                _discard()
+                raise
+            if resp.status >= 400:
+                if (resp.status == 503 and resp.will_close
+                        and not fresh and not attempt):
+                    # a closed source draining its old persistent
+                    # connections (shed + Connection: close): nothing
+                    # was processed — reconnect once; a fresh connect
+                    # reaches whatever now owns the port
+                    continue
+                raise urllib.error.HTTPError(
+                    addr, resp.status, resp.reason,
+                    dict(resp.getheaders()), io.BytesIO(data))
+            return {"body": json.loads(data),
+                    "latency": _time.perf_counter() - t0}
+        raise RuntimeError("unreachable")   # loop always returns/raises
+
+    @staticmethod
+    def _submit(fn, *args) -> "Future":
+        """Run ``fn`` on a fresh DAEMON thread, returning a Future.
+        Deliberately not a ThreadPoolExecutor: its non-daemon workers
+        are joined by the atexit hook, so an abandoned hedge leg stuck
+        against a stalled engine would block interpreter exit for its
+        whole transport timeout; daemon threads also can't starve each
+        other the way a fixed-size pool full of zombie legs can."""
+        fut: "Future" = Future()
+
+        def run():
+            if not fut.set_running_or_notify_cancel():
+                return
+            try:
+                fut.set_result(fn(*args))
+            except BaseException as e:  # noqa: BLE001 — future protocol
+                fut.set_exception(e)
+
+        threading.Thread(target=run, daemon=True,
+                         name="fleet-hedge").start()
+        return fut
+
+    def _hedge_threshold(self) -> Optional[float]:
+        if self.hedge_percentile is None:
+            return None
+        with self._stats_lock:
+            if len(self._latencies) < 16:
+                return None
+            lat = sorted(self._latencies)
+        idx = min(len(lat) - 1,
+                  int(self.hedge_percentile / 100.0 * len(lat)))
+        return max(self.hedge_min_s, lat[idx])
+
+    def _record_latency(self, dt: float) -> None:
+        with self._stats_lock:
+            self._latencies.append(dt)
+
+    def _classify_and_record(self, breaker: CircuitBreaker,
+                             err: Optional[BaseException]) -> None:
+        """Breaker bookkeeping for one transport outcome: success, or an
+        app-level HTTP status (engine alive and answering — e.g. a
+        poison row's 500), counts as healthy; failover statuses and
+        transport failures count against the engine."""
+        if err is None or (isinstance(err, urllib.error.HTTPError)
+                           and err.code not in _FAILOVER_CODES):
+            breaker.record_success()
+        else:
+            breaker.record_failure()
+
+    # -- client-side tracing -------------------------------------------------
+
+    def _client_trace(self, name: str):
+        """One trace per logical client call. Inside an active span
+        (``core.trace.use_span``) the new root CONTINUES that trace as
+        a child, so an embedder's own spans, the client legs, and the
+        remote engines' server spans all share one trace id."""
+        if self.tracer is None:
+            return None
+        from mmlspark_tpu_torch.core.trace import current_span
+        cur = current_span()
+        return self.tracer.new_trace(
+            name,
+            trace_id=cur.trace_id if cur is not None else None,
+            parent_id=cur.span_id if cur is not None else None)
+
+    def _leg_span(self, trace, i: int, hedge: bool = False,
+                  probe: bool = False):
+        """One client leg span + the propagation headers it must carry.
+        Every leg of one logical post — retries, failovers, hedges —
+        is a SIBLING under the same root, so the fan-out renders as one
+        trace; the remote engine parents its server span on the leg's
+        span id (Tracer.inject/extract)."""
+        if trace is None:
+            return None, None
+        span = self.tracer.start_span("client.post", trace,
+                                      parent=trace.root)
+        span.set("engine", i)
+        span.set("address", self.addresses[i])
+        if hedge:
+            span.set("hedge", True)
+        if probe:
+            span.set("probe", True)
+        return span, self.tracer.inject(span)
+
+    @staticmethod
+    def _merged_headers(extra_headers: Optional[Dict[str, str]],
+                        inject: Optional[Dict[str, str]]
+                        ) -> Optional[Dict[str, str]]:
+        if not inject:
+            return extra_headers
+        return {**(extra_headers or {}), **inject}
+
+    # serializes leg-span verdicts: a hedge winner cancelling the
+    # loser races the loser's own done-callback (they run on different
+    # threads); without the lock the same span could be labeled BOTH
+    # cancelled and error, or a genuinely failed leg could lose its
+    # error to a concurrent cancel. Critical sections are a few
+    # attribute stores — one class-wide lock is cheap and sufficient.
+    _leg_lock = threading.Lock()
+
+    @staticmethod
+    def _mark_root_http(trace, code: int) -> None:
+        """The client root's verdict for an app-level HTTP status —
+        the server-side shed-vs-error discipline (the shared
+        ``core.trace.SHED_STATUSES`` policy): back-pressure statuses
+        are shed=true, only real 5xx are errors. A hot tenant's quota
+        429s must not flood the client tracer's protected tail ring."""
+        if trace is None:
+            return
+        from mmlspark_tpu_torch.core.trace import SHED_STATUSES
+        trace.root.set("http_status", code)
+        if code in SHED_STATUSES:
+            trace.root.set("shed", True)
+        elif code >= 500:
+            trace.root.error()
+
+    def _finish_leg(self, span, err: Optional[BaseException]) -> None:
+        """Close one leg span for its own outcome — UNLESS the leg was
+        already marked cancelled (it lost a hedge race: the winner
+        closed it; its late real outcome must not rewrite the
+        verdict). Quota/shed HTTP statuses mark the leg shed, not
+        error (the root discipline, per leg)."""
+        if span is None:
+            return
+        from mmlspark_tpu_torch.core.trace import SHED_STATUSES
+        with self._leg_lock:
+            if span.end is not None or span.attrs.get("cancelled"):
+                return
+            if isinstance(err, urllib.error.HTTPError) and \
+                    err.code in SHED_STATUSES:
+                span.set("shed", True)
+                span.set("http_status", err.code)
+            elif err is not None:
+                span.error(err)
+            span.finish()
+
+    @classmethod
+    def _cancel_leg(cls, span) -> None:
+        """Mark a hedge loser: ``cancelled=true``, NOT error — the leg
+        was abandoned because its sibling answered first, which is the
+        hedge working as designed, not a failure (the shed-vs-error
+        distinction applied to client spans: 'cancelled' must not
+        flood error dashboards or the protected tail ring)."""
+        if span is None:
+            return
+        with cls._leg_lock:
+            if span.end is None:
+                span.set("cancelled", True)
+                span.finish()
+
+    def _attempt(self, i: int, body: bytes, timeout: float, tried: set,
+                 allow_hedge: bool,
+                 content_type: str = "application/json",
+                 extra_headers: Optional[Dict[str, str]] = None,
+                 trace=None) -> Dict[str, Any]:
+        """One logical attempt against engine ``i``, hedged onto another
+        replica if allowed and the reply is slower than the hedge
+        threshold. ALL breaker recording happens here — for a hedged
+        primary the outcome is recorded when its leg actually finishes
+        (a stalled primary must still open its circuit even though the
+        hedge rescued the request). Raises the (winning) transport
+        error on failure. Each leg carries its own traceparent headers
+        (per-leg client spans under ``trace``)."""
+        breaker = self.breakers[i]
+        addr = self.addresses[i]
+        threshold = self._hedge_threshold() if allow_hedge else None
+        if threshold is None or threshold >= timeout:
+            span, inj = self._leg_span(trace, i)
+            try:
+                # allow_hedge carries post()'s idempotent flag: only
+                # idempotent requests may transparently replay a
+                # response-phase stale-connection failure
+                result = self._http_post(
+                    addr, body, timeout, replayable=allow_hedge,
+                    content_type=content_type,
+                    extra_headers=self._merged_headers(extra_headers,
+                                                       inj))
+            except Exception as e:
+                self._classify_and_record(breaker, e)
+                self._finish_leg(span, e)
+                raise
+            self._classify_and_record(breaker, None)
+            self._finish_leg(span, None)
+            return result
+        import time as _time
+        start = _time.monotonic()
+        # hedge legs run on spawned one-shot threads: pooled=False, or
+        # each call would strand a keep-alive conn in a dead thread's
+        # local storage (hedging only runs for idempotent requests)
+        span1, inj1 = self._leg_span(trace, i)
+        f1 = self._submit(self._http_post, addr, body, timeout,
+                          True, False, content_type,
+                          self._merged_headers(extra_headers, inj1))
+        f1.add_done_callback(
+            lambda f: (self._classify_and_record(breaker, f.exception()),
+                       self._finish_leg(span1, f.exception())))
+        try:
+            return f1.result(timeout=threshold)
+        except _FutureTimeout:
+            pass                       # slow — fire the hedge
+        # allow() (not a bare state check) so a half-open replica's
+        # probe budget also gates hedge traffic — a barely-recovered
+        # engine must not get a thundering herd of hedges
+        j = next((k for k in range(len(self.breakers))
+                  if k != i and k not in tried
+                  and self.breakers[k].allow()),
+                 None)
+        if j is None:
+            return f1.result(
+                timeout=max(0.001, start + timeout - _time.monotonic()))
+        with self._stats_lock:
+            self.hedged_requests += 1
+        tried.add(j)   # the hedge consumed replica j for this request
+        span2, inj2 = self._leg_span(trace, j, hedge=True)
+        f2 = self._submit(self._http_post, self.addresses[j], body,
+                          timeout, True, False, content_type,
+                          self._merged_headers(extra_headers, inj2))
+        f2.add_done_callback(
+            lambda f: (self._classify_and_record(self.breakers[j],
+                                                 f.exception()),
+                       self._finish_leg(span2, f.exception())))
+        pending = {f1, f2}
+        first_error: Optional[BaseException] = None
+        while pending:
+            remaining = start + timeout - _time.monotonic()
+            if remaining <= 0:
+                raise TimeoutError(
+                    f"hedged request to {addr} timed out after {timeout}s")
+            done, pending = _futures_wait(
+                pending, timeout=remaining, return_when=FIRST_COMPLETED)
+            if not done:
+                raise TimeoutError(
+                    f"hedged request to {addr} timed out after {timeout}s")
+            for f in done:
+                err = f.exception()
+                if err is None:
+                    # the sibling leg LOSES: mark it cancelled (not
+                    # error) — but only while it is genuinely still in
+                    # flight. A leg that already COMPLETED (e.g. both
+                    # futures landed in one wait round) gets its real
+                    # verdict from its own done-callback; cancelling
+                    # it would erase a true transport error.
+                    loser_f, loser_span = ((f2, span2) if f is f1
+                                           else (f1, span1))
+                    if not loser_f.done():
+                        self._cancel_leg(loser_span)
+                    return f.result()
+                first_error = first_error or err
+        raise first_error  # both legs failed — surface the primary's
+
+    # -- the client --------------------------------------------------------
+
+    @staticmethod
+    def _route_headers(model: Optional[str], tenant: Optional[str],
+                       priority: Optional[int],
+                       headers: Optional[Dict[str, str]]
+                       ) -> Optional[Dict[str, str]]:
+        """The model-routing/admission headers (the reference's
+        serving/zoo.py + serving/admission.py read them) as one merged
+        extra-header dict."""
+        out = dict(headers or {})
+        if model is not None:
+            out["X-Model"] = str(model)
+        if tenant is not None:
+            out["X-Tenant"] = str(tenant)
+        if priority is not None:
+            out["X-Priority"] = str(int(priority))
+        return out or None
+
+    def post(self, payload: Any, timeout: float = 30.0,
+             idempotent: bool = True,
+             content_type: str = "application/json",
+             model: Optional[str] = None,
+             tenant: Optional[str] = None,
+             priority: Optional[int] = None,
+             headers: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
+        """Failover-aware round-robin client — the stand-in for an
+        external load balancer in tests/examples.
+
+        Engines whose circuit is open are skipped; transport failures
+        and overload statuses (502/503/504) fail over to the next
+        replica when ``idempotent`` (scoring requests are). When every
+        candidate fails, raises ``ServingUnavailable`` carrying the
+        per-engine attempt log. Application-level HTTP errors (e.g. a
+        poison row's 500) propagate unchanged — as do admission 429s
+        (a tenant's empty quota is fleet-wide; replaying the request
+        on another replica would just spend it there too).
+
+        ``model``/``tenant``/``priority`` ride as the multi-model
+        plane's routing headers (``X-Model``/``X-Tenant``/
+        ``X-Priority``); ``headers`` adds arbitrary extras."""
+        body = payload if isinstance(payload, bytes) \
+            else json.dumps(payload).encode()
+        extra_headers = self._route_headers(model, tenant, priority,
+                                            headers)
+        n = len(self.addresses)
+        start = next(self._next)
+        order = [(start + k) % n for k in range(n)]
+        max_tries = n if idempotent else 1
+        attempts: List[Dict[str, Any]] = []
+        tried: set = set()
+        # the client-side trace of this LOGICAL request: every leg
+        # (failover, hedge, probe) is a sibling client span under this
+        # root, and each leg's traceparent headers make the remote
+        # engine's server spans children of that leg — one trace id
+        # across processes
+        trace = self._client_trace("fleet.post")
+        try:
+            for i in order:
+                if len(tried) >= max_tries:
+                    break
+                if i in tried:
+                    continue   # already consumed as a hedge leg
+                breaker = self.breakers[i]
+                if not breaker.allow():
+                    attempts.append(
+                        {"engine": i, "address": self.addresses[i],
+                         "error": "circuit open", "skipped": True})
+                    continue
+                tried.add(i)
+                try:
+                    # _attempt owns ALL breaker recording (incl. hedges)
+                    result = self._attempt(i, body, timeout, tried,
+                                           allow_hedge=idempotent,
+                                           content_type=content_type,
+                                           extra_headers=extra_headers,
+                                           trace=trace)
+                except urllib.error.HTTPError as e:
+                    if e.code in _FAILOVER_CODES:
+                        attempts.append(
+                            {"engine": i, "address": self.addresses[i],
+                             "error": f"HTTP {e.code}", "skipped": False})
+                        continue
+                    # app-level error: the engine is alive and
+                    # answering — the request itself is at fault.
+                    # Surface it unchanged.
+                    self._mark_root_http(trace, e.code)
+                    raise
+                except Exception as e:  # noqa: BLE001 — URLError/...
+                    with self._stats_lock:
+                        self.transport_errors += 1
+                    attempts.append(
+                        {"engine": i, "address": self.addresses[i],
+                         "error": f"{type(e).__name__}: {e}",
+                         "skipped": False})
+                    continue
+                self._record_latency(result["latency"])
+                if trace is not None:
+                    # failovers = legs that actually RAN and failed
+                    # before this one; circuit-open skips produced no
+                    # client leg and must not inflate the count the
+                    # perfetto walkthrough pairs with sibling legs
+                    failovers = len([a for a in attempts
+                                     if not a.get("skipped")])
+                    if failovers:
+                        trace.root.set("failovers", failovers)
+                return result["body"]
+            if not tried and order:
+                # every circuit open: last-resort probe of the
+                # round-robin head so the fleet can rediscover a
+                # recovered engine even before the breaker cooldown
+                # elapses. SINGLE-FLIGHT: only one caller at a time
+                # pays the probe's timeout against a possibly-stalled
+                # engine; everyone else fails fast — the whole point of
+                # an open circuit during a total outage.
+                if not self._probe_lock.acquire(blocking=False):
+                    attempts.append(
+                        {"engine": order[0],
+                         "address": self.addresses[order[0]],
+                         "error": "circuit open (probe in flight)",
+                         "skipped": True})
+                    raise ServingUnavailable(attempts)
+                try:
+                    return self._probe(order[0], body, timeout, attempts,
+                                       idempotent, content_type,
+                                       extra_headers, trace=trace)
+                finally:
+                    self._probe_lock.release()
+            raise ServingUnavailable(attempts)
+        except ServingUnavailable:
+            if trace is not None:
+                trace.root.error("no serving engine available")
+            raise
+        finally:
+            if trace is not None:
+                self.tracer.finish(trace)
+
+    def _probe(self, i: int, body: bytes, timeout: float,
+               attempts: List[Dict[str, Any]],
+               replayable: bool = True,
+               content_type: str = "application/json",
+               extra_headers: Optional[Dict[str, str]] = None,
+               trace=None) -> Dict[str, Any]:
+        """The all-circuits-open last-resort probe of engine ``i``."""
+        span, inj = self._leg_span(trace, i, probe=True)
+        extra_headers = self._merged_headers(extra_headers, inj)
+        try:
+            result = self._http_post(self.addresses[i], body, timeout,
+                                     replayable=replayable,
+                                     content_type=content_type,
+                                     extra_headers=extra_headers)
+        except urllib.error.HTTPError as e:
+            self._finish_leg(span, e)
+            if e.code not in _FAILOVER_CODES:
+                # engine alive and answering: the post() contract —
+                # app-level errors (a poison row's 500) propagate
+                # unchanged — holds on the probe path too, and an
+                # answering engine force-closes its breaker
+                self._mark_root_http(trace, e.code)
+                self.breakers[i].reset()
+                raise
+            self.breakers[i].record_failure()
+            attempts.append(
+                {"engine": i, "address": self.addresses[i],
+                 "error": f"HTTP {e.code}", "skipped": False})
+            raise ServingUnavailable(attempts) from e
+        except Exception as e:  # noqa: BLE001 — URLError/timeout/...
+            self._finish_leg(span, e)
+            with self._stats_lock:
+                self.transport_errors += 1
+            attempts.append(
+                {"engine": i, "address": self.addresses[i],
+                 "error": f"{type(e).__name__}: {e}", "skipped": False})
+            raise ServingUnavailable(attempts) from e
+        # a real scored reply while OPEN: force the breaker closed
+        self._finish_leg(span, None)
+        self.breakers[i].reset()
+        self._record_latency(result["latency"])
+        return result["body"]
+
+    def post_columns(self, columns: Dict[str, Any], *args, **kwargs):
+        """The pooled columnar client: its JSON fallback needs
+        ``io/columnar.py::columns_to_rows``, which waits with the host
+        transports."""
+        raise _not_ported("the columnar fleet client (post_columns)",
+                          _HOST_TRANSPORTS)
+
+    # -- dynamic membership (the autoscaler's join/leave surface) -----------
+
+    def demand_rate(self, window_s: float = 30.0) -> float:
+        raise _not_ported("the fleet's demand signal (demand_rate)",
+                          _MULTI_MODEL)
+
+    def add_engine(self, address: str, wait_ready_s: float = 0.0) -> int:
+        raise _not_ported("fleet membership (add_engine)", _MULTI_MODEL)
+
+    def remove_engine(self, address: str) -> None:
+        raise _not_ported("fleet membership (remove_engine)", _MULTI_MODEL)
+
+    def attach_placement(self, controller=None, **kwargs):
+        raise _not_ported("the placement plane (attach_placement)",
+                          _MULTI_MODEL)
+
+    # -- observability -----------------------------------------------------
+
+    def health(self, timeout: float = 2.0) -> List[Dict[str, Any]]:
+        """Poll every engine's /healthz (in-process or remote);
+        unreachable engines report ``{"reachable": False, ...}``."""
+        out = []
+        for addr in self.addresses:
+            url = f"{addr}/healthz"
+            try:
+                with urllib.request.urlopen(url, timeout=timeout) as r:
+                    out.append({"reachable": True,
+                                **json.loads(r.read())})
+            except urllib.error.HTTPError as err:
+                try:
+                    out.append({"reachable": True,
+                                **json.loads(err.read())})
+                except Exception:  # noqa: BLE001
+                    out.append({"reachable": True,
+                                "status": f"HTTP {err.code}"})
+            except Exception as err:  # noqa: BLE001
+                out.append({"reachable": False,
+                            "error": f"{type(err).__name__}: {err}"})
+        return out
+
+    def metrics(self) -> Dict[str, Any]:
+        """Fleet-wide latency breakdown: per-engine snapshots plus an
+        aggregate merging every engine's histograms (the bench/ops
+        view). Engine histograms merge exactly (same bucket layout);
+        the pipeline-stage metrics come from engine 0 — fleet engines
+        share one pipeline object, so its counters are already
+        fleet-wide."""
+        from mmlspark_tpu_torch.core.metrics import LatencyHistogram
+        per_engine = [e.metrics() for e in self.engines]
+        aggregate: Dict[str, Any] = {}
+        if self.engines:
+            for key in self.engines[0].hists:
+                aggregate[key] = LatencyHistogram.merged(
+                    [e.hists[key] for e in self.engines]).summary()
+            stage = per_engine[0].get("pipeline_stage")
+            if stage is not None:
+                aggregate["pipeline_stage"] = stage
+        aggregate["batches_processed"] = sum(
+            m["batches_processed"] for m in per_engine)
+        # lifecycle rollup: per-engine versions/states plus the fleet
+        # swap counters (the ops view of a rolling upgrade in flight)
+        aggregate["model_versions"] = [
+            m.get("model_version") for m in per_engine]
+        aggregate["precisions"] = [
+            m.get("precision") for m in per_engine]
+        aggregate["aot"] = [m.get("aot") for m in per_engine]
+        aggregate["swap_states"] = [
+            m.get("swap_state") for m in per_engine]
+        aggregate["swaps_completed"] = sum(
+            m.get("swaps_completed", 0) for m in per_engine)
+        aggregate["swaps_rolled_back"] = sum(
+            m.get("swaps_rolled_back", 0) for m in per_engine)
+        return {"engines": per_engine, "aggregate": aggregate}
+
+    def traces(self, limit: Optional[int] = None,
+               raw: bool = False) -> Any:
+        """The fleet's completed (tail-sampled) traces. Default: Chrome
+        trace-event JSON (save to a file, open in Perfetto); pass
+        ``raw=True`` for the Trace objects. Engines share one tracer,
+        so this is every engine's traffic on one timeline."""
+        if self.tracer is None:
+            from mmlspark_tpu_torch.core.trace import to_chrome_trace
+            return [] if raw else to_chrome_trace([])
+        traces = self.tracer.buffer.traces(limit)
+        if raw:
+            return traces
+        from mmlspark_tpu_torch.core.trace import to_chrome_trace
+        return to_chrome_trace(traces)
+
+    def metrics_text(self) -> str:
+        """Fleet-wide Prometheus text exposition: per-engine counters
+        and SLO families (labeled ``engine="<i>"``), the merged
+        cross-engine latency histograms, fleet client counters
+        (failover/hedging), and the process-wide phase/trace families.
+        Each engine also serves its own ``/metrics``; this is the
+        aggregate the ops view scrapes. (The reference's zoo,
+        placement, autoscale, admission and shm families wait with
+        their planes.)"""
+        from mmlspark_tpu_torch.core.metrics import LatencyHistogram
+        from mmlspark_tpu_torch.core.prometheus import (
+            PromRenderer, pipeline_families, process_families,
+            slo_families,
+        )
+        r = PromRenderer()
+        for i, e in enumerate(self.engines):
+            src = e.source
+            with src._lock:
+                seen, answered, rejected = (
+                    src.requests_seen, src.requests_answered,
+                    src.requests_rejected)
+            labels = {"engine": str(i)}
+            r.counter("serving_requests_seen_total",
+                      "requests hitting the HTTP source", seen, labels)
+            r.counter("serving_requests_answered_total",
+                      "requests answered", answered, labels)
+            r.counter("serving_requests_rejected_total",
+                      "requests shed", rejected, labels)
+            _, snap = e._lifecycle_snapshot()
+            r.counter("serving_batches_processed_total",
+                      "micro-batches executed",
+                      snap["batches_processed"], labels)
+            r.counter("serving_swaps_completed_total",
+                      "model swaps completed",
+                      snap["swaps_completed"], labels)
+            r.counter("serving_swaps_rolled_back_total",
+                      "model swaps rolled back",
+                      snap["swaps_rolled_back"], labels)
+            r.info("serving_model_info",
+                   "active model version, precision, aot, swap state "
+                   "per engine",
+                   {**labels, "version": snap["model_version"],
+                    "precision": snap["precision"],
+                    "aot": "true" if snap["aot"] else "false",
+                    "swap_state": snap["swap_state"]})
+            if e.slo is not None:
+                try:
+                    # per-engine SLO families (engine label): each
+                    # engine's burn state is its own — a fleet is
+                    # degraded engine by engine
+                    slo_families(r, e.slo, labels)
+                except Exception:  # noqa: BLE001 — stats stay partial
+                    pass
+        if self.engines:
+            for key in self.engines[0].hists:
+                merged = LatencyHistogram.merged(
+                    [e.hists[key] for e in self.engines])
+                r.histogram(f"serving_{key}",
+                            "fleet-merged hot-path stage distribution",
+                            merged)
+            # fleet engines share one pipeline object, so its hooks
+            # (model hists, first-run shapes, drift) are already
+            # fleet-wide
+            pipeline_families(r, self.engines[0].pipeline)
+        with self._stats_lock:
+            transport, hedged = self.transport_errors, self.hedged_requests
+        r.counter("serving_fleet_transport_errors_total",
+                  "client-side transport failures", transport)
+        r.counter("serving_fleet_hedged_requests_total",
+                  "tail-latency hedge requests fired", hedged)
+        r.gauge("serving_fleet_engines",
+                "engines currently in the routing rotation",
+                len(self.addresses))
+        process_families(r, tracer=self.tracer)
+        return r.render()
+
+    def counters(self) -> Dict[str, int]:
+        return {
+            "seen": sum(e.source.requests_seen for e in self.engines),
+            "accepted": sum(e.source.requests_accepted
+                            for e in self.engines),
+            "answered": sum(e.source.requests_answered
+                            for e in self.engines),
+            "rejected": sum(e.source.requests_rejected
+                            for e in self.engines),
+            "transport_errors": self.transport_errors,
+            "hedged": self.hedged_requests,
+            "workers_restarted": sum(e.workers_restarted
+                                     for e in self.engines),
+            "swaps_completed": sum(e.swaps_completed
+                                   for e in self.engines),
+            "swaps_rolled_back": sum(e.swaps_rolled_back
+                                     for e in self.engines),
+        }
+
+    # -- model lifecycle ---------------------------------------------------
+
+    def _failover_pressure(self) -> bool:
+        """True while the fleet looks stressed: any ALIVE engine's
+        circuit is open (dead engines' circuits stay open by design and
+        must not stall a rolling upgrade forever)."""
+        for e, b in zip(self.engines, self.breakers):
+            if e.is_alive() and b.state == CircuitBreaker.OPEN:
+                return True
+        return False
+
+    def rolling_swap(self, pipeline, version: str,
+                     warmup_example=None, policy=None,
+                     pressure_timeout_s: float = 30.0,
+                     ) -> Dict[str, Any]:
+        """Upgrade the fleet to ``pipeline``@``version`` one engine at a
+        time (zero downtime: each engine keeps serving through its own
+        warmup/canary/cutover — see serving/lifecycle.py).
+
+        Between engines the rollout PAUSES while the fleet shows
+        failover pressure (an alive engine's circuit open), bounded by
+        ``pressure_timeout_s`` per engine. Dead engines are skipped. A
+        rollback anywhere STOPS the rollout — a version that breached
+        one engine's canary must not march across the rest. Returns a
+        per-engine outcome report plus the aggregate verdict."""
+        outcomes: List[Dict[str, Any]] = []
+        completed = rolled_back = 0
+        for i, engine in enumerate(self.engines):
+            if not engine.is_alive():
+                outcomes.append({"engine": i,
+                                 "address": engine.source.address,
+                                 "outcome": "skipped_dead"})
+                continue
+            deadline = time.monotonic() + pressure_timeout_s
+            while self._failover_pressure() and \
+                    time.monotonic() < deadline:
+                time.sleep(0.05)   # pause the rollout, keep serving
+            if self._failover_pressure():
+                log.warning("rolling_swap: proceeding on engine %d "
+                            "despite failover pressure (%.1fs budget "
+                            "spent)", i, pressure_timeout_s)
+            try:
+                res = engine.swap(pipeline, version,
+                                  warmup_example=warmup_example,
+                                  policy=policy)
+            except Exception as e:  # noqa: BLE001 — e.g. engine died
+                # between the liveness check and the swap
+                outcomes.append({"engine": i,
+                                 "address": engine.source.address,
+                                 "outcome": "error",
+                                 "reason": f"{type(e).__name__}: {e}"})
+                continue
+            if res.completed:
+                completed += 1
+                outcomes.append({"engine": i,
+                                 "address": engine.source.address,
+                                 "outcome": "completed"})
+            else:
+                rolled_back += 1
+                outcomes.append({"engine": i,
+                                 "address": engine.source.address,
+                                 "outcome": "rolled_back",
+                                 "reason": res.reason})
+                log.warning("rolling_swap: %s rolled back on engine %d "
+                            "(%s); halting the rollout", version, i,
+                            res.reason)
+                break
+        return {"version": version, "completed": completed,
+                "rolled_back": rolled_back, "engines": outcomes,
+                "ok": rolled_back == 0 and completed > 0}
+
+    def kill_engine(self, index: int, close_source: bool = True) -> None:
+        """Chaos hook: crash (or stall, with ``close_source=False``) one
+        engine mid-load; the breaker + failover path must absorb it."""
+        self.engines[index].kill(close_source=close_source)
+
+    def stop_all(self) -> None:
+        for e in self.engines:
+            e.stop()
+
+
+class PartitionConsolidator(Transformer):
+    """Funnel a table to one stream per host
+    (ref: PartitionConsolidator.scala:17 — many partitions feeding one
+    connection-holding consumer per executor).
+
+    In a multi-process ``torch.distributed`` job each process keeps only
+    its own contiguous row range (consolidating that host's partitions
+    into one table); single-process it coalesces the table's shards into
+    one. ``hostCount``/``hostIndex`` override auto-detection for tests."""
+
+    hostCount = IntParam("total hosts (0 = auto from torch.distributed)",
+                         default=0)
+    hostIndex = IntParam("this host's index (-1 = auto)", default=-1)
+
+    def transform(self, table: DataTable) -> DataTable:
+        count = self.get("hostCount")
+        index = self.get("hostIndex")
+        if count <= 0 or index < 0:
+            auto_index, auto_count = _process_group_position()
+            if count <= 0:
+                count = auto_count
+            if index < 0:
+                index = auto_index
+        if index >= count:
+            raise ValueError(
+                f"hostIndex {index} out of range for hostCount {count}")
+        if count <= 1:
+            # consolidate: downstream shard-aware consumers must see ONE
+            # logical partition (that is this stage's whole purpose)
+            return table.repartition(1)
+        return _shard_table_for_host(table, index, count).repartition(1)
+
+    def transform_schema(self, schema: Schema) -> Schema:
+        return schema
+
+
+def _process_group_position() -> Tuple[int, int]:
+    """(process index, process count): the initialized
+    ``torch.distributed`` group's rank and world size, else one
+    process."""
+    import torch.distributed as torch_dist
+    if torch_dist.is_available() and torch_dist.is_initialized():
+        return torch_dist.get_rank(), torch_dist.get_world_size()
+    return 0, 1
+
+
+def _shard_table_for_host(table: DataTable, index: int,
+                          count: int) -> DataTable:
+    """Each host keeps only its contiguous row range (the reference's
+    ``parallel/distributed.py::shard_table_for_host``)."""
+    if count <= 1:
+        return table
+    return table.shards(count)[index]

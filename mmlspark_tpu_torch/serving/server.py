@@ -42,19 +42,26 @@ reference turns on by default:
   ``/debug/traces`` (chrome trace JSON, ``?limit=``) and
   ``/debug/bundle`` (``?confirm=1``) answer 200.
 
-What still raises ``NotImplementedError``, naming its ROADMAP.md item
-'The rest of the serving plane': the model zoo (``zoo=``) and admission
-control (``admission=``), with 'The multi-model plane'; variant routing
-(``variants=``), with the same; zero-downtime ``swap()``, with 'Model
-lifecycle and the client fleet' (the reference runs admission decisions
-only in a zoo engine's model-routing batcher). So ``metrics()`` has no
-``zoo``, ``admission``, ``swap``, ``variants`` or ``controlplane``
-section, and ``/metrics`` none of their families.
+The versioned model lifecycle (``serving/lifecycle.py``) runs on the
+engine as the reference runs it: every micro-batch carries the
+``PipelineHandle`` it was built with, ``swap()`` warms the incoming
+pipeline off the hot path, canaries a fraction of live batches through
+it (a failing canary batch is re-executed whole on the stable handle),
+cuts over with one attribute store and drains the old handle's
+in-flight count. ``swap_state``, ``swaps_completed`` and
+``swaps_rolled_back`` ride ``/healthz``, ``metrics()`` and ``/metrics``.
+The embedder calls ``HTTPSource.get_batch`` / ``get_batch_adaptive`` and
+``ServingEngine.process_one_batch``, and the chaos hook
+``ServingEngine.kill``, are the reference's.
 
-- ``HTTPSource`` drains only through ``drain_parked`` (the engine's
-  path); the reference's ``get_batch`` / ``get_batch_adaptive`` and
-  ``ServingEngine.process_one_batch`` embedder calls and the chaos hook
-  ``ServingEngine.kill`` are not copied.
+What still raises ``NotImplementedError``, naming its ROADMAP.md item
+'The rest of the serving plane': the model zoo (``zoo=``), admission
+control (``admission=``) and variant routing (``variants=``), with 'The
+multi-model plane' (the reference runs admission decisions only in a
+zoo engine's model-routing batcher). So ``metrics()`` has no ``zoo``,
+``admission``, ``variants`` or ``controlplane`` section, and
+``/metrics`` none of their families.
+
 - The handler sets ``TCP_NODELAY``: a reply's body no longer waits for
   the client's delayed ACK of its headers (same bytes, sooner).
 """
@@ -85,7 +92,6 @@ log = get_logger("serving")
 
 _SERVING_PLANE = "The rest of the serving plane"
 _MULTI_MODEL = "The multi-model plane"
-_LIFECYCLE = "Model lifecycle and the client fleet"
 
 
 def _not_ported(what: str, part: str) -> NotImplementedError:
@@ -528,6 +534,29 @@ class HTTPSource:
         self._thread.start()
         log.info("serving source listening on %s", self.address)
 
+    def get_batch(self, max_rows: int = 64,
+                  wait_s: float = 0.05) -> Tuple[DataTable, List[str]]:
+        """Drain up to max_rows parked requests into a table
+        (ref: HTTPSource.getBatch). Fixed-window poll — kept for the
+        synchronous ``process_one_batch`` API; the engine's hot path is
+        ``drain_parked``."""
+        parked: List[_ParkedRequest] = []
+        deadline = time.time() + wait_s
+        while len(parked) < max_rows:
+            remaining = deadline - time.time()
+            if remaining <= 0 and parked:
+                break
+            try:
+                parked.append(self.queue.get(
+                    timeout=max(remaining, 0.001)))
+            except queue.Empty:
+                break
+        if not parked:
+            return DataTable({"id": [], "request": []}), []
+        return (DataTable({"id": [p.id for p in parked],
+                           "request": [p.request for p in parked]}),
+                [p.id for p in parked])
+
     def drain_parked(self, max_rows: int, max_wait_s: float,
                      poll_s: float = 0.05) -> List[_ParkedRequest]:
         """Adaptive micro-batch drain (Clipper-style bounded queueing
@@ -572,6 +601,22 @@ class HTTPSource:
             took = True
         return took
 
+    def get_batch_adaptive(
+            self, max_rows: int, max_wait_s: float,
+            poll_s: float = 0.05,
+    ) -> Tuple[DataTable, List[str], List[float]]:
+        """``drain_parked`` packaged as (table, ids, queue-waits) for
+        embedders that want the adaptive policy without managing parked
+        requests themselves."""
+        parked = self.drain_parked(max_rows, max_wait_s, poll_s)
+        if not parked:
+            return DataTable({"id": [], "request": []}), [], []
+        return (DataTable({"id": [p.id for p in parked],
+                           "request": [p.request for p in parked]}),
+                [p.id for p in parked],
+                [max(0.0, p.dequeued_at - p.enqueued_at)
+                 for p in parked])
+
     def respond(self, rid: str, response: Dict[str, Any]) -> bool:
         """Reply through the held connection (ref:
         DistributedHTTPSource.scala:188 server.respond(batch, uuid, …))."""
@@ -589,26 +634,55 @@ class HTTPSource:
 
 
 class PipelineHandle:
-    """One immutable (pipeline, version) binding. Every dispatched
-    micro-batch carries the handle it was BUILT with, so a batch is
-    decoded, executed, retried and answered by exactly one model
-    version. (The reference's in-flight count, canary and zoo fields
-    serve ``swap()`` and the model zoo, which the port has not ported.)"""
+    """One immutable (pipeline, version) binding plus its in-flight
+    batch count — the unit of the zero-downtime swap protocol. Every
+    dispatched micro-batch carries the handle it was BUILT with, so a
+    batch is always decoded, executed, retried, and answered by exactly
+    one model version (the no-mixed-version-batch invariant), and a
+    version's outstanding count reaching zero is the drain signal.
+
+    ``controller`` and ``rescue_to`` are set only on canary handles by
+    the lifecycle layer: canary batch outcomes feed the controller's
+    breach detector, and a failing canary batch re-executes on
+    ``rescue_to`` (the stable handle) so clients never eat a canary's
+    faults. (The reference's ``model_name`` / ``model_key`` serve the
+    model zoo, which the port has not ported.)"""
 
     __slots__ = ("pipeline", "version", "precision", "aot", "prepare",
-                 "execute")
+                 "execute", "is_canary", "controller", "rescue_to",
+                 "_outstanding", "_lock")
 
-    def __init__(self, pipeline: Transformer, version: str):
+    def __init__(self, pipeline: Transformer, version: str,
+                 is_canary: bool = False):
         from mmlspark_tpu_torch.core.quantize import stage_precision
         self.pipeline = pipeline
         self.version = str(version)
         # serving-precision + AOT labels, captured ONCE at handle build
-        # (json_scoring_pipeline forwards them from the model)
+        # (json_scoring_pipeline forwards them from the model): every
+        # healthz/metrics/swap-audit surface reads the handle
         self.precision = stage_precision(pipeline)
         self.aot = bool(getattr(pipeline, "aot", False))
         # optional two-stage split (duck-typed; absent on plain stages)
         self.prepare = getattr(pipeline, "prepare_batch", None)
         self.execute = getattr(pipeline, "execute_prepared", None)
+        self.is_canary = bool(is_canary)
+        self.controller = None
+        self.rescue_to: Optional["PipelineHandle"] = None
+        self._outstanding = 0
+        self._lock = threading.Lock()
+
+    def acquire(self) -> None:
+        with self._lock:
+            self._outstanding += 1
+
+    def release(self) -> None:
+        with self._lock:
+            self._outstanding -= 1
+
+    @property
+    def outstanding(self) -> int:
+        with self._lock:
+            return self._outstanding
 
 
 class _BatchTraceCtx:
@@ -799,6 +873,16 @@ class ServingEngine:
         self.batches_processed = 0
         self.workers_restarted = 0
         self._stats_lock = threading.Lock()
+        self._killed = threading.Event()     # chaos kill: no restart
+        # model lifecycle (serving/lifecycle.py): one swap at a time;
+        # every writer of swap_state / the swap counters / _active holds
+        # _stats_lock, so _lifecycle_snapshot reads them together
+        self._swap_lock = threading.Lock()
+        self._swap_ctl = None                # canary phase only
+        self.swap_state = "idle"
+        self.swaps_completed = 0
+        self.swaps_rolled_back = 0
+        self.swap_events: List[Any] = []
         self.hists = histogram_set("queue_wait_ms", "decode_ms",
                                    "pipeline_ms", "respond_ms",
                                    "batch_rows")
@@ -821,9 +905,29 @@ class ServingEngine:
     def model_version(self) -> str:
         return self._active.version
 
+    def _route(self) -> PipelineHandle:
+        """Pick the handle for the NEXT micro-batch: the active version,
+        except during a canary phase when the swap controller diverts
+        its configured fraction of batches to the incoming version."""
+        active = self._active
+        swap_ctl = self._swap_ctl
+        if swap_ctl is not None:
+            try:
+                return swap_ctl.route(active)
+            except Exception:  # noqa: BLE001 — a sick controller must
+                return active  # never take the serving path down
+        return active
+
     def swap(self, pipeline: Transformer, version: str,
              warmup_example: Any = None, policy: Any = None):
-        raise _not_ported("zero-downtime model swap (swap)", _LIFECYCLE)
+        """Zero-downtime model swap: warm the incoming pipeline off the
+        hot path, canary a fraction of live traffic through it, promote
+        on a clean window or auto-roll-back on an error/latency breach.
+        Blocks until the swap completes or rolls back; returns a
+        ``SwapResult`` (see serving/lifecycle.py)."""
+        from mmlspark_tpu_torch.serving.lifecycle import execute_swap
+        return execute_swap(self, pipeline, version,
+                            warmup_example=warmup_example, policy=policy)
 
     def _respond_ok(self, rid: str, rep: Any) -> None:
         body = rep if isinstance(rep, (bytes, str)) \
@@ -884,6 +988,16 @@ class ServingEngine:
                 self.source.respond(rid, HTTPSchema.response(
                     500, "row dropped by pipeline", None))
 
+    def process_one_batch(self, wait_s: float = 0.05) -> int:
+        """Synchronous one-shot drain (fixed poll window) — kept for
+        embedding/tests; a started engine runs the adaptive
+        batcher/worker pipeline instead."""
+        table, ids = self.source.get_batch(self.batch_size, wait_s)
+        if not ids:
+            return 0
+        self._execute_batch(table, ids, None, self._active)
+        return len(ids)
+
     def _device_span(self, tctx: Optional[_BatchTraceCtx],
                      handle: PipelineHandle, rows: int):
         """The batch-join device span: ONE span shared by every request
@@ -897,6 +1011,11 @@ class ServingEngine:
         ds = tctx.batch_span("device", start=start)
         ds.set("model_version", handle.version)
         ds.set("rows", rows)
+        if handle.is_canary:
+            ds.set("canary", True)
+        state = self.swap_state
+        if state != "idle":
+            ds.set("swap_state", state)
         bucket_for = getattr(handle.pipeline, "bucket_for", None)
         if callable(bucket_for):
             try:
@@ -919,12 +1038,17 @@ class ServingEngine:
         """Stage 2 of the pipeline: device execution + reply flush for
         one micro-batch (``prepped`` carries stage 1's decode output
         when the pipeline supports the split). The whole batch runs on
-        ``handle``'s pipeline version, retries included. The ``device``
-        span is the active span while the pipeline runs, so its log
-        lines carry the trace id."""
+        ``handle``'s pipeline version — retries and canary rescues
+        included — so no reply batch ever mixes model versions. The
+        ``device`` span is the active span while the pipeline runs, so
+        its log lines carry the trace id."""
         from mmlspark_tpu_torch.core.trace import use_span
         if handle is None:
             handle = self._active
+        # canary handles carry their controller; stable batches report
+        # to whatever swap is in flight (the latency-delta baseline)
+        ctl = handle.controller if handle.controller is not None \
+            else self._swap_ctl
         ds, miss_fn, miss0 = self._device_span(tctx, handle, len(ids))
         span_ctx = use_span(ds) if ds is not None \
             else contextlib.nullcontext()
@@ -938,6 +1062,18 @@ class ServingEngine:
         except Exception as e:  # noqa: BLE001 — isolate the poison row(s)
             if ds is not None:
                 ds.error(e).finish()
+            if handle.is_canary and handle.rescue_to is not None:
+                # a canary batch's faults are the SWAP's problem, not
+                # the clients': record the strike and re-execute the
+                # whole batch on the stable version (fresh decode — the
+                # prepped payload may be the poisoned stage's output)
+                log.warning("canary batch failed (%s); rescuing on %s",
+                            e, handle.rescue_to.version)
+                if ctl is not None:
+                    ctl.observe(handle, ok=False, latency_ms=(
+                        time.perf_counter() - t0) * 1e3, error=e)
+                self._run_rescued(table, ids, handle.rescue_to, tctx)
+                return
             log.warning("serving batch failed (%s); retrying per-row", e)
             self._process_rows_individually(table, ids, handle, tctx)
             with self._stats_lock:
@@ -951,6 +1087,23 @@ class ServingEngine:
                 except Exception:  # noqa: BLE001 — annotation only
                     pass
             ds.finish()
+        if ctl is not None:
+            # the controller discards row_errors for stable handles, so
+            # only canary batches pay the error-column scan
+            row_errors = (self._count_row_errors(out)
+                          if handle.is_canary else 0)
+            if (row_errors > 0 and handle.is_canary
+                    and handle.rescue_to is not None):
+                # row-level canary errors must not leak to clients
+                # either: strike the canary, answer from stable. The
+                # engine histogram is observed by the rescue run only —
+                # one client batch, one pipeline_ms sample.
+                ctl.observe(handle, ok=True, latency_ms=dt_ms,
+                            row_errors=row_errors)
+                self._run_rescued(table, ids, handle.rescue_to, tctx)
+                return
+            ctl.observe(handle, ok=True, latency_ms=dt_ms,
+                        row_errors=row_errors)
         self.hists["pipeline_ms"].observe(dt_ms)
         t1 = time.perf_counter()
         try:
@@ -964,6 +1117,29 @@ class ServingEngine:
             (time.perf_counter() - t1) * 1e3)
         with self._stats_lock:
             self.batches_processed += 1
+
+    def _run_rescued(self, table: DataTable, ids: List[str],
+                     rescue: PipelineHandle,
+                     tctx: Optional[_BatchTraceCtx] = None) -> None:
+        """Re-execute a failed canary batch on the stable handle,
+        COUNTED as in-flight on it: the swap's drain phase polls the
+        old handle's outstanding count, so an untracked rescue could
+        let the drain complete while this batch still runs on the old
+        version. The trace context rides along — a rescued trace shows
+        two device spans (the failed canary's and the stable rerun's)."""
+        rescue.acquire()
+        try:
+            self._execute_batch(table, ids, None, rescue, tctx)
+        finally:
+            rescue.release()
+
+    def _count_row_errors(self, out: DataTable) -> int:
+        """Non-null error_col rows in a transformed batch (the canary
+        controller counts them against the incoming version)."""
+        if self.error_col not in out.column_names:
+            return 0
+        errs = out[self.error_col]
+        return sum(1 for e in errs if e is not None and e == e)
 
     def _process_rows_individually(self, table: DataTable,
                                    ids: List[str],
@@ -1123,8 +1299,21 @@ class ServingEngine:
         # put; any other exit must give it back, or each incident would
         # permanently shrink the engine's dispatch budget
         handed_off = False
-        handle = self._active
+        handle = None
         try:
+            # version routing happens HERE, once per batch: the handle
+            # rides with the item so decode, execution, retries, and
+            # replies all use one model version. acquire() BEFORE any
+            # other work, then re-check the active handle: a cutover
+            # landing between route and acquire would otherwise let the
+            # swap's drain poll read outstanding==0 while this batch is
+            # still headed for the old version.
+            handle = self._route()
+            handle.acquire()
+            if not handle.is_canary and handle is not self._active:
+                handle.release()
+                handle = self._active   # stale route: follow cutover
+                handle.acquire()
             try:
                 item = self._build_item(parked, handle)
             except Exception as e:  # noqa: BLE001
@@ -1142,6 +1331,10 @@ class ServingEngine:
             handed_off = True
         finally:
             if not handed_off:
+                # both the in-flight token AND the version handle
+                # must come back on any non-dispatch exit
+                if handle is not None:
+                    handle.release()
                 self._inflight.release()
         self._drained_rows.inc(len(parked))
         for p in parked:
@@ -1217,7 +1410,10 @@ class ServingEngine:
             finally:
                 # token back even when the thread is dying (SystemExit
                 # passes through): a leaked token would shrink the
-                # engine's in-flight budget forever
+                # engine's in-flight budget forever — and the version
+                # handle must drain even on a crashed batch, or a swap
+                # would wait on its outstanding count forever
+                item[3].release()
                 self._inflight.release()
 
     def _spawn_worker(self) -> threading.Thread:
@@ -1234,8 +1430,8 @@ class ServingEngine:
         """Liveness watchdog: a worker or batcher thread that dies (a
         BaseException like SystemExit escaping the loop's Exception
         guard) is detected and respawned, so one crashed thread can't
-        silently halve — or zero — the engine's throughput. ``stop()``
-        suppresses restarts."""
+        silently halve — or zero — the engine's throughput. Chaos kills
+        (``kill()``) and normal ``stop()`` suppress restarts."""
         while not self._stop.wait(interval):
             with self._threads_lock:
                 for i, t in enumerate(self._threads):
@@ -1254,9 +1450,9 @@ class ServingEngine:
                         self.workers_restarted += 1
 
     def is_alive(self) -> bool:
-        """Engine liveness for /healthz: not stopped, batcher running
-        (when started), and at least one worker thread running."""
-        if self._stop.is_set():
+        """Engine liveness for /healthz: not killed or stopped, batcher
+        running (when started), and at least one worker thread running."""
+        if self._killed.is_set() or self._stop.is_set():
             return False
         with self._threads_lock:
             workers_ok = any(t.is_alive() for t in self._threads)
@@ -1265,8 +1461,12 @@ class ServingEngine:
         return workers_ok and batcher_ok
 
     def _lifecycle_snapshot(self) -> Tuple[PipelineHandle, Dict[str, Any]]:
-        """ONE consistent (handle, counters) snapshot under
-        ``_stats_lock``."""
+        """ONE consistent (handle, swap_state, counters) snapshot under
+        ``_stats_lock`` — the lock every lifecycle writer (cutover,
+        state transitions, counter bumps — see serving/lifecycle.py)
+        holds. Read piecemeal, a scrape racing ``swap()`` could see the
+        NEW version with the OLD swaps_completed count, or
+        ``swap_state == idle`` with the not-yet-cut-over pipeline."""
         with self._stats_lock:
             active = self._active
             return active, {
@@ -1275,6 +1475,9 @@ class ServingEngine:
                 "model_version": active.version,
                 "precision": active.precision,
                 "aot": active.aot,
+                "swap_state": self.swap_state,
+                "swaps_completed": self.swaps_completed,
+                "swaps_rolled_back": self.swaps_rolled_back,
             }
 
     def metrics(self) -> Dict[str, Any]:
@@ -1285,6 +1488,12 @@ class ServingEngine:
         shape counter). Exported on /healthz."""
         active, out = self._lifecycle_snapshot()
         out.update({k: h.summary() for k, h in self.hists.items()})
+        swap_ctl = self._swap_ctl
+        if swap_ctl is not None:
+            try:
+                out["swap"] = swap_ctl.stats()
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
         if self.slo is not None:
             try:
                 out["slo"] = self.slo.status()
@@ -1337,16 +1546,31 @@ class ServingEngine:
         r.counter("serving_workers_restarted_total",
                   "worker/batcher threads respawned by the supervisor",
                   snap["workers_restarted"])
-        # no swap can be in flight: swap() is not ported
+        r.counter("serving_swaps_completed_total",
+                  "model swaps promoted + cut over",
+                  snap["swaps_completed"])
+        r.counter("serving_swaps_rolled_back_total",
+                  "model swaps rolled back", snap["swaps_rolled_back"])
         r.info("serving_model_info",
                "active model version, precision, aot, swap state (labels)",
                {"version": snap["model_version"],
                 "precision": snap["precision"],
                 "aot": "true" if snap["aot"] else "false",
-                "swap_state": "idle"})
+                "swap_state": snap["swap_state"]})
         for name, hist in self.hists.items():
             r.histogram(f"serving_{name}",
                         "engine hot-path stage distribution", hist)
+        ctl = self._swap_ctl
+        if ctl is not None:
+            try:
+                stats = ctl.stats()
+                r.gauge("serving_canary_batches",
+                        "canary batch outcomes for the swap in flight",
+                        stats["canary_ok"], {"outcome": "ok"})
+                r.sample("serving_canary_batches",
+                         stats["canary_failed"], {"outcome": "failed"})
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
         if self.slo is not None:
             try:
                 slo_families(r, self.slo)
@@ -1397,9 +1621,9 @@ class ServingEngine:
         self.source.slo = self.slo
         rec = self.flight_recorder
         if rec is not None:
-            # the black box sees this engine's traces, SLO state and a
-            # metrics snapshot; keys carry the address so stop() can
-            # detach cleanly
+            # the black box sees this engine's traces, SLO state, the
+            # lifecycle event timeline and a metrics snapshot; keys
+            # carry the address so stop() can detach cleanly
             key = self._recorder_key()
             rec.attach_tracer(
                 self.tracer,
@@ -1407,11 +1631,24 @@ class ServingEngine:
                 key=f"{key}:tracer")
             if self.slo is not None:
                 rec.attach_slo(key, self.slo)
+            rec.add_event_source(f"{key}:swap_events",
+                                 lambda: self.swap_events)
             rec.add_stats_source(key, self.metrics)
             self.source.bundle_probe = (
                 lambda limit=None: rec.dump_bundle(
                     reason="http_request", trace_limit=limit))
         return self
+
+    def kill(self, close_source: bool = True) -> None:
+        """Chaos hook: simulate a crashed engine — workers exit and are
+        NOT restarted. ``close_source=True`` also drops the listener
+        (clients see connection-refused, the crashed-process shape);
+        ``close_source=False`` keeps accepting but never replies (the
+        stalled-engine shape: parked requests run out their timeout)."""
+        self._killed.set()
+        self._stop.set()
+        if close_source:
+            self.source.close()
 
     def stop(self) -> None:
         self._stop.set()
@@ -1434,7 +1671,10 @@ class ServingEngine:
                 threads.append(self._batcher)
         for t in threads:
             t.join(timeout=5)
-        self.source.close()
+        try:
+            self.source.close()
+        except Exception:  # noqa: BLE001 — already closed by kill()
+            pass
 
 
 def serve_model(pipeline: Optional[Transformer] = None,

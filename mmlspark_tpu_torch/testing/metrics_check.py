@@ -5,7 +5,8 @@ Two passes over the same contracts:
 
 **The source** (``audit_source``), per renderer call site
 (``r.counter`` / ``r.gauge`` / ``r.histogram`` / ``r.info`` /
-``r.sample`` in ``core/prometheus.py`` and ``serving/server.py``):
+``r.sample`` in ``core/prometheus.py``, ``serving/server.py`` and
+``serving/fleet.py``):
 
 1. **HELP present** — the help-text argument is a non-empty string
    literal.
@@ -55,6 +56,7 @@ _REPO = os.path.dirname(_PKG)
 AUDIT_FILES = (
     "mmlspark_tpu_torch/core/prometheus.py",
     "mmlspark_tpu_torch/serving/server.py",
+    "mmlspark_tpu_torch/serving/fleet.py",
 )
 
 RENDER_METHODS = {"counter", "gauge", "histogram", "info", "sample"}

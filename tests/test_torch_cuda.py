@@ -1457,6 +1457,60 @@ def test_cuda_device_memory_stats_keys(card):
     assert mesh["per_device"]["cuda:0"] > 0
 
 
+@pytest.mark.cuda
+def test_cuda_boost_more_refresh_rolled_into_a_fleet(card):
+    """A forest fitted on the card, refreshed by boost_more through the
+    hist kernel (one launch a histogram), rolled into a 2-engine fleet
+    serving on the card while a client thread posts: every reply is v1's
+    or v2's prediction of its row, and after the rollout v2's."""
+    import threading
+    from mmlspark_tpu_torch.gbdt.estimators import (
+        TPUBoostClassificationModel, TPUBoostClassifier)
+    from mmlspark_tpu_torch.serving import (
+        CanaryPolicy, ServingFleet, json_scoring_pipeline)
+    X, y = _gbdt_table(40_000)
+    Xtr, ytr, Xte = X[:30_000], y[:30_000], X[30_000:30_400]
+    v1 = TPUBoostClassifier(numIterations=3, numLeaves=15,
+                            device="cuda").fit(
+        DataTable({"features": Xtr, "label": ytr}))
+    HK.reset_launches()
+    b2 = v1.get_booster().boost_more(3, Xtr, ytr)
+    assert sum(HK.LAUNCHES.values()) == b2.train_info["histograms"] > 0
+    v2 = TPUBoostClassificationModel(modelString=b2.model_to_string(),
+                                     numClasses=2, device="cuda")
+    want = {name: np.asarray(m.transform(DataTable(
+        {"features": Xte}))["prediction"]).astype(int)
+        for name, m in (("v1", v1), ("v2", v2))}
+    fleet = ServingFleet(json_scoring_pipeline(v1), n_engines=2,
+                         base_port=0, batch_size=64, version="v1",
+                         flight_recorder=False)
+    got, stop = [], threading.Event()
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            row = i % len(Xte)
+            got.append((row, fleet.post(
+                {"features": Xte[row].tolist()})["prediction"]))
+            i += 1
+    t = threading.Thread(target=client)
+    try:
+        t.start()
+        report = fleet.rolling_swap(
+            json_scoring_pipeline(v2), "v2",
+            policy=CanaryPolicy(fraction=0.5, min_batches=4))
+        stop.set()
+        t.join(timeout=30)
+        assert report["ok"] and report["completed"] == 2, report
+        for row in range(8):
+            assert fleet.post({"features": Xte[row].tolist()})[
+                "prediction"] == want["v2"][row]
+    finally:
+        stop.set()
+        fleet.stop_all()
+    assert got and all(p in (want["v1"][r], want["v2"][r]) for r, p in got)
+
+
 def test_port_and_chip_smoke_import_no_jax():
     """The AST scan of test_torch_gbdt.py, in this JAX-free file: the
     port's package, its telemetry modules included, and chip_smoke.py
@@ -1467,6 +1521,8 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted((repo / "mmlspark_tpu_torch").rglob("*.py")) + \
         [repo / "chip_smoke.py"]
     assert repo / "mmlspark_tpu_torch" / "core" / "trace.py" in files
+    assert repo / "mmlspark_tpu_torch" / "serving" / "lifecycle.py" in files
+    assert repo / "mmlspark_tpu_torch" / "testing" / "chaos.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -17,8 +17,8 @@ it on the CPU (``device="cpu"``). Tolerances, stated:
   JAX package's fused ones; predictions equal except on rows whose
   top-two probability margin is under 1e-5 (counted, and at most 1 %);
 - column pruning changes no output (bitwise).
-The JAX package's ``test_swap_fused_pipeline_zero_recompiles`` waits for
-``swap()`` (ROADMAP.md, 'The rest of the serving plane').
+The JAX package's ``test_swap_fused_pipeline_zero_recompiles`` runs in
+``tests/test_torch_lifecycle.py``.
 """
 
 import inspect

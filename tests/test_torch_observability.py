@@ -497,8 +497,7 @@ class TestMetricsExposition:
 
     def test_families_equal_to_the_reference_engines(self):
         """The port's engine renders every family the reference engine
-        does, but the swap counters (swap() is not ported) and the
-        ingress families (the host transports)."""
+        does, but the ingress families (the host transports)."""
         fams = {}
         for name, (serve, L, T) in {
                 "torch": (serve_model, Lambda, PT),
@@ -515,8 +514,7 @@ class TestMetricsExposition:
                 engine.stop()
             fams[name] = _families(text)
         missing = set(fams["jax"]) - set(fams["torch"])
-        assert missing <= {"serving_swaps_completed_total",
-                           "serving_swaps_rolled_back_total"} | INGRESS | {
+        assert missing <= INGRESS | {
             n for n in fams["jax"] if n.startswith("device_memory_")}
         assert set(fams["torch"]) <= set(fams["jax"])
         for fam, (help_, kind, _) in fams["torch"].items():

@@ -191,8 +191,11 @@ def test_healthz_and_unported_endpoints(echo_server):
     m = body["metrics"]
     assert m["model_version"] == "v0"
     # telemetry is on by default: the SLO monitor's section is in
-    # metrics() and /healthz; the unported planes' sections are not
-    assert not {"swap_state", "admission", "zoo"} & set(m), m
+    # metrics() and /healthz, and so are the lifecycle fields; the
+    # unported planes' sections are not
+    assert m["swap_state"] == "idle" and m["swaps_completed"] == 0
+    assert m["swaps_rolled_back"] == 0
+    assert not {"admission", "zoo"} & set(m), m
     assert m["slo"]["objectives"] and body["slo"]["degraded"] is False
     assert m["precision"] == "f32" and m["retry_after_s"] >= 1
     with urllib.request.urlopen(addr + "/metrics", timeout=10) as r:
@@ -360,17 +363,31 @@ def test_unported_serving_options_raise(kw, item):
 
 
 def test_swap_and_fused_scoring_raise(echo_server):
-    with pytest.raises(NotImplementedError,
-                       match="Model lifecycle and the client fleet"):
-        echo_server.swap(Lambda.apply(_echo), "v1")
-    # fused pipeline scoring is ported ('Device pipeline and serving
-    # compilation'); swapping a fused pipeline in waits with swap()
-    scorer = json_scoring_pipeline(
-        mtt.PipelineModel(stages=[]).fused(device="cpu"))
-    assert scorer.scorer.reply_col == "prediction"
+    """``swap()`` is ported (serving/lifecycle.py): a plain stage swaps
+    in through a direct cutover, and a fused pipeline scorer, whose
+    warmup needs an example, rolls back without one; what still raises
+    is the zoo (tests/test_torch_lifecycle.py holds the protocol
+    itself, fused swaps included)."""
+    from mmlspark_tpu_torch.serving import CanaryPolicy
+    engine = serve_model(Lambda.apply(_echo), port=0, batch_size=8,
+                         version="v0", flight_recorder=False)
+    try:
+        res = engine.swap(Lambda.apply(_echo), "v1",
+                          policy=CanaryPolicy(fraction=0.0))
+        assert res.completed and engine.model_version == "v1"
+        scorer = json_scoring_pipeline(
+            mtt.PipelineModel(stages=[]).fused(device="cpu"))
+        assert scorer.scorer.reply_col == "prediction"
+        res = engine.swap(scorer, "v2", policy=CanaryPolicy(fraction=0.0))
+        assert res.rolled_back and "requires an example" in res.reason
+        assert engine.model_version == "v1"
+        assert engine.swaps_completed == 1
+        assert engine.swaps_rolled_back == 1
+    finally:
+        engine.stop()
     with pytest.raises(NotImplementedError,
                        match="The rest of the serving plane"):
-        echo_server.swap(scorer, "v2")
+        serve_model(Lambda.apply(_echo), port=0, zoo=object())
 
 
 # ---------------------------------------------------------------------------
