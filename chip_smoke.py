@@ -364,12 +364,44 @@ Phases, one line each; any failure exits non-zero:
                and a circuit_open bundle; (e) one traced request: its
                client leg and the engine's request span share a trace id
                in merge_chrome_traces.
+ 16. the stage registry and AOT serving artifacts — (a) the CLI in this
+               process: stages --json (every registered stage of the
+               port), describe TPUBoostClassifier, codegen into build/
+               (a doc per stage) and the generated smoke tests run
+               in-process; (b) cli run of a JSON spec (TPUBoostClassifier,
+               63 leaves, max_bin 255, 5 rounds) on phase 3's 1M x 28
+               table written as .npz, in this process: exactly 315 hist
+               launches, the saved forest bitwise phase 3's API fit; then
+               cli score of the saved model in a fresh process, its
+               outputs bitwise phase 3's transform; (c) experiment fuzzing
+               of every TestObject (testing/fuzz_objects.py) whose stage
+               has a device param, on the card and on the CPU, the tables
+               equal within max(the object's tol, 1e-4) (the shapes only
+               for a learner whose weights are drawn on the card); (d)
+               serving/aot.py: phase 4's seeded LM_SPEC TPUModel (f32,
+               depth 8, batch 8) exported (torch.export, the flash forward
+               as the custom op) and loaded in this process: the 20 x
+               1024 logits bitwise the in-process model's, exactly 8
+               flash launches a forward, jit_cache_misses 0, export /
+               load seconds, artifact bytes, warm transform eager against
+               the loaded program; phase 3's forest behind a
+               FastVectorAssembler of its 28 features as raw JSON fields
+               (a JSON list decodes to a list column, which no device op
+               reads), fused at batch 256, exported and loaded: every
+               bucket's replies bitwise the in-process pipeline's and
+               phase 3's transform, jit_cache_misses 0;
+               then fresh-process cold starts of the LM artifact, trace,
+               aot, aot, trace: the best of two of each mode's
+               cold_start_to_first_200_ms, model_ready_ms,
+               first_request_ms, jit_traces_total and
+               jit_traces_at_request_time (0), where the time went, and
+               their ratio.
 Then one JSON line of the int8 GEMMs' times (a library call, not a
 ported kernel), one JSON line of per-kernel numbers (the hist rows
 include the int16 and int8 launches of 7(b) and 7(c), the F = 968
 launches of 8(a), the launches of 11(b)'s fit on its featurized bins,
-of 14(a)'s fit and of 15(a)'s boost_more; the flash rows phase 12's,
-13's and 14(b)'s launches),
+of 14(a)'s fit, of 15(a)'s boost_more and of 16(b)'s cli run; the flash
+rows phase 12's, 13's, 14(b)'s and 16(d)'s launches),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -3729,6 +3761,292 @@ def lifecycle_slice(dev, smi: str, model255, Xtr, ytr, Xte, yte,
     return {"hist": launches}
 
 
+def _captured(argv) -> str:
+    """Run the port's CLI in this process; its standard output."""
+    import contextlib
+    import io
+    from mmlspark_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {argv} returned {rc}")
+    return buf.getvalue()
+
+
+def _cold_start(root: str, art: str, mode: str) -> dict:
+    """One fresh-process cold start of the AOT runner: its JSON line."""
+    r = subprocess.run([sys.executable, "-m", "mmlspark_tpu_torch.serving.aot",
+                        art, "--mode", mode, "--port", "0"], cwd=root,
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": root})
+    check(r.returncode == 0, f"(d) cold start --mode {mode} failed: "
+          f"{r.stderr[-2000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    check(out["ok"] and out["jit_traces_at_request_time"] == 0,
+          f"(d) cold start --mode {mode}: {out}")
+    return out
+
+
+def registry_aot_slice(smi: str, model255, out255, Xtr, ytr, Xte) -> dict:
+    """Phase 16: (a) the stage registry through the CLI (stages --json,
+    describe, codegen and the generated smoke tests); (b) ``cli run`` of
+    a JSON spec at phase 3's shape, in this process, then ``cli score``
+    in a fresh one; (c) experiment fuzzing of every TestObject whose
+    stage has a ``device`` param, on the card against the CPU; (d) AOT
+    artifacts of phase 4's seeded LM_SPEC TPUModel and of phase 3's
+    forest as a fused pipeline, loaded in this process against the
+    models they came from, then fresh-process cold starts in both
+    modes. Returns the phase's launches: {"hist": by route (b), "f32":
+    flash forward launches of the loaded LM (d)}."""
+    import importlib.util
+    import torch
+    from mmlspark_tpu_torch import codegen
+    from mmlspark_tpu_torch.core.fusion import fuse
+    from mmlspark_tpu_torch.core.stage import load_stage
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.gbdt import hist_kernels as HK
+    from mmlspark_tpu_torch.models.networks import build_network
+    from mmlspark_tpu_torch.models.tpu_model import TPUModel
+    from mmlspark_tpu_torch.ops import flash_attention as FA
+    from mmlspark_tpu_torch.profile_transform import (
+        BATCH as LM_BATCH, LM_SPEC, ROWS as LM_ROWS)
+    from mmlspark_tpu_torch.serving import aot
+    from mmlspark_tpu_torch.stages import FastVectorAssembler
+    from mmlspark_tpu_torch.testing import fuzz_objects as FO
+    from mmlspark_tpu_torch.testing.equality import assert_table_equal
+    from mmlspark_tpu_torch.testing.fuzzing import run_experiment_fuzzing
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke_registry")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    # ---- (a) the registry through the CLI --------------------------------
+    t0 = time.perf_counter()
+    manifest = json.loads(_captured(["stages", "--json"]))
+    n_stages = len(manifest["stages"])
+    check(n_stages == len(codegen.stage_manifest()["stages"]) > 0,
+          f"(a) stages --json lists {n_stages} stages")
+    md = _captured(["describe", "TPUBoostClassifier"])
+    check("*Estimator*" in md and "| `numLeaves` |" in md
+          and "| `device` |" in md, "(a) describe TPUBoostClassifier")
+    gen = os.path.join(work, "generated")
+    counts = json.loads(_captured(["codegen", gen]).strip().splitlines()[-1])
+    docs = [d for d in os.listdir(os.path.join(gen, "docs"))
+            if d != "index.md"]
+    check(counts["stages"] == counts["docs"] == len(docs) == n_stages,
+          f"(a) codegen {counts}, {len(docs)} docs")
+    spec_ = importlib.util.spec_from_file_location(
+        "generated_smoke", os.path.join(gen, "test_generated_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(smoke)
+    tests = [getattr(smoke, n) for n in dir(smoke) if n.startswith("test_")]
+    for fn in tests:
+        fn()
+    check(len(tests) == counts["tests"], f"(a) {len(tests)} smoke tests")
+    print(f"registry (a): stages --json lists {n_stages} stages; describe "
+          f"TPUBoostClassifier: {md.count(chr(10) + '| `')} params; codegen "
+          f"{counts}: {len(docs)} docs, {len(tests)} generated smoke tests "
+          f"pass in-process ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- (b) cli run of a JSON spec at phase 3's shape --------------------
+    data = os.path.join(work, "higgs.npz")
+    np.savez(data, features=Xtr, label=ytr)
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"pipeline": [{"stage": "TPUBoostClassifier", "params": {
+            "numIterations": 5, "numLeaves": 63, "maxBin": 255}}]}, f)
+    saved = os.path.join(work, "model")
+    HK.reset_launches()
+    t0 = time.perf_counter()
+    _captured(["run", spec_path, "--data", data, "--save", saved,
+               "--device", "cuda"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    hist = dict(HK.LAUNCHES)
+    check(hist["_hist_kernel_nibble"] == 5 * 63 and hist["_hist_kernel"] == 0,
+          f"(b) cli run launched the hist kernel {hist}, not 315 times")
+    pm = load_stage(saved)
+    got = pm.get_stages()[0].get_booster().trees
+    want = model255.get_booster().trees
+    same = {k: bool(np.array_equal(got[k], want[k])) for k in want}
+    check(all(same.values()), f"(b) cli run's forest differs from the API "
+          f"fit's: {same}")
+    test_npz = os.path.join(work, "holdout.npz")
+    np.savez(test_npz, features=Xte)
+    scored_dir = os.path.join(work, "scored")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "mmlspark_tpu_torch.cli",
+                        "score", "--model", saved, "--data", test_npz,
+                        "--out", scored_dir, "--device", "cuda"], cwd=root,
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": root})
+    score_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"(b) cli score failed: {r.stderr[-2000:]}")
+    scored = DataTable.load(scored_dir)
+    for c in ("rawPrediction", "probability", "prediction"):
+        check(np.array_equal(np.asarray(scored[c]), np.asarray(out255[c])),
+              f"(b) cli score's {c} differs from phase 3's transform")
+    print(f"registry (b): cli run of a TPUBoostClassifier spec (63 leaves, "
+          f"max_bin 255, 5 rounds) on {Xtr.shape} from .npz in this process:"
+          f" {run_s:.2f} s with the .npz read, hist launches {hist}; the "
+          f"saved forest bitwise phase 3's API fit; cli score in a fresh "
+          f"process over {len(Xte)} rows: {score_s:.1f} s, outputs bitwise "
+          f"phase 3's transform")
+    del pm, scored
+    os.remove(data)
+
+    # ---- (c) experiment fuzzing on the card against the CPU ---------------
+    t0 = time.perf_counter()
+    ran, bad, seeded = [], [], []
+    for name, factories in sorted(FO.register_all().items()):
+        for factory in factories:
+            on_cpu = factory()
+            if not FO.has_device_param(on_cpu.stage):
+                continue
+            want_t = run_experiment_fuzzing(on_cpu)
+            on_card = factory()
+            FO.on_device(on_card.stage, "cuda")
+            got_t = run_experiment_fuzzing(on_card)
+            try:
+                if getattr(on_cpu, "device_seeded", False):
+                    # weights drawn on the card: shapes only
+                    for c in want_t.column_names:
+                        g, w = got_t[c], want_t[c]
+                        assert len(g) == len(w) and (
+                            not isinstance(w, np.ndarray)
+                            or np.shape(g) == w.shape), c
+                    seeded.append(name)
+                else:
+                    assert_table_equal(got_t, want_t, check_schema=False,
+                                       tol=max(on_cpu.tol, 1e-4))
+            except AssertionError as e:
+                bad.append(f"{name}: {str(e)[:300]}")
+            ran.append(name)
+    check(not bad, f"(c) card vs CPU fuzzing: {bad}")
+    print(f"registry (c): experiment fuzzing of {len(ran)} TestObjects on "
+          f"the card held to the CPU (tol max(object's, 1e-4); shapes only "
+          f"for {seeded}, whose weights are drawn on the card): {ran} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) AOT artifacts at full width ---------------------------------
+    spec = LM_SPEC
+    lm = build_network(spec, device="cuda", seed=0)
+    model = TPUModel.from_module(lm, device="cuda", inputCol="tokens",
+                                 outputCol="logits", batchSize=LM_BATCH)
+    tokens = np.random.default_rng(7).integers(
+        0, spec["vocab_size"], size=(LM_ROWS, spec["max_len"]))
+    table = DataTable({"tokens": tokens})
+    ref = model.transform(table)["logits"]
+    art = os.path.join(work, "lm_aot")
+    t0 = time.perf_counter()
+    man = aot.export_model(model, table, art)
+    export_s = time.perf_counter() - t0
+    art_bytes = {f: os.path.getsize(os.path.join(art, f))
+                 for f in os.listdir(art) if os.path.isfile(
+                     os.path.join(art, f))}
+    check(man["format"] == "torch_export" and man["programs"] == len(
+        man["buckets"]) and "flash_fwd" in man["kernels"],
+          f"(d) LM manifest {man}")
+    t0 = time.perf_counter()
+    loaded = aot.load_model(art)
+    load_s = time.perf_counter() - t0
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    out = loaded.transform(table)["logits"]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    f32_launches = FA.LAUNCHES["_fwd_kernel"]
+    n_batches = -(-LM_ROWS // LM_BATCH)
+    check(f32_launches == spec["depth"] * n_batches,
+          f"(d) the loaded LM launched the flash kernel {f32_launches} "
+          f"times, not {spec['depth']} x {n_batches}")
+    check(np.array_equal(out, ref), "(d) the loaded LM's logits differ from "
+          "the in-process model's")
+    check(loaded.jit_cache_misses == 0,
+          f"(d) the loaded LM missed {loaded.jit_cache_misses} shapes")
+    walls = {}
+    for label, m in (("eager", model), ("loaded", loaded), ("eager", model),
+                     ("loaded", loaded)):
+        t0 = time.perf_counter()
+        m.transform(table)
+        torch.cuda.synchronize()
+        walls.setdefault(label, []).append(time.perf_counter() - t0)
+    print(f"registry (d) LM_SPEC (depth {spec['depth']}, batch {LM_BATCH}) "
+          f"AOT: export {export_s:.2f} s, {len(man['buckets'])} program(s) "
+          f"for buckets {man['buckets']}, artifact bytes {art_bytes} "
+          f"(total {sum(art_bytes.values()) / 1e9:.3f} GB), kernels "
+          f"{man['kernels']}; load in this process {load_s:.2f} s; first "
+          f"transform of {LM_ROWS} x {spec['max_len']} {first_s:.3f} s, "
+          f"flash launches {f32_launches} ({spec['depth']} a forward), "
+          f"logits bitwise the in-process model's, jit_cache_misses 0; "
+          f"warm transform eager / loaded program "
+          f"{[round(x, 4) for x in walls['eager']]} / "
+          f"{[round(x, 4) for x in walls['loaded']]} s")
+    del lm, model, loaded, ref, out
+    torch.cuda.empty_cache()
+
+    # phase 3's forest served from raw JSON rows: a JSON list decodes to
+    # a list column, which no device op reads, so the 28 features arrive
+    # as scalar fields and an assembler opens the fused segment
+    names = [f"f{i}" for i in range(Xte.shape[1])]
+
+    def raw_rows(n):
+        return DataTable({c: Xte[:n, i] for i, c in enumerate(names)})
+
+    fz = fuse([FastVectorAssembler(inputCols=names, outputCol="features"),
+               model255], batch_size=256)
+    fart = os.path.join(work, "forest_aot")
+    t0 = time.perf_counter()
+    fman = aot.export_model(fz, raw_rows(4), fart)
+    fexport_s = time.perf_counter() - t0
+    floaded = aot.load_model(fart)
+    meta = aot._read_pickle(fart, "pipeline.pkl")
+    plan_ref = fz.plan_for(meta["in_schema"], meta["final_needed"])
+    plan_aot = floaded.plan_for(meta["in_schema"], meta["final_needed"])
+    check(len(plan_aot.segments) == 1 == fman["programs"] // len(
+        fman["buckets"]), f"(d) forest plan {plan_aot.describe()}")
+    for b in fz.bucket_sizes():
+        a = np.asarray(plan_ref.execute(raw_rows(b))[meta["reply_col"]])
+        c = np.asarray(plan_aot.execute(raw_rows(b))[meta["reply_col"]])
+        check(np.array_equal(a, c), f"(d) forest bucket {b}: the loaded "
+              "pipeline's replies differ from the in-process one's")
+        check(np.array_equal(c, np.asarray(out255["prediction"][:b])),
+              f"(d) forest bucket {b}: replies differ from phase 3's")
+    check(floaded.jit_cache_misses == 0 and floaded.aot,
+          f"(d) the loaded forest missed {floaded.jit_cache_misses} shapes")
+    print(f"registry (d) phase 3's forest behind FastVectorAssembler as a "
+          f"fused pipeline: export {fexport_s:.2f} s, {fman['programs']} "
+          f"programs for buckets {fman['buckets']} ({plan_aot.describe()});"
+          f" every bucket's {meta['reply_col']} bitwise the in-process "
+          f"pipeline's and phase 3's transform, jit_cache_misses 0")
+    del fz, floaded
+
+    # fresh-process cold starts, interleaved, best of two each
+    runs = {"trace": [], "aot": []}
+    for mode in ("trace", "aot", "aot", "trace"):
+        runs[mode].append(_cold_start(root, art, mode))
+    keys = ("cold_start_to_first_200_ms", "model_ready_ms",
+            "first_request_ms", "jit_traces_total",
+            "jit_traces_at_request_time")
+    best = {m: min(v, key=lambda o: o["cold_start_to_first_200_ms"])
+            for m, v in runs.items()}
+    for mode, b in best.items():
+        print(f"registry (d) cold start --mode {mode} (LM_SPEC depth "
+              f"{spec['depth']}, best of 2): "
+              f"{ {k: b[k] for k in keys} }; phases {b['phases_ms']}; both "
+              f"runs {[o['cold_start_to_first_200_ms'] for o in runs[mode]]}"
+              " ms")
+    ratio = (best["trace"]["cold_start_to_first_200_ms"]
+             / best["aot"]["cold_start_to_first_200_ms"])
+    print(f"registry (d): trace / aot cold start {ratio:.3f}; card: {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"registry: phase 16 took {time.perf_counter() - t_phase:.1f} s; "
+          f"card: {smi}")
+    return {"hist": hist, "f32": f32_launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4404,6 +4722,11 @@ def main() -> int:
     life = lifecycle_slice(dev, smi, model255, Xtr, ytr, Xte, yte, auc255)
     for k, v in life["hist"].items():
         l255[k] += v
+
+    # ---- 16. the stage registry and AOT serving artifacts ------------------
+    reg = registry_aot_slice(smi, model255, out255, Xtr, ytr, Xte)
+    for k, v in reg["hist"].items():
+        l255[k] += v
     print(json.dumps({"int8_gemms": inter["int8_gemms"]}))
     print(f"chip_smoke: all phases took {time.perf_counter() - t_start:.1f} "
           "s")
@@ -4467,7 +4790,8 @@ def main() -> int:
     # (the tensor-core body) on the training slice's
     for dtype, tname, launches in (
             (torch.float32, "f32",
-             lm_launches + inter["f32"] + fused_launches["f32"]),
+             lm_launches + inter["f32"] + fused_launches["f32"]
+             + reg["f32"]),
             (torch.bfloat16, "bf16", train_launches["_fwd_kernel"])):
         m = flash_measured[dtype]
         kernels.append({

@@ -151,6 +151,22 @@ def build_all(names: Optional[Iterable[str]] = None
     return done
 
 
+def adopt(name: str, path: Path) -> bool:
+    """Load library ``name`` from ``path`` (a copy that an AOT artifact
+    carries, ``serving/aot.py``) when its file name is the one
+    ``library_path`` gives for this tree's sources; then ``load`` returns
+    it without a build. False, and nothing loaded, when the hash differs
+    or the library is loaded already."""
+    path = Path(path)
+    if path.name != library_path(name).name or not path.exists():
+        return False
+    with _LOAD_LOCK:
+        if name in _LIBS:
+            return False
+        _LIBS[name] = ctypes.CDLL(str(path))
+    return True
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if missing."""
     lib = _LIBS.get(name)

@@ -1,18 +1,35 @@
-"""Command line of the port: import an ONNX graph, score or HTTP-serve a
-saved model.
+"""Command line of the port: the stage registry, JSON-spec pipelines,
+ONNX import, scoring and HTTP serving.
 
+    python -m mmlspark_tpu_torch.cli stages [--json]
+    python -m mmlspark_tpu_torch.cli describe STAGE
+    python -m mmlspark_tpu_torch.cli codegen OUT_DIR
+    python -m mmlspark_tpu_torch.cli run SPEC --data D [--save M] [--score-out P] [--device cuda|cpu]
     python -m mmlspark_tpu_torch.cli import-onnx model.onnx --out M [--batch-size N] [--input-shape JSON] [--device cuda|cpu]
     python -m mmlspark_tpu_torch.cli score --model M --data D --out P [--device cuda|cpu]
     python -m mmlspark_tpu_torch.cli serve --model M [--host H] [--port N] [--device cuda|cpu]
 
-The port's copy of the ``import-onnx``, ``score`` and ``serve`` commands
-of ``mmlspark_tpu/cli.py``, with the same data IO (``load_table`` /
-``save_table``). ``--device`` (default ``cuda``) is set on every stage of
-the loaded (or imported) model that has a ``device`` param: entry points
-of the port run on the card unless asked for the CPU. ``--port 0`` binds
-a free port; the line printed at start names the bound address. The JAX
-CLI's ``run``, ``stages``, ``describe`` and ``codegen`` are not
-registered here (ROADMAP.md).
+The port's copy of ``mmlspark_tpu/cli.py``, with the same data IO
+(``load_table`` / ``save_table``) and the same error texts. It is driven
+by the codegen manifest (``codegen.stage_manifest``): stages are looked
+up by registry name, params validated by the Param DSL, pipelines
+described as plain JSON, so every registered stage is scriptable from a
+shell. ``--device`` (default ``cuda``) is set on every stage of the
+built, loaded or imported model that has a ``device`` param: entry
+points of the port run on the card unless asked for the CPU. ``--port
+0`` binds a free port; the line printed at start names the bound
+address.
+
+Pipeline spec (JSON)::
+
+    {
+      "pipeline": [
+        {"stage": "CleanMissingData",
+         "params": {"inputCols": ["f0"], "cleaningMode": "Mean"}},
+        {"stage": "TPUBoostClassifier",
+         "params": {"featuresCol": "features", "labelCol": "label"}}
+      ]
+    }
 
 Data files: a DataTable directory (schema.json + columns.npz), an
 ``.npz`` of named columns, or a ``.csv`` with a header row (numeric
@@ -27,7 +44,9 @@ import json
 import os
 import sys
 import threading
-from typing import Any, Dict
+from typing import Any, Dict, List
+
+PROG = "python -m mmlspark_tpu_torch.cli"
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +100,61 @@ def save_table(table, path: str) -> None:
         table.save(path)
 
 
+# ---------------------------------------------------------------------------
+# pipeline spec
+# ---------------------------------------------------------------------------
+
+
+def _set_device(stages, device: str) -> None:
+    for stage in stages:
+        if any(p.name == "device" for p in type(stage).params()):
+            stage.set("device", device)
+
+
+def build_pipeline(spec: Dict[str, Any], device: str = "cuda"):
+    """JSON spec -> Pipeline, resolving stages from the codegen
+    registry and validating params through the Param DSL; ``device`` on
+    every stage that has the param."""
+    from mmlspark_tpu_torch.codegen import load_all_stages
+    from mmlspark_tpu_torch.core.stage import Pipeline
+
+    registry = load_all_stages()
+    stages = []
+    entries: List[Dict[str, Any]] = spec.get("pipeline", [])
+    if not entries:
+        raise SystemExit("spec has no 'pipeline' list")
+    for i, entry in enumerate(entries):
+        name = entry.get("stage")
+        cls = registry.get(name)
+        if cls is None:
+            close = [k for k in sorted(registry)
+                     if name and name.lower() in k.lower()]
+            hint = f" (did you mean: {', '.join(close[:5])}?)" \
+                if close else ""
+            raise SystemExit(
+                f"pipeline[{i}]: unknown stage {name!r}{hint} — run "
+                f"`{PROG} stages` for the full list")
+        try:
+            stages.append(cls(**entry.get("params", {})))
+        except (KeyError, TypeError, ValueError) as e:
+            raise SystemExit(f"pipeline[{i}] ({name}): {e}") from e
+    _set_device(stages, device)
+    return Pipeline(stages=stages)
+
+
+def _read_spec(path: str) -> Dict[str, Any]:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        raise SystemExit(f"cannot read pipeline spec {path!r}: {e}")
+
+
+# ---------------------------------------------------------------------------
+# commands
+# ---------------------------------------------------------------------------
+
+
 def load_model(path: str, device: str):
     """``load_stage`` + ``device`` on every stage that has the param
     (a PipelineModel's stages included)."""
@@ -90,12 +164,62 @@ def load_model(path: str, device: str):
 
     resolve_device(device)          # no card: raise before any work
     model = load_stage(path)
-    stages = (model.get_stages() if isinstance(model, PipelineModel)
-              else [model])
-    for stage in stages:
-        if any(p.name == "device" for p in type(stage).params()):
-            stage.set("device", device)
+    _set_device(model.get_stages() if isinstance(model, PipelineModel)
+                else [model], device)
     return model
+
+
+def cmd_stages(args) -> int:
+    from mmlspark_tpu_torch.codegen import stage_manifest
+    manifest = stage_manifest()
+    if args.json:
+        json.dump(manifest, sys.stdout, indent=1)
+        print()
+        return 0
+    for name, info in sorted(manifest["stages"].items()):
+        first = (info["doc"] or "").split("\n")[0]
+        print(f"{name:32s} {info['kind']:12s} {first[:70]}")
+    print(f"\n{len(manifest['stages'])} stages "
+          f"(v{manifest['version']})")
+    return 0
+
+
+def cmd_describe(args) -> int:
+    from mmlspark_tpu_torch.codegen import load_all_stages, stage_markdown
+    registry = load_all_stages()
+    cls = registry.get(args.stage)
+    if cls is None:
+        raise SystemExit(f"unknown stage {args.stage!r} — run "
+                         f"`{PROG} stages`")
+    print(stage_markdown(args.stage, cls))
+    return 0
+
+
+def cmd_codegen(args) -> int:
+    from mmlspark_tpu_torch.codegen import generate_artifacts
+    counts = generate_artifacts(args.out_dir)
+    print(json.dumps(counts))
+    return 0
+
+
+def cmd_run(args) -> int:
+    from mmlspark_tpu_torch.device import resolve_device
+    resolve_device(args.device)     # no card: raise before any work
+    spec = _read_spec(args.spec)
+    pipeline = build_pipeline(spec, args.device)
+    table = load_table(args.data)
+    print(f"fitting {len(spec['pipeline'])} stage(s) on "
+          f"{table.num_rows} rows", file=sys.stderr)
+    model = pipeline.fit(table)
+    if args.save:
+        model.save(args.save)
+        print(f"model saved to {args.save}", file=sys.stderr)
+    if args.score_out:
+        scored = model.transform(table)
+        save_table(scored, args.score_out)
+        print(f"scored table written to {args.score_out}",
+              file=sys.stderr)
+    return 0
 
 
 def cmd_score(args) -> int:
@@ -124,9 +248,8 @@ def cmd_import_onnx(args) -> int:
                       "opset": apply_fn.opset,
                       "inputs": apply_fn.input_names}))
     print(f"model saved to {args.out} — score it with "
-          f"`python -m mmlspark_tpu_torch.cli score --model {args.out} "
-          f"...` or serve it with `python -m mmlspark_tpu_torch.cli serve "
-          f"--model {args.out}`", file=sys.stderr)
+          f"`{PROG} score --model {args.out} ...` or serve it with "
+          f"`{PROG} serve --model {args.out}`", file=sys.stderr)
     return 0
 
 
@@ -155,10 +278,36 @@ def cmd_serve(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="python -m mmlspark_tpu_torch.cli",
-        description="Import an ONNX graph, score or HTTP-serve a saved "
-                    "model of the PyTorch port.")
+        prog=PROG,
+        description="Manifest-driven CLI over the PyTorch port's stage "
+                    "registry: list/describe stages, fit+score JSON-spec "
+                    "pipelines, import ONNX graphs, serve saved models.")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("stages", help="list registered stages")
+    p.add_argument("--json", action="store_true",
+                   help="full machine-readable manifest")
+    p.set_defaults(fn=cmd_stages)
+
+    p = sub.add_parser("describe", help="param table for one stage")
+    p.add_argument("stage")
+    p.set_defaults(fn=cmd_describe)
+
+    p = sub.add_parser("codegen",
+                       help="emit docs + manifest + smoke tests")
+    p.add_argument("out_dir")
+    p.set_defaults(fn=cmd_codegen)
+
+    p = sub.add_parser("run", help="fit a JSON pipeline spec")
+    p.add_argument("spec")
+    p.add_argument("--data", required=True)
+    p.add_argument("--save", help="directory to save the fitted model")
+    p.add_argument("--score-out",
+                   help="also transform the data and write it here")
+    p.add_argument("--device", default="cuda",
+                   help="torch device the stages fit and score on "
+                        "(default: cuda)")
+    p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser(
         "import-onnx",

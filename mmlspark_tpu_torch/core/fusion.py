@@ -45,10 +45,14 @@ same torch ops on the same shapes, so it is bitwise the fused path; the
 host path differs only by its float64 numpy arithmetic (predictions
 agree, probabilities agree to f32 rounding).
 
+AOT: ``FusedSegment.install_aot`` takes programs exported by
+``serving/aot.py`` (one per bucket and segment of the serving plan),
+keyed by env signature; ``run`` calls a program whose signature matches
+instead of the ops, and counts no first run for it.
+
 The parts that wait for later items raise ``NotImplementedError``
 naming them: ``SegmentSharding`` and ``FusedPipelineModel.shard``
-(ROADMAP.md, 'Device pipeline and serving compilation' — mesh placement)
-and ``FusedSegment.install_aot`` (the same item, ``serving/aot.py``).
+(ROADMAP.md, 'Device pipeline and serving compilation' — mesh placement).
 """
 
 from __future__ import annotations
@@ -644,26 +648,43 @@ class FusedSegment:
         self._lock = threading.Lock()
         self._seen: Set[Tuple] = set()
         self.trace_count = 0      # distinct env signatures run so far
+        # env signature -> exported program (consts, env) -> live writes
+        self._aot: Dict[Tuple, Callable] = {}
 
     def install_aot(self, programs: Dict[Tuple, Callable]) -> None:
-        raise _not_ported("FusedSegment.install_aot (serving/aot.py)")
+        """Install AOT programs (``serving/aot.py``) keyed by env
+        signature; ``run`` dispatches to them."""
+        self._aot.update(programs)
 
     # -- execution -----------------------------------------------------------
 
     def run(self, consts: List[Any], env: Dict[str, torch.Tensor]
             ) -> Dict[str, torch.Tensor]:
         """The fused path: every op in order on the device, the live
-        writes returned. Counts the env signature on its first run."""
+        writes returned. Counts the env signature on its first run; a
+        signature with an installed AOT program runs the program and
+        counts nothing."""
         sig = env_signature(env)
+        prog = self._aot.get(sig)
+        if prog is not None:
+            with torch.inference_mode():
+                return prog(consts, env)
         if sig not in self._seen:
             with self._lock:
                 if sig not in self._seen:
                     self._seen.add(sig)
                     self.trace_count += 1
-        e = dict(env)
         with torch.inference_mode():
-            for op, c in zip(self.ops, consts):
-                e.update(op.fn(c, e))
+            return self.apply_ops(consts, env)
+
+    def apply_ops(self, consts: List[Any], env: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """Every op in order on ``env``, the live writes returned: the
+        segment's computation, uncounted (what ``serving/aot.py``
+        exports)."""
+        e = dict(env)
+        for op, c in zip(self.ops, consts):
+            e.update(op.fn(c, e))
         return {k: e[k] for k in self.writes_live}
 
     def op_compiled(self, i: int) -> Callable:
@@ -1050,8 +1071,8 @@ class FusedPipelineModel:
         self.stages = list(stages)
         self.batch_size = int(batch_size)
         self.device = resolve_device(device)
-        # AOT-loaded segment programs (serving/aot.py) are not ported;
-        # the serving_model_info 'aot' label stays False
+        # True once serving/aot.py installed exported segment programs
+        # (the serving_model_info 'aot' label)
         self.aot = False
         self._plans: Dict[Tuple, FusionPlan] = {}
         self._plan_lock = threading.Lock()

@@ -34,6 +34,11 @@ op of a fused segment, under ``networks.strict_f32()``, run in blocks of
 — the shapes ``transform`` runs, so a fused forward issues the same
 kernels on the same shapes; token ids arrive through an int32 ``Feed``.
 
+``_forward_fn`` is the AOT hook: ``transform`` runs every padded batch
+through what it returns, the model fn here; the model that
+``serving/aot.py`` loads from an artifact returns a dispatcher to its
+exported programs.
+
 ``quantize(calib, percentile)`` returns a NEW model whose dense layers
 run int8 (``core/quantize.py``): ``precision='int8'``, ``computeDtype``
 pinned to float32, the quantized tensors in the weights pytree under
@@ -389,6 +394,13 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
 
     # -- transform ----------------------------------------------------------
 
+    def _forward_fn(self) -> Callable:
+        """What ``transform`` calls on each padded batch: ``(weights,
+        inputs) -> outputs``. The model fn here; an AOT-loaded model
+        (``serving/aot.py``) dispatches to its exported programs by
+        input signature instead."""
+        return self.get("modelFn")
+
     def transform(self, table: DataTable) -> DataTable:
         feeds = self._feeds()
         fetches = self._fetches()
@@ -426,11 +438,13 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
             self._hists["pad_ms"].observe((time.perf_counter() - t0) * 1e3)
             return start, rows, inputs
 
+        forward = self._forward_fn()
+
         def dispatch(inputs):
             """Queue the forward; returns (outputs, an event recorded after
             it on the card, None on the CPU)."""
             with torch.inference_mode():
-                outputs = model_fn(weights, inputs)
+                outputs = forward(weights, inputs)
             if not isinstance(outputs, dict):
                 outputs = {"output": outputs}
             for model_out in fetches.values():

@@ -28,6 +28,12 @@ tensors. ``flash_attention`` wraps both in a ``torch.autograd.Function``.
 ``FLOPS`` adds each launch's useful flops (4·D, 6·D or 8·D per unmasked
 (query, key) pair, times B·H), which ``torch.utils.flop_counter`` cannot
 see inside a ctypes kernel.
+
+The forward runs as the custom op ``torch.ops.mmlspark_tpu_torch.
+flash_fwd`` (registered at import, with a fake implementation), so
+``torch.export`` keeps it as one node of an exported program and a
+loaded program launches the same kernel; the backward kernels are
+called directly from ``_FlashAttention.backward``.
 """
 
 from __future__ import annotations
@@ -206,12 +212,50 @@ def _unit_last(*tensors: torch.Tensor):
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False, q_offset: int = 0, k_offset: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out, lse)``: the CUDA kernel for tensors on the card, the plain
+    """``(out, lse)`` through the custom op ``mmlspark_tpu_torch::
+    flash_fwd``: the CUDA kernel for tensors on the card, the plain
     version for tensors on the CPU."""
-    if q.device.type == "cpu":
-        _check_common(q, k, v, q_offset, k_offset)
-        return flash_forward_plain(q, k, v, causal, q_offset, k_offset)
+    _check_common(q, k, v, q_offset, k_offset)
+    return torch.ops.mmlspark_tpu_torch.flash_fwd(
+        q, k, v, bool(causal), int(q_offset), int(k_offset))
+
+
+# The forward as a torch custom op, registered at import (nothing builds
+# here: the library builds at the first launch). An exported program
+# (torch.export, serving/aot.py) keeps it as one opaque node, where it
+# could not trace through the ctypes call; its fake implementation gives
+# the shapes and types of (out, lse). The CUDA implementation always
+# launches the hand-written kernel and counts the launch, wherever the
+# call comes from; the CPU one runs the plain version. The op is defined
+# through torch.library.Library, whose kernels the dispatcher calls
+# directly: a torch.library.custom_op call first imports torch._dynamo,
+# seconds that a fresh process would pay at its first forward.
+_LIB = torch.library.Library("mmlspark_tpu_torch", "DEF")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int q_offset, int k_offset) -> (Tensor, Tensor)")
+
+
+def _flash_fwd_cuda(q, k, v, causal, q_offset, k_offset):
     return flash_forward_cuda(q, k, v, causal, q_offset, k_offset)
+
+
+def _flash_fwd_cpu(q, k, v, causal, q_offset, k_offset):
+    # contiguous, as the kernel writes them (the plain version's out is a
+    # permuted view)
+    out, lse = flash_forward_plain(q, k, v, causal, q_offset, k_offset)
+    return out.contiguous(), lse.contiguous()
+
+
+_LIB.impl("flash_fwd", _flash_fwd_cuda, "CUDA")
+_LIB.impl("flash_fwd", _flash_fwd_cpu, "CPU")
+
+
+@torch.library.register_fake("mmlspark_tpu_torch::flash_fwd")
+def _flash_fwd_fake(q, k, v, causal, q_offset, k_offset):
+    b, lq, h, d = q.shape
+    lse_dtype = torch.float64 if q.dtype == torch.float64 else torch.float32
+    return (q.new_empty((b, lq, h, d)),
+            q.new_empty((b, h, lq), dtype=lse_dtype))
 
 
 def flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

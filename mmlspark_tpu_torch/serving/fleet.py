@@ -248,6 +248,10 @@ def json_scoring_pipeline(model, field: str = "features",
         _state["dim"] = feats.shape[1]
 
         def scalar(v):
+            # a sequence model's row predicts one class per position:
+            # its reply is the list (the reference's scorer fails there)
+            if np.ndim(v):
+                return [scalar(x) for x in v]
             f = float(v)
             return int(f) if f.is_integer() else f
 

@@ -1536,3 +1536,52 @@ def test_port_and_chip_smoke_import_no_jax():
                     if n.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "mmlspark_tpu")]
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# the flash forward as a custom op, and an AOT artifact on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_custom_op_is_the_direct_launch(card, dtype):
+    """torch.ops.mmlspark_tpu_torch.flash_fwd launches the same kernel as
+    flash_forward_cuda: bitwise, one counted launch each."""
+    g = torch.Generator(device=card).manual_seed(11)
+    qkv = torch.randn(2, 600, 3, 4, 64, generator=g, device=card,
+                      dtype=dtype)
+    q, k, v = qkv.unbind(2)           # strided views, as the LM's
+    FA.reset_launches()
+    out, lse = torch.ops.mmlspark_tpu_torch.flash_fwd(q, k, v, True, 0, 0)
+    want_out, want_lse = FA.flash_forward_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["_fwd_kernel"] == 2
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.cuda
+def test_cuda_aot_lm_loads_bitwise(card, tmp_path):
+    """A small LM exported on the card and loaded: its logits bitwise the
+    in-process model's, the flash kernel launched from inside the loaded
+    program, no first run at request time."""
+    from mmlspark_tpu_torch.serving import aot
+    spec = {"type": "transformer", "vocab_size": 128, "dim": 64,
+            "depth": 2, "heads": 4, "max_len": 512,
+            "head_dtype": "float32"}
+    model = TPUModel.from_module(build_network(spec, device=card, seed=0),
+                                 device="cuda", inputCol="tokens",
+                                 outputCol="logits", batchSize=8)
+    toks = np.random.default_rng(3).integers(0, 128, size=(11, 512))
+    table = DataTable({"tokens": toks})
+    want = model.transform(table)["logits"]
+    art = str(tmp_path / "lm")
+    manifest = aot.export_model(model, table, art)
+    assert manifest["backend"] == "cuda"
+    assert "flash_fwd" in manifest["kernels"]
+    loaded = aot.load_model(art)
+    FA.reset_launches()
+    got = loaded.transform(table)["logits"]
+    assert FA.LAUNCHES["_fwd_kernel"] == spec["depth"] * 2
+    assert np.array_equal(got, want)
+    assert loaded.jit_cache_misses == 0

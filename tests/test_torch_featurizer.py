@@ -7,8 +7,8 @@ The scenarios of ``tests/test_downloader_featurizer.py`` and
 flows of ``examples/305_transfer_learning.py`` run on the port at the
 example's sizes. The flax variables are drawn from numpy over
 ``jax.eval_shape`` of the flax module's init (an eager flax init of a
-ResNet takes seconds); the ResNet-18 checkpoint is the JAX package's
-torch twin (``mmlspark_tpu/testing/torch_models.py``).
+ResNet takes seconds); the ResNet-18 checkpoint is the port's
+torch twin (``mmlspark_tpu_torch/testing/torch_models.py``).
 
 Tolerances, stated:
 - bitwise: blobs either package publishes, decoded by the other; a blob
@@ -44,7 +44,7 @@ from mmlspark_tpu.downloader import ModelDownloader as JDownloader
 from mmlspark_tpu.importers import torch_import as JI
 from mmlspark_tpu.models.networks import build_network as jbuild
 from mmlspark_tpu.stages.featurizer import ImageFeaturizer as JFeaturizer
-from mmlspark_tpu.testing.torch_models import build_torch_resnet18
+from mmlspark_tpu_torch.testing.torch_models import build_torch_resnet18
 
 import mmlspark_tpu_torch as mtt
 from mmlspark_tpu_torch import convert

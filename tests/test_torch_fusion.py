@@ -540,10 +540,12 @@ class TestDeviceTable:
             fused.shard(None)
         with pytest.raises(NotImplementedError, match="Device pipeline"):
             FZ.SegmentSharding(None)
+        # install_aot is ported (serving/aot.py): an empty program set
+        # installs nothing, and the pipeline is not labelled AOT
         seg = fused.plan_for(pt.schema).segments[0]
-        with pytest.raises(NotImplementedError, match="Device pipeline"):
-            seg.install_aot({})
-        assert fused.aot is False
+        seg.install_aot({})
+        fused.transform(pt)
+        assert seg.trace_count >= 1 and fused.aot is False
 
 
 # ---------------------------------------------------------------------------
