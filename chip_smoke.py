@@ -93,10 +93,11 @@ Phases, one line each; any failure exits non-zero:
                none).
   7. GBDT training options — on phase 3's 1M x 28 table (63 leaves,
                seed 7, the 100k holdout as validation data), each fit's
-               launches counted by stats type just around it and traced
-               on the device (seconds, phases, the hist kernels' share of
-               the boost phase): (a) bagging 0.8 / 1 and feature fraction
-               0.8 with early_stopping_round 5 over 30 rounds —
+               launches counted by stats type just around it (seconds,
+               phases; the first fit traced on the device for the hist
+               kernels' share of the boost phase): (a) bagging 0.8 / 1
+               and feature fraction 0.8 with early_stopping_round 5 over
+               30 rounds —
                best_iteration is 1 + the argmin of the losses the run
                read and num_trees what the every-5-iterations cadence
                gives, on the holdout and on the holdout with its labels
@@ -123,7 +124,7 @@ Phases, one line each; any failure exits non-zero:
                the card, traced: fit s, train_timing, launches (one per
                histogram), hist share of the boost, holdout AUC;
                transform_sparse of 100k rows bitwise equal to the host
-               library's dense transform and to the fit's bins; a 100k-row
+               library's dense transform and to the fit's bins; a 50k-row
                slice fitted from CSR and from its dense copy with equal
                upper_bounds and bitwise equal forests; predict on the CSR
                holdout bitwise equal to predict on its dense copy; the
@@ -279,7 +280,8 @@ Phases, one line each; any failure exits non-zero:
                raw JSON requests from 16 client threads of a spawned
                process, every reply equal to the fused transform of its
                row (near ties aside), one device-to-host copy a batch;
-               (b) bench_ooc: 10M rows made chunk by chunk (262,144,
+               (b) bench_ooc at 4M rows (its 10M cut for the time
+               limit) made chunk by chunk (262,144,
                prefetch 3), Featurize fitted streamed, StandardScaler
                from a ChunkedTable, the logistic head, then
                fuse([...]).transform_chunked: the 1.5 GB host budget
@@ -325,10 +327,10 @@ Phases, one line each; any failure exits non-zero:
                launches of each flash kernel, each step span against
                the card time it launched; (c)
                phase 6's model and client, 2,000 requests each carrying a
-               traceparent, in four fresh engines through
+               traceparent, in two fresh engines through
                profile_telemetry.onoff_turns: the defaults and tracing,
-               slo and flight_recorder False, in the turns on, off, off,
-               on: requests/s, p50 / p99, their medians and ratios;
+               slo and flight_recorder False, in the turns on, off:
+               requests/s, p50 / p99 and their ratios;
                replies equal transform's in every turn; in the first:
                /debug/traces valid chrome JSON whose request roots
                continue their client's trace under queue_wait, every
@@ -390,18 +392,43 @@ Phases, one line each; any failure exits non-zero:
                reads), fused at batch 256, exported and loaded: every
                bucket's replies bitwise the in-process pipeline's and
                phase 3's transform, jit_cache_misses 0;
-               then fresh-process cold starts of the LM artifact, trace,
-               aot, aot, trace: the best of two of each mode's
+               then fresh-process cold starts of the LM artifact, one
+               in each mode (trace, then aot): each mode's
                cold_start_to_first_200_ms, model_ready_ms,
                first_request_ms, jit_traces_total and
                jit_traces_at_request_time (0), where the time went, and
                their ratio.
+ 17. the multi-model plane — over phase 16's LM artifact (f32) and an
+               int8 artifact of the same seeded model exported here:
+               (a) bench_zoo's shape: 256 host models and the LM behind a
+               2-engine in-process fleet sharing one ModelZoo (cache 32,
+               2 workers each, default admission), 2,000 requests from
+               16 clients over zipf(1.1) picks and 4 tenants, every 40th
+               to the LM after one cold LM request: the cold request's
+               ms and its activation's, requests/s, p50 / p99,
+               availability (>= 99 %), activations, evictions,
+               evictions_with_outstanding (0), exactly 8 flash launches
+               a LM forward, every LM reply bitwise phase 16's loaded
+               model's on the same row; (b) three versions of the LM
+               artifact under the live memory probe (memory_headroom set
+               halfway between two residents plus a forward's transient
+               and three residents), requests v1 -> v2 -> v3 -> v1: the
+               two evictions lru:memory_pressure of the LRU version,
+               cost_source 'device' on each activation, memory_allocated
+               falling by the victim's resident_bytes within 5 %, every
+               request 200; (c) the [f32, int8] ladder (slo_ms (a)'s LM
+               p99, declared costs 1 and 0.25) under a 24-client burst: a
+               queue_pressure step down, replies from the int8 rung, the
+               step back up within hold_s of the burst's end, each
+               rung's p50 / p99; (d) a resident host model's p50 / p99
+               under 4 clients with nothing activating and while an LM
+               version activates.
 Then one JSON line of the int8 GEMMs' times (a library call, not a
 ported kernel), one JSON line of per-kernel numbers (the hist rows
 include the int16 and int8 launches of 7(b) and 7(c), the F = 968
 launches of 8(a), the launches of 11(b)'s fit on its featurized bins,
 of 14(a)'s fit, of 15(a)'s boost_more and of 16(b)'s cli run; the flash
-rows phase 12's, 13's, 14(b)'s and 16(d)'s launches),
+rows phase 12's, 13's, 14(b)'s, 16(d)'s and 17's launches),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -751,19 +778,23 @@ def serving_slice(model, out, Xte, smi: str) -> None:
           f"transform, no new shape while serving; card: {smi}")
 
 
-def traced_fit(label: str, table, test_t, yte, **kw):
+def traced_fit(label: str, table, test_t, yte, profiled: bool = True,
+               **kw):
     """One main-path fit of TPUBoostClassifier (63 leaves, seed 7; counts
-    set to 0 just before, read just after), traced on the device:
-    seconds, phases, holdout AUC, and the hist kernels' share of the
-    boost window. Returns (model, booster, AUC, launches by stats type,
-    launches by route)."""
+    set to 0 just before, read just after): seconds, phases, holdout AUC,
+    and, when ``profiled`` (traced on the device), the hist kernels'
+    share of the boost window. Returns (model, booster, AUC, launches by
+    stats type, launches by route)."""
+    import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
     from mmlspark_tpu_torch.gbdt import hist_kernels as HK
     from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
     from mmlspark_tpu_torch.profile_fit import union_us
     HK.reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    ctx = profile(activities=[ProfilerActivity.CUDA]) if profiled \
+        else contextlib.nullcontext()
+    with ctx as prof:
         t0 = time.perf_counter()
         model = TPUBoostClassifier(numLeaves=63, seed=7, **kw).fit(table)
         torch.cuda.synchronize()
@@ -776,9 +807,11 @@ def traced_fit(label: str, table, test_t, yte, **kw):
           f"{label}: outputs {prob.shape} not finite")
     a = auc(yte, prob[:, 1])
     ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+          if e.device_type == torch.autograd.DeviceType.CUDA] \
+        if profiled else []
     hist = [e for e in ev if "hist_" in e.name]
-    share = "not measured (no device events traced)"
+    share = ("not measured (no device events traced)" if profiled
+             else "not profiled")
     if hist:
         hist_ms = sum(e.time_range.end - e.time_range.start
                       for e in hist) / 1e3
@@ -794,7 +827,8 @@ def traced_fit(label: str, table, test_t, yte, **kw):
                  f"({boost_ms:.1f} ms); device busy "
                  f"{100 * busy / max(w1 - w0, 1e-9):.1f} % of the "
                  "first-to-last hist window")
-    print(f"{label}: fit {secs:.2f} s under the CUDA profiler "
+    print(f"{label}: fit {secs:.2f} s"
+          f"{' under the CUDA profiler' if profiled else ''} "
           f"({booster.train_timing}), {booster.num_trees} trees, holdout "
           f"AUC {a:.5f}, histograms {booster.train_info['histograms']}, "
           f"launches by stats type {launches}; {share}")
@@ -819,9 +853,13 @@ def training_options(train_t, test_t, Xtr, ytr, Xte, yte, auc255: float,
     dev = torch.device("cuda")
     sampled = dict(baggingFraction=0.8, baggingFreq=1, featureFraction=0.8)
 
-    def fit(label, table=train_t, **kw):
+    # only (a)'s first fit runs under the profiler: a profiled fit's
+    # events take seconds to read, and the other fits' launches are
+    # counted all the same
+    def fit(label, table=train_t, profiled=False, **kw):
         model, booster, a, launches, _ = traced_fit(
-            f"training options {label}", table, test_t, yte, **kw)
+            f"training options {label}", table, test_t, yte,
+            profiled=profiled, **kw)
         return model, booster, a, launches
 
     def int_route_only(label, booster, launches, sdt):
@@ -853,9 +891,9 @@ def training_options(train_t, test_t, Xtr, ytr, Xte, yte, auc255: float,
               f"every-{sync}-iterations cadence gives")
 
     _, ba, auc_a, la = fit("(a) bagging 0.8/1, feature_fraction 0.8, "
-                           "early_stopping_round 5", numIterations=30,
-                           earlyStoppingRound=5, validationData=test_t,
-                           **sampled)
+                           "early_stopping_round 5", profiled=True,
+                           numIterations=30, earlyStoppingRound=5,
+                           validationData=test_t, **sampled)
     check(la["float32"] == ba.train_info["histograms"],
           f"(a): launches {la}")
     stop_checks("(a)", ba, 30, 5)
@@ -1197,8 +1235,8 @@ def ingest_slice(auc255: float, Xtr, ytr, Xte, yte, test_t, measured,
     print("ingest (a): transform_sparse of 100k rows bitwise equal to the "
           "library's dense transform of them and to the fit's bins")
 
-    # a 100k-row slice fitted from CSR and from its dense copy
-    s2, y2 = tr[:100_000], ytb[:100_000]
+    # a 50k-row slice fitted from CSR and from its dense copy
+    s2, y2 = tr[:50_000], ytb[:50_000]
     fits = {}
     for kind, feats in (("CSR", s2), ("dense", s2.toarray())):
         t0 = time.perf_counter()
@@ -1210,9 +1248,9 @@ def ingest_slice(auc255: float, Xtr, ytr, Xte, yte, test_t, measured,
         bs.bin_mapper.upper_bounds, bd.bin_mapper.upper_bounds))
     same_trees = all(np.array_equal(bs.trees[k], bd.trees[k])
                      for k in bd.trees)
-    check(same_cuts, "(a): 100k rows: CSR and dense cuts differ")
-    check(same_trees, "(a): 100k rows: CSR and dense forests differ")
-    print(f"ingest (a): 100k rows fitted from CSR ({ts:.2f} s, bin path "
+    check(same_cuts, "(a): 50k rows: CSR and dense cuts differ")
+    check(same_trees, "(a): 50k rows: CSR and dense forests differ")
+    print(f"ingest (a): 50k rows fitted from CSR ({ts:.2f} s, bin path "
           f"{bs.train_info['bin_path']}) and from the dense copy "
           f"({td:.2f} s, bin path {bd.train_info['bin_path']}): equal "
           f"upper_bounds, forests bitwise equal")
@@ -1328,7 +1366,8 @@ def ingest_slice(auc255: float, Xtr, ytr, Xte, yte, test_t, measured,
         chunked = src.map(track)
         model, b, a, _, routes = traced_fit(
             f"ingest (b) ChunkedTable.from_npy, binFit={bin_fit!r}",
-            chunked, test_t, yte, numIterations=5, binFit=bin_fit)
+            chunked, test_t, yte, profiled=False, numIterations=5,
+            binFit=bin_fit)
         st = chunked.stats
         check(routes["_hist_kernel_nibble"] == b.train_info["histograms"]
               and sum(routes.values()) == b.train_info["histograms"],
@@ -2740,6 +2779,9 @@ busy["top"] = [(k[:40], n, round(us / 1e3, 3)) for k, (n, us) in top]
 print(json.dumps(busy))
 """
 SUMMARY_ROWS = 1_000_000    # phase 13(b)'s SummarizeData stream
+# phase 13(b)'s streamed rows: bench_ooc's 10M cut to 4M for the script's
+# time limit (the materialized baseline still exceeds the 1.5 GB budget)
+OOC_STREAM_ROWS = 4_000_000
 LM_STREAM_CHUNK = 8         # phase 13(d)'s .npy chunk rows
 
 
@@ -2932,8 +2974,8 @@ def fused_slice(dev, smi: str, model255=None, out255=None,
     del pm, fused, table, rows, want, scorer, engine
     gc.collect()
 
-    # ---- (b) bench_ooc: 10M rows streamed under a 1.5 GB budget ----------
-    ooc, fz_s = PP.ooc_pipeline()
+    # ---- (b) bench_ooc: 4M rows streamed under a 1.5 GB budget -----------
+    ooc, fz_s = PP.ooc_pipeline(rows=OOC_STREAM_ROWS)
     chunk0 = PP.ooc_chunk(0, PP.OOC_CHUNK)
     ooc_plan = ooc.plan_for(chunk0.schema)
     check(len(ooc_plan.steps) == 1 and len(ooc_plan.segments[0].ops) == 3,
@@ -2942,7 +2984,7 @@ def fused_slice(dev, smi: str, model255=None, out255=None,
     for h in MC.ooc_histograms().values():
         h.reset()
     gc.collect()
-    src = PP.ooc_source()
+    src = PP.ooc_source(rows=OOC_STREAM_ROWS)
     rows_seen, pred_sum, first = 0, 0.0, None
     with RssPeak() as rss:
         t0, cpu0 = time.perf_counter(), time.process_time()
@@ -2955,7 +2997,7 @@ def fused_slice(dev, smi: str, model255=None, out255=None,
             del out, p
         streamed_s = time.perf_counter() - t0
         cpu_s = time.process_time() - cpu0
-    check(rows_seen == PP.OOC_ROWS, f"(b) streamed {rows_seen} rows")
+    check(rows_seen == OOC_STREAM_ROWS, f"(b) streamed {rows_seen} rows")
     tracked = src.stats.tracked_peak_bytes()
     check(tracked < PP.OOC_BUDGET_BYTES,
           f"(b) streamed tracked bytes {tracked} over the budget")
@@ -2978,7 +3020,7 @@ def fused_slice(dev, smi: str, model255=None, out255=None,
     gc.collect()
     with RssPeak() as rss_m:
         t0 = time.perf_counter()
-        mat = PP.ooc_source(depth=0).materialize()
+        mat = PP.ooc_source(rows=OOC_STREAM_ROWS, depth=0).materialize()
         scored = ooc.transform(mat)
         mat_s = time.perf_counter() - t0
     mat_pred = np.asarray(scored["prediction"])
@@ -2991,12 +3033,12 @@ def fused_slice(dev, smi: str, model255=None, out255=None,
           f"(b) the materialized RSS growth {rss_m.growth} is under the "
           "budget")
     sum_diff = abs(float(mat_pred.sum()) - pred_sum)
-    check(sum_diff < 1e-6 * PP.OOC_ROWS,
+    check(sum_diff < 1e-6 * OOC_STREAM_ROWS,
           f"(b) prediction sums differ by {sum_diff}")
     del mat, scored, mat_pred
     gc.collect()
     print(f"fused (b) bench_ooc: streamed Featurize fit {fz_s:.3f} s; "
-          f"{PP.OOC_ROWS} rows in chunks of {PP.OOC_CHUNK}, prefetch "
+          f"{OOC_STREAM_ROWS} rows in chunks of {PP.OOC_CHUNK}, prefetch "
           f"{PP.OOC_PREFETCH}: streamed {streamed_s:.3f} s, tracked peak "
           f"{tracked / 1e9:.3f} GB, RSS growth {rss.growth / 1e9:.3f} GB "
           f"(sampled every 5 ms; budget "
@@ -3327,21 +3369,21 @@ def telemetry_slice(smi: str, model255, out255, Xte) -> dict:
                     bytes_in_use=float(mem.group(1)),
                     slo_samples=health["slo"]["requests_1h"])
 
-    onoff = onoff_turns(scorer, bodies, tps, 4, inspect)
+    onoff = onoff_turns(scorer, bodies, tps, 2, inspect)
     for k, r in enumerate(onoff["turns"]):
         print(f"telemetry (c) turn {k + 1}, telemetry {r['mode']}: "
               f"{r['rps']:.1f} requests/s, p50 {r['p50_ms']:.3f} ms, p99 "
               f"{r['p99_ms']:.3f} ms, pipeline p50 {r['pipeline_p50_ms']} "
               f"ms, {r['rows_per_batch']:.2f} rows a batch")
     med = onoff["median"]
-    print(f"telemetry (c): 4 turns (on, off, off, on), medians: on "
+    print(f"telemetry (c): 2 turns (on, off), medians: on "
           f"{med['on']['rps']:.1f} requests/s, p50 {med['on']['p50_ms']:.3f}"
           f" ms, p99 {med['on']['p99_ms']:.3f} ms; off "
           f"{med['off']['rps']:.1f} requests/s, p50 "
           f"{med['off']['p50_ms']:.3f} ms, p99 {med['off']['p99_ms']:.3f} "
           f"ms; on / off: requests/s {onoff['rps_ratio']:.4f}, p50 "
           f"{onoff['p50_ms_ratio']:.4f}, p99 {onoff['p99_ms_ratio']:.4f} "
-          f"(two turns a mode do not resolve a cost below the turns' "
+          f"(one turn a mode does not resolve a cost below the turns' "
           f"spread; profile_telemetry --turns 12 runs more); first turn: "
           f"{seen['traces']} traces and {seen['devices']} device spans "
           f"checked, {seen['slo_samples']:.0f} SLO samples; /metrics "
@@ -3797,7 +3839,9 @@ def registry_aot_slice(smi: str, model255, out255, Xtr, ytr, Xte) -> dict:
     forest as a fused pipeline, loaded in this process against the
     models they came from, then fresh-process cold starts in both
     modes. Returns the phase's launches: {"hist": by route (b), "f32":
-    flash forward launches of the loaded LM (d)}."""
+    flash forward launches of the loaded LM (d)}, and for phase 17 the
+    work directory, the LM artifact and the loaded LM's replies to rows
+    0-3 alone ("work", "art", "lm_ref")."""
     import importlib.util
     import torch
     from mmlspark_tpu_torch import codegen
@@ -3966,6 +4010,11 @@ def registry_aot_slice(smi: str, model255, out255, Xtr, ytr, Xte) -> dict:
           "the in-process model's")
     check(loaded.jit_cache_misses == 0,
           f"(d) the loaded LM missed {loaded.jit_cache_misses} shapes")
+    # what phase 17's zoo must answer: the loaded model's argmax for rows
+    # 0-3, each alone (a one-row batch pads to the one bucket)
+    lm_ref = {"tokens": tokens[:4], "replies": [
+        loaded.transform(DataTable({"tokens": tokens[i:i + 1]}))[
+            "logits"][0].argmax(-1).tolist() for i in range(4)]}
     walls = {}
     for label, m in (("eager", model), ("loaded", loaded), ("eager", model),
                      ("loaded", loaded)):
@@ -4023,28 +4072,501 @@ def registry_aot_slice(smi: str, model255, out255, Xtr, ytr, Xte) -> dict:
           f"pipeline's and phase 3's transform, jit_cache_misses 0")
     del fz, floaded
 
-    # fresh-process cold starts, interleaved, best of two each
-    runs = {"trace": [], "aot": []}
-    for mode in ("trace", "aot", "aot", "trace"):
-        runs[mode].append(_cold_start(root, art, mode))
+    # fresh-process cold starts, one of each mode (each pays ~10 s of
+    # imports; the whole script's time limit does not hold two of each)
+    best = {mode: _cold_start(root, art, mode) for mode in ("trace", "aot")}
     keys = ("cold_start_to_first_200_ms", "model_ready_ms",
             "first_request_ms", "jit_traces_total",
             "jit_traces_at_request_time")
-    best = {m: min(v, key=lambda o: o["cold_start_to_first_200_ms"])
-            for m, v in runs.items()}
     for mode, b in best.items():
         print(f"registry (d) cold start --mode {mode} (LM_SPEC depth "
-              f"{spec['depth']}, best of 2): "
-              f"{ {k: b[k] for k in keys} }; phases {b['phases_ms']}; both "
-              f"runs {[o['cold_start_to_first_200_ms'] for o in runs[mode]]}"
-              " ms")
+              f"{spec['depth']}): {({k: b[k] for k in keys})}; phases "
+              f"{b['phases_ms']}")
     ratio = (best["trace"]["cold_start_to_first_200_ms"]
              / best["aot"]["cold_start_to_first_200_ms"])
     print(f"registry (d): trace / aot cold start {ratio:.3f}; card: {smi}")
-    shutil.rmtree(work, ignore_errors=True)
     print(f"registry: phase 16 took {time.perf_counter() - t_phase:.1f} s; "
           f"card: {smi}")
-    return {"hist": hist, "f32": f32_launches}
+    # the work directory stays for phase 17 (its LM artifact), which
+    # removes it
+    return {"hist": hist, "f32": f32_launches, "work": work, "art": art,
+            "lm_ref": lm_ref}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the multi-model plane
+# ---------------------------------------------------------------------------
+
+ZOO_MODELS = 256            # bench_zoo's shape (bench.py:1261-1264)
+ZOO_MAX_RESIDENT = 32
+ZOO_REQUESTS = 2000
+ZOO_CLIENTS = 16
+ZOO_LM_EVERY = 40           # 17(a): every 40th request goes to the LM
+ZOO_DIM, ZOO_CLASSES = 16, 8
+LADDER_CLIENTS = 24         # 17(c)'s burst: 24 clients x 2 requests
+LADDER_HOLD_S = 2.0
+ACTIVATION_CLIENTS = 4      # 17(d)'s resident-model clients
+
+
+def _zoo_scoring_stage(tag: str, w):
+    """bench_zoo's per-model host scorer: features @ w, argmax."""
+    from mmlspark_tpu_torch.stages.basic import Lambda
+
+    def handle(table):
+        feats = np.asarray([json.loads(r["entity"].decode())["features"]
+                            for r in table["request"]], np.float32)
+        return table.with_column("reply", [
+            {"model": tag, "prediction": int(s.argmax())}
+            for s in feats @ w])
+    return Lambda.apply(handle)
+
+
+def _settled_allocated() -> int:
+    """Allocated card bytes with nothing in flight, without the cuBLAS
+    workspaces (one per stream that ran a GEMM)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def _link_tree(src: str, dst: str) -> None:
+    """``dst`` as hard links of ``src``'s files (a copy where links fail):
+    another version of the same artifact that loads its own weights."""
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(src):
+        s, d = os.path.join(src, name), os.path.join(dst, name)
+        if os.path.isdir(s):
+            _link_tree(s, d)
+            continue
+        try:
+            os.link(s, d)
+        except OSError:
+            shutil.copyfile(s, d)
+
+
+def _zoo_post(addr: str, payload: dict, model: str, timeout: float = 300):
+    """One routed request: (status, body, X-Model, ms)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(addr, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          "X-Model": model})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body, code, served = json.loads(r.read()), r.status, \
+                r.headers.get("X-Model")
+    except urllib.error.HTTPError as e:
+        body, code, served = None, e.code, None
+    return code, body, served, (time.perf_counter() - t0) * 1e3
+
+
+def _evict_all(zoo) -> None:
+    """Unpin and evict every resident model (their card memory comes
+    back), then stop the loader."""
+    for row in zoo.stats()["models"]:
+        if row["state"] == "resident":
+            key = f"{row['model']}@{row['version']}"
+            zoo.pin(key, pinned=False)
+            zoo.evict(key)
+    zoo.close()
+
+
+def _pct(lat, q: float) -> float:
+    return round(float(np.percentile(np.asarray(lat), q)), 3) if lat \
+        else float("nan")
+
+
+def _zoo_churn(smi: str, art: str, lm_payload, ref, device: str) -> dict:
+    """17(a): bench_zoo's shape with the LM among 256 host models.
+    Returns the LM requests' client p99 (ms)."""
+    import concurrent.futures
+    import urllib.error
+    from mmlspark_tpu_torch.ops import flash_attention as FA
+    from mmlspark_tpu_torch.serving import (
+        AdmissionController, ModelZoo, ServingFleet, ServingUnavailable,
+    )
+    t_sub = time.perf_counter()
+    rng = np.random.default_rng(0)
+    zoo = ModelZoo(max_resident=ZOO_MAX_RESIDENT, memory_probe=None,
+                   device=device)
+    for i in range(ZOO_MODELS):
+        w = rng.normal(size=(ZOO_DIM, ZOO_CLASSES)).astype(np.float32)
+        zoo.register_factory(
+            f"m{i:03d}", f"v{i % 8}",
+            (lambda i=i, w=w: _zoo_scoring_stage(f"m{i:03d}", w)),
+            metadata={"cost_bytes": int(w.nbytes)})
+    zoo.register_artifact("lm", "v1", art)
+    fleet = ServingFleet(n_engines=2, base_port=0, batch_size=64,
+                         workers=2, max_wait_ms=3.0, zoo=zoo,
+                         admission=AdmissionController(), tracing=False)
+    ranks = np.arange(1, ZOO_MODELS + 1, dtype=np.float64)
+    probs = 1.0 / ranks ** 1.1
+    picks = rng.choice(ZOO_MODELS, size=ZOO_REQUESTS, p=probs / probs.sum())
+    payload = {"features": rng.normal(size=ZOO_DIM).tolist()}
+    n_rows = len(lm_payload)
+    lock = threading.Lock()
+    lat, lm_lat, failures, wrong = [], [], [], []
+
+    def post(i):
+        if i % ZOO_LM_EVERY == ZOO_LM_EVERY // 2:
+            model_key, body_in = "lm", lm_payload[i % n_rows]
+        else:
+            model_key, body_in = f"m{picks[i]:03d}", payload
+        t0 = time.perf_counter()
+        try:
+            body = fleet.post(body_in, model=model_key, tenant=f"t{i % 4}",
+                              timeout=300)
+            ok = (body["prediction"] == ref[i % n_rows]
+                  if model_key == "lm" else body["model"] == model_key)
+            if not ok:
+                with lock:
+                    wrong.append((i, model_key))
+        except (urllib.error.HTTPError, ServingUnavailable) as e:
+            with lock:
+                failures.append(getattr(e, "code", 503))
+            ok = False
+        dt = (time.perf_counter() - t0) * 1e3
+        with lock:
+            (lm_lat if model_key == "lm" else lat).append(dt)
+        return ok
+
+    try:
+        l0 = FA.LAUNCHES["_fwd_kernel"]
+        t0 = time.perf_counter()
+        body = fleet.post(lm_payload[0], model="lm", timeout=300)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        act = [e for e in zoo.events if e.kind == "activate"
+               and e.model == "lm"][0]
+        # the LM stays resident through the churn (as the reference's
+        # floor pins its real model): its forwards count on one object
+        zoo.pin("lm")
+        lm_model = zoo.get("lm").model
+        forwards = lm_model.histograms()["device_ms"].snapshot()["count"]
+        launches = FA.LAUNCHES["_fwd_kernel"] - l0
+        check(body["prediction"] == ref[0], "(17a) the zoo LM's reply "
+              "differs from phase 16's loaded model on the same row")
+        check(forwards == 2 and launches == 8 * forwards,
+              f"(17a) {launches} flash launches over {forwards} LM "
+              "forwards (warmup + request), not 8 a forward")
+        check(act.stats["cost_source"] == "device",
+              f"(17a) LM activation {act.stats}")
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(ZOO_CLIENTS) as ex:
+            results = list(ex.map(post, range(ZOO_REQUESTS)))
+        wall = time.perf_counter() - t0
+        stats = zoo.stats()
+        lm_forwards = lm_model.histograms()["device_ms"].snapshot()["count"]
+        lm_launches = FA.LAUNCHES["_fwd_kernel"] - l0
+        del lm_model
+    finally:
+        fleet.stop_all()
+        _evict_all(zoo)
+    availability = sum(results) / len(results)
+    check(not wrong, f"(17a) wrong replies (model mixed or LM not "
+          f"bitwise phase 16's): {wrong[:5]}")
+    check(availability >= 0.99, f"(17a) availability {availability:.4f}, "
+          f"failures {sorted(set(failures))}")
+    check(stats["evictions_with_outstanding"] == 0,
+          f"(17a) {stats['evictions_with_outstanding']} evictions with "
+          "outstanding batches")
+    check(lm_launches == 8 * lm_forwards,
+          f"(17a) {lm_launches} flash launches over {lm_forwards} LM "
+          "forwards")
+    lm_p99 = _pct(lm_lat, 99)
+    print(f"multimodel (a) bench_zoo's shape: {ZOO_MODELS} host models + "
+          f"the LM_SPEC artifact behind a 2-engine in-process fleet sharing "
+          f"one zoo (cache {ZOO_MAX_RESIDENT}, 2 workers each), "
+          f"{ZOO_REQUESTS} requests from {ZOO_CLIENTS} clients, zipf(1.1), "
+          f"4 tenants, every {ZOO_LM_EVERY}th to the LM: LM cold request "
+          f"{cold_ms:.1f} ms (activation {act.stats['ms']} ms, cost "
+          f"{act.stats['cost_bytes']} B from the device); "
+          f"{ZOO_REQUESTS / wall:.1f} requests/s, p50 {_pct(lat + lm_lat, 50)}"
+          f" ms, p99 {_pct(lat + lm_lat, 99)} ms (LM requests p50 "
+          f"{_pct(lm_lat, 50)} / p99 {lm_p99} ms); availability "
+          f"{availability:.4f}; activations {stats['activations']}, "
+          f"evictions {stats['evictions']}, evictions_with_outstanding "
+          f"{stats['evictions_with_outstanding']}; flash launches "
+          f"{lm_launches} over {lm_forwards} LM forwards (8 a forward); "
+          f"every LM reply bitwise phase 16's loaded model "
+          f"({time.perf_counter() - t_sub:.1f} s); card: {smi}")
+    return {"lm_p99": lm_p99}
+
+
+def _zoo_residency(smi: str, vroot: str, lm_payload) -> None:
+    """17(b): three versions of the LM under the live memory probe."""
+    import torch
+    from mmlspark_tpu_torch.serving import HTTPSource, ModelZoo, ServingEngine
+    from mmlspark_tpu_torch.profile_transform import BATCH as LM_BATCH
+    t_sub = time.perf_counter()
+    zoo = ModelZoo(artifact_root=vroot, memory_headroom=1.0, device="cuda")
+    source = HTTPSource(port=0)
+    engine = ServingEngine(source, zoo=zoo, batch_size=LM_BATCH,
+                           tracing=False, flight_recorder=False).start()
+    limit = torch.cuda.get_device_properties(0).total_memory
+    try:
+        base = _settled_allocated()
+        codes = [_zoo_post(source.address, lm_payload[1], "lm@v1")[0]]
+        rb = zoo.entry_status("lm@v1")["cost_bytes"]
+        states = [_settled_allocated()]
+        torch.cuda.reset_peak_memory_stats()
+        codes.append(_zoo_post(source.address, lm_payload[1], "lm@v1")[0])
+        transient = torch.cuda.max_memory_allocated() - states[0]
+        check(0 < transient < rb, f"(17b) a forward's transient {transient}"
+              f" B against resident_bytes {rb} B leaves no threshold")
+        # the probe fires above two residents plus a forward's transient
+        # and below three: halfway between them
+        zoo.memory_headroom = (base + 2.5 * rb + transient / 2) / limit
+        steps = []
+        for v in ("v2", "v3", "v1"):
+            n_ev = len(zoo.events)
+            code, body, served, ms = _zoo_post(source.address, lm_payload[1],
+                                               f"lm@{v}")
+            codes.append(code)
+            # the loader's post-activation enforce may still be running
+            deadline = time.monotonic() + 10
+            while zoo.stats()["by_state"].get("resident", 0) > 2 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.02)
+            now = _settled_allocated()
+            new = zoo.events[n_ev:]
+            evs = [(e.version, e.reason) for e in new if e.kind == "evict"]
+            acts = [e.stats for e in new if e.kind == "activate"]
+            check(len(acts) == 1 and acts[0]["cost_source"] == "device",
+                  f"(17b) {v}: activations {acts}")
+            victims = sum(zoo.entry_status(f"lm@{ver}")["cost_bytes"]
+                          for ver, _ in evs)
+            steps.append({"to": v, "evicted": evs, "ms": round(ms, 1),
+                          "allocated": now,
+                          "fell": states[-1] + acts[0]["cost_bytes"] - now,
+                          "victims_bytes": victims,
+                          "activation_ms": acts[0]["ms"]})
+            states.append(now)
+        evictions = zoo.stats()["evictions"]
+        headroom = zoo.memory_headroom
+    finally:
+        engine.stop()
+        _evict_all(zoo)
+    check(codes == [200] * 5, f"(17b) statuses {codes}")
+    check([s["evicted"] for s in steps] == [
+        [], [("v1", "lru:memory_pressure")], [("v2", "lru:memory_pressure")]],
+        f"(17b) evictions {[(s['to'], s['evicted']) for s in steps]}")
+    for s in steps:
+        check(abs(s["fell"] - s["victims_bytes"]) <= 0.05 * rb,
+              f"(17b) at {s['to']}, memory_allocated fell {s['fell']} B, "
+              f"not the victims' {s['victims_bytes']} B")
+    print(f"multimodel (b) LM residency under the live probe: three "
+          f"versions of the artifact (hard links, each loads its own "
+          f"{rb} B), baseline {base} B, a forward's transient {transient} B,"
+          f" headroom {headroom:.4f} of {limit} B; rotation v1 -> v2 -> v3 "
+          "-> v1: " + "; ".join(
+              f"{s['to']} ({s['ms']} ms, activation {s['activation_ms']} "
+              f"ms): evicted {s['evicted'] or 'nothing'}, allocated "
+              f"{s['allocated']} B, fell {s['fell']} B against the "
+              f"victims' {s['victims_bytes']} B" for s in steps)
+          + f"; availability 1.0; evictions {evictions} "
+          f"({time.perf_counter() - t_sub:.1f} s); card: {smi}")
+
+
+def _zoo_ladder(smi: str, lroot: str, lm_payload, slo_ms: float,
+                costs: dict, device: str) -> None:
+    """17(c): the [f32, int8] variant ladder under a burst."""
+    import concurrent.futures
+    from mmlspark_tpu_torch.profile_transform import BATCH as LM_BATCH
+    from mmlspark_tpu_torch.serving import (
+        HTTPSource, ModelZoo, ServingEngine, VariantSelector,
+    )
+    t_sub = time.perf_counter()
+    zoo = ModelZoo(artifact_root=lroot, memory_probe=None, device=device)
+    sel = VariantSelector(zoo, decide_interval_s=0.1, hold_s=LADDER_HOLD_S,
+                          pressure_limit=4)
+    sel.declare("lm", ["lm", "lm_int8"], slo_ms=slo_ms, costs=costs)
+    source = HTTPSource(port=0)
+    engine = ServingEngine(source, zoo=zoo, variants=sel,
+                           batch_size=LM_BATCH, max_wait_ms=3.0,
+                           tracing=False, flight_recorder=False).start()
+    n_rows = len(lm_payload)
+    try:
+        zoo.get("lm", timeout=300)
+        zoo.get("lm_int8", timeout=300)
+        check(sel.route("lm") == "lm@v1", "(17c) ladder starts off rung 0")
+
+        def client(c):
+            return [_zoo_post(source.address, lm_payload[(c + k) % n_rows],
+                              "lm") for k in range(2)]
+
+        t_burst = time.time()
+        with concurrent.futures.ThreadPoolExecutor(LADDER_CLIENTS) as ex:
+            done = [r for rs in ex.map(client, range(LADDER_CLIENTS))
+                    for r in rs]
+        t_end = time.time()
+        # the route may come back to rung 0 by a selection while the
+        # floor is open (rung 1 profiled over the SLO); the floor itself
+        # closes hold_s after the pressure clears
+        deadline = time.monotonic() + LADDER_HOLD_S + 10
+        while not any(e.kind == "step_up" for e in sel.events) and \
+                time.monotonic() < deadline:
+            time.sleep(0.02)
+        deadline = time.monotonic() + 2.0      # the tick's route rebuild
+        while sel.route("lm") != "lm@v1" and time.monotonic() < deadline:
+            time.sleep(0.02)
+        final_route = sel.route("lm")
+        events = list(sel.events)
+    finally:
+        engine.stop()
+        _evict_all(zoo)
+    by_rung = {}
+    for code, body, served, ms in done:
+        check(code == 200, f"(17c) a burst request answered {code}")
+        by_rung.setdefault(served, []).append(ms)
+    down = [e for e in events if e.kind == "step_down"]
+    up = [e for e in events if e.kind == "step_up"]
+    check(down and down[0].reason == "queue_pressure",
+          f"(17c) no step down under the burst: {events}")
+    check(by_rung.get("lm_int8@v1"), f"(17c) no reply from the int8 rung: "
+          f"{ {k: len(v) for k, v in by_rung.items()} }")
+    check(final_route == "lm@v1" and up
+          and up[-1].at - t_end <= LADDER_HOLD_S + 1.0,
+          f"(17c) the route did not step back up within hold_s "
+          f"({LADDER_HOLD_S} s) of the burst's end: {events}")
+    print(f"multimodel (c) ladder [lm f32, lm int8] (slo_ms = (a)'s LM p99 "
+          f"{slo_ms} ms, declared costs {costs}), {LADDER_CLIENTS} clients x "
+          f"2 requests, pressure limit 4: step down {down[0].at - t_burst:.3f}"
+          f" s after the burst began, the last step up "
+          f"{up[-1].at - t_end:.3f} s after it ended (hold_s "
+          f"{LADDER_HOLD_S}; {len(down)} step down(s), {len(up)} step up(s),"
+          f" {sum(e.kind == 'select' for e in events)} selects: "
+          f"{[(e.kind, e.variant, e.reason) for e in events[1:]]}); "
+          f"replies by rung " + ", ".join(
+              f"{k}: {len(v)} (p50 {_pct(v, 50)} / p99 {_pct(v, 99)} ms)"
+              for k, v in sorted(by_rung.items()))
+          + f" ({time.perf_counter() - t_sub:.1f} s); card: {smi}")
+
+
+def _zoo_cold_activation(smi: str, vroot: str, lm_payload,
+                         device: str) -> None:
+    """17(d): a resident host model's latency with nothing activating
+    and while an LM version activates."""
+    from mmlspark_tpu_torch.serving import HTTPSource, ModelZoo, ServingEngine
+    t_sub = time.perf_counter()
+    rng = np.random.default_rng(1)
+    w = rng.normal(size=(ZOO_DIM, ZOO_CLASSES)).astype(np.float32)
+    payload = {"features": rng.normal(size=ZOO_DIM).tolist()}
+    zoo = ModelZoo(artifact_root=vroot, memory_probe=None, device=device)
+    zoo.register_factory("fast", "v1", lambda: _zoo_scoring_stage("fast", w))
+    source = HTTPSource(port=0)
+    engine = ServingEngine(source, zoo=zoo, batch_size=64, workers=2,
+                           max_wait_ms=3.0, tracing=False,
+                           flight_recorder=False).start()
+
+    def hammer(stop, out):
+        while not stop.is_set():
+            code, _body, _served, ms = _zoo_post(source.address, payload,
+                                                 "fast", timeout=60)
+            out.append((time.perf_counter(), code, ms))
+
+    def window(activate: bool):
+        stop = threading.Event()
+        outs = [[] for _ in range(ACTIVATION_CLIENTS)]
+        ts = [threading.Thread(target=hammer, args=(stop, o)) for o in outs]
+        for t in ts:
+            t.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        if activate:
+            res = _zoo_post(source.address, lm_payload[2], "lm@v3")
+            check(res[0] == 200, f"(17d) cold LM request answered {res[0]}")
+        else:
+            time.sleep(3.0)
+        t1 = time.perf_counter()
+        stop.set()
+        for t in ts:
+            t.join(timeout=60)
+        got = [(c, ms) for o in outs for (t, c, ms) in o if t0 <= t <= t1]
+        check(got and all(c == 200 for c, _ in got),
+              f"(17d) resident-model statuses {sorted({c for c, _ in got})}")
+        return [ms for _, ms in got], (t1 - t0) * 1e3
+
+    try:
+        zoo.get("fast")
+        quiet, quiet_ms = window(False)
+        busy, busy_ms = window(True)
+        act = [e for e in zoo.events if e.kind == "activate"
+               and e.model == "lm"][0]
+    finally:
+        engine.stop()
+        _evict_all(zoo)
+    print(f"multimodel (d) resident model during a cold activation "
+          f"({ACTIVATION_CLIENTS} clients): nothing activating {len(quiet)}"
+          f" requests in {quiet_ms:.0f} ms, p50 {_pct(quiet, 50)} / p99 "
+          f"{_pct(quiet, 99)} ms; while lm@v3 activates ({act.stats['ms']} "
+          f"ms, {busy_ms:.0f} ms to its reply) {len(busy)} requests, p50 "
+          f"{_pct(busy, 50)} / p99 {_pct(busy, 99)} ms "
+          f"({time.perf_counter() - t_sub:.1f} s); card: {smi}")
+
+
+def multimodel_slice(smi: str, art: str, work: str, lm_ref: dict) -> dict:
+    """Phase 17: the multi-model plane on the card, over phase 16's
+    LM_SPEC artifact and an int8 artifact of the same seeded model:
+    (a) churn at bench_zoo's shape; (b) LM residency under the live
+    memory probe; (c) the [f32, int8] variant ladder under a burst;
+    (d) a resident model's latency while an LM version activates.
+    Returns {"f32": the flash forward's launches in the phase}."""
+    import torch
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.models.networks import build_network
+    from mmlspark_tpu_torch.models.tpu_model import TPUModel
+    from mmlspark_tpu_torch.ops import flash_attention as FA
+    from mmlspark_tpu_torch.profile_transform import BATCH as LM_BATCH, LM_SPEC
+    from mmlspark_tpu_torch.serving import aot
+
+    t_phase = time.perf_counter()
+    launches0 = FA.LAUNCHES["_fwd_kernel"]
+    toks, ref = lm_ref["tokens"], lm_ref["replies"]
+    lm_payload = [{"tokens": toks[i].tolist()} for i in range(len(toks))]
+
+    # the int8 artifact of the same seeded model (phase 16's is f32)
+    t0 = time.perf_counter()
+    model = TPUModel.from_module(build_network(LM_SPEC, device="cuda",
+                                               seed=0),
+                                 device="cuda", inputCol="tokens",
+                                 outputCol="logits", batchSize=LM_BATCH)
+    calib = DataTable({"tokens": np.resize(toks, (LM_BATCH, toks.shape[1]))})
+    art_int8 = os.path.join(work, "lm_int8_aot")
+    man8 = aot.export_model(model.quantize(calib), calib, art_int8)
+    check(man8["precision"] == "int8", f"(17) int8 manifest {man8}")
+    del model
+    torch.cuda.empty_cache()
+    wbytes = {k: os.path.getsize(os.path.join(a, "weights.pkl"))
+              for k, a in (("f32", art), ("int8", art_int8))}
+    print(f"multimodel: int8 LM_SPEC artifact exported in "
+          f"{time.perf_counter() - t0:.1f} s; weights.pkl f32 / int8 "
+          f"{wbytes['f32']} / {wbytes['int8']} B")
+
+    churn = _zoo_churn(smi, art, lm_payload, ref, "cuda")
+    vroot = os.path.join(work, "lm_versions")
+    for v in ("v1", "v2", "v3"):
+        _link_tree(art, os.path.join(vroot, "lm", v))
+    _zoo_residency(smi, vroot, lm_payload)
+    lroot = os.path.join(work, "ladder")
+    _link_tree(art, os.path.join(lroot, "lm", "v1"))
+    _link_tree(art_int8, os.path.join(lroot, "lm_int8", "v1"))
+    # declared costs, as the reference's ladder tests declare them: the
+    # int8 artifact's weights are no smaller (it keeps the f32 kernels
+    # beside the int8 ones), so bytes would not rank it cheaper
+    _zoo_ladder(smi, lroot, lm_payload, churn["lm_p99"],
+                {"lm": 1.0, "lm_int8": 0.25}, "cuda")
+    _zoo_cold_activation(smi, vroot, lm_payload, "cuda")
+    f32 = FA.LAUNCHES["_fwd_kernel"] - launches0
+    check(f32 > 0 and f32 % 8 == 0, f"(17) {f32} flash launches")
+    print(f"multimodel: phase 17 took {time.perf_counter() - t_phase:.1f} s"
+          f"; flash forward launches {f32}; card: {smi}")
+    return {"f32": f32}
 
 
 def main() -> int:
@@ -4727,6 +5249,12 @@ def main() -> int:
     reg = registry_aot_slice(smi, model255, out255, Xtr, ytr, Xte)
     for k, v in reg["hist"].items():
         l255[k] += v
+
+    # ---- 17. the multi-model plane (phase 16's LM artifact) ---------------
+    try:
+        multi = multimodel_slice(smi, reg["art"], reg["work"], reg["lm_ref"])
+    finally:
+        shutil.rmtree(reg["work"], ignore_errors=True)
     print(json.dumps({"int8_gemms": inter["int8_gemms"]}))
     print(f"chip_smoke: all phases took {time.perf_counter() - t_start:.1f} "
           "s")
@@ -4791,7 +5319,7 @@ def main() -> int:
     for dtype, tname, launches in (
             (torch.float32, "f32",
              lm_launches + inter["f32"] + fused_launches["f32"]
-             + reg["f32"]),
+             + reg["f32"] + multi["f32"]),
             (torch.bfloat16, "bf16", train_launches["_fwd_kernel"])):
         m = flash_measured[dtype]
         kernels.append({

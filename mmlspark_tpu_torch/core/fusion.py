@@ -601,6 +601,13 @@ class DeviceTable:
                 total += leaf.numel() * leaf.element_size()
         return total
 
+    def clear(self) -> None:
+        """Drop every cached column and const (their device memory is
+        released once nothing else holds the tensors)."""
+        with self._lock:
+            self._tables = weakref.WeakKeyDictionary()
+            self._consts.clear()
+
     def stats(self) -> Dict[str, int]:
         with self._lock:
             return {"column_ships": self.column_ships,
@@ -1275,6 +1282,25 @@ class FusedPipelineModel:
         with self._plan_lock:
             plans = list(self._plans.values())
         return sum(p.device_table.resident_bytes() for p in plans)
+
+    def unload(self) -> None:
+        """Release the device state (the model zoo's eviction hook):
+        every plan with its DeviceTable and installed programs, and each
+        stage's own device copy (a stage's ``unload``). A later
+        transform plans and ships again, eagerly."""
+        with self._plan_lock:
+            plans = list(self._plans.values())
+            self._plans.clear()
+            self._retired_traces += sum(p.jit_cache_misses for p in plans)
+        for p in plans:
+            p.device_table.clear()
+            for step in p.steps:
+                if isinstance(step, FusedSegment):
+                    step._aot.clear()
+        for stage in self.stages:
+            unload = getattr(stage, "unload", None)
+            if callable(unload):
+                unload()
 
     def metrics(self) -> Dict[str, Any]:
         plans = list(self._plans.values())

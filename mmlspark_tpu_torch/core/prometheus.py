@@ -6,11 +6,12 @@ process-wide training-phase families, the trace buffer, the card's
 memory and the SLO monitor in the Prometheus text format, so a standard
 scraper can read ``/metrics`` on an engine. Stdlib only; the histogram
 renderer reads the raw bucket snapshot (exact cumulative counts). The
-families of the model zoo, variants, autoscaling and placement wait for
-the multi-model plane, and the drift, control-plane and ingress families
-for the control plane and host transports (ROADMAP.md, 'The rest of the
-serving plane'); ``mmlspark_tpu_torch.testing.metrics_check`` audits
-what is rendered here.
+multi-model plane's families (the model zoo, variants, autoscaling and
+placement) render here too; the drift, control-plane and ingress
+families wait for the control plane and host transports (ROADMAP.md,
+'The rest of the serving plane');
+``mmlspark_tpu_torch.testing.metrics_check`` audits what is rendered
+here.
 """
 
 from __future__ import annotations
@@ -213,6 +214,178 @@ def pipeline_families(r: PromRenderer, pipeline: Any,
                       "(steady state should be flat)", miss_fn(), labels)
         except Exception:  # noqa: BLE001 — stats stay partial
             pass
+
+
+def zoo_families(r: PromRenderer, zoo: Any,
+                 labels: Optional[Dict[str, Any]] = None) -> None:
+    """The multi-model serving plane's families (serving/zoo.py):
+    state counts + lifecycle counters (always full totals), per-model
+    ``serving_model_info`` rows, and per-model latency histograms.
+    The per-model label space is HARD-CAPPED at the zoo's
+    ``label_cardinality_cap`` — info rows are resident-first
+    most-recent-first, latency overflow folds into ``model="_other"``
+    — so a 256-model zoo scrapes like a 64-model one."""
+    s = zoo.stats()
+    base = dict(labels or {})
+    for state in sorted(s["by_state"]):
+        r.gauge("serving_zoo_models",
+                "registered zoo models by lifecycle state",
+                s["by_state"][state], {**base, "state": state})
+    r.gauge("serving_zoo_registered_models",
+            "total models registered in the zoo", s["registered"], base)
+    r.gauge("serving_zoo_resident_bytes",
+            "estimated bytes held by resident models",
+            s["resident_bytes"], base)
+    r.counter("serving_zoo_activations_total",
+              "lazy model activations (AOT load + warmup)",
+              s["activations"], base)
+    r.counter("serving_zoo_evictions_total",
+              "LRU evictions under the memory/count budget",
+              s["evictions"], base)
+    r.counter("serving_zoo_load_failures_total",
+              "model activations that raised", s["load_failures"], base)
+    for m in s["models"]:
+        r.info("serving_model_info",
+               "per-model metadata (cardinality-capped: resident-first "
+               "most-recent rows up to the zoo's label cap)",
+               {**base, "model": m["model"], "version": m["version"],
+                "precision": m["precision"],
+                "aot": "true" if m["aot"] else "false",
+                "state": m["state"],
+                "cost_source": m.get("cost_source", "estimate")})
+    for label, hist in sorted(zoo.model_histograms().items()):
+        r.histogram("serving_model_latency_ms",
+                    "per-model batch execution latency (cardinality-"
+                    'capped: overflow models fold into model="_other")',
+                    hist, {**base, "model": label})
+
+
+def variant_families(r: PromRenderer, selector: Any,
+                     labels: Optional[Dict[str, Any]] = None) -> None:
+    """The SLO-adaptive variant plane's families (serving/variants.py):
+    selection/degradation counters (full totals), a fleet-wide
+    degraded gauge, and per-model rung/floor gauges plus ONE info row
+    carrying the routed variant, the last step-down reason, and the
+    active rung's cost provenance. The per-model label space is
+    HARD-CAPPED at ``VARIANT_LABEL_CAP`` ladders (declaration order)
+    — the serving_model_latency_ms discipline."""
+    from mmlspark_tpu_torch.serving.variants import VARIANT_LABEL_CAP
+    base = dict(labels or {})
+    s = selector.stats()
+    r.gauge("serving_variant_ladders",
+            "logical models with a declared variant ladder",
+            s["declared"], base)
+    r.gauge("serving_variant_degraded",
+            "ladders currently running below their preferred rung",
+            s["degraded"], base)
+    r.counter("serving_variant_step_downs_total",
+              "degradation steps (burn/pressure opened a cheaper rung)",
+              s["step_downs"], base)
+    r.counter("serving_variant_step_ups_total",
+              "recovery steps (sustained clean air closed a rung)",
+              s["step_ups"], base)
+    r.counter("serving_variant_selects_total",
+              "active-variant changes applied by the selector",
+              s["selects"], base)
+    for i, (name, st) in enumerate(sorted(selector.status().items())):
+        if i >= VARIANT_LABEL_CAP:
+            break
+        ml = {**base, "model": name}
+        r.gauge("serving_variant_rung",
+                "active rung on the variant ladder (0 = preferred; "
+                "cardinality-capped per-model series)",
+                st["rung"], ml)
+        r.gauge("serving_variant_floor",
+                "lowest rung the degradation state has opened "
+                "(cardinality-capped per-model series)",
+                st["floor"], ml)
+        active = next((v for v in st["variants"]
+                       if v["variant"] == st["active"]), None)
+        r.info("serving_variant_info",
+               "per-model routing metadata (cardinality-capped: first "
+               "declared ladders up to VARIANT_LABEL_CAP)",
+               {**ml, "active": st["active"],
+                "last_step_down_reason":
+                    st["last_step_down_reason"] or "",
+                "cost_source": (active or {}).get("cost_source",
+                                                  "unprofiled")})
+
+
+def autoscale_families(r: PromRenderer, autoscaler: Any,
+                       labels: Optional[Dict[str, Any]] = None) -> None:
+    """The fleet autoscaler's families (serving/autoscale.py): the
+    width band and live demand rate as gauges, scale actions and
+    failure modes as counters. No per-engine labels — addresses are
+    unbounded; the fleet's own gauges carry the width."""
+    base = dict(labels or {})
+    s = autoscaler.stats()
+    r.gauge("serving_autoscale_engines",
+            "engines in the routing rotation", s["engines"], base)
+    r.gauge("serving_autoscale_owned_engines",
+            "engines the autoscaler spawned (its retire candidates)",
+            s["owned"], base)
+    r.gauge("serving_autoscale_min_engines",
+            "configured fleet-width floor", s["min_engines"], base)
+    r.gauge("serving_autoscale_max_engines",
+            "configured fleet-width ceiling", s["max_engines"], base)
+    r.gauge("serving_autoscale_demand_rate",
+            "windowed client demand rate (rows/s) driving decisions",
+            s["demand_rate"], base)
+    r.counter("serving_autoscale_scale_ups_total",
+              "engines spawned + joined by the autoscaler",
+              s["scale_ups"], base)
+    r.counter("serving_autoscale_scale_downs_total",
+              "engines retired through the drain path",
+              s["scale_downs"], base)
+    r.counter("serving_autoscale_drain_timeouts_total",
+              "retirements that hit the drain deadline",
+              s["drain_timeouts"], base)
+    r.counter("serving_autoscale_spawn_failures_total",
+              "spawner or startup-probe failures (fleet width "
+              "unchanged)", s["spawn_failures"], base)
+
+
+def placement_families(r: PromRenderer, placement: Any,
+                       labels: Optional[Dict[str, Any]] = None) -> None:
+    """The fleet placement plane's families (serving/placement.py):
+    plan size and churn (full totals), per-model replica counts — the
+    label space HARD-CAPPED at ``REPLICA_LABEL_CAP`` highest-replica
+    models, overflow summed into ``model="_other"`` (the
+    serving_model_latency_ms discipline) — the plan-rebuild latency
+    histogram, and stale-route fallbacks."""
+    from mmlspark_tpu_torch.serving.placement import REPLICA_LABEL_CAP
+    base = dict(labels or {})
+    s = placement.stats()
+    r.gauge("serving_placement_models",
+            "models in the current placement plan", s["models"], base)
+    r.gauge("serving_placement_assignments",
+            "total (model, engine) assignment pairs in the plan",
+            s["assignments"], base)
+    r.counter("serving_placement_rebuilds_total",
+              "placement plan rebuilds", s["rebuilds"], base)
+    r.counter("serving_placement_stale_routes_total",
+              "model-keyed requests routed without a plan entry "
+              "(fallback to any engine + lazy activation)",
+              s["stale_routes"], base)
+    replicas = sorted(placement.replica_counts().items(),
+                      key=lambda kv: (-kv[1], kv[0]))
+    other = 0
+    for i, (model, count) in enumerate(replicas):
+        if i < REPLICA_LABEL_CAP:
+            r.gauge("serving_placement_replicas",
+                    "engines assigned per model (cardinality-capped: "
+                    'overflow models fold into model="_other")',
+                    count, {**base, "model": model})
+        else:
+            other += count
+    if other:
+        r.gauge("serving_placement_replicas",
+                "engines assigned per model (cardinality-capped: "
+                'overflow models fold into model="_other")',
+                other, {**base, "model": "_other"})
+    r.histogram("serving_placement_rebuild_ms",
+                "placement plan rebuild latency",
+                placement.rebuild_hist, base)
 
 
 def slo_families(r: PromRenderer, monitor: Any,

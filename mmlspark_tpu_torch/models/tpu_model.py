@@ -332,6 +332,22 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
             self._device_weights = to_dev(self.get("weights"))
         return self._device_weights
 
+    def resident_bytes(self) -> int:
+        """Bytes the weights shipped to the device occupy (one device's
+        sum: the port has no mesh) — the zoo's per-model eviction-cost
+        signal. Before the first ship, the host weights' bytes."""
+        tree = self._device_weights
+        if tree is None:
+            tree = self.get("weights")
+        return _tree_nbytes(tree)
+
+    def unload(self) -> None:
+        """Drop the device copy of the weights (the model zoo calls this
+        on eviction, so the card memory comes back even while the stage
+        object is still referenced); the next transform ships them
+        again."""
+        self._device_weights = None
+
     def _feeds(self) -> Dict[str, str]:
         fd = self.get("feedDict")
         return dict(fd) if fd else {"input": self.get_input_col()}
@@ -526,6 +542,19 @@ class TPUModel(Model, HasInputCol, HasOutputCol):
         for out_col in self._fetches():
             out = out.add_or_replace(Field(out_col, VECTOR))
         return out
+
+
+def _tree_nbytes(tree) -> int:
+    """Bytes of every tensor / array leaf of a nested dict / list."""
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_nbytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return int(getattr(tree, "nbytes", 0))
 
 
 class _ModuleApply:

@@ -138,9 +138,9 @@ def ooc_source(rows: Optional[int] = None, chunk: Optional[int] = None,
                                        prefetch_depth=depth)
 
 
-def ooc_pipeline(device=None):
+def ooc_pipeline(device=None, rows: Optional[int] = None):
     """bench_ooc's fitted pipeline: Featurize(32) fitted streamed over
-    ``ooc_source()``, a StandardScaler fitted from a ChunkedTable of two
+    ``ooc_source(rows)``, a StandardScaler fitted from a ChunkedTable of two
     chunks' features, and a logistic head (maxIter 10) on them, fused
     with ``batch_size=OOC_CHUNK`` on ``device`` (None = the card), its
     chunk shape run once. Returns (fused model, Featurize fit seconds)."""
@@ -153,7 +153,7 @@ def ooc_pipeline(device=None):
     kw = {} if device is None else {"device": device}
     t0 = time.perf_counter()
     fz = Featurize(featureColumns=["a", "b", "cat", "toks"],
-                   numberOfFeatures=32).fit(ooc_source())
+                   numberOfFeatures=32).fit(ooc_source(rows))
     fz_s = time.perf_counter() - t0
     sample = DataTable.concat([ooc_chunk(0, OOC_CHUNK),
                                ooc_chunk(1, OOC_CHUNK)])

@@ -1,7 +1,14 @@
 """HTTP serving of the port: the engine (``server.py``), the versioned
-model lifecycle (``lifecycle.py``), and the standard scorers, the fleet
-client and partition consolidation (``fleet.py``)."""
+model lifecycle (``lifecycle.py``), the standard scorers, the fleet
+client and partition consolidation (``fleet.py``), and the multi-model
+plane: the model zoo (``zoo.py``) and admission control
+(``admission.py``), with the variant selector (``variants.py``), the
+fleet autoscaler (``autoscale.py``) and the placement plane
+(``placement.py``) resolved lazily."""
 
+from mmlspark_tpu_torch.serving.admission import (
+    AdmissionController, TenantQuota,
+)
 from mmlspark_tpu_torch.serving.fleet import (
     PartitionConsolidator, ServingFleet, ServingUnavailable,
     json_row_scoring_pipeline, json_scoring_pipeline,
@@ -13,10 +20,37 @@ from mmlspark_tpu_torch.serving.server import (
     HTTPSource, PipelineHandle, ServingEngine, SharedSingleton,
     SharedVariable, serve_model,
 )
+from mmlspark_tpu_torch.serving.zoo import (
+    ModelZoo, ZooEvent, model_key_of,
+)
 
-__all__ = ["CanaryPolicy", "HTTPSource", "ModelRegistry",
-           "PartitionConsolidator", "PipelineHandle", "ServingEngine",
+# the placement plane and the SLO-adaptive plane (variant selection,
+# fleet autoscaling) resolve on first touch (PEP 562): most clients
+# never opt in, and `import mmlspark_tpu_torch.serving` stays cheap
+_LAZY_EXPORTS = {
+    "PlacementController": "mmlspark_tpu_torch.serving.placement",
+    "PlacementEvent": "mmlspark_tpu_torch.serving.placement",
+    "VariantSelector": "mmlspark_tpu_torch.serving.variants",
+    "VariantEvent": "mmlspark_tpu_torch.serving.variants",
+    "FleetAutoscaler": "mmlspark_tpu_torch.serving.autoscale",
+    "AutoscaleEvent": "mmlspark_tpu_torch.serving.autoscale",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY_EXPORTS:
+        import importlib
+        return getattr(importlib.import_module(_LAZY_EXPORTS[name]), name)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["AdmissionController", "AutoscaleEvent", "CanaryPolicy",
+           "FleetAutoscaler", "HTTPSource", "ModelRegistry", "ModelZoo",
+           "PartitionConsolidator", "PipelineHandle",
+           "PlacementController", "PlacementEvent", "ServingEngine",
            "ServingFleet", "ServingUnavailable", "SharedSingleton",
            "SharedVariable", "SwapEvent", "SwapInProgress", "SwapResult",
+           "TenantQuota", "VariantEvent", "VariantSelector", "ZooEvent",
            "json_row_scoring_pipeline", "json_scoring_pipeline",
-           "serve_model"]
+           "model_key_of", "serve_model"]

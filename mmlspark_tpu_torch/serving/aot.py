@@ -565,6 +565,17 @@ def _aot_model_class():
             self._fallback()
             return super().device_op(schema)
 
+        def unload(self) -> None:
+            """Release what the loaded model holds (the zoo's eviction
+            hook): the device and host weights and the loaded programs
+            with their constants. The model scores nothing afterwards;
+            load the artifact again."""
+            # cleared in place: a dispatch closure already handed out
+            # holds this very dict
+            self._aot_programs.clear()
+            self._device_weights = None
+            self._paramMap["weights"] = None
+
     _AOT_MODEL_CLS = AOTTPUModel
     return AOTTPUModel
 

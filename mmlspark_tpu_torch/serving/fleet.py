@@ -22,11 +22,19 @@ leg, and ``rolling_swap`` through the lifecycle protocol
 same client over engines in other processes. ``PartitionConsolidator``
 keeps each process's own contiguous row range of a table.
 
+The multi-model plane rides the fleet as in the reference: engines built
+with one ``zoo`` (and one ``admission`` controller) share its cache and
+quotas; every ``post`` feeds the windowed ``demand_rate``, the
+autoscaler's signal (``serving/autoscale.py``), which joins and retires
+engines of a connected fleet through ``add_engine`` (with the startup
+probe) and ``remove_engine``; ``attach_placement`` wires a
+``PlacementController`` (``serving/placement.py``) so a model-keyed
+post goes to the model's assigned engines first, and its stale routes
+are counted.
+
 What still raises ``NotImplementedError``, naming its ROADMAP.md item
 'The rest of the serving plane': ``post_columns`` and the shm transport
-('The control plane and host transports'), and the autoscaler's
-membership surface ``add_engine`` / ``remove_engine`` /
-``demand_rate`` / ``attach_placement`` ('The multi-model plane').
+('The control plane and host transports').
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ from mmlspark_tpu_torch.core.schema import Schema
 from mmlspark_tpu_torch.core.stage import Transformer
 from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.serving.server import (
-    _MULTI_MODEL, HTTPSource, ServingEngine, _not_ported,
+    HTTPSource, ServingEngine, _not_ported,
 )
 from mmlspark_tpu_torch.utils.resilience import CircuitBreaker
 
@@ -298,6 +306,14 @@ def json_scoring_pipeline(model, field: str = "features",
     model_bucket = getattr(model, "bucket_for", None)
     if callable(model_bucket):
         lam.bucket_for = model_bucket
+    # the zoo's measured eviction cost (serving/zoo.py _duck_bytes) and
+    # its eviction hook, which drops the model's card tensors
+    model_rb = getattr(model, "resident_bytes", None)
+    if callable(model_rb):
+        lam.resident_bytes = model_rb
+    model_unload = getattr(model, "unload", None)
+    if callable(model_unload):
+        lam.unload = model_unload
     if drift_monitor is not None:
         lam.drift_monitor = drift_monitor
     # the precision/aot labels ride the stage into the PipelineHandle
@@ -660,6 +676,14 @@ class _FusedPipelineScorer:
     def metrics(self) -> Dict[str, Any]:
         return self.fused.metrics()
 
+    def unload(self) -> None:
+        """The zoo's eviction hook: the fused pipeline's device state
+        and this scorer's staging buffers."""
+        from mmlspark_tpu_torch.core.fusion import HostStaging
+        self.fused.unload()
+        self._staging = HostStaging(self._STAGING_SLOTS,
+                                    pinned=self._staging.pinned)
+
     def stage(self):
         """Package as the Lambda stage the ServingEngine consumes, with
         the duck-typed two-stage split + lifecycle/observability hooks
@@ -673,6 +697,7 @@ class _FusedPipelineScorer:
         lam.jit_cache_miss_count = self.jit_cache_miss_count
         lam.bucket_for = self.bucket_for
         lam.resident_bytes = self.fused.resident_bytes
+        lam.unload = self.unload
         lam.precision = self.fused.precision
         lam.aot = bool(self.fused.aot)
         lam.scorer = self
@@ -706,9 +731,10 @@ class ServingFleet:
     reply wins.
 
     ``base_port=0`` binds every engine on a free port of the OS's
-    choosing (``addresses`` carries them). ``zoo=`` / ``admission=``
-    raise in the engine, and ``shm_transport=True`` here, naming their
-    ROADMAP.md items."""
+    choosing (``addresses`` carries them). ``zoo`` / ``admission`` are
+    shared by every engine (the device-memory budget and the tenant
+    quotas are fleet-wide); ``pipeline`` may be None with a zoo.
+    ``shm_transport=True`` raises, naming its ROADMAP.md item."""
 
     def __init__(self, pipeline=None, n_engines: int = 2,
                  host: str = "127.0.0.1", base_port: int = 18700,
@@ -729,6 +755,11 @@ class ServingFleet:
         if shm_transport:
             raise _not_ported("the shared-memory transport "
                               "(shm_transport=True)", _HOST_TRANSPORTS)
+        # the multi-model plane: ONE zoo (and one admission controller)
+        # shared by every engine — models are process-resident, so the
+        # device-memory budget and tenant quotas are fleet-wide
+        self.zoo = zoo
+        self.admission = admission
         self._init_client(tracer=tracer, tracing=tracing,
                           hedge_percentile=hedge_percentile,
                           hedge_min_s=hedge_min_s)
@@ -785,13 +816,36 @@ class ServingFleet:
         self.hedge_min_s = hedge_min_s
         self._latencies: "deque[float]" = deque(maxlen=256)
         self._probe_lock = threading.Lock()   # single-flight all-open probe
+        # the fleet-wide placement plane (serving/placement.py);
+        # attach_placement wires a controller in. A FleetAutoscaler
+        # over this fleet sets ``autoscaler`` (its families render in
+        # metrics_text)
+        self.placement = None
+        self.autoscaler = None
         # itertools.count: next() is atomic under the GIL, so
         # concurrent client threads can't tear the round-robin
         self._next = itertools.count()
         self.breakers: List[CircuitBreaker] = []
+        # windowed demand (requests via post): the autoscaler's control
+        # signal — demand_rate() per engine against its scale-up/-down
+        # watermarks (serving/autoscale.py)
+        from mmlspark_tpu_torch.core.metrics import WindowedCounter
+        self._demand = WindowedCounter(bucket_s=1.0, horizon_s=600.0)
+        # dynamic membership (autoscaler join/leave): mutations are
+        # serialized under this lock; in-flight posts read addresses/
+        # breakers without it — post() treats a membership-race index
+        # error as one more failover attempt, so the worst case is a
+        # retried leg, never a wrong reply
+        self._membership_lock = threading.Lock()
+        self.engines_added = 0
+        self.engines_removed = 0
 
     def _build_breakers(self, failure_threshold: int,
                         breaker_cooldown: float) -> None:
+        # remembered so engines joining later (add_engine) get
+        # breakers with the fleet's configured budget
+        self._breaker_params = (int(failure_threshold),
+                                float(breaker_cooldown))
         self.breakers = [
             CircuitBreaker(failure_threshold=failure_threshold,
                            cooldown=breaker_cooldown,
@@ -852,6 +906,8 @@ class ServingFleet:
             raise _not_ported("the shared-memory transport "
                               "(shm_transport=True)", _HOST_TRANSPORTS)
         fleet = cls.__new__(cls)
+        fleet.zoo = None
+        fleet.admission = None
         fleet._init_client(tracer=tracer, tracing=tracing,
                            hedge_percentile=hedge_percentile,
                            hedge_min_s=hedge_min_s)
@@ -1328,9 +1384,23 @@ class ServingFleet:
             else json.dumps(payload).encode()
         extra_headers = self._route_headers(model, tenant, priority,
                                             headers)
+        self._demand.inc(1.0)    # the autoscaler's windowed signal
         n = len(self.addresses)
         start = next(self._next)
         order = [(start + k) % n for k in range(n)]
+        if self.placement is not None and model:
+            # the placement plane: assigned engines first (round-robin
+            # WITHIN the replica set), the rest of the fleet behind
+            # them — a stale plan or a dying replica set falls through
+            # to any engine, where the zoo's lazy activation takes over
+            self.placement.record_request(model)
+            self.placement.rebuild()        # rate-limited internally
+            preferred = [i for i in self.placement.engines_for(model)
+                         if 0 <= i < n]
+            if preferred:
+                k = start % len(preferred)
+                head = preferred[k:] + preferred[:k]
+                order = head + [i for i in order if i not in set(head)]
         max_tries = n if idempotent else 1
         attempts: List[Dict[str, Any]] = []
         tried: set = set()
@@ -1473,18 +1543,84 @@ class ServingFleet:
     # -- dynamic membership (the autoscaler's join/leave surface) -----------
 
     def demand_rate(self, window_s: float = 30.0) -> float:
-        raise _not_ported("the fleet's demand signal (demand_rate)",
-                          _MULTI_MODEL)
+        """Client-observed demand (posts/s) over the trailing window —
+        the autoscaler's control signal."""
+        return self._demand.rate(float(window_s))
 
-    def add_engine(self, address: str, wait_ready_s: float = 0.0) -> int:
-        raise _not_ported("fleet membership (add_engine)", _MULTI_MODEL)
+    def add_engine(self, address: str,
+                   wait_ready_s: float = 0.0) -> int:
+        """Join one engine to a CONNECTED fleet's rotation and return
+        its index. ``wait_ready_s`` > 0 runs the startup probe against
+        the new address first (the ``connect`` discipline: a slow
+        starter must not burn its fresh breaker's failure budget).
+        Membership mutations serialize under ``_membership_lock``;
+        the breaker appends BEFORE the address so a concurrently
+        routing ``post`` never indexes past the breaker list."""
+        if self._remote_addresses is None:
+            raise RuntimeError(
+                "add_engine joins remote engines; in-process fleets "
+                "are fixed at construction")
+        addr = str(address).rstrip("/")
+        if wait_ready_s > 0:
+            self._wait_ready(float(wait_ready_s), addresses=[addr])
+        ft, cd = self._breaker_params
+        with self._membership_lock:
+            if addr in self._remote_addresses:
+                return self._remote_addresses.index(addr)
+            idx = len(self._remote_addresses)
+            self.breakers.append(CircuitBreaker(
+                failure_threshold=ft, cooldown=cd,
+                name=f"engine{idx}@{addr}"))
+            self._remote_addresses.append(addr)
+            self.engines_added += 1
+        if self.placement is not None:
+            # rebalance the placement plane over the new width
+            self.placement.set_n_engines(len(self.addresses),
+                                         reason=f"join:{addr}")
+        log.info("fleet: engine %s joined (now %d engines)", addr,
+                 idx + 1)
+        return idx
 
     def remove_engine(self, address: str) -> None:
-        raise _not_ported("fleet membership (remove_engine)", _MULTI_MODEL)
+        """Drop one engine from a CONNECTED fleet's rotation (the
+        address shrinks BEFORE the breaker list — the mirror of
+        ``add_engine``'s ordering — so racing posts never index past
+        either). The engine process itself is NOT touched: retiring a
+        live engine is the autoscaler's drain-before-retire job
+        (serving/autoscale.py), which only stops a process after this
+        removal AND a drained /healthz."""
+        if self._remote_addresses is None:
+            raise RuntimeError(
+                "remove_engine is for connected fleets; in-process "
+                "fleets are fixed at construction")
+        addr = str(address).rstrip("/")
+        with self._membership_lock:
+            if addr not in self._remote_addresses:
+                raise ValueError(f"unknown engine address {addr!r}")
+            i = self._remote_addresses.index(addr)
+            del self._remote_addresses[i]
+            del self.breakers[i]
+            self.engines_removed += 1
+        if self.placement is not None:
+            self.placement.set_n_engines(len(self.addresses),
+                                         reason=f"leave:{addr}")
+        log.info("fleet: engine %s left (now %d engines)", addr,
+                 len(self.addresses))
 
     def attach_placement(self, controller=None, **kwargs):
-        raise _not_ported("the placement plane (attach_placement)",
-                          _MULTI_MODEL)
+        """Wire a fleet-wide ``PlacementController`` (serving/
+        placement.py) into the client: model-keyed posts route to the
+        model's assigned engines first. Pass a controller, or kwargs to
+        build one over this fleet's zoo and engine count. Returns the
+        controller."""
+        if controller is None:
+            from mmlspark_tpu_torch.serving.placement import (
+                PlacementController,
+            )
+            controller = PlacementController(
+                self.zoo, n_engines=len(self.addresses), **kwargs)
+        self.placement = controller
+        return controller
 
     # -- observability -----------------------------------------------------
 
@@ -1565,13 +1701,15 @@ class ServingFleet:
         cross-engine latency histograms, fleet client counters
         (failover/hedging), and the process-wide phase/trace families.
         Each engine also serves its own ``/metrics``; this is the
-        aggregate the ops view scrapes. (The reference's zoo,
-        placement, autoscale, admission and shm families wait with
-        their planes.)"""
+        aggregate the ops view scrapes: per-engine admission
+        rejections, the shared zoo's families once, the placement and
+        autoscaler families and the client's demand rate. (The
+        reference's shm families wait with their transport.)"""
         from mmlspark_tpu_torch.core.metrics import LatencyHistogram
         from mmlspark_tpu_torch.core.prometheus import (
-            PromRenderer, pipeline_families, process_families,
-            slo_families,
+            PromRenderer, autoscale_families, pipeline_families,
+            placement_families, process_families, slo_families,
+            zoo_families,
         )
         r = PromRenderer()
         for i, e in enumerate(self.engines):
@@ -1604,6 +1742,13 @@ class ServingFleet:
                     "precision": snap["precision"],
                     "aot": "true" if snap["aot"] else "false",
                     "swap_state": snap["swap_state"]})
+            with e._stats_lock:
+                rejections = dict(e.rejections)
+            for reason in sorted(rejections):
+                r.counter("serving_admission_rejected_total",
+                          "requests rejected by admission/model routing",
+                          rejections[reason],
+                          {**labels, "reason": reason})
             if e.slo is not None:
                 try:
                     # per-engine SLO families (engine label): each
@@ -1612,6 +1757,20 @@ class ServingFleet:
                     slo_families(r, e.slo, labels)
                 except Exception:  # noqa: BLE001 — stats stay partial
                     pass
+        if self.zoo is not None:
+            # ONE zoo across the fleet: its families render once, not
+            # per engine (the per-model label space stays capped)
+            try:
+                zoo_families(r, self.zoo)
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
+        if self.placement is not None:
+            # the placement plane is fleet-level by construction: one
+            # controller, one family set
+            try:
+                placement_families(r, self.placement)
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
         if self.engines:
             for key in self.engines[0].hists:
                 merged = LatencyHistogram.merged(
@@ -1632,6 +1791,14 @@ class ServingFleet:
         r.gauge("serving_fleet_engines",
                 "engines currently in the routing rotation",
                 len(self.addresses))
+        r.gauge("serving_fleet_demand_rate",
+                "client-observed demand over the trailing 30s "
+                "(requests/s)", self.demand_rate())
+        if self.autoscaler is not None:
+            try:
+                autoscale_families(r, self.autoscaler)
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
         process_families(r, tracer=self.tracer)
         return r.render()
 

@@ -54,13 +54,25 @@ The embedder calls ``HTTPSource.get_batch`` / ``get_batch_adaptive`` and
 ``ServingEngine.process_one_batch``, and the chaos hook
 ``ServingEngine.kill``, are the reference's.
 
-What still raises ``NotImplementedError``, naming its ROADMAP.md item
-'The rest of the serving plane': the model zoo (``zoo=``), admission
-control (``admission=``) and variant routing (``variants=``), with 'The
-multi-model plane' (the reference runs admission decisions only in a
-zoo engine's model-routing batcher). So ``metrics()`` has no ``zoo``,
-``admission``, ``variants`` or ``controlplane`` section, and
-``/metrics`` none of their families.
+The multi-model plane is the reference's too. With a model zoo
+(``zoo=``, ``serving/zoo.py``) the batcher is continuous and
+model-routed: every drained request is routed by its ``X-Model`` header
+(or ``/models/<name@version>`` path, or ``?model=`` query), checked by
+the admission controller (``admission=``, ``serving/admission.py``:
+tenant quotas answer 429, priority tiers shed 503, both with the live
+``Retry-After``) and mapped through the variant selector's cached route
+table (``variants=``, ``serving/variants.py``) into a per-model pending
+group; groups dispatch oldest-first within priority as in-flight tokens
+free, a batch never mixes models, and every reply echoes ``X-Model``.
+Requests for a model that is still activating park until the zoo's
+loader thread has it resident (or ``activation_timeout_s`` passes). The
+batcher's rate-gated control tick runs ``zoo.enforce`` and
+``variants.tick``; per-model latency feeds the zoo, the selector and the
+SLO monitor's per-model streams, and the monitor's alert events land on
+the zoo's timeline. ``metrics()`` carries ``zoo``, ``admission``,
+``variants`` and ``rejections``; ``/metrics`` their families. The
+control plane (``controlplane``) is not ported (ROADMAP.md, 'The rest of
+the serving plane', 'The control plane and host transports').
 
 - The handler sets ``TCP_NODELAY``: a reply's body no longer waits for
   the client's delayed ACK of its headers (same bytes, sooner).
@@ -91,7 +103,6 @@ from mmlspark_tpu_torch.io.http import HTTPSchema, _jsonable as _to_jsonable
 log = get_logger("serving")
 
 _SERVING_PLANE = "The rest of the serving plane"
-_MULTI_MODEL = "The multi-model plane"
 
 
 def _not_ported(what: str, part: str) -> NotImplementedError:
@@ -633,6 +644,17 @@ class HTTPSource:
         self.server.server_close()
 
 
+class _NoDefaultPipeline:
+    """Placeholder active pipeline of a zoo-only engine (no default
+    model): reaching it means a request bypassed the model-routing
+    reject, which is a bug — fail loudly."""
+
+    def transform(self, table):
+        raise RuntimeError("engine has no default pipeline; requests "
+                           "must name a model (X-Model header or "
+                           "/models/<name@version> path)")
+
+
 class PipelineHandle:
     """One immutable (pipeline, version) binding plus its in-flight
     batch count — the unit of the zero-downtime swap protocol. Every
@@ -645,12 +667,16 @@ class PipelineHandle:
     the lifecycle layer: canary batch outcomes feed the controller's
     breach detector, and a failing canary batch re-executes on
     ``rescue_to`` (the stable handle) so clients never eat a canary's
-    faults. (The reference's ``model_name`` / ``model_key`` serve the
-    model zoo, which the port has not ported.)"""
+    faults.
+
+    ``model_name``/``model_key`` are set only on zoo handles
+    (serving/zoo.py): a model-routed batch carries the model identity
+    through decode/execute/reply, so device spans and reply headers
+    can audit exactly which ``name@version`` served each row."""
 
     __slots__ = ("pipeline", "version", "precision", "aot", "prepare",
                  "execute", "is_canary", "controller", "rescue_to",
-                 "_outstanding", "_lock")
+                 "model_name", "model_key", "_outstanding", "_lock")
 
     def __init__(self, pipeline: Transformer, version: str,
                  is_canary: bool = False):
@@ -668,6 +694,8 @@ class PipelineHandle:
         self.is_canary = bool(is_canary)
         self.controller = None
         self.rescue_to: Optional["PipelineHandle"] = None
+        self.model_name: Optional[str] = None
+        self.model_key: Optional[str] = None
         self._outstanding = 0
         self._lock = threading.Lock()
 
@@ -733,6 +761,20 @@ class _BatchTraceCtx:
         return self.tracer.start_span(name, tr, start=start)
 
 
+class _PendingGroup:
+    """One model's batch-in-formation on the continuous batcher:
+    admitted requests accumulating toward ``batch_size`` rows or
+    ``max_wait_ms`` age, whichever first. Groups form and dispatch
+    independently per model — the continuous-batching unit."""
+
+    __slots__ = ("reqs", "prio", "first_at")
+
+    def __init__(self, prio: int, first_at: float):
+        self.reqs: List[_ParkedRequest] = []
+        self.prio = prio
+        self.first_at = first_at
+
+
 class ServingEngine:
     """The streaming loop: source → adaptive micro-batcher → user
     pipeline → sink (the structured-streaming query of ref:
@@ -774,6 +816,8 @@ class ServingEngine:
                  version: str = "v0", tracer=None,
                  tracing: Optional[bool] = None,
                  zoo=None, admission=None,
+                 activation_timeout_s: float = 30.0,
+                 zoo_enforce_interval_s: float = 1.0,
                  slo=None, flight_recorder=None,
                  slo_eval_interval_s: float = 0.25,
                  variants=None,
@@ -781,17 +825,42 @@ class ServingEngine:
         from mmlspark_tpu_torch.core import trace as trace_mod
         from mmlspark_tpu_torch.core.metrics import WindowedCounter, \
             histogram_set
-        if zoo is not None:
-            raise _not_ported("the model zoo (zoo=)", _MULTI_MODEL)
-        if admission is not None:
-            raise _not_ported("admission control (admission=)",
-                              _MULTI_MODEL)
-        if variants is not None:
-            raise _not_ported("variant routing (variants=)",
-                              _MULTI_MODEL)
-        if pipeline is None:
-            raise ValueError("ServingEngine needs a pipeline")
         self.source = source
+        # multi-model plane (serving/zoo.py + serving/admission.py):
+        # with a zoo, requests carrying model=name@version route to
+        # lazily-activated zoo handles; ``pipeline`` stays the default
+        # for unkeyed requests (None = unkeyed requests answer 400)
+        if pipeline is None and zoo is None:
+            raise ValueError("ServingEngine needs a pipeline, a zoo, "
+                             "or both")
+        self.zoo = zoo
+        self.admission = admission
+        self.activation_timeout_s = float(activation_timeout_s)
+        self._zoo_enforce_interval_s = float(zoo_enforce_interval_s)
+        self._default_ok = pipeline is not None
+        if pipeline is None:
+            pipeline = _NoDefaultPipeline()
+        # batcher-thread-only state: requests parked on a model that is
+        # still activating (flushed by _poll_awaiting; bounded by the
+        # source's parked-request table like every parked request)
+        self._awaiting: Dict[str, List[_ParkedRequest]] = {}
+        self._awaiting_since: Dict[str, float] = {}
+        # SLO-adaptive variant routing (serving/variants.py): resolved
+        # model keys pass through the selector's cached route table at
+        # ingest; the selector's DECISION pass runs only on the
+        # rate-gated batcher tick (enforced by check_adaptive_serving)
+        self.variants = variants
+        # continuous batcher state (batcher thread only): per-model
+        # groups forming toward batch_size/max_wait_ms, plus the ready
+        # lane of already-acquired chunks (cold-activation flushes)
+        # waiting for an in-flight token. A slow model's group waiting
+        # for a token never blocks another model's dispatch.
+        self._pending: Dict[Optional[str], _PendingGroup] = {}
+        self._ready: List[List[Any]] = []   # [prio, first_at, handle, reqs]
+        # admission/routing rejections by reason (under _stats_lock):
+        # quota, priority, no_model, unknown_model, load_failed,
+        # activation_timeout, routing_error
+        self.rejections: Dict[str, int] = {}
         # request tracing: ``tracing`` overrides config
         # ``trace.enabled``; the tracer (and so the completed-trace
         # buffer) defaults to the process-wide one, so training spans
@@ -835,6 +904,12 @@ class ServingEngine:
             self.slo.on_fire = (
                 lambda alert: rec.trigger(f"slo_breach:{alert.name}"))
             self._slo_hooks_installed.append("on_fire")
+        if self.slo is not None and zoo is not None \
+                and self.slo.record_event is None:
+            # alert transitions land on the registry event timeline
+            # next to SwapEvent/ZooEvent
+            self.slo.record_event = zoo.record_event
+            self._slo_hooks_installed.append("record_event")
         # dynamic Retry-After: shed replies quote the live backlog /
         # drain-rate estimate instead of a constant, clamped to
         # [1, retry_after_max_s]
@@ -929,10 +1004,15 @@ class ServingEngine:
         return execute_swap(self, pipeline, version,
                             warmup_example=warmup_example, policy=policy)
 
-    def _respond_ok(self, rid: str, rep: Any) -> None:
+    def _respond_ok(self, rid: str, rep: Any,
+                    handle: Optional[PipelineHandle] = None) -> None:
         body = rep if isinstance(rep, (bytes, str)) \
             else json.dumps(_to_jsonable(rep))
         headers = {"Content-Type": self.content_type}
+        if handle is not None and handle.model_key is not None:
+            # model-routed replies echo the serving identity so a
+            # client can audit that no reply ever crossed models
+            headers["X-Model"] = handle.model_key
         self.source.respond(rid, HTTPSchema.response(
             200, "OK", body if isinstance(body, bytes)
             else body.encode("utf-8"), headers))
@@ -959,7 +1039,8 @@ class ServingEngine:
         root.finish()
 
     def _answer_output(self, out: DataTable, ids: List[str],
-                       tctx: Optional[_BatchTraceCtx] = None) -> None:
+                       tctx: Optional[_BatchTraceCtx] = None,
+                       handle: Optional[PipelineHandle] = None) -> None:
         """Answer one transformed batch, splitting per-row errors: a
         non-null ``error_col`` value means that row failed and gets a
         500 while its batchmates still get their 200s
@@ -969,6 +1050,11 @@ class ServingEngine:
         out_ids = out[self.id_col]
         errors = (out[self.error_col]
                   if self.error_col in out.column_names else None)
+        # per-row 500s echo the model identity too: a client auditing
+        # routing must be able to attribute EVERY reply, not just 200s
+        err_headers = ({"X-Model": handle.model_key}
+                       if handle is not None
+                       and handle.model_key is not None else None)
         answered = set()
         for i, (rid, rep) in enumerate(zip(out_ids, replies)):
             err = errors[i] if errors is not None else None
@@ -976,17 +1062,17 @@ class ServingEngine:
                 self._finish_request_trace(tctx, rid, t_answer,
                                            error=True)
                 self.source.respond(rid, HTTPSchema.response(
-                    500, f"row error: {err}", None))
+                    500, f"row error: {err}", None, err_headers))
             else:
                 self._finish_request_trace(tctx, rid, t_answer)
-                self._respond_ok(rid, rep)
+                self._respond_ok(rid, rep, handle)
             answered.add(rid)
         for rid in ids:
             if rid not in answered:
                 self._finish_request_trace(tctx, rid, t_answer,
                                            error=True)
                 self.source.respond(rid, HTTPSchema.response(
-                    500, "row dropped by pipeline", None))
+                    500, "row dropped by pipeline", None, err_headers))
 
     def process_one_batch(self, wait_s: float = 0.05) -> int:
         """Synchronous one-shot drain (fixed poll window) — kept for
@@ -1010,6 +1096,8 @@ class ServingEngine:
         tctx.dispatched_at = None      # re-run starts its span at now
         ds = tctx.batch_span("device", start=start)
         ds.set("model_version", handle.version)
+        if handle.model_key is not None:
+            ds.set("model", handle.model_key)
         ds.set("rows", rows)
         if handle.is_canary:
             ds.set("canary", True)
@@ -1075,6 +1163,14 @@ class ServingEngine:
                 self._run_rescued(table, ids, handle.rescue_to, tctx)
                 return
             log.warning("serving batch failed (%s); retrying per-row", e)
+            if self.slo is not None and handle.model_key is not None:
+                # per-model SLO stream (batch granularity): the failed
+                # batch is this model's bad event even though per-row
+                # retries may still answer some rows
+                self.slo.record(False,
+                                (time.perf_counter() - t0) * 1e3,
+                                model=handle.model_key,
+                                include_engine=False)
             self._process_rows_individually(table, ids, handle, tctx)
             with self._stats_lock:
                 self.batches_processed += 1
@@ -1105,9 +1201,21 @@ class ServingEngine:
             ctl.observe(handle, ok=True, latency_ms=dt_ms,
                         row_errors=row_errors)
         self.hists["pipeline_ms"].observe(dt_ms)
+        if self.zoo is not None and handle.model_name is not None:
+            # per-model latency (cardinality-capped — serving/zoo.py)
+            self.zoo.observe_latency(handle.model_name, dt_ms)
+        if self.slo is not None and handle.model_key is not None:
+            # per-model SLO stream (engine-level totals come from the
+            # HTTP handler; include_engine=False avoids double count)
+            self.slo.record(True, dt_ms, model=handle.model_key,
+                            include_engine=False)
+        if self.variants is not None and handle.model_key is not None:
+            # the selector's windowed latency/cost profile feed (O(1)
+            # counter writes; decisions happen on the batcher tick)
+            self.variants.observe(handle.model_key, dt_ms, len(ids))
         t1 = time.perf_counter()
         try:
-            self._answer_output(out, ids, tctx)
+            self._answer_output(out, ids, tctx, handle)
         except Exception as e:  # noqa: BLE001 — e.g. missing reply column
             log.warning("answering batch failed (%s); sending 500s", e)
             for rid in ids:
@@ -1167,7 +1275,7 @@ class ServingEngine:
                 out = handle.pipeline.transform(row)
                 if span is not None:
                     span.finish()
-                self._answer_output(out, [rid], tctx)
+                self._answer_output(out, [rid], tctx, handle)
             except Exception as e:  # noqa: BLE001
                 if span is not None:
                     span.error(e).finish()
@@ -1269,11 +1377,36 @@ class ServingEngine:
         decoding batch N+1. While no in-flight token is free (workers
         saturated), the pending batch keeps absorbing newly-queued
         requests up to batch_size, so batches grow toward full
-        occupancy exactly when the device is the bottleneck."""
+        occupancy exactly when the device is the bottleneck.
+
+        With a model zoo attached the plane is CONTINUOUS and
+        MODEL-ROUTED (Orca-style iteration-level scheduling, OSDI'22,
+        at micro-batch granularity): every loop turn drains whatever is
+        queued RIGHT NOW into per-model pending groups (admission +
+        variant routing at ingest), then ``_pump`` dispatches every
+        group that is ready (full or aged past ``max_wait_ms``) for
+        which an in-flight token is free — non-blocking, oldest-first
+        within priority. A slow model's group waiting on a token never
+        blocks another model's admission or dispatch, and newly parked
+        requests join their model's next dispatch slot the moment a
+        pipeline-depth token frees. Batches never mix models, and cold
+        models activate on the zoo's loader thread while their requests
+        park in ``_awaiting``."""
         while not self._stop.is_set():
+            busy = bool(self._pending) or bool(self._ready) \
+                or bool(self._awaiting)
             try:
-                parked = self.source.drain_parked(
-                    self.batch_size, self.max_wait_ms / 1e3)
+                if self.zoo is not None and busy:
+                    # continuous mode: absorb what is already queued
+                    # (bounded poll so pending work keeps pumping),
+                    # never block batch-formation on a full drain
+                    parked = self.source.drain_parked(
+                        self.batch_size, 0.0, poll_s=0.002)
+                    if parked:
+                        self.source.top_up(parked, self.batch_size)
+                else:
+                    parked = self.source.drain_parked(
+                        self.batch_size, self.max_wait_ms / 1e3)
             except Exception as e:  # noqa: BLE001 — keep collecting
                 log.error("serving batcher error (continuing): %s", e)
                 time.sleep(0.005)
@@ -1281,39 +1414,259 @@ class ServingEngine:
             if self.slo is not None:
                 # burn-rate evaluation tick: the batcher is the one
                 # thread that is always awake (drain polls 50 ms even
-                # idle), so alerts fire DURING a burn and resolve after
-                # recovery without waiting for a scrape
+                # idle), so alerts fire DURING a burn and resolve
+                # after recovery without waiting for a scrape
                 try:
                     self.slo.evaluate(
                         min_interval_s=self._slo_eval_interval_s)
                 except Exception as e:  # noqa: BLE001 — keep serving
                     log.error("slo evaluate failed (continuing): %s", e)
             self._update_retry_after()
-            if parked:
-                self._dispatch_parked(parked)
+            if self.zoo is None:
+                if parked:
+                    self._dispatch_parked(parked)
+                continue
+            try:
+                self._ingest(parked)
+            except Exception as e:  # noqa: BLE001 — keep collecting
+                # per-request rejects answer inside _ingest; a fault
+                # here strands at most this drain's unrouted requests
+                # on their reply timeout — the loop must keep serving
+                log.error("request ingest failed (continuing): %s", e)
+            try:
+                now = time.perf_counter()
+                for handle, chunk, prio in self._poll_awaiting():
+                    # cold-activation flushes arrive pre-acquired and
+                    # chunked; they queue in the ready lane stamped
+                    # with their oldest member's dequeue time so the
+                    # oldest-first pump ranks them fairly
+                    self._ready.append(
+                        [prio, min((p.dequeued_at for p in chunk),
+                                   default=now), handle, chunk])
+            except Exception as e:  # noqa: BLE001 — keep collecting
+                log.error("awaiting poll failed (continuing): %s", e)
+            try:
+                # LRU eviction under memory pressure, rate-gated: the
+                # batcher is the one thread that is always awake while
+                # traffic flows (the loader also enforces after loads)
+                self.zoo.enforce(
+                    min_interval_s=self._zoo_enforce_interval_s)
+            except Exception as e:  # noqa: BLE001 — eviction is
+                # best-effort here; the loader's post-load enforce
+                # and the next tick retry
+                log.error("zoo enforce failed (continuing): %s", e)
+            if self.variants is not None:
+                # the variant plane's DECISION tick (rate-gated
+                # inside the selector): profiles + burn alerts +
+                # queue pressure in, a fresh cached route table out.
+                # This is the ONLY place selection runs — never in
+                # the HTTP handler (check_adaptive_serving).
+                try:
+                    self.variants.tick(pressure=self._pressure())
+                except Exception as e:  # noqa: BLE001 — routing
+                    # falls back to the last cached table
+                    log.error("variant tick failed (continuing): %s",
+                              e)
+            try:
+                self._pump()
+            except Exception as e:  # noqa: BLE001 — keep collecting
+                log.error("dispatch pump failed (continuing): %s", e)
 
-    def _dispatch_now(self, parked: List[_ParkedRequest]) -> None:
+    def _ingest(self, parked: List[_ParkedRequest]) -> None:
+        """Admission-check + model-route newly drained requests into
+        their per-model pending groups (batcher thread only). Routing
+        happens BEFORE admission so unroutable requests answer 400/404
+        without spending quota tokens; the variant selector's cached
+        route table is applied here, once per request, as a dict
+        lookup. Groups hold a zoo waiter for their key so a model with
+        admitted-but-undispatched demand is never an eviction victim."""
+        if not parked:
+            return
+        from mmlspark_tpu_torch.serving.admission import request_identity
+        from mmlspark_tpu_torch.serving.zoo import model_key_of
+        # one pressure sample per drained batch: the batcher is the
+        # only consumer of both queues, so it cannot meaningfully
+        # change within one ingest pass — no per-request qsize()
+        pressure = self._pressure() if self.admission is not None else 0
+        now = time.perf_counter()
+        for p in parked:
+            key = model_key_of(p.request)
+            if key is None and not self._default_ok:
+                self._reject_parked(
+                    p, 400, "no_model",
+                    "no model specified: set X-Model or POST "
+                    "/models/<name@version>")
+                continue
+            if key is not None:
+                # resolving here also merges bare-name and
+                # name@latest requests into ONE dispatch group
+                resolved = self.zoo.resolve(key)
+                if resolved is None:
+                    self._reject_parked(
+                        p, 404, "unknown_model",
+                        f"unknown model {key!r}; registered: "
+                        f"{self.zoo.names_preview()}")
+                    continue
+                key = resolved
+                if self.variants is not None:
+                    # cached table read (O(1)); the reply's X-Model
+                    # echoes the variant that actually served
+                    key = self.variants.route(key)
+            tenant, priority = request_identity(p.request)
+            if self.admission is not None:
+                verdict = self.admission.decide(tenant, priority,
+                                                pressure)
+                if verdict == "quota":
+                    self._reject_parked(
+                        p, 429, "quota",
+                        f"tenant {tenant!r} over quota",
+                        {"Retry-After": self._retry_header()})
+                    continue
+                if verdict == "priority":
+                    self._reject_parked(
+                        p, 503, "priority",
+                        f"shed: engine saturated (priority {priority})",
+                        {"Retry-After": self._retry_header()})
+                    continue
+            grp = self._pending.get(key)
+            if grp is None:
+                grp = _PendingGroup(priority, now)
+                self._pending[key] = grp
+                if key is not None:
+                    # parked demand must survive until dispatch (the
+                    # _awaiting discipline): without the hold, demand
+                    # > capacity livelocks on load/evict/reload
+                    self.zoo.add_waiter(key)
+            grp.reqs.append(p)
+            grp.prio = min(grp.prio, priority)
+
+    def _drop_pending(self, key: Optional[str]) -> None:
+        """Forget one pending group and release its zoo waiter hold."""
+        self._pending.pop(key, None)
+        if key is not None:
+            self.zoo.remove_waiter(key)
+
+    def _pump(self) -> None:
+        """Dispatch every READY unit an in-flight token can cover,
+        oldest-first within priority (batcher thread only). Units are
+        ready-lane chunks (always dispatchable: handle in hand) and
+        pending groups that are full or older than ``max_wait_ms``.
+        The token acquire is NON-blocking: when the device is
+        saturated the pump returns and groups keep absorbing arrivals
+        — back-pressure becomes batch occupancy, exactly like the old
+        top-up loop, but per model. Oldest-first ordering is the
+        fairness bound: a continuously-fed hot model re-forms its
+        group with a FRESH first_at after every dispatch, so a colder
+        group's older timestamp wins the next free token — no group
+        waits more than one token-release cycle behind hot traffic."""
+        max_wait_s = self.max_wait_ms / 1e3
+        while not self._stop.is_set():
+            now = time.perf_counter()
+            pick_ready = -1
+            pick_key: Optional[str] = None
+            best: Optional[Tuple[int, float]] = None
+            for i, entry in enumerate(self._ready):
+                rank = (entry[0], entry[1])
+                if best is None or rank < best:
+                    best, pick_ready, pick_key = rank, i, None
+            for key, grp in self._pending.items():
+                if len(grp.reqs) < self.batch_size \
+                        and now - grp.first_at < max_wait_s:
+                    continue        # still forming
+                rank = (grp.prio, grp.first_at)
+                if best is None or rank < best:
+                    best, pick_ready, pick_key = rank, -1, key
+            if best is None:
+                return              # nothing ready
+            if not self._inflight.acquire(blocking=False):
+                return              # saturated: groups keep absorbing
+            if pick_ready >= 0:
+                entry = self._ready.pop(pick_ready)
+                self._dispatch_now(entry[3], entry[2])
+                continue
+            grp = self._pending[pick_key]
+            if pick_key is None:
+                # default-pipeline group: version routing + handle
+                # acquisition happen inside _dispatch_now
+                chunk = grp.reqs[:self.batch_size]
+                del grp.reqs[:self.batch_size]
+                if grp.reqs:
+                    grp.first_at = grp.reqs[0].dequeued_at
+                else:
+                    self._drop_pending(None)
+                self._dispatch_now(chunk, None)
+                continue
+            try:
+                handle, state, msg = self.zoo.acquire(pick_key)
+            except Exception as e:  # noqa: BLE001 — e.g. the loader
+                # thread failing to spawn; this group answers alone,
+                # other groups (and the batcher) keep going
+                self._inflight.release()
+                for p in grp.reqs:
+                    self._reject_parked(
+                        p, 500, "routing_error",
+                        f"model routing error for {pick_key!r}: {e}")
+                self._drop_pending(pick_key)
+                continue
+            if state == "resident":
+                chunk = grp.reqs[:self.batch_size]
+                del grp.reqs[:self.batch_size]
+                if grp.reqs:
+                    grp.first_at = grp.reqs[0].dequeued_at
+                else:
+                    self._drop_pending(pick_key)
+                self._dispatch_now(chunk, handle)
+                continue
+            self._inflight.release()    # no dispatch on this path
+            if state == "loading":
+                # hand the whole group to the awaiting table (its own
+                # waiter hold + activation timeout); drop ours AFTER
+                # so the model is never transiently waiter-free
+                self._enqueue_awaiting(pick_key, grp.reqs)
+                self._pending.pop(pick_key, None)
+                self.zoo.remove_waiter(pick_key)
+            elif state == "failed":
+                for p in grp.reqs:
+                    self._reject_parked(
+                        p, 503, "load_failed",
+                        f"model {pick_key!r} failed to load: {msg}",
+                        {"Retry-After": self._retry_header(floor=5)})
+                self._drop_pending(pick_key)
+            else:   # unknown (e.g. deregistered while pending)
+                for p in grp.reqs:
+                    self._reject_parked(p, 404, "unknown_model", msg)
+                self._drop_pending(pick_key)
+
+    def _dispatch_now(self, parked: List[_ParkedRequest],
+                      handle: Optional[PipelineHandle]) -> None:
         """Assemble + dispatch ONE micro-batch whose in-flight token is
-        ALREADY held."""
-        # token ownership transfers to the worker ONLY on a successful
-        # put; any other exit must give it back, or each incident would
-        # permanently shrink the engine's dispatch budget
+        ALREADY held (the pump acquired it non-blocking). ``handle`` is
+        None for the default (single-model) path — version routing and
+        acquisition happen here — or a zoo handle that arrives ALREADY
+        acquired (zoo.acquire bumps outstanding under the registry
+        lock, atomically with the eviction scan)."""
+        # token ownership transfers to the worker ONLY on a
+        # successful put; any other exit (assembly failure, a
+        # respond() error, a BaseException killing this thread)
+        # must give it back, or each incident would permanently
+        # shrink the engine's dispatch budget
         handed_off = False
-        handle = None
         try:
-            # version routing happens HERE, once per batch: the handle
-            # rides with the item so decode, execution, retries, and
-            # replies all use one model version. acquire() BEFORE any
-            # other work, then re-check the active handle: a cutover
-            # landing between route and acquire would otherwise let the
-            # swap's drain poll read outstanding==0 while this batch is
-            # still headed for the old version.
-            handle = self._route()
-            handle.acquire()
-            if not handle.is_canary and handle is not self._active:
-                handle.release()
-                handle = self._active   # stale route: follow cutover
+            if handle is None:
+                # version routing happens HERE, once per batch: the
+                # handle rides with the item so decode, execution,
+                # retries, and replies all use one model version.
+                # acquire() BEFORE any other work, then re-check the
+                # active handle: a cutover landing between route and
+                # acquire would otherwise let the swap's drain poll
+                # read outstanding==0 while this batch is still headed
+                # for the old version.
+                handle = self._route()
                 handle.acquire()
+                if not handle.is_canary and handle is not self._active:
+                    handle.release()
+                    handle = self._active   # stale route: follow cutover
+                    handle.acquire()
             try:
                 item = self._build_item(parked, handle)
             except Exception as e:  # noqa: BLE001
@@ -1345,40 +1698,65 @@ class ServingEngine:
                 max(0.0, p.dequeued_at - p.enqueued_at) * 1e3)
         self.hists["batch_rows"].observe(float(len(parked)))
 
-    def _dispatch_parked(self, parked: List[_ParkedRequest]) -> None:
-        """Token-gate + assemble + dispatch ONE micro-batch. Waits for an
-        in-flight token, topping the pending batch up from the queue
-        meanwhile: back-pressure converts directly into batch occupancy
-        instead of tiny trailing batches."""
+    def _dispatch_parked(self, parked: List[_ParkedRequest],
+                         handle: Optional[PipelineHandle] = None) -> None:
+        """Token-gate + assemble + dispatch ONE micro-batch (the
+        single-model path; zoo engines go through the continuous
+        ``_pump``). Waits for an in-flight token, topping the pending
+        batch up from the queue meanwhile: back-pressure converts
+        directly into batch occupancy instead of tiny trailing
+        batches."""
+        granted = False
         while not self._stop.is_set():
             if self._inflight.acquire(timeout=0.005):
-                self._dispatch_now(parked)
-                return
-            if len(parked) < self.batch_size:
+                granted = True
+                break
+            if self.zoo is None and len(parked) < self.batch_size:
                 try:
                     self.source.top_up(parked, self.batch_size)
                 except Exception:  # noqa: BLE001 — source closing
                     pass
-        # stopping: parked requests run out their reply timeout
+        if not granted:              # stopping — parked requests will
+            if handle is not None:   # run out their reply timeout, but
+                handle.release()     # the zoo handle must drain
+            return
+        self._dispatch_now(parked, handle)
 
-    # -- shedding -----------------------------------------------------------
+    # -- model routing + admission (zoo engines; batcher thread only) -------
 
     def _pressure(self) -> int:
-        """Saturation signal: prepared batches queued behind busy
-        workers PLUS requests backed up in the source queue."""
+        """The admission layer's saturation signal: prepared batches
+        queued behind busy workers PLUS requests backed up in the
+        source queue PLUS the continuous batcher's admitted-but-
+        undispatched backlog (pending groups + the ready lane). The
+        dispatch queue alone is bounded by the in-flight token count
+        (workers + pipeline_depth - 1, typically 2-3), which would
+        leave the default tier limits unreachable; and the continuous
+        batcher drains the source queue eagerly, so WITHOUT the
+        pending/ready terms overload would hide in groups the old
+        queue-depth signal never saw."""
         pressure = self._dispatch_q.qsize()
         try:
             pressure += self.source.queue.qsize()
         except Exception:  # noqa: BLE001 — source closing
             pass
+        pressure += sum(len(g.reqs) for g in self._pending.values())
+        pressure += sum(len(entry[3]) for entry in self._ready)
         return pressure
+
+    def _retry_header(self, floor: int = 1) -> str:
+        """The current drain-estimate Retry-After (seconds, as the
+        header string) for shed replies; ``floor`` lifts paths with a
+        known longer horizon (e.g. a failed load's retry window)."""
+        return str(max(int(floor), self._retry_after_s))
 
     def _update_retry_after(self, now: Optional[float] = None) -> None:
         """Re-derive Retry-After from the live backlog / windowed
         drain rate (rate-gated; batcher thread). Shed replies then
         tell backoff-honoring clients when capacity should actually
         exist — backlog/rate seconds, clamped to [1,
-        retry_after_max_s] — instead of a constant 1 s."""
+        retry_after_max_s] — instead of a constant 1 s that invites
+        an immediate re-stampede under a deep queue."""
         t = time.monotonic() if now is None else now
         if t - self._retry_tick < 0.5:
             return
@@ -1394,6 +1772,102 @@ class ServingEngine:
             min(max(1.0, math.ceil(est)), self.retry_after_max_s))
         # the HTTP handler's 503-shed path reads the source attribute
         self.source.retry_after_s = self._retry_after_s
+
+    def _reject_parked(self, p: _ParkedRequest, code: int, reason: str,
+                       message: str,
+                       headers: Optional[Dict[str, str]] = None) -> None:
+        """Answer one request rejected by admission/model routing,
+        counting it by reason (``serving_admission_rejected_total``)."""
+        with self._stats_lock:
+            self.rejections[reason] = self.rejections.get(reason, 0) + 1
+        if p.trace is not None:
+            p.trace.root.set("rejected", reason)
+        self.source.respond(p.id, HTTPSchema.response(
+            code, message,
+            json.dumps({"error": message}).encode("utf-8"),
+            {"Content-Type": "application/json", **(headers or {})}))
+
+    def _enqueue_awaiting(self, key: str,
+                          group: List[_ParkedRequest]) -> None:
+        lst = self._awaiting.setdefault(key, [])
+        if not lst:
+            self._awaiting_since[key] = time.monotonic()
+            # register the parked demand with the zoo: an awaited
+            # model must survive from activation to our flush poll,
+            # or demand > capacity livelocks (load, evict before the
+            # flush, reload, starve — see ModelZoo.add_waiter)
+            self.zoo.add_waiter(key)
+        lst.extend(group)
+
+    def _drop_awaiting(self, key: str) -> None:
+        """Forget a parked key (flushed or rejected) and release its
+        zoo waiter hold so the model becomes evictable again."""
+        self._awaiting.pop(key, None)
+        self._awaiting_since.pop(key, None)
+        self.zoo.remove_waiter(key)
+
+    def _poll_awaiting(self) -> List[Tuple]:
+        """Flush requests parked on cold models: activated models come
+        back as dispatch groups (chunked to ``batch_size`` — every
+        chunk gets its own acquired handle), failed/overdue activations
+        answer 503."""
+        if not self._awaiting:
+            return []
+        from mmlspark_tpu_torch.serving.admission import request_identity
+        out: List[Tuple] = []
+        now = time.monotonic()
+        for key in list(self._awaiting):
+            try:
+                handle, state, msg = self.zoo.acquire(key)
+            except Exception as e:  # noqa: BLE001 — transient zoo
+                # fault: the requests STAY parked (no handle leaked,
+                # nothing unanswered) and the activation timeout still
+                # bounds their wait
+                log.error("zoo acquire failed for %s (still parked):"
+                          " %s", key, e)
+                continue
+            group = self._awaiting[key]
+            if state == "loading":
+                if now - self._awaiting_since[key] \
+                        <= self.activation_timeout_s:
+                    continue            # keep waiting
+                for p in group:
+                    self._reject_parked(
+                        p, 503, "activation_timeout",
+                        f"model {key!r} still activating after "
+                        f"{self.activation_timeout_s:.0f}s",
+                        {"Retry-After": self._retry_header()})
+            elif state == "resident":
+                prio = min(request_identity(p.request)[1]
+                           for p in group)
+                chunks = [group[i:i + self.batch_size]
+                          for i in range(0, len(group), self.batch_size)]
+                out.append((handle, chunks[0], prio))
+                for i in range(1, len(chunks)):
+                    try:
+                        h2, st2, _ = self.zoo.acquire(key)
+                    except Exception:  # noqa: BLE001 — re-park
+                        st2 = None
+                    if st2 == "resident":
+                        out.append((h2, chunks[i], prio))
+                    else:   # can't happen while chunk 0 holds the
+                        #     handle outstanding; guard anyway —
+                        #     re-park this AND every later chunk
+                        self._awaiting[key] = [
+                            p for c in chunks[i:] for p in c]
+                        self._awaiting_since[key] = now
+                        break
+                else:
+                    self._drop_awaiting(key)
+                continue
+            else:   # failed / unknown (e.g. deregistered mid-wait)
+                for p in group:
+                    self._reject_parked(
+                        p, 503, "load_failed",
+                        f"model {key!r} failed to activate: {msg}",
+                        {"Retry-After": self._retry_header(floor=5)})
+            self._drop_awaiting(key)
+        return out
 
     # -- threads ------------------------------------------------------------
 
@@ -1488,6 +1962,19 @@ class ServingEngine:
         shape counter). Exported on /healthz."""
         active, out = self._lifecycle_snapshot()
         out.update({k: h.summary() for k, h in self.hists.items()})
+        with self._stats_lock:
+            if self.rejections:
+                out["rejections"] = dict(self.rejections)
+        if self.zoo is not None:
+            try:
+                out["zoo"] = self.zoo.stats()
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
+        if self.admission is not None:
+            try:
+                out["admission"] = self.admission.stats()
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
         swap_ctl = self._swap_ctl
         if swap_ctl is not None:
             try:
@@ -1497,6 +1984,14 @@ class ServingEngine:
         if self.slo is not None:
             try:
                 out["slo"] = self.slo.status()
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
+        if self.variants is not None:
+            # /healthz carries the currently-routed variant + last
+            # step-down reason per logical model (a degrade-to-int8 is
+            # operator-visible)
+            try:
+                out["variants"] = self.variants.status()
             except Exception:  # noqa: BLE001 — stats stay partial
                 pass
         out["retry_after_s"] = self._retry_after_s
@@ -1515,10 +2010,11 @@ class ServingEngine:
         ``_info`` series, the pipeline's histograms and first-run shape
         counter, the SLO families, and the process-wide GBDT / AutoML /
         fusion / ooc phase, trace-buffer and card-memory families.
-        Served on ``/metrics``."""
+        With a zoo, admission or variant selector attached, their
+        families too. Served on ``/metrics``."""
         from mmlspark_tpu_torch.core.prometheus import (
             PromRenderer, pipeline_families, process_families,
-            slo_families,
+            slo_families, variant_families, zoo_families,
         )
         r = PromRenderer()
         src = self.source
@@ -1571,9 +2067,34 @@ class ServingEngine:
                          stats["canary_failed"], {"outcome": "failed"})
             except Exception:  # noqa: BLE001 — stats stay partial
                 pass
+        with self._stats_lock:
+            rejections = dict(self.rejections)
+        for reason in sorted(rejections):
+            r.counter("serving_admission_rejected_total",
+                      "requests rejected by admission/model routing "
+                      "(quota, priority, no_model, unknown_model, "
+                      "load_failed, activation_timeout, routing_error)",
+                      rejections[reason], {"reason": reason})
+        if self.admission is not None:
+            try:
+                r.counter("serving_admission_admitted_total",
+                          "requests admitted by the admission layer",
+                          self.admission.stats()["admitted"])
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
+        if self.zoo is not None:
+            try:
+                zoo_families(r, self.zoo)
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
         if self.slo is not None:
             try:
                 slo_families(r, self.slo)
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
+        if self.variants is not None:
+            try:
+                variant_families(r, self.variants)
             except Exception:  # noqa: BLE001 — stats stay partial
                 pass
         r.gauge("serving_retry_after_s",
@@ -1633,6 +2154,11 @@ class ServingEngine:
                 rec.attach_slo(key, self.slo)
             rec.add_event_source(f"{key}:swap_events",
                                  lambda: self.swap_events)
+            if self.zoo is not None:
+                # keyed per engine (a shared zoo re-attaches under each
+                # engine's key) so stop()'s prefix detach releases it
+                rec.add_event_source(f"{key}:registry_events",
+                                     lambda: self.zoo.events)
             rec.add_stats_source(key, self.metrics)
             self.source.bundle_probe = (
                 lambda limit=None: rec.dump_bundle(
@@ -1671,6 +2197,27 @@ class ServingEngine:
                 threads.append(self._batcher)
         for t in threads:
             t.join(timeout=5)
+        if self.zoo is not None:
+            # release this engine's parked-demand holds: a shared zoo
+            # must not carry dead engines' waiters (they would exempt
+            # models from eviction forever)
+            for key in list(self._awaiting):
+                self.zoo.remove_waiter(key)
+            self._awaiting.clear()
+            self._awaiting_since.clear()
+            # same for the continuous batcher's pending groups, and
+            # the ready lane's acquired-but-undispatched handles (the
+            # batcher thread is joined above — no races): an
+            # unreleased handle would pin its model's outstanding
+            # count above zero forever
+            for key in list(self._pending):
+                if key is not None:
+                    self.zoo.remove_waiter(key)
+            self._pending.clear()
+            for entry in self._ready:
+                if entry[2] is not None:
+                    entry[2].release()
+            self._ready.clear()
         try:
             self.source.close()
         except Exception:  # noqa: BLE001 — already closed by kill()
@@ -1697,7 +2244,9 @@ def serve_model(pipeline: Optional[Transformer] = None,
     device round-trips; the pipeline's ``transform`` must then be
     thread-safe. ``port=0`` binds a free port (``engine.source.address``).
     Tracing, the SLO monitor and the flight recorder are on unless
-    ``tracing=False`` / ``slo=False`` / ``flight_recorder=False``."""
+    ``tracing=False`` / ``slo=False`` / ``flight_recorder=False``.
+    ``zoo`` / ``admission`` / ``variants`` attach the multi-model plane
+    (``pipeline`` may then be None: every request names its model)."""
     source = HTTPSource(host=host, port=port)
     try:
         engine = ServingEngine(source, pipeline, reply_col=reply_col,

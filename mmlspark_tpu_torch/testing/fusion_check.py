@@ -1,6 +1,7 @@
-"""Static checks of the port's fused device ops and streamed paths: the
-torch counterpart of the JAX package's ``tools/check_fusion_kernels.py``
-(``check_registered_kernels`` and ``check_ooc_ingest``).
+"""Static checks of the port's fused device ops, streamed paths and
+adaptive serving plane: the torch counterpart of the JAX package's
+``tools/check_fusion_kernels.py`` (``check_registered_kernels``,
+``check_ooc_ingest`` and ``check_adaptive_serving``).
 
 **No host round trip in a device op.** A fused segment promises that
 everything between its upload and its single device-to-host copy stays
@@ -29,13 +30,18 @@ no ``list(...chunks...)`` — unless the line carries the acknowledgment
 
 A line of a device op may be acknowledged with ``# fusion:host-ok``.
 
+**Adaptive serving** (``check_adaptive_serving``): no variant selection
+in the HTTP handler, no ``variants.tick`` off the batcher thread, and no
+rotation removal or process stop in the autoscaler outside its drain
+funnel (the rules above ``check_adaptive_serving_source``).
+
 Run from the repository root::
 
     python -m mmlspark_tpu_torch.testing.fusion_check
 
 It builds one fitted pipeline of every fusable stage family on the CPU,
-audits the registered ops and the streamed paths, and exits 1 with the
-violations listed when one is found.
+audits the registered ops, the streamed paths and the adaptive serving
+sources, and exits 1 with the violations listed when one is found.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from __future__ import annotations
 import ast
 import importlib
 import inspect
+import os
 import sys
 import textwrap
 from typing import Iterable, List, Set, Tuple
@@ -392,14 +399,183 @@ def check_ooc_ingest() -> List[str]:
     return violations
 
 
+# ---------------------------------------------------------------------------
+# SLO-adaptive serving (serving/variants.py + serving/autoscale.py)
+# ---------------------------------------------------------------------------
+
+# The adaptive-serving discipline, the JAX package's
+# ``tools/check_fusion_kernels.py::check_adaptive_serving`` over the
+# port's sources:
+#
+# 1. Variant SELECTION never runs on the HTTP handler. The nested
+#    ``Handler`` class in serving/server.py must not touch the
+#    ``variants`` attribute at all — /healthz reads the selector
+#    through the engine's metrics probe, and routing/deciding happen
+#    on the batcher thread only: ``variants.tick`` solely in
+#    ``_batcher_loop`` (the rate-gated decision point),
+#    ``variants.route`` solely in ``_ingest`` (admission), and
+#    ``variants.observe`` solely in ``_execute_batch`` (the latency
+#    feed).
+# 2. Autoscaler scale-down goes ONLY through the drain path:
+#    ``fleet.remove_engine`` is called nowhere but
+#    ``_drain_and_stop`` (rotation removal precedes process stop),
+#    ``_stop_proc`` is reachable only from ``_drain_and_stop`` and
+#    the ``_scale_up`` join-failure cleanup (a process that never
+#    entered the rotation), and raw ``terminate``/``kill`` live only
+#    inside ``_stop_proc``.
+
+def _call_name(func) -> str:
+    if isinstance(func, ast.Attribute):
+        return func.attr
+    if isinstance(func, ast.Name):
+        return func.id
+    return ""
+
+
+def _walk_with_owner(tree):
+    """Yield (innermost_function_name, node) over the tree."""
+    stack: List[str] = []
+
+    def visit(node):
+        is_fn = isinstance(node, (ast.FunctionDef,
+                                  ast.AsyncFunctionDef))
+        if is_fn:
+            stack.append(node.name)
+        owner = stack[-1] if stack else "<module>"
+        yield owner, node
+        for child in ast.iter_child_nodes(node):
+            yield from visit(child)
+        if is_fn:
+            stack.pop()
+
+    yield from visit(tree)
+
+
+
+_ADAPTIVE_HANDLER_CLASS = "Handler"
+_VARIANT_CALL_OWNERS = {
+    "tick": {"_batcher_loop"},
+    "route": {"_ingest"},
+    "observe": {"_execute_batch"},
+}
+_AUTOSCALE_REMOVE_OWNERS = {"_drain_and_stop"}
+_AUTOSCALE_STOP_OWNERS = {"_drain_and_stop", "_scale_up"}
+_AUTOSCALE_KILL_OWNERS = {"_stop_proc"}
+
+
+def _is_variants_method(func) -> bool:
+    """``<anything>.variants.<method>(...)`` — the selector surface."""
+    return (isinstance(func, ast.Attribute)
+            and isinstance(func.value, ast.Attribute)
+            and func.value.attr == "variants")
+
+
+def check_adaptive_serving_source(server_src: str, autoscale_src: str,
+                                  ) -> List[str]:
+    """The adaptive-serving audit over both module sources (rules 1-2
+    above). Source-level so the tier-1 tests can feed it positive and
+    negative examples."""
+    violations: List[str] = []
+    try:
+        server_tree = ast.parse(textwrap.dedent(server_src))
+    except SyntaxError:
+        return ["serving/server.py: unparseable source"]
+    # rule 1a: the HTTP handler class never touches the variant plane
+    for node in ast.walk(server_tree):
+        if isinstance(node, ast.ClassDef) and \
+                node.name == _ADAPTIVE_HANDLER_CLASS:
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Attribute) and \
+                        sub.attr == "variants":
+                    violations.append(
+                        f"serving/server.py (line {sub.lineno}): the "
+                        f"HTTP handler touches '.variants' — variant "
+                        f"selection/reads belong on the batcher "
+                        f"thread; /healthz reads the selector via the "
+                        f"engine metrics probe")
+    # rule 1b: each selector call lands only on its designated owner
+    seen_tick = False
+    for owner, node in _walk_with_owner(server_tree):
+        if isinstance(node, ast.Call) and \
+                _is_variants_method(node.func):
+            method = node.func.attr
+            allowed = _VARIANT_CALL_OWNERS.get(method)
+            if method == "tick":
+                seen_tick = True
+            if allowed is not None and owner not in allowed:
+                violations.append(
+                    f"serving/server.py (line {node.lineno}): "
+                    f"variants.{method} called from {owner!r} — "
+                    f"allowed only in {sorted(allowed)} (selection "
+                    f"never runs per-request)")
+    if not seen_tick:
+        violations.append(
+            "serving/server.py: no variants.tick call found in "
+            "'_batcher_loop' — the selector's decision point moved; "
+            "update check_adaptive_serving_source")
+    try:
+        auto_tree = ast.parse(textwrap.dedent(autoscale_src))
+    except SyntaxError:
+        return violations + ["serving/autoscale.py: unparseable source"]
+    # rule 2: scale-down only through the drain funnel
+    drain_seen = False
+    for owner, node in _walk_with_owner(auto_tree):
+        if not isinstance(node, ast.Call):
+            continue
+        callee = _call_name(node.func)
+        if callee == "remove_engine":
+            drain_seen = True
+            if owner not in _AUTOSCALE_REMOVE_OWNERS:
+                violations.append(
+                    f"serving/autoscale.py (line {node.lineno}): "
+                    f"remove_engine called from {owner!r} — engines "
+                    f"leave the rotation only inside "
+                    f"{sorted(_AUTOSCALE_REMOVE_OWNERS)} (drain "
+                    f"before retire)")
+        elif callee == "_stop_proc":
+            if owner not in _AUTOSCALE_STOP_OWNERS:
+                violations.append(
+                    f"serving/autoscale.py (line {node.lineno}): "
+                    f"_stop_proc called from {owner!r} — processes "
+                    f"stop only from {sorted(_AUTOSCALE_STOP_OWNERS)}")
+        elif callee in ("terminate", "kill"):
+            if owner not in _AUTOSCALE_KILL_OWNERS:
+                violations.append(
+                    f"serving/autoscale.py (line {node.lineno}): "
+                    f"raw {callee} call from {owner!r} — only "
+                    f"{sorted(_AUTOSCALE_KILL_OWNERS)} touches the "
+                    f"process handle")
+    if not drain_seen:
+        violations.append(
+            "serving/autoscale.py: no remove_engine call found in "
+            "'_drain_and_stop' — the drain funnel moved; update "
+            "check_adaptive_serving_source")
+    return violations
+
+
+def check_adaptive_serving() -> List[str]:
+    """Rules 1-2 over the port's serving/server.py and
+    serving/autoscale.py."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    srcs = []
+    for rel in ("serving/server.py", "serving/autoscale.py"):
+        try:
+            with open(os.path.join(root, rel)) as f:
+                srcs.append(f.read())
+        except OSError as e:
+            return [f"{rel}: unreadable ({e})"]
+    return check_adaptive_serving_source(*srcs)
+
+
 def main() -> int:
     n = register_representative_pipelines() + register_known_callees()
-    violations = check_registered_kernels() + check_ooc_ingest()
+    violations = (check_registered_kernels() + check_ooc_ingest()
+                  + check_adaptive_serving())
     for v in violations:
         print(v)
     print(f"{n} device-op code objects registered; "
-          f"{len(OOC_HOT_PATHS)} streamed hot paths audited; "
-          f"{len(violations)} violations")
+          f"{len(OOC_HOT_PATHS)} streamed hot paths audited; adaptive "
+          f"serving audited; {len(violations)} violations")
     return 1 if violations else 0
 
 

@@ -30,7 +30,9 @@ parses; no series (name and label set) appears twice; a histogram's
 buckets ascend to ``+Inf`` with cumulative counts, ``+Inf`` equal to
 ``_count``; and rule 2 and rule 4 hold for every family rendered.
 ``main`` renders the exposition of a live engine on the CPU (after one
-request, with per-model SLO streams and alerts) and audits it.
+request, with per-model SLO streams and alerts), and of a two-engine
+fleet over one model zoo with admission, a variant ladder, a placement
+controller and an autoscaler attached, and audits both.
 
 Run from the repository root::
 
@@ -73,8 +75,19 @@ UNBOUNDED_LABEL_KEYS = {"model", "version", "tenant", "feature"}
 # families allowed to carry unbounded-identity labels, because their
 # renderers are hard-capped at the source:
 CAPPED_FAMILIES = {
-    # the engine's one model row: one active version per engine
+    # the engine's one model row (one active version per engine); the
+    # zoo's rows resident-first capped at label_cardinality_cap, its
+    # latency overflow folded into model="_other"
     "serving_model_info",
+    "serving_model_latency_ms",
+    # placement plane: per-model replica gauges capped at
+    # REPLICA_LABEL_CAP, overflow summed into model="_other"
+    "serving_placement_replicas",
+    # variant plane: per-model rung/floor gauges + the info row capped
+    # at VARIANT_LABEL_CAP declared ladders
+    "serving_variant_rung",
+    "serving_variant_floor",
+    "serving_variant_info",
     # SLO engine: per-model streams capped at SLOMonitor.label_cap,
     # overflow folds into "_other"; active alerts inherit the same
     # capped identity space
@@ -462,20 +475,61 @@ def engine_exposition() -> str:
         engine.stop()
 
 
+def zoo_fleet_expositions() -> Tuple[str, str]:
+    """(``/metrics`` of one zoo engine, ``fleet.metrics_text()``) for a
+    two-engine fleet over one model zoo on the CPU, with admission, a
+    two-rung variant ladder, a placement controller and an autoscaler
+    attached, after one model-routed request per model."""
+    from mmlspark_tpu_torch.serving import (
+        AdmissionController, FleetAutoscaler, ModelZoo, ServingFleet,
+        VariantSelector,
+    )
+    from mmlspark_tpu_torch.stages.basic import Lambda
+
+    def echo(table):
+        return table.with_column("reply", [{"ok": 1} for _ in table["id"]])
+
+    zoo = ModelZoo(memory_probe=None, device="cpu")
+    for name in ("a", "a_int8", "b"):
+        zoo.register_factory(name, "v1", lambda: Lambda.apply(echo))
+    fleet = ServingFleet(n_engines=2, base_port=0, zoo=zoo,
+                         admission=AdmissionController(), tracing=False,
+                         flight_recorder=False)
+    try:
+        sel = VariantSelector(zoo)
+        sel.declare("a", ["a", "a_int8"], slo_ms=50.0)
+        for e in fleet.engines:
+            e.variants = sel
+        fleet.attach_placement(rebuild_min_interval_s=0.0)
+        FleetAutoscaler(fleet, lambda: ("", None))
+        for model in ("a", "b"):
+            fleet.post({"x": 1}, model=model)
+        with urllib.request.urlopen(
+                fleet.addresses[0] + "/metrics", timeout=30) as r:
+            engine_text = r.read().decode()
+        return engine_text, fleet.metrics_text()
+    finally:
+        fleet.stop_all()
+        zoo.close()
+
+
 def main() -> int:
     violations: List[Violation] = []
     for rel in AUDIT_FILES:
         violations += audit_file(os.path.join(_REPO, rel))
     text = engine_exposition()
     violations += audit_text(text, where="GET /metrics")
-    families = sum(1 for line in text.splitlines()
-                   if line.startswith("# TYPE "))
+    zoo_text, fleet_text = zoo_fleet_expositions()
+    violations += audit_text(zoo_text, where="GET /metrics (zoo engine)")
+    violations += audit_text(fleet_text, where="fleet.metrics_text()")
+    families = sum(1 for t in (text, zoo_text, fleet_text)
+                   for line in t.splitlines() if line.startswith("# TYPE "))
     if violations:
         print(f"{len(violations)} metrics-exposition violation(s):")
         for v in violations:
             print("  -", v)
         return 1
-    print(f"OK: {len(AUDIT_FILES)} modules and one engine exposition "
+    print(f"OK: {len(AUDIT_FILES)} modules and three expositions "
           f"({families} families) audited: 0 violations")
     return 0
 

@@ -1585,3 +1585,140 @@ def test_cuda_aot_lm_loads_bitwise(card, tmp_path):
     assert FA.LAUNCHES["_fwd_kernel"] == spec["depth"] * 2
     assert np.array_equal(got, want)
     assert loaded.jit_cache_misses == 0
+
+
+# ---------------------------------------------------------------------------
+# the multi-model plane on the card
+# ---------------------------------------------------------------------------
+
+ZOO_LM = {"type": "transformer", "vocab_size": 8192, "dim": 1024,
+          "depth": 2, "heads": 8, "max_len": 512, "head_dtype": "float32"}
+
+
+def _settled_allocated() -> int:
+    """Allocated card bytes once nothing is in flight, without the
+    cuBLAS workspaces (one per stream that ran a GEMM: the zoo's loader
+    stream gets its own at its first warmup)."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+@pytest.mark.cuda
+def test_cuda_zoo_lm_artifact_evicted_frees_memory(card, tmp_path):
+    """An LM artifact activated in a zoo on the card (its weights on the
+    loader's own stream, cost_source 'device'), served through the
+    model-routed engine with the flash kernel launched from its program,
+    then evicted: memory_allocated falls by its resident_bytes and comes
+    back to the level before the activation, both within 5 %."""
+    from mmlspark_tpu_torch.serving import ModelZoo, ServingEngine, HTTPSource
+    from mmlspark_tpu_torch.serving import aot
+    import json
+    import urllib.request
+    model = TPUModel.from_module(build_network(ZOO_LM, device=card, seed=0),
+                                 device="cuda", inputCol="tokens",
+                                 outputCol="logits", batchSize=8)
+    toks = np.random.default_rng(3).integers(0, ZOO_LM["vocab_size"],
+                                              size=(2, 512))
+    want = model.transform(DataTable({"tokens": toks[:1]}))["logits"]
+    aot.export_model(model, DataTable({"tokens": toks}),
+                     str(tmp_path / "lm" / "v1"))
+    del model
+    before = _settled_allocated()
+    zoo = ModelZoo(artifact_root=str(tmp_path), memory_probe=None)
+    source = HTTPSource(port=0)
+    engine = ServingEngine(source, zoo=zoo, tracing=False,
+                           flight_recorder=False).start()
+    try:
+        FA.reset_launches()
+        req = urllib.request.Request(
+            source.address, data=json.dumps(
+                {"tokens": toks[0].tolist()}).encode(),
+            headers={"Content-Type": "application/json",
+                     "X-Model": "lm"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            body = json.loads(r.read())
+            assert r.headers["X-Model"] == "lm@v1"
+        assert body["prediction"] == want[0].argmax(-1).tolist()
+        # the warmup forward and the request's: depth launches each
+        assert FA.LAUNCHES["_fwd_kernel"] == 2 * ZOO_LM["depth"]
+        st = zoo.entry_status("lm")
+        assert st["cost_source"] == "device"
+        rb = st["cost_bytes"]
+        resident = _settled_allocated()
+        assert abs((resident - before) - rb) <= 0.05 * rb
+        assert zoo.evict("lm")
+        after = _settled_allocated()
+        assert abs((resident - after) - rb) <= 0.05 * rb
+        assert abs(after - before) <= 0.05 * rb
+    finally:
+        engine.stop()
+        zoo.close()
+
+
+@pytest.mark.cuda
+def test_cuda_int8_rung_routed_under_pressure(card, tmp_path):
+    """A [f32, int8] ladder of one LM's artifacts on the card: a reply
+    off rung 0 is the f32 model's argmax; queue pressure steps the route
+    down, and the reply echoes the int8 variant and equals the int8
+    model's own argmax (its GEMMs run inside the loaded program, where
+    the Python launch counter does not see them); clean air past hold_s
+    steps it back up."""
+    import json
+    import time
+    import urllib.request
+    from mmlspark_tpu_torch.serving import (
+        HTTPSource, ModelZoo, ServingEngine, VariantSelector,
+    )
+    from mmlspark_tpu_torch.serving import aot
+    model = TPUModel.from_module(build_network(ZOO_LM, device=card, seed=0),
+                                 device="cuda", inputCol="tokens",
+                                 outputCol="logits", batchSize=8)
+    toks = np.random.default_rng(4).integers(0, ZOO_LM["vocab_size"],
+                                              size=(8, 512))
+    table = DataTable({"tokens": toks})
+    q = model.quantize(table)
+    row = DataTable({"tokens": toks[:1]})
+    want_f32 = model.transform(row)["logits"][0].argmax(-1).tolist()
+    want = q.transform(row)["logits"]
+    aot.export_model(model, table, str(tmp_path / "lm" / "v1"))
+    aot.export_model(q, table, str(tmp_path / "lm_int8" / "v1"))
+    zoo = ModelZoo(artifact_root=str(tmp_path), memory_probe=None)
+    sel = VariantSelector(zoo, decide_interval_s=0.05, hold_s=2.0,
+                          pressure_limit=4)
+    sel.declare("lm", ["lm", "lm_int8"], slo_ms=1e6,
+                costs={"lm": 4.0, "lm_int8": 1.0})
+    source = HTTPSource(port=0)
+    engine = ServingEngine(source, zoo=zoo, variants=sel, tracing=False,
+                           flight_recorder=False).start()
+
+    def post():
+        req = urllib.request.Request(
+            source.address, data=json.dumps(
+                {"tokens": toks[0].tolist()}).encode(),
+            headers={"Content-Type": "application/json", "X-Model": "lm"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.headers["X-Model"], json.loads(r.read())
+
+    try:
+        zoo.get("lm", timeout=300)
+        zoo.get("lm_int8", timeout=300)
+        served, body = post()
+        assert served == "lm@v1" and body["prediction"] == want_f32
+        assert sel.tick(pressure=64, min_interval_s=0.0)
+        assert sel.route("lm") == "lm_int8@v1"
+        served, body = post()
+        assert served == "lm_int8@v1"
+        assert body["prediction"] == want[0].argmax(-1).tolist()
+        deadline = time.monotonic() + 30
+        while sel.route("lm") != "lm@v1" and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert sel.route("lm") == "lm@v1"
+        assert [e.kind for e in sel.events].count("step_up") == 1
+    finally:
+        engine.stop()
+        zoo.close()

@@ -10,9 +10,9 @@ consolidator), ``tests/test_trace_propagation.py``'s
 bound on free ports; counters are polled, since an engine counts a
 reply after writing it. Held against the JAX package:
 ``PartitionConsolidator(hostCount=2, hostIndex=i)`` keeps the same rows
-(equal). The reference's quota-429 scenario needs the zoo and admission
-control (ROADMAP.md, 'The multi-model plane'); here a stub host that
-answers 429 stands in for the quota. Also the retry-loop guard of
+(equal). A stub host that answers 429 stands in for a tenant's quota
+here; the reference's quota-429 scenario over a zoo with admission
+control runs in ``tests/test_torch_admission.py``. Also the retry-loop guard of
 ``tests/test_resilience.py`` over the port's package.
 """
 
@@ -145,18 +145,25 @@ def test_partition_consolidator_reads_an_initialized_group(monkeypatch):
 
 
 def test_unported_surfaces_name_their_items():
+    """``post_columns`` and the shm transport still raise, naming their
+    item; the multi-model plane's membership surface is ported: the
+    demand signal counts posts, membership moves only on a connected
+    fleet (as in the reference), and attach_placement returns its
+    controller."""
     fleet = _fleet(_echo(), n_engines=1, batch_size=4)
     try:
         with pytest.raises(NotImplementedError,
                            match="The control plane and host transports"):
             fleet.post_columns({"x": np.arange(3.0)})
-        for call in (lambda: fleet.demand_rate(),
-                     lambda: fleet.add_engine("http://127.0.0.1:1"),
-                     lambda: fleet.remove_engine("http://127.0.0.1:1"),
-                     lambda: fleet.attach_placement()):
-            with pytest.raises(NotImplementedError,
-                               match="The multi-model plane"):
+        assert fleet.demand_rate() == 0.0
+        fleet.post({"x": 1})
+        assert fleet.demand_rate(10.0) > 0.0
+        for call in (lambda: fleet.add_engine("http://127.0.0.1:1"),
+                     lambda: fleet.remove_engine("http://127.0.0.1:1")):
+            with pytest.raises(RuntimeError, match="in-process fleets"):
                 call()
+        ctl = fleet.attach_placement()
+        assert fleet.placement is ctl and ctl.n_engines == 1
     finally:
         fleet.stop_all()
     with pytest.raises(NotImplementedError,

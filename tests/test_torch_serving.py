@@ -325,14 +325,31 @@ def test_shared_variable_and_singleton():
     ({"variants": object()}, "The multi-model plane"),
 ])
 def test_unported_serving_options_raise(kw, item):
-    """The telemetry options are ported and in force; the multi-model
-    plane's options still raise, naming their ROADMAP item."""
+    """The telemetry options are ported and in force; so are the
+    multi-model plane's (``item`` names their ROADMAP item): a zoo, an
+    admission controller or a variant selector attached to an engine
+    serves model-routed requests."""
     if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match="The rest of the serving plane"):
-            serve_model(Lambda.apply(_echo), port=0, **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            serve_model(Lambda.apply(_echo), port=0, **kw)
+        from mmlspark_tpu_torch.serving import (
+            AdmissionController, ModelZoo, VariantSelector,
+        )
+        zoo = ModelZoo(memory_probe=None, device="cpu")
+        zoo.register_factory("m", "v1", lambda: Lambda.apply(_echo))
+        given = {"zoo": zoo, "admission": AdmissionController(),
+                 "variants": VariantSelector(zoo)}
+        kw = {k: given[k] for k in kw}
+        kw.setdefault("zoo", zoo)
+        engine = serve_model(Lambda.apply(_echo), port=0, **kw)
+        try:
+            assert _post(engine.source.address, {"x": 4},
+                         headers={"X-Model": "m"})[1] == {"doubled": 8}
+            metrics = engine.metrics()
+            assert "zoo" in metrics
+            assert ("admission" in metrics) == ("admission" in kw)
+            assert ("variants" in metrics) == ("variants" in kw)
+        finally:
+            engine.stop()
+            zoo.close()
         return
     from mmlspark_tpu_torch.core.flightrecorder import FlightRecorder
     from mmlspark_tpu_torch.core.slo import SLOMonitor
@@ -365,9 +382,10 @@ def test_unported_serving_options_raise(kw, item):
 def test_swap_and_fused_scoring_raise(echo_server):
     """``swap()`` is ported (serving/lifecycle.py): a plain stage swaps
     in through a direct cutover, and a fused pipeline scorer, whose
-    warmup needs an example, rolls back without one; what still raises
-    is the zoo (tests/test_torch_lifecycle.py holds the protocol
-    itself, fused swaps included)."""
+    warmup needs an example, rolls back without one
+    (tests/test_torch_lifecycle.py holds the protocol itself, fused
+    swaps included). A zoo-only engine (no default pipeline) serves
+    model-routed requests and answers an unkeyed one 400."""
     from mmlspark_tpu_torch.serving import CanaryPolicy
     engine = serve_model(Lambda.apply(_echo), port=0, batch_size=8,
                          version="v0", flight_recorder=False)
@@ -385,9 +403,19 @@ def test_swap_and_fused_scoring_raise(echo_server):
         assert engine.swaps_rolled_back == 1
     finally:
         engine.stop()
-    with pytest.raises(NotImplementedError,
-                       match="The rest of the serving plane"):
-        serve_model(Lambda.apply(_echo), port=0, zoo=object())
+    from mmlspark_tpu_torch.serving import ModelZoo
+    zoo = ModelZoo(memory_probe=None, device="cpu")
+    zoo.register_factory("m", "v1", lambda: Lambda.apply(_echo))
+    engine = serve_model(None, port=0, zoo=zoo, flight_recorder=False)
+    try:
+        assert _post(engine.source.address, {"x": 2},
+                     headers={"X-Model": "m"})[1] == {"doubled": 4}
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(engine.source.address, {"x": 2})
+        assert err.value.code == 400
+    finally:
+        engine.stop()
+        zoo.close()
 
 
 # ---------------------------------------------------------------------------
