@@ -355,7 +355,7 @@ Phases, one line each; any failure exits non-zero:
                canary batch) v2's and v1's after the rollback,
                swaps_rolled_back 1, a swap_rollback flight-recorder
                bundle; (b) rolling_swap to v2 (canary
-               0.25, 8 batches) mid-way through 4,000 requests: every
+               0.25, 8 batches) mid-way through 3,000 requests: every
                reply v1's or v2's prediction of its row, every request
                sent after the swap v2's, availability >= 99 %, three
                completed swaps in the fleet's and the engines' /metrics;
@@ -423,11 +423,44 @@ Phases, one line each; any failure exits non-zero:
                rung's p50 / p99; (d) a resident host model's p50 / p99
                under 4 clients with nothing activating and while an LM
                version activates.
+ 18. the control plane and host transports — (a) phase 3's max_bin 255
+               forest served on the card (phase 6's settings) with a
+               DriftMonitor of its training rows, driven by 16 threads of
+               a spawned client: 1,000 steady holdout requests, then a
+               drifted HIGGS-shaped stream (features 5-7 +4 sigma, 1-2 +1
+               sigma, the same label rule) while a ContinuousTrainer
+               (ReplayWindow of 262,144 rows fed as four 65,536-row
+               labelled chunks, GatePolicy(shadow_rows=512),
+               CanaryPolicy(0.5, 3)) triggers on the drift, refits by
+               boost_more(5) over the window on its trainer thread, gates
+               and cuts over: the timeline triggered, refit_ok,
+               shadow_pass, promote_started, promoted; one hist launch a
+               histogram; the candidate bitwise the same boost_more on
+               this thread over the same snapshot; its drifted-holdout
+               AUC above the base's and within 0.005 of the plain
+               scatter refit's; availability 1.0000; replies after the
+               cutover the candidate's batched prediction (near ties
+               left out); reaction seconds and client p50 / p99 steady,
+               during the refit and cutover and after; /healthz's
+               controlplane field; /metrics' drift and control-plane
+               families clean under testing.metrics_check; then a
+               label-flipped refit by trigger_now: shadow_fail,
+               quarantined with a bundle, serving unchanged. (b) four
+               engine processes of testing/serving_worker.py (the forest
+               on the card, batch 64, 1 worker) behind
+               ServingFleet.connect with shm_transport True, then False:
+               4 clients x 512-row post_columns, 1.5 s warm + 6 s each:
+               rows/s and p50 / p99; shm fallbacks 0 and
+               serving_shm_batches_total > 0; replies of both transports
+               bitwise each other's and the in-process transform's;
+               every slot free; the segment gone after stop_all; every
+               worker exited.
 Then one JSON line of the int8 GEMMs' times (a library call, not a
 ported kernel), one JSON line of per-kernel numbers (the hist rows
 include the int16 and int8 launches of 7(b) and 7(c), the F = 968
 launches of 8(a), the launches of 11(b)'s fit on its featurized bins,
-of 14(a)'s fit, of 15(a)'s boost_more and of 16(b)'s cli run; the flash
+of 14(a)'s fit, of 15(a)'s boost_more, of 16(b)'s cli run and of
+18(a)'s two refits; the flash
 rows phase 12's, 13's, 14(b)'s, 16(d)'s and 17's launches),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
@@ -3442,7 +3475,9 @@ def telemetry_slice(smi: str, model255, out255, Xte) -> dict:
 # phase 15: model lifecycle and the client fleet
 # ---------------------------------------------------------------------------
 
-LIFECYCLE_REQUESTS = 4000   # phase 15(b)'s one-row requests
+# phase 15(b)'s one-row requests, cut from 4,000 for the script's time
+# limit; (c), (d) and the one-engine run take a fraction of them
+LIFECYCLE_REQUESTS = 3000
 LIFECYCLE_CLIENTS = 16      # client threads of the spawned process
 LIFECYCLE_ROWS = 2000       # distinct holdout rows the requests carry
 NEAR_TIE = 1e-4             # |raw score| under which a walk may round
@@ -3454,21 +3489,23 @@ def _windows(records, t_swap0: float, t_swap1: float) -> dict:
     """requests/s and client p50 / p99 (ms) of the requests answered
     before the swap began, sent and answered during it, and sent after
     it returned."""
-    out = {}
-    for name, keep in (
-            ("before", lambda r: r[3] < t_swap0),
-            ("during", lambda r: r[2] >= t_swap0 and r[3] <= t_swap1),
-            ("after", lambda r: r[2] > t_swap1)):
-        sel = [r for r in records if keep(r)]
-        if len(sel) < 2:
-            out[name] = {"n": len(sel)}
-            continue
-        lat = np.sort(np.asarray([r[3] - r[2] for r in sel])) * 1e3
-        span = max(r[3] for r in sel) - min(r[2] for r in sel)
-        out[name] = {"n": len(sel), "rps": len(sel) / span,
-                     "p50_ms": float(lat[int(0.5 * (len(lat) - 1))]),
-                     "p99_ms": float(lat[int(0.99 * (len(lat) - 1))])}
-    return out
+    return {name: _lat_numbers([r for r in records if keep(r)])
+            for name, keep in (
+                ("before", lambda r: r[3] < t_swap0),
+                ("during", lambda r: r[2] >= t_swap0 and r[3] <= t_swap1),
+                ("after", lambda r: r[2] > t_swap1))}
+
+
+def _lat_numbers(records) -> dict:
+    """requests, requests/s and client p50 / p99 (ms) of spawned-client
+    records ``(i, reply, t_sent, t_answered, error)``."""
+    if len(records) < 2:
+        return {"n": len(records)}
+    lat = np.sort(np.asarray([r[3] - r[2] for r in records])) * 1e3
+    span = max(r[3] for r in records) - min(r[2] for r in records)
+    return {"n": len(records), "rps": len(records) / span,
+            "p50_ms": float(lat[int(0.5 * (len(lat) - 1))]),
+            "p99_ms": float(lat[int(0.99 * (len(lat) - 1))])}
 
 
 def _state_times(engines, stop) -> list:
@@ -4569,6 +4606,446 @@ def multimodel_slice(smi: str, art: str, work: str, lm_ref: dict) -> dict:
     return {"f32": f32}
 
 
+CONTROLPLANE_DIR = os.path.join("build", "chip_smoke_controlplane")
+CP_WINDOW_ROWS = 262_144    # 18(a)'s ReplayWindow: four 65,536-row chunks
+CP_CHUNK_ROWS = 65_536
+CP_STEADY = 1000            # 18(a)'s steady one-row requests
+CP_DRIFT_RUN = 1500         # drifted one-row requests a client run
+CP_CLIENTS = 16
+FABRIC_PROCS = 4            # 18(b): bench_fabric's shape (bench.py)
+FABRIC_CLIENTS = 4
+FABRIC_ROWS = 512
+FABRIC_WARM_S = 1.5
+FABRIC_LOAD_S = 3.0         # a turn; turns shm, HTTP, HTTP, shm: 6 s each
+
+
+def higgs_drift(n: int, seed: int = 8):
+    """``higgs_shape``'s stream after a shift: features 5-7, which the
+    label rule does not read, move +4 sigma (they trip the drift
+    monitor); features 1-2 move +1 sigma (they move the decision
+    surface); then the same label rule."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 28)).astype(np.float32)
+    X[:, 5:8] += 4.0
+    X[:, 1:3] += 1.0
+    logit = (X[:, 0] + 0.6 * X[:, 1] * X[:, 2]
+             + 0.4 * np.sin(2 * X[:, 3]) - 0.3 * X[:, 4] ** 2 + 0.3)
+    y = (logit + rng.normal(scale=0.5, size=n) > 0).astype(np.float32)
+    return X, y
+
+
+def _fabric_run(fleet, X) -> dict:
+    """bench_fabric's closed loop: FABRIC_CLIENTS threads post_columns
+    512-row blocks of ``X`` for FABRIC_WARM_S unrecorded, then
+    FABRIC_LOAD_S recorded. Returns rows/s, p50 / p99 and failures."""
+    lock = threading.Lock()
+    stop = threading.Event()
+    rec = {"on": False, "rows": 0, "lat": [], "failed": []}
+
+    def client(cid):
+        k = cid
+        while not stop.is_set():
+            lo = (k * FABRIC_ROWS) % (len(X) - FABRIC_ROWS)
+            k += FABRIC_CLIENTS
+            t0 = time.perf_counter()
+            try:
+                rep = fleet.post_columns(
+                    {"features": X[lo:lo + FABRIC_ROWS]}, timeout=30)
+                ms = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    if rec["on"]:
+                        rec["rows"] += len(rep["prediction"])
+                        rec["lat"].append(ms)
+            except Exception as e:  # noqa: BLE001 — counted, checked
+                with lock:
+                    rec["failed"].append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(FABRIC_CLIENTS)]
+    for t in threads:
+        t.start()
+    time.sleep(FABRIC_WARM_S)
+    with lock:
+        rec["on"] = True
+    t0 = time.perf_counter()
+    time.sleep(FABRIC_LOAD_S)
+    with lock:
+        rec["on"] = False
+        wall = time.perf_counter() - t0
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    return {"rows_per_s": round(rec["rows"] / wall, 1),
+            "requests": len(rec["lat"]), "p50_ms": _pct(rec["lat"], 50),
+            "p99_ms": _pct(rec["lat"], 99), "failed": rec["failed"]}
+
+
+def controlplane_slice(dev, smi: str, model255, Xtr, ytr, Xte, yte,
+                       auc255: float) -> dict:
+    """Phase 18: (a) the closed loop — phase 3's max_bin 255 forest
+    served on the card with a drift monitor, a spawned client's steady
+    then drifted traffic, a ContinuousTrainer whose refit is
+    ``boost_more(5)`` over a 262,144-row ReplayWindow through the hist
+    kernel on the trainer thread, its gate, canary and cutover, then a
+    label-flipped refit quarantined; (b) the host transports — four
+    engine processes of ``testing/serving_worker.py`` serving the same
+    forest on the card behind ``ServingFleet.connect``, shm against
+    HTTP+msgpack. Returns {"hist": the refits' hist launches}."""
+    import copy
+    import torch
+    from mmlspark_tpu_torch.core.flightrecorder import FlightRecorder
+    from mmlspark_tpu_torch.core.metrics import DriftMonitor
+    from mmlspark_tpu_torch.core.table import DataTable
+    from mmlspark_tpu_torch.gbdt import hist_kernels as HK
+    from mmlspark_tpu_torch.gbdt.estimators import (
+        TPUBoostClassificationModel, TPUBoostClassifier)
+    from mmlspark_tpu_torch.io import shm as SHM
+    from mmlspark_tpu_torch.io.ooc import ReplayWindow
+    from mmlspark_tpu_torch.serving import (
+        CanaryPolicy, ContinuousTrainer, GatePolicy, ModelRegistry,
+        ServingFleet, TriggerPolicy, json_scoring_pipeline, serve_model)
+    from mmlspark_tpu_torch.testing import metrics_check
+    from mmlspark_tpu_torch.testing.fleet_load import FleetLoad
+
+    t_phase = time.perf_counter()
+    base = model255.get_booster()
+    Xd, yd = higgs_drift(CP_WINDOW_ROWS + 100_000)
+    Xw, yw = Xd[:CP_WINDOW_ROWS], yd[:CP_WINDOW_ROWS]
+    Xh, yh = Xd[CP_WINDOW_ROWS:], yd[CP_WINDOW_ROWS:]
+    check(0.2 <= float(yd.mean()) <= 0.8,
+          f"(18a) drifted positive rate {yd.mean():.3f}")
+
+    def as_model(booster):
+        m = TPUBoostClassificationModel(
+            modelString=booster.model_to_string(), numClasses=2,
+            device=dev.type)
+        m._booster = booster
+        return m
+
+    def window_xy(window):
+        tab = window.materialize()
+        return (np.asarray(tab["features"], np.float32),
+                np.asarray(tab["label"], np.float32))
+
+    refit_launches = {}
+
+    def cycle_ended(kinds, n0):
+        """Wait (120 s at most) until the trainer's timeline, past its
+        first ``n0`` events, ends a cycle with one of ``kinds``: its
+        counters move before its last event and its quarantine evidence
+        land."""
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            last = (trainer.history[-1] if len(trainer.history) > n0
+                    else None)
+            if last is not None and last.kind in kinds and (
+                    last.kind != "quarantined"
+                    or last.version in trainer.quarantined):
+                return True
+            time.sleep(0.02)
+        return False
+
+    def refit(window, active):
+        X, y = window_xy(window)
+        n0 = HK.LAUNCHES["_hist_kernel_nibble"]
+        b = base.boost_more(5, X=X, y=y)
+        refit_launches["boost_more"] = (
+            HK.LAUNCHES["_hist_kernel_nibble"] - n0,
+            b.train_info["histograms"])
+        return json_scoring_pipeline(as_model(b), drift_monitor=(
+            DriftMonitor.from_matrix(X[:CP_CHUNK_ROWS])))
+
+    def flipped(window, active):
+        X, y = window_xy(window)
+        n0 = HK.LAUNCHES["_hist_kernel_nibble"]
+        m = TPUBoostClassifier(numIterations=5, numLeaves=63,
+                               device=dev.type).fit(
+            DataTable({"features": X, "label": 1.0 - y}))
+        refit_launches["flipped"] = (
+            HK.LAUNCHES["_hist_kernel_nibble"] - n0,
+            m.get_booster().train_info["histograms"])
+        return json_scoring_pipeline(m)
+
+    # ---- (a) the closed loop ------------------------------------------------
+    rec = FlightRecorder(min_interval_s=0.0)
+    engine = serve_model(
+        json_scoring_pipeline(model255, drift_monitor=(
+            DriftMonitor.from_matrix(Xtr[:CP_CHUNK_ROWS]))),
+        port=0, batch_size=256, workers=2, max_wait_ms=5, version="v1",
+        flight_recorder=rec)
+    registry = ModelRegistry()
+    trainer = ContinuousTrainer(
+        engine, refit, window=ReplayWindow(max_rows=CP_WINDOW_ROWS),
+        registry=registry,
+        triggers=TriggerPolicy(max_mean_delta_sigma=2.0,
+                               min_window_rows=CP_CHUNK_ROWS,
+                               cooldown_s=0.5, watch_slo_alerts=False),
+        gate=GatePolicy(shadow_rows=512),
+        canary=CanaryPolicy(fraction=0.5, min_batches=3),
+        warmup_example={"features": Xte[:1]}, poll_interval_s=0.05)
+    rows = np.concatenate([Xte[:CP_STEADY], Xh[:CP_DRIFT_RUN]])
+    load = None
+    records = []
+    try:
+        load = FleetLoad([engine.source.address], rows)
+        trainer.start()
+        steady, _ = load.run(range(CP_STEADY), CP_CLIENTS)
+        records += steady
+        for lo in range(0, CP_WINDOW_ROWS, CP_CHUNK_ROWS):
+            trainer.ingest(DataTable({
+                "features": Xw[lo:lo + CP_CHUNK_ROWS],
+                "label": yw[lo:lo + CP_CHUNK_ROWS]}))
+        snap = trainer.window.snapshot()
+        HK.reset_launches()
+        wall0 = time.time() - time.monotonic()   # event .at -> monotonic
+        t_drift = time.monotonic()
+        drifted = []
+        deadline = t_drift + 120.0
+        while trainer.promotions + trainer.quarantines \
+                + trainer.refit_failures == 0 \
+                and time.monotonic() < deadline:
+            recs, _ = load.run(range(CP_STEADY, CP_STEADY + CP_DRIFT_RUN),
+                               CP_CLIENTS)
+            drifted += recs
+        ended = cycle_ended(("promoted", "quarantined", "refit_failed",
+                             "circuit_open"), 1)
+        launches = dict(HK.LAUNCHES)
+        check(ended and trainer.promotions == 1,
+              f"(18a) no promotion: {trainer.status()} "
+              f"{[(e.kind, e.reason) for e in trainer.history]}")
+        after, _ = load.run(range(CP_STEADY, CP_STEADY + CP_DRIFT_RUN),
+                            CP_CLIENTS)
+        records += drifted + after
+        ev = {e.kind: e for e in registry.events}
+        kinds = [e.kind for e in registry.events]
+        want = ["triggered", "refit_ok", "shadow_pass", "promote_started",
+                "promoted"]
+        it = iter(kinds)
+        check(all(k in it for k in want),
+              f"(18a) timeline {kinds} lacks {want} in order")
+        check(engine.model_version == "ct-1",
+              f"(18a) serving {engine.model_version}")
+        n_launch, n_hist = refit_launches["boost_more"]
+        on_card = n_hist if dev.type == "cuda" else 0
+        check(n_hist > 0 and n_launch == on_card
+              and launches["_hist_kernel_nibble"] == on_card
+              and launches["_hist_kernel"] == 0,
+              f"(18a) refit launched {launches} / {n_launch} for "
+              f"{n_hist} histograms")
+        cand = engine._active.pipeline.model.get_booster()
+        t0 = time.perf_counter()
+        Xs, ys = window_xy(snap)
+        direct = base.boost_more(5, X=Xs, y=ys)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        check(cand.model_to_string() == direct.model_to_string(),
+              "(18a) the trainer-thread candidate is not bitwise the "
+              "direct boost_more over the same snapshot")
+        plain_base = copy.copy(base)
+        plain_base.params = {**base.params, "hist_method": "scatter"}
+        plain = plain_base.boost_more(5, X=Xs, y=ys)
+        hold = DataTable({"features": Xh})
+        p_base = np.asarray(model255.transform(hold)["probability"])[:, 1]
+        cmodel = as_model(cand)
+        out_c = cmodel.transform(hold)
+        p_cand = np.asarray(out_c["probability"])[:, 1]
+        p_plain = np.asarray(as_model(plain).transform(hold)[
+            "probability"])[:, 1]
+        auc_b, auc_c, auc_p = (auc(yh, p_base), auc(yh, p_cand),
+                               auc(yh, p_plain))
+        check(abs(auc_c - auc_p) < 0.005,
+              f"(18a) candidate AUC {auc_c:.5f} vs plain scatter "
+              f"{auc_p:.5f}")
+        check(auc_c > auc_b, f"(18a) candidate AUC {auc_c:.5f} <= base "
+              f"{auc_b:.5f} on the drifted holdout")
+        errors = [r for r in records if r[4] is not None]
+        avail = 1 - len(errors) / len(records)
+        check(not errors, f"(18a) availability {avail:.4f}: {errors[:3]}")
+        # replies sent after the cutover: the candidate's batched
+        # prediction of their row, but where the raw score is a near tie
+        t_prom = ev["promoted"].at - wall0
+        raw_c = np.asarray(out_c["rawPrediction"])[:, 1]
+        pred_c = np.asarray(out_c["prediction"]).astype(int)
+        late = [r for r in records if r[2] > t_prom]
+        ties = [r for r in late if abs(raw_c[r[0] - CP_STEADY]) <= NEAR_TIE]
+        bad = [r for r in late if abs(raw_c[r[0] - CP_STEADY]) > NEAR_TIE
+               and r[1]["prediction"] != pred_c[r[0] - CP_STEADY]]
+        check(late and not bad, f"(18a) {len(bad)} of {len(late)} replies "
+              f"after the cutover are not the candidate's: {bad[:3]}")
+        t_trig = ev["triggered"].at - wall0
+        during = [r for r in drifted if r[2] >= t_trig and r[3] <= t_prom]
+        refit_ms = ev["refit_ok"].stats["refit_ms"]
+        verdict = ev["shadow_pass"].stats
+        status, _, body = _http(engine.source.address + "/healthz")
+        health = json.loads(body)
+        cp = health.get("controlplane", {})
+        check(status == 200 and cp.get("state") == "idle"
+              and cp.get("promotions") == 1 and not cp.get("degraded"),
+              f"(18a) /healthz controlplane {cp}")
+        text = _http(engine.source.address + "/metrics")[2].decode()
+        violations = metrics_check.audit_text(text)
+        for fam in ("serving_drift_rows", "serving_drift_score",
+                    "serving_controlplane_promotions_total",
+                    "serving_controlplane_phase_ms"):
+            check(fam in text, f"(18a) /metrics lacks {fam}")
+        check(not violations, f"(18a) metrics_check: {violations[:3]}")
+        print(f"controlplane (a): {CP_STEADY} steady then "
+              f"{len(drifted) + len(after)} drifted one-row requests from "
+              f"{CP_CLIENTS} threads of a spawned process (batch 256, 2 "
+              f"workers, 5 ms); timeline {kinds}; trigger "
+              f"{ev['triggered'].reason!r}; refit boost_more(5) over "
+              f"{snap.num_rows} window rows on the trainer thread in "
+              f"{refit_ms:.1f} ms under the load ({cand.train_timing}), "
+              f"the same refit alone on this thread {direct_s:.3f} s "
+              f"({direct.train_timing}); hist launches {launches} "
+              f"({n_hist} histograms), candidate bitwise the direct "
+              f"boost_more; gate {verdict}; drifted holdout AUC base "
+              f"{auc_b:.5f} -> candidate {auc_c:.5f} (plain scatter "
+              f"refit {auc_p:.5f}); reaction {t_prom - t_drift:.3f} s from "
+              f"drift onset to the candidate serving (trigger at "
+              f"{t_trig - t_drift:.3f} s); client steady "
+              f"{_lat_numbers(steady)}, during refit and cutover "
+              f"{_lat_numbers(during)}, after {_lat_numbers(after)}; "
+              f"availability {avail:.4f} over {len(records)} requests; "
+              f"{len(late)} replies after the cutover the candidate's "
+              f"({len(ties)} near ties left out); /healthz controlplane "
+              f"state {cp.get('state')} promotions {cp.get('promotions')}; "
+              f"/metrics drift and control-plane families, metrics_check "
+              f"violations {len(violations)}")
+
+        # the label-flipped refit is quarantined; serving is unchanged
+        trainer.refit = flipped
+        q0 = trainer.quarantines
+        n0 = len(trainer.history)
+        trainer.trigger_now("label-flip drill")
+        cycle_ended(("promoted", "quarantined", "refit_failed",
+                     "circuit_open"), n0)
+        kinds = [e.kind for e in registry.events]
+        q = trainer.quarantined.get("ct-2", {})
+        check(trainer.quarantines == q0 + 1 and trainer.promotions == 1
+              and q.get("bundle") is not None
+              and kinds[-2:] == ["shadow_fail", "quarantined"],
+              f"(18a) label flip: {trainer.status()} {kinds[-4:]}")
+        check(engine.model_version == "ct-1",
+              f"(18a) serving {engine.model_version} after the quarantine")
+        fl_launch, fl_hist = refit_launches["flipped"]
+        check(fl_hist > 0
+              and fl_launch == (fl_hist if dev.type == "cuda" else 0),
+              f"(18a) flipped fit {fl_launch} launches / {fl_hist}")
+        print(f"controlplane (a): label-flipped refit (a fresh 5 x 63 fit "
+              f"on flipped labels, {fl_launch} hist launches) "
+              f"{q['verdict']['reason']!r} -> {kinds[-2:]}, bundle "
+              f"{q['bundle']['reason'][:60]!r}; serving still "
+              f"{engine.model_version}")
+    finally:
+        trainer.stop()
+        if load is not None:
+            code = load.close()
+            check(code == 0, f"(18a) the spawned client exited {code}")
+        engine.stop()
+        rec.close()
+    t_a = time.perf_counter() - t_phase
+
+    # ---- (b) host transports --------------------------------------------------
+    os.makedirs(CONTROLPLANE_DIR, exist_ok=True)
+    path = os.path.join(CONTROLPLANE_DIR, "model255.txt")
+    with open(path, "w") as f:
+        f.write(base.model_to_string())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mmlspark_tpu_torch.testing.serving_worker",
+         "0", str(wid), "--scorer", "forest", "--model", path,
+         "--device", dev.type, "--batch-size", "64", "--workers", "1"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for wid in range(FABRIC_PROCS)]
+    fleets = {}
+    try:
+        addrs = []
+        for p in procs:
+            parts = p.stdout.readline().split()
+            check(parts[:1] == ["READY"], f"(18b) worker said {parts}: "
+                  f"{p.stderr.read()[-2000:] if p.poll() is not None else ''}")
+            addrs.append(parts[2])
+        spawn_s = time.perf_counter() - t0
+        block = Xte[:FABRIC_ROWS]
+        want = np.asarray(model255.transform(DataTable(
+            {"features": block}))["prediction"]).astype(int).tolist()
+        fleets = {shm: ServingFleet.connect(addrs, shm_transport=shm,
+                                            tracing=False, wait_ready_s=30)
+                  for shm in (True, False)}
+        turns = []
+        for shm in (True, False, False, True):
+            turns.append((shm, _fabric_run(fleets[shm], Xte)))
+            check(not turns[-1][1]["failed"],
+                  f"(18b) shm={shm}: {turns[-1][1]['failed'][:3]}")
+        runs = {shm: {"rows_per_s": round(float(np.mean(
+            [t["rows_per_s"] for s_, t in turns if s_ == shm])), 1)}
+            for shm in (True, False)}
+        replies = {shm: [fleets[shm].post_columns({"features": block})[
+            "prediction"] for _ in range(len(addrs))]
+            for shm in (True, False)}
+        fleet = fleets[True]
+        ring = fleet._shm_ring
+        text = fleet.metrics_text()
+        batches = [float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                   if ln.startswith("serving_shm_batches_total ")]
+        check(fleet._shm_fallbacks == 0 and batches and batches[0] > 0,
+              f"(18b) shm fallbacks {fleet._shm_fallbacks}, "
+              f"serving_shm_batches_total {batches}")
+        check(fleets[False]._shm_ring is None,
+              "(18b) the HTTP client made a ring")
+        check(sorted(ring._free) == list(range(ring.nslots))
+              and not ring._quarantine,
+              f"(18b) ring slots free {ring._free}, quarantined "
+              f"{ring._quarantine}")
+        seg = ring.name
+        for f in fleets.values():
+            f.stop_all()
+        check(not os.path.exists(f"/dev/shm/{seg}"),
+              f"(18b) /dev/shm/{seg} outlived stop_all")
+        for shm in (True, False):
+            check(all(r == want for r in replies[shm]),
+                  f"(18b) shm={shm}: replies differ from the in-process "
+                  "batched transform")
+        ratio = runs[True]["rows_per_s"] / max(runs[False]["rows_per_s"],
+                                               1e-9)
+        shown = [("shm" if shm else "HTTP+msgpack",
+                  {k: v for k, v in t.items() if k != "failed"})
+                 for shm, t in turns]
+        print(f"controlplane (b): {FABRIC_PROCS} engine processes "
+              f"(testing/serving_worker.py --scorer forest --device "
+              f"{dev.type}, "
+              f"batch 64, 1 worker) up in {spawn_s:.1f} s; "
+              f"{FABRIC_CLIENTS} clients x {FABRIC_ROWS}-row post_columns, "
+              f"turns of {FABRIC_WARM_S} s warm + {FABRIC_LOAD_S} s: "
+              f"{shown}; mean rows/s shm {runs[True]['rows_per_s']}, "
+              f"HTTP+msgpack {runs[False]['rows_per_s']}, shm / HTTP "
+              f"{ratio:.3f}; shm fallbacks 0; replies "
+              f"of both transports bitwise each other's and the in-process "
+              f"transform's; every slot free; the segment unlinked; shm "
+              f"stats {SHM.stats()}")
+    finally:
+        for fleet in fleets.values():
+            fleet.stop_all()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(CONTROLPLANE_DIR, ignore_errors=True)
+    check(all(p.returncode is not None for p in procs),
+          "(18b) a worker process outlived the phase")
+    print(f"controlplane: phase 18 took {time.perf_counter() - t_phase:.1f} "
+          f"s ((a) {t_a:.1f} s); card: {smi}")
+    return {"hist": {"_hist_kernel_nibble": n_launch + fl_launch,
+                     "_hist_kernel": 0}}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5255,6 +5732,11 @@ def main() -> int:
         multi = multimodel_slice(smi, reg["art"], reg["work"], reg["lm_ref"])
     finally:
         shutil.rmtree(reg["work"], ignore_errors=True)
+
+    # ---- 18. the control plane and host transports ------------------------
+    cp = controlplane_slice(dev, smi, model255, Xtr, ytr, Xte, yte, auc255)
+    for k, v in cp["hist"].items():
+        l255[k] += v
     print(json.dumps({"int8_gemms": inter["int8_gemms"]}))
     print(f"chip_smoke: all phases took {time.perf_counter() - t_start:.1f} "
           "s")

@@ -611,6 +611,29 @@ def ingress_decode_histograms() -> Dict[str, LatencyHistogram]:
 
 
 # ---------------------------------------------------------------------------
+# continuous-training control-loop phase histograms
+# (serving/controlplane.py)
+# ---------------------------------------------------------------------------
+
+# per-cycle wall milliseconds of the closed training loop: refit (the
+# incremental partial_fit/boost_more on the replay window, including
+# retries), shadow (candidate + baseline scored over the freshest
+# window rows), gate (verdict computation against the quality/
+# divergence floors), promote (the canary execute_swap, wall of the
+# whole protocol). All observed on the DEDICATED trainer thread — a
+# nonzero sample on a batcher/worker thread is the bug the
+# ``testing/fusion_check.py::check_control_loop`` audit exists to catch.
+CONTROLPLANE_PHASES = ("refit", "shadow", "gate", "promote")
+_CONTROLPLANE_HISTS: Dict[str, LatencyHistogram] = histogram_set(
+    *CONTROLPLANE_PHASES)
+
+
+def controlplane_histograms() -> Dict[str, LatencyHistogram]:
+    """The process-wide continuous-training phase histogram family."""
+    return _CONTROLPLANE_HISTS
+
+
+# ---------------------------------------------------------------------------
 # feature-drift counters (serving-time vs fit-time statistics)
 # ---------------------------------------------------------------------------
 

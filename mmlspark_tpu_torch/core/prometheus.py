@@ -7,9 +7,9 @@ memory and the SLO monitor in the Prometheus text format, so a standard
 scraper can read ``/metrics`` on an engine. Stdlib only; the histogram
 renderer reads the raw bucket snapshot (exact cumulative counts). The
 multi-model plane's families (the model zoo, variants, autoscaling and
-placement) render here too; the drift, control-plane and ingress
-families wait for the control plane and host transports (ROADMAP.md,
-'The rest of the serving plane');
+placement), a served pipeline's ``DriftMonitor`` (``drift_families``),
+the continuous-training loop (``controlplane_families``) and the
+serving ingress phases render here too;
 ``mmlspark_tpu_torch.testing.metrics_check`` audits what is rendered
 here.
 """
@@ -166,6 +166,16 @@ def process_families(r: PromRenderer, tracer: Any = None) -> None:
         r.histogram("ooc_ingest_phase_ms",
                     "out-of-core chunked ingest per-phase wall "
                     "milliseconds (io/ooc.py)", hist, {"phase": phase})
+    for phase, hist in MC.ingress_histograms().items():
+        r.histogram("serving_ingress_phase_ms",
+                    "serving ingress per-phase wall milliseconds "
+                    "(io/columnar.py; decode carries a codec label)",
+                    hist, {"phase": phase})
+    for codec, hist in MC.ingress_decode_histograms().items():
+        r.histogram("serving_ingress_phase_ms",
+                    "serving ingress per-phase wall milliseconds "
+                    "(io/columnar.py; decode carries a codec label)",
+                    hist, {"phase": "decode", "codec": codec})
     for name, hist in MC.warmup_histograms().items():
         r.histogram(f"serving_{name}",
                     "per-bucket serving warmup wall (core/warmup.py)",
@@ -194,9 +204,9 @@ def process_families(r: PromRenderer, tracer: Any = None) -> None:
 def pipeline_families(r: PromRenderer, pipeline: Any,
                       labels: Optional[Dict[str, Any]] = None) -> None:
     """The duck-typed pipeline surface (model histograms, first-run
-    shape misses) rendered once, so a new pipeline hook is wired in ONE
-    place. A pipeline's drift monitor renders with the drift families
-    (ROADMAP.md, 'The rest of the serving plane')."""
+    shape misses, drift monitor) rendered once — shared by the engine's
+    and the fleet's expositions so a new pipeline hook is wired in ONE
+    place."""
     model_hists = getattr(pipeline, "histograms", None)
     if callable(model_hists):
         try:
@@ -212,6 +222,12 @@ def pipeline_families(r: PromRenderer, pipeline: Any,
             r.counter("serving_jit_cache_misses_total",
                       "first-run input shapes met by the serving forward "
                       "(steady state should be flat)", miss_fn(), labels)
+        except Exception:  # noqa: BLE001 — stats stay partial
+            pass
+    monitor = getattr(pipeline, "drift_monitor", None)
+    if monitor is not None:
+        try:
+            drift_families(r, monitor, labels)
         except Exception:  # noqa: BLE001 — stats stay partial
             pass
 
@@ -453,3 +469,97 @@ def slo_families(r: PromRenderer, monitor: Any,
 def _slo_window_label(window_s: float) -> str:
     from mmlspark_tpu_torch.core.slo import _window_label
     return _window_label(window_s)
+
+
+def drift_families(r: PromRenderer, monitor: Any,
+                   labels: Optional[Dict[str, Any]] = None) -> None:
+    """``DriftMonitor`` summary as gauges (served-traffic feature drift
+    vs fit-time statistics)."""
+    summary = monitor.summary()
+    base = dict(labels or {})
+    r.gauge("serving_drift_rows", "rows folded into the drift monitor",
+            summary.get("rows", 0), base)
+    if summary.get("rows", 0) == 0:
+        return
+    r.gauge("serving_drift_max_abs_mean_delta_sigma",
+            "max per-feature |mean shift| in fit-time sigma units",
+            summary["max_abs_mean_delta_sigma"], base)
+    r.gauge("serving_drift_max_var_ratio",
+            "max per-feature served/fit variance ratio",
+            summary["max_var_ratio"], base)
+    r.gauge("serving_drift_null_rate",
+            "NaN/inf rate across served feature cells",
+            summary["null_rate"], base)
+    # per-feature drift scores, cardinality-capped: only the top
+    # DRIFT_FEATURE_CAP features by score get their own series (wide
+    # models would otherwise mint thousands); the overflow folds into
+    # feature="_other" carrying the worst remaining score, so a drift
+    # outside the top set still moves a series
+    import numpy as np
+    snap = monitor.snapshot()
+    seen = np.asarray(snap["count"]) > 0
+    sigma = np.sqrt(np.asarray(snap["ref_var"], dtype=np.float64))
+    scores = np.where(
+        seen,
+        np.abs((np.asarray(snap["mean"]) - np.asarray(snap["ref_mean"]))
+               / sigma),
+        0.0)
+    names = monitor.feature_names
+    order = np.argsort(scores)[::-1]
+    top = [int(i) for i in order[:DRIFT_FEATURE_CAP]]
+    for i in top:
+        label = str(names[i]) if names else f"f{i}"
+        r.gauge("serving_drift_score",
+                "per-feature |mean shift| in fit-time sigma units "
+                '(top-K by score; overflow folds into feature="_other")',
+                float(scores[i]), {**base, "feature": label})
+    rest = order[DRIFT_FEATURE_CAP:]
+    if len(rest):
+        r.sample("serving_drift_score", float(scores[rest[0]]),
+                 {**base, "feature": "_other"})
+
+
+# per-feature drift series cap — the "model" label discipline applied
+# to features: a bounded exposition no matter how wide the model is
+DRIFT_FEATURE_CAP = 16
+
+
+def controlplane_families(r: PromRenderer, trainer: Any) -> None:
+    """Continuous-training control-loop families (serving/
+    controlplane.py): loop counters, health gauges, and the per-phase
+    wall histograms of the trainer thread."""
+    from mmlspark_tpu_torch.core import metrics as MC
+    st = trainer.status()
+    r.counter("serving_controlplane_cycles_total",
+              "refit cycles triggered (drift/SLO/forced)",
+              st["cycles"])
+    r.counter("serving_controlplane_refits_total",
+              "incremental refits completed", st["refits"])
+    r.counter("serving_controlplane_refit_failures_total",
+              "refit attempts that exhausted retries",
+              st["refit_failures"])
+    r.counter("serving_controlplane_promotions_total",
+              "candidates promoted through canary cutover",
+              st["promotions"])
+    r.counter("serving_controlplane_quarantines_total",
+              "candidates quarantined by the gate or canary rollback",
+              st["quarantines"])
+    r.gauge("serving_controlplane_degraded",
+            "1 while training is unhealthy (circuit open or trainer "
+            "thread dead) and serving runs the frozen model",
+            1 if st["degraded"] else 0)
+    r.gauge("serving_controlplane_circuit_open",
+            "1 while the refit circuit breaker is open",
+            1 if st["circuit_open"] else 0)
+    r.gauge("serving_controlplane_window_rows",
+            "labeled rows currently held in the replay window",
+            st["window"]["rows"])
+    r.info("serving_controlplane_info",
+           "control-loop state + last trigger (labels)",
+           {"state": st["state"],
+            "last_trigger": str(st["last_trigger"] or "")})
+    for phase, hist in MC.controlplane_histograms().items():
+        r.histogram("serving_controlplane_phase_ms",
+                    "continuous-training per-phase wall milliseconds "
+                    "on the dedicated trainer thread",
+                    hist, {"phase": phase})

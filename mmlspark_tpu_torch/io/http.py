@@ -9,8 +9,8 @@ request/response protocol is a struct column; HTTPTransformer runs a
 bounded-concurrency client pool over the request column (AsyncClient
 analog — here a thread pool, since urllib releases the GIL in socket IO);
 SimpleHTTPTransformer composes input parser → minibatch → client →
-error-split → output parser → flatten. The reference's ``PowerBIWriter``
-is not copied: no path of the port calls it.
+error-split → output parser → flatten. ``PowerBIWriter`` posts a
+table's rows in JSON batches to a push endpoint.
 """
 
 from __future__ import annotations
@@ -324,3 +324,28 @@ class SimpleHTTPTransformer(Transformer, HasInputCol, HasOutputCol,
         return (schema
                 .add_or_replace(Field(self.get_output_col(), OBJECT))
                 .add_or_replace(Field(self.get("errorCol"), OBJECT)))
+
+
+class PowerBIWriter:
+    """Batch/streaming row POST to a PowerBI-style push endpoint
+    (ref: src/io/powerbi/src/main/scala/PowerBIWriter.scala:25)."""
+
+    @staticmethod
+    def write(table: DataTable, url: str, batch_size: int = 100,
+              concurrency: int = 1, timeout: float = 30.0) -> List[int]:
+        """POST rows in JSON batches; returns status codes per batch."""
+        rows = [_jsonable(r) for r in table.to_rows()]
+        batches = [rows[i:i + batch_size]
+                   for i in range(0, len(rows), batch_size)]
+
+        def post(batch):
+            req = HTTPSchema.request(
+                url, "POST", json.dumps(batch).encode("utf-8"),
+                {"Content-Type": "application/json"})
+            resp = advanced_handler(req, timeout, [100, 500, 1000])
+            return resp["statusLine"]["statusCode"]
+
+        if concurrency <= 1:
+            return [post(b) for b in batches]
+        with ThreadPoolExecutor(concurrency) as pool:
+            return list(pool.map(post, batches))

@@ -29,9 +29,12 @@ chunk-at-a-time, with the next chunk's upload on a side stream),
 the ``Featurize`` / ``StandardScaler`` / ``ValueIndexer`` streaming
 fits, ``SummarizeData`` (sketch-backed percentiles), ``TPULearner.fit``
 (a ChunkedTable IS a replayable shard stream), GBDT ``train`` through
-``as_xy`` and the GBDT estimators' ``fit``. (The JAX package's
-``ReplayWindow``, which only its control plane reads, is not ported
-yet: ROADMAP.md, 'The rest of the serving plane'.)
+``as_xy`` and the GBDT estimators' ``fit``.
+
+``ReplayWindow`` is the continuous-training feed of
+``serving/controlplane.py``: a bounded, appendable buffer of whole
+micro-batch chunks whose ``snapshot()`` is a replayable
+``ChunkedTable``.
 """
 
 from __future__ import annotations
@@ -448,6 +451,109 @@ class ChunkedTable:
         n = "?" if self._num_rows is None else self._num_rows
         return (f"ChunkedTable({self.label}, rows={n}, "
                 f"prefetch={self.prefetch_depth})")
+
+
+class ReplayWindow:
+    """Bounded, appendable buffer of recent micro-batch chunks with
+    consistent-snapshot replay — the continuous-training feed
+    (serving/controlplane.py): a live ingest driver ``append``s labeled
+    micro-batches while the trainer thread replays the window to refit.
+
+    Semantics the control loop depends on (pinned by
+    tests/test_torch_controlplane.py):
+
+    - **Whole-chunk granularity.** A chunk is immutable once appended
+      and is evicted whole — a replay can observe an *older* or *newer*
+      window, never a torn chunk (half a micro-batch).
+    - **Bounded.** Oldest chunks are evicted once the window exceeds
+      ``max_rows``; the newest chunk always stays (a single oversized
+      chunk still yields a usable refit window).
+    - **Consistent snapshot.** ``snapshot()`` captures the chunk list
+      under the lock into an immutable tuple and returns a
+      ``ChunkedTable`` replaying exactly that tuple — concurrent
+      appends/evictions never mutate an in-progress replay, and the
+      snapshot stays replayable (the zero-arg-factory contract) for
+      multi-pass refits.
+
+    Thread-safe; chunks accept ``DataTable`` or column-dict.
+    """
+
+    def __init__(self, max_rows: int = 65536,
+                 label: str = "replay_window"):
+        self.max_rows = max(1, int(max_rows))
+        self.label = label
+        self._chunks: List[Tuple[DataTable, int]] = []
+        self._rows = 0
+        self._lock = threading.Lock()
+        self.appended_chunks = 0
+        self.appended_rows = 0
+        self.evicted_chunks = 0
+
+    def append(self, chunk: Any) -> None:
+        """Fold one micro-batch into the window (ingest-driver side)."""
+        t = _as_table(chunk)
+        n = len(t)
+        if n == 0:
+            return
+        with self._lock:
+            self._chunks.append((t, n))
+            self._rows += n
+            self.appended_chunks += 1
+            self.appended_rows += n
+            while self._rows > self.max_rows and len(self._chunks) > 1:
+                _, old_n = self._chunks.pop(0)
+                self._rows -= old_n
+                self.evicted_chunks += 1
+
+    @property
+    def rows(self) -> int:
+        with self._lock:
+            return self._rows
+
+    def snapshot(self) -> ChunkedTable:
+        """The window *right now* as a replayable ``ChunkedTable``.
+        The factory closes over an immutable tuple captured under the
+        lock: later appends/evictions are invisible to this snapshot."""
+        with self._lock:
+            chunks = tuple(t for t, _ in self._chunks)
+            rows = self._rows
+        return ChunkedTable(lambda: iter(chunks), num_rows=rows,
+                            prefetch_depth=0, label=self.label,
+                            instrument=False)
+
+    def tail(self, max_rows: int) -> List[DataTable]:
+        """The NEWEST chunks totaling up to ``max_rows`` rows (at least
+        one when non-empty) — the shadow-scoring sample: score the
+        candidate on the freshest traffic, not the whole window."""
+        with self._lock:
+            chunks = list(self._chunks)
+        out: List[DataTable] = []
+        total = 0
+        for t, n in reversed(chunks):
+            if out and total + n > max_rows:
+                break
+            out.append(t)
+            total += n
+        out.reverse()
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._chunks = []
+            self._rows = 0
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"rows": self._rows, "chunks": len(self._chunks),
+                    "max_rows": self.max_rows,
+                    "appended_chunks": self.appended_chunks,
+                    "appended_rows": self.appended_rows,
+                    "evicted_chunks": self.evicted_chunks}
+
+    def __repr__(self) -> str:
+        s = self.stats()
+        return (f"ReplayWindow(rows={s['rows']}/{s['max_rows']}, "
+                f"chunks={s['chunks']})")
 
 
 def _record_batch_to_table(rb) -> DataTable:

@@ -4,10 +4,17 @@ client and partition consolidation (``fleet.py``), and the multi-model
 plane: the model zoo (``zoo.py``) and admission control
 (``admission.py``), with the variant selector (``variants.py``), the
 fleet autoscaler (``autoscale.py``) and the placement plane
-(``placement.py``) resolved lazily."""
+(``placement.py``) resolved lazily; the continuous-training control
+loop (``controlplane.py``); and the shared-memory ring of the columnar
+client (``io/shm.py``), resolved lazily."""
 
 from mmlspark_tpu_torch.serving.admission import (
     AdmissionController, TenantQuota,
+)
+from mmlspark_tpu_torch.serving.controlplane import (
+    ContinuousTrainer, GatePolicy, IngestDriver, PromoteEvent,
+    QuarantineEvent, RefitPolicy, RetrainEvent, ShadowEvent,
+    TriggerPolicy,
 )
 from mmlspark_tpu_torch.serving.fleet import (
     PartitionConsolidator, ServingFleet, ServingUnavailable,
@@ -34,6 +41,10 @@ _LAZY_EXPORTS = {
     "VariantEvent": "mmlspark_tpu_torch.serving.variants",
     "FleetAutoscaler": "mmlspark_tpu_torch.serving.autoscale",
     "AutoscaleEvent": "mmlspark_tpu_torch.serving.autoscale",
+    # shm pulls the columnar codecs, which a client that never opts in
+    # does not need on its import path
+    "ShmRing": "mmlspark_tpu_torch.io.shm",
+    "shm_available": "mmlspark_tpu_torch.io.shm",
 }
 
 
@@ -46,11 +57,14 @@ def __getattr__(name):
 
 
 __all__ = ["AdmissionController", "AutoscaleEvent", "CanaryPolicy",
-           "FleetAutoscaler", "HTTPSource", "ModelRegistry", "ModelZoo",
+           "ContinuousTrainer", "FleetAutoscaler", "GatePolicy",
+           "HTTPSource", "IngestDriver", "ModelRegistry", "ModelZoo",
            "PartitionConsolidator", "PipelineHandle",
-           "PlacementController", "PlacementEvent", "ServingEngine",
-           "ServingFleet", "ServingUnavailable", "SharedSingleton",
-           "SharedVariable", "SwapEvent", "SwapInProgress", "SwapResult",
-           "TenantQuota", "VariantEvent", "VariantSelector", "ZooEvent",
+           "PlacementController", "PlacementEvent", "PromoteEvent",
+           "QuarantineEvent", "RefitPolicy", "RetrainEvent",
+           "ServingEngine", "ServingFleet", "ServingUnavailable",
+           "ShadowEvent", "SharedSingleton", "SharedVariable", "ShmRing",
+           "SwapEvent", "SwapInProgress", "SwapResult", "TenantQuota",
+           "TriggerPolicy", "VariantEvent", "VariantSelector", "ZooEvent",
            "json_row_scoring_pipeline", "json_scoring_pipeline",
-           "model_key_of", "serve_model"]
+           "model_key_of", "serve_model", "shm_available"]

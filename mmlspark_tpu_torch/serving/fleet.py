@@ -32,9 +32,13 @@ probe) and ``remove_engine``; ``attach_placement`` wires a
 post goes to the model's assigned engines first, and its stale routes
 are counted.
 
-What still raises ``NotImplementedError``, naming its ROADMAP.md item
-'The rest of the serving plane': ``post_columns`` and the shm transport
-('The control plane and host transports').
+``post_columns`` is the columnar client: typed columns encode once as a
+columnar frame and ride the same pool, failover and hedging, down a
+ladder of transports — shared memory (``shm_transport=True``, a ring of
+slots in one ``/dev/shm`` segment the client owns, ``io/shm.py``), then
+an HTTP body of msgpack columns, then per-row JSON built by
+``io/columnar.py::columns_to_rows``. Each rung remembers a negotiation
+rejection for a cooldown, then re-probes.
 """
 
 from __future__ import annotations
@@ -63,14 +67,14 @@ from mmlspark_tpu_torch.core.params import IntParam
 from mmlspark_tpu_torch.core.schema import Schema
 from mmlspark_tpu_torch.core.stage import Transformer
 from mmlspark_tpu_torch.core.table import DataTable
-from mmlspark_tpu_torch.serving.server import (
-    HTTPSource, ServingEngine, _not_ported,
-)
+from mmlspark_tpu_torch.serving.server import HTTPSource, ServingEngine
 from mmlspark_tpu_torch.utils.resilience import CircuitBreaker
 
 log = get_logger("serving.fleet")
 
-_HOST_TRANSPORTS = "The control plane and host transports"
+# sentinel: "this batch should ride HTTP instead" from the shm rung —
+# distinct from any engine reply (which is always a dict)
+_SHM_DECLINED = object()
 
 
 class ServingUnavailable(RuntimeError):
@@ -734,7 +738,8 @@ class ServingFleet:
     choosing (``addresses`` carries them). ``zoo`` / ``admission`` are
     shared by every engine (the device-memory budget and the tenant
     quotas are fleet-wide); ``pipeline`` may be None with a zoo.
-    ``shm_transport=True`` raises, naming its ROADMAP.md item."""
+    ``shm_transport=True`` lets ``post_columns`` place its frames in a
+    shared-memory ring (co-located client and engines)."""
 
     def __init__(self, pipeline=None, n_engines: int = 2,
                  host: str = "127.0.0.1", base_port: int = 18700,
@@ -752,9 +757,6 @@ class ServingFleet:
                  zoo=None, admission=None,
                  slo=None, flight_recorder=None,
                  shm_transport: bool = False):
-        if shm_transport:
-            raise _not_ported("the shared-memory transport "
-                              "(shm_transport=True)", _HOST_TRANSPORTS)
         # the multi-model plane: ONE zoo (and one admission controller)
         # shared by every engine — models are process-resident, so the
         # device-memory budget and tenant quotas are fleet-wide
@@ -763,6 +765,7 @@ class ServingFleet:
         self._init_client(tracer=tracer, tracing=tracing,
                           hedge_percentile=hedge_percentile,
                           hedge_min_s=hedge_min_s)
+        self.shm_transport = bool(shm_transport)
         port = base_port
         try:
             for _ in range(n_engines):
@@ -816,6 +819,31 @@ class ServingFleet:
         self.hedge_min_s = hedge_min_s
         self._latencies: "deque[float]" = deque(maxlen=256)
         self._probe_lock = threading.Lock()   # single-flight all-open probe
+        # columnar-ingress negotiation memory: flips False after a
+        # columnar POST was rejected AND its JSON retry succeeded (a
+        # JSON-only engine) so later post_columns calls skip the
+        # doomed columnar attempt (the stale-conn retry discipline:
+        # pay the discovery once, remember the verdict). The verdict
+        # is a COOLDOWN, not a life sentence — a transient 500 that
+        # happened to mimic a negotiation failure must not degrade
+        # the client to per-row JSON forever, so after
+        # ``columnar_retry_cooldown_s`` the next call re-probes the
+        # columnar path (and resets the flag on success).
+        self._columnar_ok = True
+        self.columnar_retry_cooldown_s = 60.0
+        self._columnar_retry_at = 0.0
+        # shared-memory transport negotiation: the SAME cooldown
+        # discipline, one more rung up the ladder. shm -> HTTP+msgpack
+        # -> per-row JSON; each rung remembers a rejection for a
+        # cooldown, then re-probes. The shm rung only exists when the
+        # client opted in (co-located deployments; io/shm.py).
+        self.shm_transport = False
+        self._shm_ok = True
+        self.shm_retry_cooldown_s = 60.0
+        self._shm_retry_at = 0.0
+        self._shm_ring = None
+        self._shm_lock = threading.Lock()
+        self._shm_fallbacks = 0
         # the fleet-wide placement plane (serving/placement.py);
         # attach_placement wires a controller in. A FleetAutoscaler
         # over this fleet sets ``autoscaler`` (its families render in
@@ -826,9 +854,9 @@ class ServingFleet:
         # concurrent client threads can't tear the round-robin
         self._next = itertools.count()
         self.breakers: List[CircuitBreaker] = []
-        # windowed demand (requests via post): the autoscaler's control
-        # signal — demand_rate() per engine against its scale-up/-down
-        # watermarks (serving/autoscale.py)
+        # windowed demand (requests via post, rows via post_columns):
+        # the autoscaler's control signal — demand_rate() per engine
+        # against its scale-up/-down watermarks (serving/autoscale.py)
         from mmlspark_tpu_torch.core.metrics import WindowedCounter
         self._demand = WindowedCounter(bucket_s=1.0, horizon_s=600.0)
         # dynamic membership (autoscaler join/leave): mutations are
@@ -902,15 +930,13 @@ class ServingFleet:
         Engine-management surfaces (``rolling_swap``, ``metrics``,
         ``kill_engine``) are inert on a connected client — scrape the
         remote engines' own ``/metrics``/``/healthz`` instead."""
-        if shm_transport:
-            raise _not_ported("the shared-memory transport "
-                              "(shm_transport=True)", _HOST_TRANSPORTS)
         fleet = cls.__new__(cls)
         fleet.zoo = None
         fleet.admission = None
         fleet._init_client(tracer=tracer, tracing=tracing,
                            hedge_percentile=hedge_percentile,
                            hedge_min_s=hedge_min_s)
+        fleet.shm_transport = bool(shm_transport)
         fleet._remote_addresses = [str(a).rstrip("/") for a in addresses]
         if not fleet._remote_addresses:
             raise ValueError("connect() needs at least one address")
@@ -1533,12 +1559,151 @@ class ServingFleet:
         self._record_latency(result["latency"])
         return result["body"]
 
-    def post_columns(self, columns: Dict[str, Any], *args, **kwargs):
-        """The pooled columnar client: its JSON fallback needs
-        ``io/columnar.py::columns_to_rows``, which waits with the host
-        transports."""
-        raise _not_ported("the columnar fleet client (post_columns)",
-                          _HOST_TRANSPORTS)
+    def post_columns(self, columns: Dict[str, Any],
+                     timeout: float = 30.0, codec: str = "msgpack",
+                     idempotent: bool = True,
+                     model: Optional[str] = None,
+                     tenant: Optional[str] = None,
+                     priority: Optional[int] = None) -> Dict[str, Any]:
+        """The pooled COLUMNAR client: typed columns (numpy arrays /
+        string lists / token lists, any row count) encode ONCE as a
+        columnar record batch and ride the same keep-alive pool,
+        failover, and hedging as ``post`` — fleet-internal hops use the
+        zero-copy ingress path end to end. The reply carries one value
+        per row: ``{"prediction": [...]}``.
+
+        Negotiation fallback: an old/JSON-only engine rejects the
+        columnar body (it cannot decode it); the client then replays
+        the SAME rows as JSON oracle requests, and — once that retry
+        succeeds — remembers the verdict so later calls skip the
+        doomed columnar attempt (the stale-connection retry discipline applied to content
+        negotiation)."""
+        from mmlspark_tpu_torch.io import columnar as CIN
+        # demand is measured in ROWS: the nested post() counts the one
+        # HTTP request, this adds the rest of the batch so a columnar
+        # client's load registers at its true weight
+        rows = 0
+        for v in columns.values():
+            try:
+                rows = max(rows, len(v))
+            except TypeError:
+                pass
+        if rows > 1:
+            self._demand.inc(float(rows - 1))
+        if self.shm_transport and (
+                self._shm_ok
+                or time.monotonic() >= self._shm_retry_at):
+            result = self._post_columns_shm(columns, timeout,
+                                            idempotent, model=model,
+                                            tenant=tenant,
+                                            priority=priority)
+            if result is not _SHM_DECLINED:
+                return result
+        try_columnar = (self._columnar_ok
+                        or time.monotonic() >= self._columnar_retry_at)
+        if try_columnar:
+            body, ct = CIN.encode_columns(columns, codec=codec)
+            try:
+                result = self.post(body, timeout=timeout,
+                                   idempotent=idempotent,
+                                   content_type=ct, model=model,
+                                   tenant=tenant, priority=priority)
+                self._columnar_ok = True   # (re-)probe succeeded
+                return result
+            except urllib.error.HTTPError as e:
+                # 400: codec reject; 415: an explicit media-type no;
+                # 500: a pre-columnar engine whose JSON decode choked
+                # on the binary body. Anything else is not a
+                # negotiation problem — surface it.
+                if e.code not in (400, 415, 500):
+                    raise
+                log.warning("columnar POST rejected (HTTP %d); "
+                            "retrying as JSON", e.code)
+        out = self._post_columns_json(columns, timeout, idempotent,
+                                      model=model, tenant=tenant,
+                                      priority=priority)
+        if try_columnar:
+            # the JSON replay succeeded where columnar failed: treat
+            # the engine as JSON-only for a cooldown, then re-probe —
+            # a transient 500 must not pin the slow path forever
+            self._columnar_ok = False
+            self._columnar_retry_at = (time.monotonic()
+                                       + self.columnar_retry_cooldown_s)
+            log.warning("engine speaks JSON only; using the JSON "
+                        "fallback path for %.0fs before re-probing",
+                        self.columnar_retry_cooldown_s)
+        return out
+
+    def _ensure_shm_ring(self):
+        """Lazily create this client's shared-memory ring (io/shm.py);
+        the client OWNS the segment and unlinks it in stop_all/
+        close_shm."""
+        with self._shm_lock:
+            if self._shm_ring is None:
+                from mmlspark_tpu_torch.io import shm as SHM
+                self._shm_ring = SHM.ShmRing()
+            return self._shm_ring
+
+    def _shm_declined(self, cooldown: bool) -> Any:
+        """Record one shm->HTTP fallback; with ``cooldown`` the shm
+        rung stays down for ``shm_retry_cooldown_s`` (negotiation
+        verdict), without it the next call retries shm immediately
+        (transient local condition: ring full, frame too big)."""
+        with self._stats_lock:
+            self._shm_fallbacks += 1
+        if cooldown:
+            self._shm_ok = False
+            self._shm_retry_at = (time.monotonic()
+                                  + self.shm_retry_cooldown_s)
+            log.warning("engine does not accept the shm transport; "
+                        "using HTTP bodies for %.0fs before re-probing",
+                        self.shm_retry_cooldown_s)
+        return _SHM_DECLINED
+
+    def _post_columns_shm(self, columns: Dict[str, Any],
+                          timeout: float, idempotent: bool,
+                          model: Optional[str] = None,
+                          tenant: Optional[str] = None,
+                          priority: Optional[int] = None) -> Any:
+        """The shared-memory rung: frame the columns into a ring slot
+        (one staged copy, no body bytes) and post only the tiny control
+        message. Returns ``_SHM_DECLINED`` when this batch should ride
+        HTTP instead (ring full / frame too big / engine rejected the
+        codec); ``ServingUnavailable`` and app-level errors propagate —
+        they are not negotiation failures."""
+        from mmlspark_tpu_torch.io import shm as SHM
+        try:
+            ring = self._ensure_shm_ring()
+            ctrl, ct, token = ring.write(columns)
+        except (SHM.ShmBackpressure, SHM.ShmCapacity):
+            return self._shm_declined(cooldown=False)
+        except Exception:  # noqa: BLE001 — no /dev/shm, perms, ...
+            return self._shm_declined(cooldown=True)
+        clean = True
+        try:
+            result = self.post(ctrl, timeout=timeout,
+                               idempotent=idempotent,
+                               content_type=ct, model=model,
+                               tenant=tenant, priority=priority)
+            self._shm_ok = True   # (re-)probe succeeded
+            return result
+        except urllib.error.HTTPError as e:
+            # the engine REPLIED (it is done with the slot): 400/415 =
+            # cannot attach / stale / explicit no; 500 = a pre-shm
+            # engine that parsed the control message as an ordinary
+            # JSON request and choked at the app level — all three are
+            # negotiation verdicts, fall back (the columnar-rung
+            # discipline); other app-level errors surface unchanged
+            if e.code in (400, 415, 500):
+                return self._shm_declined(cooldown=True)
+            raise
+        except Exception:
+            # transport failure / total outage: an engine may still be
+            # mid-read on the slot — quarantine it, don't reuse soon
+            clean = False
+            raise
+        finally:
+            ring.release(token, clean=clean)
 
     # -- dynamic membership (the autoscaler's join/leave surface) -----------
 
@@ -1622,6 +1787,38 @@ class ServingFleet:
         self.placement = controller
         return controller
 
+    def close_shm(self) -> None:
+        """Unlink this client's shm ring (owner side) and drop any
+        engine-side attachments living in this process."""
+        with self._shm_lock:
+            ring, self._shm_ring = self._shm_ring, None
+        if ring is not None:
+            ring.close()
+        import sys
+        shm_mod = sys.modules.get("mmlspark_tpu_torch.io.shm")
+        if shm_mod is not None:
+            shm_mod.close_attachments()
+
+    def _post_columns_json(self, columns: Dict[str, Any],
+                           timeout: float,
+                           idempotent: bool,
+                           model: Optional[str] = None,
+                           tenant: Optional[str] = None,
+                           priority: Optional[int] = None
+                           ) -> Dict[str, Any]:
+        """The negotiation fallback: replay the columns as per-row JSON
+        oracle requests, merging the scalar replies into the columnar
+        reply shape (one list per reply key)."""
+        from mmlspark_tpu_torch.io.columnar import columns_to_rows
+        merged: Dict[str, List[Any]] = {}
+        for row in columns_to_rows(columns):
+            body = self.post(row, timeout=timeout, idempotent=idempotent,
+                             model=model, tenant=tenant,
+                             priority=priority)
+            for k, v in body.items():
+                merged.setdefault(k, []).append(v)
+        return merged
+
     # -- observability -----------------------------------------------------
 
     def health(self, timeout: float = 2.0) -> List[Dict[str, Any]]:
@@ -1703,8 +1900,8 @@ class ServingFleet:
         Each engine also serves its own ``/metrics``; this is the
         aggregate the ops view scrapes: per-engine admission
         rejections, the shared zoo's families once, the placement and
-        autoscaler families and the client's demand rate. (The
-        reference's shm families wait with their transport.)"""
+        autoscaler families, the client's demand rate and the
+        shared-memory transport's ``serving_shm_*`` families."""
         from mmlspark_tpu_torch.core.metrics import LatencyHistogram
         from mmlspark_tpu_torch.core.prometheus import (
             PromRenderer, autoscale_families, pipeline_families,
@@ -1783,7 +1980,9 @@ class ServingFleet:
             # fleet-wide
             pipeline_families(r, self.engines[0].pipeline)
         with self._stats_lock:
-            transport, hedged = self.transport_errors, self.hedged_requests
+            transport, hedged, shm_fb = (self.transport_errors,
+                                         self.hedged_requests,
+                                         self._shm_fallbacks)
         r.counter("serving_fleet_transport_errors_total",
                   "client-side transport failures", transport)
         r.counter("serving_fleet_hedged_requests_total",
@@ -1793,12 +1992,40 @@ class ServingFleet:
                 len(self.addresses))
         r.gauge("serving_fleet_demand_rate",
                 "client-observed demand over the trailing 30s "
-                "(requests/s)", self.demand_rate())
+                "(rows/s; JSON posts count 1)", self.demand_rate())
         if self.autoscaler is not None:
             try:
                 autoscale_families(r, self.autoscaler)
             except Exception:  # noqa: BLE001 — stats stay partial
                 pass
+        # shared-memory transport: process-wide counters (io/shm.py) —
+        # rendered only once the transport has actually loaded, so a
+        # fleet that never negotiated shm pays no import
+        import sys as _sys
+        shm_mod = _sys.modules.get("mmlspark_tpu_torch.io.shm")
+        if shm_mod is not None or shm_fb:
+            st = shm_mod.stats() if shm_mod is not None else {}
+            att = (shm_mod.attached_count()
+                   if shm_mod is not None else 0)
+            r.gauge("serving_shm_segments",
+                    "shared-memory segments this process maps "
+                    "(owned ring + engine-side attachments)",
+                    att + (1 if self._shm_ring is not None else 0))
+            r.counter("serving_shm_batches_total",
+                      "columnar batches carried over shared memory",
+                      st.get("batches", 0))
+            r.counter("serving_shm_bytes_total",
+                      "columnar frame bytes placed in shared memory",
+                      st.get("bytes", 0))
+            r.counter("serving_shm_stale_slots_total",
+                      "shm decodes rejected by a generation mismatch",
+                      st.get("gen_mismatch", 0))
+            r.counter("serving_shm_segments_reaped_total",
+                      "dead owners' segments unlinked by a survivor",
+                      st.get("reaped", 0))
+            r.counter("serving_shm_fallbacks_total",
+                      "batches that fell back from shm to HTTP bodies",
+                      shm_fb)
         process_families(r, tracer=self.tracer)
         return r.render()
 
@@ -1900,6 +2127,7 @@ class ServingFleet:
     def stop_all(self) -> None:
         for e in self.engines:
             e.stop()
+        self.close_shm()
 
 
 class PartitionConsolidator(Transformer):

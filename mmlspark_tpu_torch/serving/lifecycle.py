@@ -39,7 +39,7 @@ Swap state machine (exported as ``engine.swap_state``):
 ``ServingFleet.rolling_swap`` runs the protocol engine-by-engine,
 pausing while the fleet shows failover pressure (open circuits), and
 stops marching a version that rolled back anywhere. Shadow validation
-lives in the reference's ``serving/controlplane.py``, not here.
+lives in ``serving/controlplane.py``, which drives ``execute_swap``.
 """
 
 from __future__ import annotations

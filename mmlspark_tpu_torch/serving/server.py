@@ -70,9 +70,17 @@ batcher's rate-gated control tick runs ``zoo.enforce`` and
 ``variants.tick``; per-model latency feeds the zoo, the selector and the
 SLO monitor's per-model streams, and the monitor's alert events land on
 the zoo's timeline. ``metrics()`` carries ``zoo``, ``admission``,
-``variants`` and ``rejections``; ``/metrics`` their families. The
-control plane (``controlplane``) is not ported (ROADMAP.md, 'The rest of
-the serving plane', 'The control plane and host transports').
+``variants`` and ``rejections``; ``/metrics`` their families.
+
+A ``ContinuousTrainer`` (``serving/controlplane.py``) attaches itself as
+``engine.controlplane``: its status rides ``/healthz``'s
+``controlplane`` field (a circuit-open or dead trainer degrades the
+status but the reply stays 200) and its families render on
+``/metrics``. A columnar request of Content-Type
+``application/x-shm-columns`` carries only a control message that
+points into a client's shared-memory ring (``io/shm.py``); one that
+cannot attach (stale generation, dead segment) answers 400 for itself
+alone, and the decode path unlinks segments whose owner process died.
 
 - The handler sets ``TCP_NODELAY``: a reply's body no longer waits for
   the client's delayed ACK of its headers (same bytes, sooner).
@@ -101,14 +109,6 @@ from mmlspark_tpu_torch.core.table import DataTable
 from mmlspark_tpu_torch.io.http import HTTPSchema, _jsonable as _to_jsonable
 
 log = get_logger("serving")
-
-_SERVING_PLANE = "The rest of the serving plane"
-
-
-def _not_ported(what: str, part: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md, "
-                               f"'{_SERVING_PLANE}', '{part}'")
-
 
 def _request_id_factory():
     """Unique request ids without a per-request os.urandom syscall: one
@@ -222,6 +222,12 @@ class HTTPSource:
         self.prom_probe: Optional[Callable[[], str]] = None
         self.slo = None
         self.bundle_probe: Optional[Callable[..., Dict[str, Any]]] = None
+        # set by ContinuousTrainer.start(): () -> control-loop status
+        # dict (serving/controlplane.py); a degraded loop (circuit open
+        # or dead trainer thread) degrades /healthz but stays HTTP 200
+        # — training death must never take serving down
+        self.controlplane_probe: Optional[
+            Callable[[], Dict[str, Any]]] = None
         self._pending: Dict[str, _ParkedRequest] = {}
         self._lock = threading.Lock()
         self._new_rid = _request_id_factory()
@@ -366,12 +372,26 @@ class HTTPSource:
                         slo_status = source.slo.status()
                     except Exception:  # noqa: BLE001 — stats stay partial
                         slo_status = {"error": "slo probe failed"}
-                # DEGRADED: alive and serving, but an SLO is burning —
+                cp_status: Optional[Dict[str, Any]] = None
+                if source.controlplane_probe is not None:
+                    try:
+                        cp_status = source.controlplane_probe()
+                    except Exception:  # noqa: BLE001 — stats stay
+                        cp_status = {"error": "controlplane probe "
+                                              "failed",
+                                     "degraded": True}
+                # DEGRADED: alive and serving, but an SLO is burning or
+                # the continuous-training loop is unhealthy (circuit
+                # open / trainer thread dead — frozen-model serving) —
                 # stays HTTP 200 (a degraded engine must keep taking
-                # traffic) with the machine-readable verdict
+                # traffic; pulling it from the LB would turn a burn
+                # into an outage) with the machine-readable verdict
                 status = "ok" if healthy else "unhealthy"
                 if healthy and slo_status is not None and \
                         slo_status.get("degraded"):
+                    status = "degraded"
+                if healthy and cp_status is not None and \
+                        cp_status.get("degraded"):
                     status = "degraded"
                 with source._lock:
                     stats = {
@@ -387,6 +407,8 @@ class HTTPSource:
                     stats["metrics"] = metrics
                 if slo_status is not None:
                     stats["slo"] = slo_status
+                if cp_status is not None:
+                    stats["controlplane"] = cp_status
                 self._send_json(200 if healthy else 503, stats)
 
             def do_POST(self):  # noqa: N802 (http.server API)
@@ -2100,6 +2122,15 @@ class ServingEngine:
         r.gauge("serving_retry_after_s",
                 "live drain-estimate Retry-After quoted on sheds",
                 self._retry_after_s)
+        cp = self.__dict__.get("controlplane")
+        if cp is not None:
+            from mmlspark_tpu_torch.core.prometheus import (
+                controlplane_families,
+            )
+            try:
+                controlplane_families(r, cp)
+            except Exception:  # noqa: BLE001 — stats stay partial
+                pass
         pipeline_families(r, active.pipeline)
         process_families(r, tracer=self.tracer)
         return r.render()

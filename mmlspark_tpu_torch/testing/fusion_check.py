@@ -1,7 +1,9 @@
-"""Static checks of the port's fused device ops, streamed paths and
-adaptive serving plane: the torch counterpart of the JAX package's
+"""Static checks of the port's fused device ops, serving ingress, shared-
+memory transport, streamed paths, control loop and adaptive serving
+plane: the torch counterpart of the JAX package's
 ``tools/check_fusion_kernels.py`` (``check_registered_kernels``,
-``check_ooc_ingest`` and ``check_adaptive_serving``).
+``check_ingress_kernels``, ``check_shm_transport``, ``check_ooc_ingest``,
+``check_control_loop`` and ``check_adaptive_serving``).
 
 **No host round trip in a device op.** A fused segment promises that
 everything between its upload and its single device-to-host copy stays
@@ -30,6 +32,25 @@ no ``list(...chunks...)`` — unless the line carries the acknowledgment
 
 A line of a device op may be acknowledged with ``# fusion:host-ok``.
 
+**No per-row Python in an ingress kernel** (``check_ingress_kernels``):
+a function registered in ``io.columnar.INGRESS_REGISTRY`` may hold no
+loop or comprehension and no ``.tolist()`` / ``.item()`` / ``map()``
+unless the line carries ``# ingress:row-ok`` (per-column loops, the
+string materialization passes).
+
+**One staged copy on the shm path** (``check_shm_transport``): a
+function registered in ``io.shm.SHM_REGISTRY`` (and the fleet's
+``_post_columns_shm``) may call no ``.tobytes()`` / ``.tolist()`` /
+``.copy()`` / ``bytes()`` without ``# shm:copy-ok``; every slot it
+claims is released on its failure paths; the class that creates the
+segment also unlinks and closes it.
+
+**The control loop** (``check_control_loop``): every ``self.state``
+write of ``serving/controlplane.py`` goes through ``_transition``, which
+records its event; refit and shadow work is called only from the
+trainer thread's functions; the engine's batcher, worker, execute and
+supervisor loops never call into training.
+
 **Adaptive serving** (``check_adaptive_serving``): no variant selection
 in the HTTP handler, no ``variants.tick`` off the batcher thread, and no
 rotation removal or process stop in the autoscaler outside its drain
@@ -40,8 +61,9 @@ Run from the repository root::
     python -m mmlspark_tpu_torch.testing.fusion_check
 
 It builds one fitted pipeline of every fusable stage family on the CPU,
-audits the registered ops, the streamed paths and the adaptive serving
-sources, and exits 1 with the violations listed when one is found.
+audits the registered ops, the ingress kernels, the shm hot paths, the
+streamed paths, the control loop and the adaptive serving sources, and
+exits 1 with the violations listed when one is found.
 """
 
 from __future__ import annotations
@@ -399,6 +421,401 @@ def check_ooc_ingest() -> List[str]:
     return violations
 
 
+# ingress decode kernels (io/columnar.py INGRESS_REGISTRY) promise NO
+# per-row Python iteration and NO per-element boxing between the socket
+# and the device upload: loops/comprehensions and per-element materializers
+# are forbidden unless the line carries the explicit acknowledgment
+# (per-COLUMN loops and the documented string passes)
+_INGRESS_MARK = "# ingress:row-ok"
+_INGRESS_ATTRS = {"tolist", "item", "to_py"}
+
+
+# ---------------------------------------------------------------------------
+# ingress decode kernels (columnar serving ingress — io/columnar.py)
+# ---------------------------------------------------------------------------
+
+
+def _ingress_sources() -> List[Tuple[str, str, int, List[str]]]:
+    from mmlspark_tpu_torch.io.columnar import INGRESS_REGISTRY
+    out = []
+    seen = set()
+    for code, name in INGRESS_REGISTRY.items():
+        key = (code.co_filename, code.co_firstlineno)
+        if key in seen:
+            continue
+        seen.add(key)
+        try:
+            lines, first = inspect.getsourcelines(code)
+        except OSError:
+            continue   # dynamically built (tests); nothing to audit
+        out.append((name, textwrap.dedent("".join(lines)), first, lines))
+    return out
+
+
+_LOOP_NODES = (ast.For, ast.While, ast.ListComp, ast.SetComp,
+               ast.DictComp, ast.GeneratorExp)
+
+
+def check_ingress_source(name: str, src: str, first: int,
+                          lines: List[str]) -> List[str]:
+    """Per-row iteration / per-element boxing audit of ONE registered
+    ingress decode kernel. Any loop or comprehension must carry the
+    ``# ingress:row-ok`` acknowledgment on its first line (per-column
+    loops and the documented string-materialization passes); so must
+    ``.tolist()``/``.item()`` and ``map()`` calls."""
+    try:
+        tree = ast.parse(src)
+    except SyntaxError:
+        return [f"{name}: unparseable ingress kernel source"]
+    violations: List[str] = []
+
+    def line_ok(lineno: int) -> bool:
+        idx = lineno - 1
+        if 0 <= idx < len(lines):
+            return _INGRESS_MARK in lines[idx]
+        return False
+
+    for node in ast.walk(tree):
+        bad = None
+        if isinstance(node, _LOOP_NODES):
+            bad = ("per-row Python iteration "
+                   f"({type(node).__name__.lower()})")
+        elif isinstance(node, ast.Attribute) and \
+                node.attr in _INGRESS_ATTRS:
+            bad = f"per-element boxing '.{node.attr}'"
+        elif isinstance(node, ast.Call) and \
+                isinstance(node.func, ast.Name) and node.func.id == "map":
+            bad = "per-element boxing 'map()'"
+        if bad is not None and not line_ok(node.lineno):
+            violations.append(
+                f"{name} (line {first + node.lineno - 1}): {bad} inside "
+                f"a registered ingress decode kernel (acknowledge a "
+                f"per-column loop with '{_INGRESS_MARK}')")
+    return violations
+
+
+def check_ingress_kernels() -> List[str]:
+    """All per-row-iteration violations across registered ingress
+    decode kernels (empty = clean)."""
+    violations: List[str] = []
+    for name, src, first, lines in _ingress_sources():
+        violations.extend(check_ingress_source(name, src, first, lines))
+    return violations
+
+
+# ---------------------------------------------------------------------------
+# shared-memory transport hot paths (io/shm.py + the fleet client rung)
+# ---------------------------------------------------------------------------
+
+# the shm promise: ONE staged copy per numeric column (np.copyto into
+# the segment), zero body bytes. Any other materialization on a
+# registered shm hot path — ``.tobytes()``, ``.tolist()``, ``.copy()``,
+# a ``bytes(...)`` call — must carry the explicit acknowledgment (the
+# string-column contract and the ~150-byte control message are the
+# sanctioned cases).
+_SHM_MARK = "# shm:copy-ok"
+_SHM_COPY_ATTRS = {"tobytes", "tolist", "copy"}
+
+# additional shm hot paths living outside io/shm.py (the fleet client's
+# write->post->release rung), audited by (module, qualname)
+_SHM_EXTRA_PATHS = (
+    ("mmlspark_tpu_torch.serving.fleet", "ServingFleet._post_columns_shm"),
+)
+
+# segment owners: every ``SharedMemory(create=True)`` class must also
+# hold the matching ``.unlink(`` and ``.close(`` teardown
+_SHM_SEGMENT_OWNERS = (
+    ("mmlspark_tpu_torch.io.shm", "ShmRing"),
+)
+
+
+def _shm_sources() -> List[Tuple[str, str, int, List[str]]]:
+    from mmlspark_tpu_torch.io.shm import SHM_REGISTRY
+    out = []
+    seen = set()
+    for code, name in SHM_REGISTRY.items():
+        key = (code.co_filename, code.co_firstlineno)
+        if key in seen:
+            continue
+        seen.add(key)
+        try:
+            lines, first = inspect.getsourcelines(code)
+        except OSError:
+            continue   # dynamically built (tests); nothing to audit
+        out.append((name, textwrap.dedent("".join(lines)), first, lines))
+    for module, qualname in _SHM_EXTRA_PATHS:
+        fn = _resolve_qualname(module, qualname)
+        if fn is None:
+            out.append((f"{module}.{qualname}", "", 0, []))
+            continue
+        lines, first = inspect.getsourcelines(fn)
+        out.append((f"{module}.{qualname}",
+                    textwrap.dedent("".join(lines)), first, lines))
+    return out
+
+
+def _check_shm_copy_source(name: str, src: str, first: int,
+                           lines: List[str]) -> List[str]:
+    """Unacknowledged-copy audit of ONE registered shm hot path:
+    ``.tobytes()``/``.tolist()``/``.copy()`` attribute access and
+    ``bytes(...)`` calls need ``# shm:copy-ok`` on their line.
+    (``np.copyto`` is the ONE intended staged copy — allowed.)"""
+    if not src:
+        return [f"{name}: shm hot path is missing / unresolvable"]
+    try:
+        tree = ast.parse(src)
+    except SyntaxError:
+        return [f"{name}: unparseable shm hot-path source"]
+    violations: List[str] = []
+
+    def line_ok(lineno: int) -> bool:
+        idx = lineno - 1
+        if 0 <= idx < len(lines):
+            return _SHM_MARK in lines[idx]
+        return False
+
+    for node in ast.walk(tree):
+        bad = None
+        if isinstance(node, ast.Attribute) and \
+                node.attr in _SHM_COPY_ATTRS:
+            bad = f"unacknowledged copy '.{node.attr}'"
+        elif isinstance(node, ast.Call) and \
+                isinstance(node.func, ast.Name) and \
+                node.func.id == "bytes":
+            bad = "unacknowledged copy 'bytes()'"
+        if bad is not None and not line_ok(node.lineno):
+            violations.append(
+                f"{name} (line {first + node.lineno - 1}): {bad} on a "
+                f"registered shm hot path (acknowledge a sanctioned "
+                f"materialization with '{_SHM_MARK}')")
+    return violations
+
+
+def _is_slot_acquire(node: ast.Call) -> bool:
+    """A slot acquire: ``*._claim_slot(...)`` or ``ring.write(...)``
+    (the fleet rung's token-producing call)."""
+    f = node.func
+    if not isinstance(f, ast.Attribute):
+        return False
+    if f.attr == "_claim_slot":
+        return True
+    return (f.attr == "write" and isinstance(f.value, ast.Name)
+            and f.value.id == "ring")
+
+
+def _has_protected_release(fn) -> bool:
+    """Does ``fn`` release a slot on its failure paths — a
+    ``.release(...)`` call inside a ``finally`` block or an ``except``
+    handler?"""
+    for t in ast.walk(fn):
+        if not isinstance(t, ast.Try):
+            continue
+        bodies = list(t.finalbody)
+        for h in t.handlers:
+            bodies.extend(h.body)
+        for stmt in bodies:
+            for n in ast.walk(stmt):
+                if isinstance(n, ast.Call) and \
+                        isinstance(n.func, ast.Attribute) and \
+                        n.func.attr == "release":
+                    return True
+    return False
+
+
+def check_shm_source(name: str, src: str, first: int,
+                     lines: List[str]) -> List[str]:
+    """Both shm audits (unacknowledged copies, slot pairing) over ONE
+    hot-path source."""
+    return (_check_shm_copy_source(name, src, first, lines)
+            + _check_shm_pairing(name, src, first, lines))
+
+
+def _check_shm_pairing(name: str, src: str, first: int,
+                       lines: List[str]) -> List[str]:
+    """Acquire/release pairing audit: any function on a registered shm
+    hot path that claims a ring slot must release it on every failure
+    path (a ``.release(`` inside ``finally`` or an ``except`` handler;
+    the success path may hand the token to the caller by contract)."""
+    if not src:
+        return []   # the missing-source violation already fired
+    try:
+        tree = ast.parse(src)
+    except SyntaxError:
+        return []
+    violations: List[str] = []
+    fns = [n for n in ast.walk(tree)
+           if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+    for fn in fns or [tree]:
+        acquires = [n for n in ast.walk(fn)
+                    if isinstance(n, ast.Call) and _is_slot_acquire(n)]
+        if acquires and not _has_protected_release(fn):
+            violations.append(
+                f"{name} (line {first + acquires[0].lineno - 1}): slot "
+                f"acquire without a '.release(' on the failure paths "
+                f"(finally / except handler) — a raised exception "
+                f"leaks the slot")
+    return violations
+
+
+def check_shm_transport() -> List[str]:
+    """The shared-memory transport audit: no unacknowledged copies on
+    registered shm hot paths, every slot acquire released on failure
+    paths, and every created segment unlinked (empty = clean)."""
+    violations: List[str] = []
+    for name, src, first, lines in _shm_sources():
+        violations.extend(check_shm_source(name, src, first, lines))
+    for module, qualname in _SHM_SEGMENT_OWNERS:
+        obj = _resolve_qualname(module, qualname)
+        if obj is None:
+            violations.append(
+                f"{module}.{qualname}: segment owner is missing")
+            continue
+        src = textwrap.dedent("".join(inspect.getsourcelines(obj)[0]))
+        if "create=True" in src:
+            for needed in (".unlink(", ".close("):
+                if needed not in src:
+                    violations.append(
+                        f"{module}.{qualname}: creates a SharedMemory "
+                        f"segment but never calls '{needed}' — a "
+                        f"leaked /dev/shm file outlives the process")
+    return violations
+
+
+
+# ---------------------------------------------------------------------------
+# continuous-training control loop (serving/controlplane.py)
+# ---------------------------------------------------------------------------
+
+# The control-loop discipline, statically enforced:
+#   1. every `self.state` write happens inside the `_transition` funnel
+#      (or `__init__`, the pre-loop initial value) — so no state change
+#      can skip the timeline;
+#   2. `_transition` calls `_record`, and `_record` calls
+#      `record_event` — so the funnel actually lands the event on the
+#      registry timeline;
+#   3. refit/validation work (`refit`/`partial_fit`/`boost_more`/
+#      `_run_refit`/`_shadow_and_gate`) is invoked ONLY from the
+#      registered trainer-thread callsites;
+#   4. the serving hot-path loops (batcher/worker/execute/supervisor)
+#      never call into refit/validation — training on the request path
+#      is the failure mode the dedicated trainer thread exists to
+#      prevent.
+_CONTROL_STATE_FUNNEL = "_transition"
+_CONTROL_RECORDER = "_record"
+_CONTROL_STATE_WRITERS = frozenset({_CONTROL_STATE_FUNNEL, "__init__"})
+_REFIT_CALL_NAMES = frozenset({
+    "refit", "partial_fit", "boost_more", "_run_refit",
+    "_shadow_and_gate",
+})
+# trainer-thread callsites allowed to invoke refit/validation work
+_TRAINER_ALLOWLIST = frozenset({
+    "_cycle", "_run_refit", "_shadow_and_gate",
+})
+# serving hot-path functions that must stay training-free (the
+# forbidden set adds the cycle entrypoint + fit: a hot loop must not
+# even *start* a training cycle synchronously)
+_SERVING_HOT_LOOPS = (
+    ("mmlspark_tpu_torch.serving.server", "ServingEngine._batcher_loop"),
+    ("mmlspark_tpu_torch.serving.server", "ServingEngine._worker_loop"),
+    ("mmlspark_tpu_torch.serving.server", "ServingEngine._execute_batch"),
+    ("mmlspark_tpu_torch.serving.server", "ServingEngine._supervise"),
+)
+_SERVING_FORBIDDEN = _REFIT_CALL_NAMES | {"_cycle", "fit"}
+
+
+def check_control_loop_source(src: str, first: int = 1,
+                              name: str = "serving/controlplane.py",
+                              ) -> List[str]:
+    """The control-loop discipline audit over ONE module source (rules
+    1-3 above). Exposed at source level so the tier-1 tests can feed it
+    positive and negative examples."""
+    try:
+        tree = ast.parse(textwrap.dedent(src))
+    except SyntaxError:
+        return [f"{name}: unparseable control-loop source"]
+    violations: List[str] = []
+    record_calls_in: dict = {}    # func name -> set of callee names
+    for owner, node in _walk_with_owner(tree):
+        if isinstance(node, (ast.Assign, ast.AugAssign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            for t in targets:
+                if isinstance(t, ast.Attribute) and t.attr == "state" \
+                        and isinstance(t.value, ast.Name) \
+                        and t.value.id == "self" \
+                        and owner not in _CONTROL_STATE_WRITERS:
+                    violations.append(
+                        f"{name} (line {first + node.lineno - 1}): "
+                        f"'self.state' written in {owner!r} — every "
+                        f"loop state change must go through "
+                        f"{_CONTROL_STATE_FUNNEL!r} so its timeline "
+                        f"event is recorded")
+        if isinstance(node, ast.Call):
+            callee = _call_name(node.func)
+            record_calls_in.setdefault(owner, set()).add(callee)
+            if callee in _REFIT_CALL_NAMES and \
+                    owner not in _TRAINER_ALLOWLIST:
+                violations.append(
+                    f"{name} (line {first + node.lineno - 1}): "
+                    f"refit/validation call {callee!r} from "
+                    f"{owner!r} — training work runs only on the "
+                    f"trainer thread (allowlist: "
+                    f"{sorted(_TRAINER_ALLOWLIST)})")
+    funnel_calls = record_calls_in.get(_CONTROL_STATE_FUNNEL, set())
+    if _CONTROL_RECORDER not in funnel_calls and \
+            "record_event" not in funnel_calls:
+        violations.append(
+            f"{name}: {_CONTROL_STATE_FUNNEL!r} no longer records its "
+            f"event ({_CONTROL_RECORDER!r}/'record_event' not called) "
+            f"— transitions would vanish from the registry timeline")
+    recorder_calls = record_calls_in.get(_CONTROL_RECORDER, set())
+    if recorder_calls and "record_event" not in recorder_calls:
+        violations.append(
+            f"{name}: {_CONTROL_RECORDER!r} does not call "
+            f"'record_event' — events never reach the registry")
+    return violations
+
+
+def check_control_loop() -> List[str]:
+    """Rules 1-3 over the real serving/controlplane.py, plus rule 4
+    over the engine's serving hot loops (empty = clean)."""
+    mod = importlib.import_module("mmlspark_tpu_torch.serving.controlplane")
+    src = inspect.getsource(mod)
+    violations = check_control_loop_source(src)
+    for module, qualname in _SERVING_HOT_LOOPS:
+        try:
+            fn = _resolve_qualname(module, qualname)
+        except (ImportError, AttributeError) as e:
+            violations.append(f"{module}.{qualname}: unresolvable "
+                              f"({e}) — update _SERVING_HOT_LOOPS")
+            continue
+        fn = inspect.unwrap(fn)
+        try:
+            lines, fl = inspect.getsourcelines(fn)
+        except OSError as e:
+            violations.append(
+                f"{module}.{qualname}: unreadable source ({e})")
+            continue
+        try:
+            tree = ast.parse(textwrap.dedent("".join(lines)))
+        except SyntaxError:
+            violations.append(
+                f"{module}.{qualname}: unparseable hot-loop source")
+            continue
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call):
+                callee = _call_name(node.func)
+                if callee in _SERVING_FORBIDDEN:
+                    violations.append(
+                        f"{module}.{qualname} (line "
+                        f"{fl + node.lineno - 1}): refit/validation "
+                        f"call {callee!r} on a serving hot loop — "
+                        f"training must never run on batcher/worker "
+                        f"threads")
+    return violations
+
+
+
 # ---------------------------------------------------------------------------
 # SLO-adaptive serving (serving/variants.py + serving/autoscale.py)
 # ---------------------------------------------------------------------------
@@ -569,13 +986,20 @@ def check_adaptive_serving() -> List[str]:
 
 def main() -> int:
     n = register_representative_pipelines() + register_known_callees()
-    violations = (check_registered_kernels() + check_ooc_ingest()
-                  + check_adaptive_serving())
+    from mmlspark_tpu_torch.io.columnar import INGRESS_REGISTRY
+    from mmlspark_tpu_torch.io.shm import SHM_REGISTRY
+    violations = (check_registered_kernels() + check_ingress_kernels()
+                  + check_shm_transport() + check_ooc_ingest()
+                  + check_control_loop() + check_adaptive_serving())
     for v in violations:
         print(v)
     print(f"{n} device-op code objects registered; "
-          f"{len(OOC_HOT_PATHS)} streamed hot paths audited; adaptive "
-          f"serving audited; {len(violations)} violations")
+          f"{len(INGRESS_REGISTRY)} ingress kernels and "
+          f"{len(SHM_REGISTRY)} shm hot paths audited; "
+          f"{len(OOC_HOT_PATHS)} streamed hot paths audited; control "
+          f"loop and {len(_SERVING_HOT_LOOPS)} serving hot loops "
+          f"audited; adaptive serving audited; {len(violations)} "
+          f"violations")
     return 1 if violations else 0
 
 

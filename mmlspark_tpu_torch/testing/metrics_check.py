@@ -83,6 +83,10 @@ CAPPED_FAMILIES = {
     # placement plane: per-model replica gauges capped at
     # REPLICA_LABEL_CAP, overflow summed into model="_other"
     "serving_placement_replicas",
+    # drift exposition: per-feature scores capped at DRIFT_FEATURE_CAP
+    # (top-K by score), overflow folds into feature="_other"
+    # (core/prometheus.py drift_families)
+    "serving_drift_score",
     # variant plane: per-model rung/floor gauges + the info row capped
     # at VARIANT_LABEL_CAP declared ladders
     "serving_variant_rung",
@@ -441,13 +445,15 @@ def audit_text(text: str, where: str = "<exposition>"
 
 def engine_exposition() -> str:
     """The ``/metrics`` text of a live engine on the CPU after one
-    request, with the pipeline's histogram hook, per-model SLO streams
-    and active alerts rendered (the process-wide families as they
-    stand: this touches no process-wide state)."""
+    request, with the pipeline's histogram hook and drift monitor (more
+    features than the drift cap), per-model SLO streams, active alerts
+    and a control loop's families rendered (the process-wide families
+    as they stand: this touches no process-wide state)."""
+    import numpy as np
     from mmlspark_tpu_torch.core import metrics as MC
     from mmlspark_tpu_torch.core.slo import SLOMonitor
     from mmlspark_tpu_torch.core.trace import Tracer
-    from mmlspark_tpu_torch.serving import serve_model
+    from mmlspark_tpu_torch.serving import ContinuousTrainer, serve_model
     from mmlspark_tpu_torch.stages.basic import Lambda
 
     def echo(table):
@@ -456,12 +462,18 @@ def engine_exposition() -> str:
     lam = Lambda.apply(echo)
     lam.histograms = lambda: {"pad_ms": MC.LatencyHistogram()}
     lam.jit_cache_miss_count = lambda: 0
+    width = 24
+    lam.drift_monitor = MC.DriftMonitor(np.zeros(width), np.ones(width))
+    lam.drift_monitor.observe(np.arange(4 * width, dtype=np.float64)
+                              .reshape(4, width))
     mon = SLOMonitor()
     for i in range(100):
         mon.record(i % 2 == 0, 1.0, model=f"m{i % 3}")
     mon.evaluate()
     engine = serve_model(lam, port=0, tracer=Tracer(enabled=True),
                          slo=mon, flight_recorder=False)
+    # a control loop attached (not started): its families render
+    engine.controlplane = ContinuousTrainer(engine, lambda w, a: None)
     try:
         req = urllib.request.Request(
             engine.source.address, data=json.dumps({"x": 1}).encode(),

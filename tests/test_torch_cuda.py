@@ -1511,6 +1511,121 @@ def test_cuda_boost_more_refresh_rolled_into_a_fleet(card):
     assert got and all(p in (want["v1"][r], want["v2"][r]) for r, p in got)
 
 
+@pytest.mark.cuda
+def test_cuda_shm_post_columns_equals_json(card):
+    """post_columns over the shared-memory ring to engines serving a
+    forest on the card: every reply bitwise the per-row JSON oracle's,
+    no fallback, every slot free, the segment unlinked at stop_all."""
+    import os
+    from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
+    from mmlspark_tpu_torch.serving import (
+        ServingFleet, json_scoring_pipeline)
+    X, y = _gbdt_table(20_000)
+    model = TPUBoostClassifier(numIterations=3, numLeaves=15,
+                               device="cuda").fit(
+        DataTable({"features": X[:16_000], "label": y[:16_000]}))
+    rows = X[16_000:16_300]
+    fleet = ServingFleet(json_scoring_pipeline(model), n_engines=2,
+                         base_port=0, batch_size=64, shm_transport=True,
+                         flight_recorder=False)
+    try:
+        out = fleet.post_columns({"features": rows})
+        ring = fleet._shm_ring
+        assert fleet._shm_fallbacks == 0 and fleet._shm_ok
+        assert sorted(ring._free) == list(range(ring.nslots))
+        oracle = [fleet.post({"features": r.tolist()})["prediction"]
+                  for r in rows]
+        assert out["prediction"] == oracle
+        name = ring.name
+    finally:
+        fleet.stop_all()
+    assert not os.path.exists(f"/dev/shm/{name}")
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_refit_bitwise_direct_boost_more(card):
+    """A ContinuousTrainer cycle on a card engine: its boost_more refit
+    runs on the trainer thread through the hist kernel (one launch a
+    histogram), and the promoted forest is bitwise the same boost_more
+    run on this thread over the same window snapshot."""
+    import json
+    import threading
+    import time
+    import urllib.request
+    from mmlspark_tpu_torch.gbdt.estimators import (
+        TPUBoostClassificationModel, TPUBoostClassifier)
+    from mmlspark_tpu_torch.serving import (
+        CanaryPolicy, ContinuousTrainer, GatePolicy, json_scoring_pipeline,
+        serve_model)
+    X, y = _gbdt_table(60_000)
+    base = TPUBoostClassifier(numIterations=3, numLeaves=15,
+                              device="cuda").fit(
+        DataTable({"features": X[:20_000], "label": y[:20_000]}))
+    b0 = base.get_booster()
+    counts = {}
+
+    def refit(window, active):
+        tab = window.materialize()
+        n0 = sum(HK.LAUNCHES.values())
+        b = b0.boost_more(3, np.asarray(tab["features"], np.float32),
+                          np.asarray(tab["label"], np.float32))
+        counts["launches"] = sum(HK.LAUNCHES.values()) - n0
+        counts["hists"] = b.train_info["histograms"]
+        counts["thread"] = threading.current_thread().name
+        m = TPUBoostClassificationModel(modelString=b.model_to_string(),
+                                        numClasses=2, device="cuda")
+        m._booster = b
+        return json_scoring_pipeline(m)
+
+    engine = serve_model(json_scoring_pipeline(base), port=0,
+                         batch_size=64, version="v1", flight_recorder=False)
+    tr = ContinuousTrainer(
+        engine, refit, gate=GatePolicy(shadow_rows=512,
+                                       min_quality_delta=-1.0,
+                                       max_divergence=1.0),
+        canary=CanaryPolicy(fraction=0.5, min_batches=2),
+        poll_interval_s=0.02)
+    for lo in range(20_000, 60_000, 10_000):
+        tr.ingest(DataTable({"features": X[lo:lo + 10_000],
+                             "label": y[lo:lo + 10_000]}))
+    snap = tr.window.snapshot()
+    stop = threading.Event()
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            req = urllib.request.Request(
+                engine.source.address,
+                data=json.dumps({"features": X[i % 100].tolist()}).encode(),
+                headers={"Content-Type": "application/json"})
+            i += 1
+            try:
+                urllib.request.urlopen(req, timeout=10).read()
+            except Exception:  # noqa: BLE001 — the load only feeds batches
+                pass
+    t = threading.Thread(target=client, daemon=True)
+    try:
+        tr.start()
+        t.start()
+        tr.trigger_now("card drill")
+        deadline = time.monotonic() + 120
+        while tr.promotions + tr.quarantines + tr.refit_failures == 0 \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert tr.promotions == 1, (tr.status(), tr.history)
+        assert counts["thread"] == "controlplane-trainer"
+        assert counts["launches"] == counts["hists"] > 0
+        tab = snap.materialize()
+        direct = b0.boost_more(3, np.asarray(tab["features"], np.float32),
+                               np.asarray(tab["label"], np.float32))
+        got = engine._active.pipeline.model.get_booster()
+        assert got.model_to_string() == direct.model_to_string()
+    finally:
+        stop.set()
+        tr.stop()
+        engine.stop()
+
+
 def test_port_and_chip_smoke_import_no_jax():
     """The AST scan of test_torch_gbdt.py, in this JAX-free file: the
     port's package, its telemetry modules included, and chip_smoke.py
@@ -1523,6 +1638,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert repo / "mmlspark_tpu_torch" / "core" / "trace.py" in files
     assert repo / "mmlspark_tpu_torch" / "serving" / "lifecycle.py" in files
     assert repo / "mmlspark_tpu_torch" / "testing" / "chaos.py" in files
+    for new in (("serving", "controlplane.py"), ("io", "shm.py"),
+                ("testing", "serving_worker.py")):
+        assert repo.joinpath("mmlspark_tpu_torch", *new) in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -145,19 +145,20 @@ def test_partition_consolidator_reads_an_initialized_group(monkeypatch):
 
 
 def test_unported_surfaces_name_their_items():
-    """``post_columns`` and the shm transport still raise, naming their
-    item; the multi-model plane's membership surface is ported: the
+    """The host transports and the multi-model plane's membership
+    surface are ported: ``post_columns`` against a JSON-only engine falls
+    down its ladder to per-row JSON (and counts its rows as demand), the
     demand signal counts posts, membership moves only on a connected
-    fleet (as in the reference), and attach_placement returns its
-    controller."""
+    fleet (as in the reference), attach_placement returns its
+    controller, and ``connect`` takes ``shm_transport``."""
     fleet = _fleet(_echo(), n_engines=1, batch_size=4)
     try:
-        with pytest.raises(NotImplementedError,
-                           match="The control plane and host transports"):
-            fleet.post_columns({"x": np.arange(3.0)})
         assert fleet.demand_rate() == 0.0
         fleet.post({"x": 1})
         assert fleet.demand_rate(10.0) > 0.0
+        out = fleet.post_columns({"x": np.arange(3.0)})
+        assert out == {"echo": [0.0, 1.0, 2.0]}
+        assert fleet._columnar_ok is False
         for call in (lambda: fleet.add_engine("http://127.0.0.1:1"),
                      lambda: fleet.remove_engine("http://127.0.0.1:1")):
             with pytest.raises(RuntimeError, match="in-process fleets"):
@@ -166,9 +167,10 @@ def test_unported_surfaces_name_their_items():
         assert fleet.placement is ctl and ctl.n_engines == 1
     finally:
         fleet.stop_all()
-    with pytest.raises(NotImplementedError,
-                       match="The control plane and host transports"):
-        ServingFleet.connect(["http://127.0.0.1:1"], shm_transport=True)
+    client = ServingFleet.connect(["http://127.0.0.1:1"],
+                                  shm_transport=True)
+    assert client.shm_transport is True and client._shm_ring is None
+    client.stop_all()
 
 
 def test_connect_waits_for_a_late_engine_and_fails_over():

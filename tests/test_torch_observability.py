@@ -60,8 +60,7 @@ from mmlspark_tpu_torch.utils import profiling
 
 from test_observability import validate_prom_text
 
-# families one exposition renders and the other does not, by design
-INGRESS = {"serving_ingress_phase_ms"}
+# families whose HELP text says what the port measures
 PORT_HELP = {"gbdt_comm_bytes_total", "serving_model_warmup_ms"}
 
 
@@ -153,16 +152,21 @@ class TestRenderer:
             pytest.approx(0.04 + 0.6 + 6.0 + 1e9)
 
 
-def test_process_families_equal_across_packages():
-    """The same registry state — every process-wide phase family fed the
+def test_process_families_equal_across_packages(monkeypatch):
+    """The same registry state — every process-wide phase family (the
+    serving ingress phases and their per-codec decode included) fed the
     same observations, a tracer of the same history — renders the same
     samples in both packages, family by family."""
     texts = {}
     for name, (P, M, T) in {"torch": (PP, PM, PT),
                             "jax": (JP, JM, JT)}.items():
+        monkeypatch.setattr(M, "_INGRESS_DECODE", {})
+        for codec in ("json", "msgpack", "shm"):
+            M.ingress_decode_histogram(codec)
         fams = [M.gbdt_train_histograms(), M.gbdt_hist_histograms(),
                 M.automl_histograms(), M.pipeline_histograms(),
-                M.ooc_histograms(), M.warmup_histograms()]
+                M.ooc_histograms(), M.warmup_histograms(),
+                M.ingress_histograms(), M.ingress_decode_histograms()]
         for fam in fams:
             for h in fam.values():
                 h.reset()
@@ -182,7 +186,7 @@ def test_process_families_equal_across_packages():
         P.process_families(r, tracer=tracer)
         texts[name] = _families(r.render())
     got, want = texts["torch"], texts["jax"]
-    assert set(got) == set(want) - INGRESS - {
+    assert set(got) == set(want) - {
         n for n in want if n.startswith("device_memory_")}
     for fam, (help_, kind, lines) in got.items():
         assert (kind, lines) == tuple(want[fam][1:]), fam
@@ -497,7 +501,7 @@ class TestMetricsExposition:
 
     def test_families_equal_to_the_reference_engines(self):
         """The port's engine renders every family the reference engine
-        does, but the ingress families (the host transports)."""
+        does (the card's memory families need a CUDA context)."""
         fams = {}
         for name, (serve, L, T) in {
                 "torch": (serve_model, Lambda, PT),
@@ -514,7 +518,7 @@ class TestMetricsExposition:
                 engine.stop()
             fams[name] = _families(text)
         missing = set(fams["jax"]) - set(fams["torch"])
-        assert missing <= INGRESS | {
+        assert missing <= {
             n for n in fams["jax"] if n.startswith("device_memory_")}
         assert set(fams["torch"]) <= set(fams["jax"])
         for fam, (help_, kind, _) in fams["torch"].items():

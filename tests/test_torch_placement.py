@@ -8,7 +8,7 @@ residency-aware balanced packing, sticky assignments, the rebuild rate
 limit, engine death, stale-route fallback, fleet-global eviction through
 the zoo's invariants, and the placement events interleaved with the
 zoo's on one timeline. The lazy-export check covers
-``mmlspark_tpu_torch.serving`` (the shm transport is not ported).
+``mmlspark_tpu_torch.serving``, the shm ring included.
 
 Held against the JAX package: for the same demand and engine-liveness
 script, the same plans, replica counts and (kind, model, reason,
@@ -307,12 +307,13 @@ class TestFleetPlacement:
 class TestFabricLazyExports:
     def test_import_serving_does_not_load_the_fabric(self):
         """`import mmlspark_tpu_torch.serving` stays cheap: the placement
-        plane, the variant selector and the autoscaler load only when an
-        export is actually touched (PEP 562)."""
+        plane, the variant selector, the autoscaler and the shm ring load
+        only when an export is actually touched (PEP 562)."""
         import os
         import subprocess
         import sys
         lazy = ("placement", "variants", "autoscale")
+        shm = "mmlspark_tpu_torch.io.shm"
         code = (
             "import sys\n"
             "sys.modules['jax'] = None\n"
@@ -325,10 +326,10 @@ class TestFabricLazyExports:
             "assert sv.VariantSelector.__name__ == 'VariantSelector'\n"
             "assert sv.AutoscaleEvent.__name__ == 'AutoscaleEvent'\n"
             "assert all(pkg + m in sys.modules for m in lazy)\n"
-            "try:\n"
-            "    sv.ShmRing\n"
-            "except AttributeError:\n"
-            "    print('LAZY_OK')\n"
+            f"assert {shm!r} not in sys.modules\n"
+            "assert sv.ShmRing.__name__ == 'ShmRing'\n"
+            f"assert {shm!r} in sys.modules\n"
+            "print('LAZY_OK')\n"
         )
         repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         out = subprocess.run(

@@ -771,8 +771,9 @@ def test_mcol_frames_cross_packages(monkeypatch, enc, dec, json_header):
 
 
 def test_shm_codec_raises_and_columnar_request_is_served():
-    with pytest.raises(NotImplementedError,
-                       match="The rest of the serving plane"):
+    # the shm codec is ported: a body that is no control message fails
+    # to decode, and the engine answers 400 for it alone
+    with pytest.raises(tcol.CodecError, match="malformed shm control"):
         tcol.decode_columnar("shm", b"x")
     Xtr, ytr, Xte, _ = _higgs_shape()
     model = mtt.TPUBoostClassifier(numIterations=3, numLeaves=7,
