@@ -94,10 +94,10 @@ Phases, one line each; any failure exits non-zero:
   7. GBDT training options — on phase 3's 1M x 28 table (63 leaves,
                seed 7, the 100k holdout as validation data), each fit's
                launches counted by stats type just around it (seconds,
-               phases; the first fit traced on the device for the hist
-               kernels' share of the boost phase): (a) bagging 0.8 / 1
+               phases; none profiled: 8(a) and 14(a) trace fits on the
+               device): (a) bagging 0.8 / 1
                and feature fraction 0.8 with early_stopping_round 5 over
-               30 rounds —
+               10 rounds (20 on the flipped labels) —
                best_iteration is 1 + the argmin of the losses the run
                read and num_trees what the every-5-iterations cadence
                gives, on the holdout and on the holdout with its labels
@@ -124,7 +124,7 @@ Phases, one line each; any failure exits non-zero:
                the card, traced: fit s, train_timing, launches (one per
                histogram), hist share of the boost, holdout AUC;
                transform_sparse of 100k rows bitwise equal to the host
-               library's dense transform and to the fit's bins; a 50k-row
+               library's dense transform and to the fit's bins; a 25k-row
                slice fitted from CSR and from its dense copy with equal
                upper_bounds and bitwise equal forests; predict on the CSR
                holdout bitwise equal to predict on its dense copy; the
@@ -182,7 +182,7 @@ Phases, one line each; any failure exits non-zero:
                .pth import rounded to bf16), published to a LocalRepo and
                fetched through ModelDownloader bitwise. (b) ImageFeaturizer
                (TORCHVISION_RESNET18_SPEC, cutOutputLayers=1: 512
-               features, strict f32) over 1024 seeded Flowers-sized uint8
+               features, strict f32) over 512 seeded Flowers-sized uint8
                images (heights 240-500, widths 320-500, two classes of
                pixel mean 60 / 180; no decode) at batchSize 64 and 256:
                imgs/s, the image_resize / image_forward medians, the
@@ -198,28 +198,28 @@ Phases, one line each; any failure exits non-zero:
                width 64) fit and transform seconds, the hashing path
                (pyarrow or the numpy fallback), transform bitwise equal to
                transform_rowloop on the first 100,000 rows and, where
-               pyarrow is installed, to the transform with it blocked
-               (the numpy path, timed); (b)
+               pyarrow is installed, on the first 250,000 to the
+               transform with it blocked (the numpy path, timed); (b)
                TrainClassifier with its default GBDT on the label as the
                strings '>50K' / '<=50K' (the ValueIndexer path), fitted on
                900,000 rows, scored on the other 100,000: hist launches
                counted around the fit (above 0), scored_labels
-               round-tripping to the strings; the same table at 10 rounds
+               round-tripping to the strings; the same table at 5 rounds
                through the kernel and the GBDT's plain scatter path,
                holdout AUCs from ComputeModelStatistics within 0.005; the kernel on the fit's own bins at a root
                against hist_plain in float64 (rtol 1e-5 / atol 1e-3), with
                its time, the plain version's, a bincount's and the bound;
                (c) TuneHyperparameters over bench_automl's space (8
                TPULogisticRegression(maxIter=20) candidates, 3 folds,
-               accuracy) on the first 200,000 featurized rows: path
+               accuracy) on the first 100,000 featurized rows: path
                'vmap' in 3 dispatches, the same bestParams as with
                batchTrials='off', walls and the tune_* histograms; (d)
                Featurize(sparse=True) at the reference's width 262,144 on
-               200,000 rows and TPULogisticRegression on the CSR column
+               100,000 rows and TPULogisticRegression on the CSR column
                (the logistic backend's fit): two card fits bitwise equal,
                holdout accuracy above 0.9, fit seconds; (e) a serial tune
                of two GBDT candidates (numIterations 5 and 10,
-               minDataInLeaf 5, 2 folds, 100,000 rows) at parallelism 4 and
+               minDataInLeaf 5, 2 folds, 50,000 rows) at parallelism 4 and
                1: equal history; (f) a dense logistic and a linear
                regression fit (maxIter 300, 20,000 rows) on the card and on
                the CPU: weights within rtol 1e-4 / atol 1e-5 of their
@@ -230,7 +230,7 @@ Phases, one line each; any failure exits non-zero:
                onnx_summary manifest (20 Conv nodes) into a LocalRepo
                that the port's WebDAV server serves, read back through
                HTTPRepo sha256-verified, import_onnx_model(batch_size=256,
-               input_shape=[3, 224, 224]) over 1024 seeded images: import
+               input_shape=[3, 224, 224]) over 512 seeded images: import
                s, first batch s, imgs/s; card vs CPU on 8 rows within
                rtol 2e-4 and atol 2e-4 of the logits' scale (the writer's
                weights do not preserve variance: logits ~1e8), argmax
@@ -250,7 +250,7 @@ Phases, one line each; any failure exits non-zero:
                inputs equal but for <= 0.1 % one step apart, and no
                further from the CPU than int8 is from f32 (argmax, max
                |diff|). (c) bench_lm's fit at LM_SPEC's width, depth cut
-               to 2 (bf16, AdamW, constant schedule, device feed, 32 x
+               to 1 (bf16, AdamW, constant schedule, device feed, 32 x
                1024 at batch 8, checkpointEvery 4): 2 epochs, then 1 epoch into a fresh
                directory and 2 epochs resuming from it, the last 4 losses
                and final weights bitwise equal (or, if not, within the
@@ -271,12 +271,13 @@ Phases, one line each; any failure exits non-zero:
                near ties (top-two margin under 1e-5), probabilities
                within 1e-5, no new shape and no column re-shipped on
                warm repeats, one device round trip a transform; the
-               warm transform profiled (torch.profiler) in a fresh
+               warm transform of its first 250,000 rows profiled
+               (torch.profiler) in a fresh
                interpreter (profile_pipeline.warm_profile): one
                device-to-host copy, its busy share printed; (e) that
                pipeline behind
                serve_model(json_scoring_pipeline(pm), port=0,
-               batch_size=256, workers=2, max_wait_ms=5): 2,000 one-row
+               batch_size=256, workers=2, max_wait_ms=5): 1,000 one-row
                raw JSON requests from 16 client threads of a spawned
                process, every reply equal to the fused transform of its
                row (near ties aside), one device-to-host copy a batch;
@@ -290,7 +291,7 @@ Phases, one line each; any failure exits non-zero:
                baseline, the first chunk's predictions bitwise its own
                fused transform, prediction sums within 1e-6 x rows; the
                decode / prepare / wait / dispatch sums, the overlap and
-               decode-hidden fractions; SummarizeData on a 1M-row
+               decode-hidden fractions; SummarizeData on a 500k-row
                ChunkedTable against the materialized run (counts and
                moments within 1e-6, sketch percentiles within 0.005 in
                rank); (c) LM_SPEC's TPUModel (phase 4's seeded model,
@@ -309,16 +310,17 @@ Phases, one line each; any failure exits non-zero:
                traces, SLO samples and alerts beside requests/s. (a) in a
                fresh interpreter (python3 -m
                mmlspark_tpu_torch.profile_telemetry, where torch.profiler
-               sees the card): phase 3's 1M x 28 fit (63 leaves, max_bin
-               255, 5 rounds) timed with the process tracer on and off,
+               sees the card): phase 3's fit (63 leaves, max_bin 255, 5
+               rounds) on its first 250,000 rows, timed with the process
+               tracer on and off,
                twice each, then traced under the profiler: one bin, ship
                and boost span, boost_chunk spans within 5 % of
                train_timing's boost, the gbdt_train_histograms counts up
                by one fit, and on the timeline merged by a clock marker
                every hist_partial / hist_reduce kernel inside a boost
                span, as many hist_partial kernels as hist launches; then
-               that model served with phase 6's traffic (2,000 requests
-               from 16 threads of a spawned client process, replies
+               that model served with 500 of phase 6's requests (from
+               16 threads of a spawned client process, replies
                equal transform's), without and under the profiler, each
                device span against the card work launched in it;
                (b) bench_lm's bf16 fit (phase 5's 32 x 1024, 2 epochs)
@@ -355,7 +357,7 @@ Phases, one line each; any failure exits non-zero:
                canary batch) v2's and v1's after the rollback,
                swaps_rolled_back 1, a swap_rollback flight-recorder
                bundle; (b) rolling_swap to v2 (canary
-               0.25, 8 batches) mid-way through 3,000 requests: every
+               0.25, 8 batches) mid-way through 2,400 requests: every
                reply v1's or v2's prediction of its row, every request
                sent after the swap v2's, availability >= 99 %, three
                completed swaps in the fleet's and the engines' /metrics;
@@ -389,7 +391,8 @@ Phases, one line each; any failure exits non-zero:
                the loaded program; phase 3's forest behind a
                FastVectorAssembler of its 28 features as raw JSON fields
                (a JSON list decodes to a list column, which no device op
-               reads), fused at batch 256, exported and loaded: every
+               reads), fused at batch 32 (buckets 8-32), exported and
+               loaded: every
                bucket's replies bitwise the in-process pipeline's and
                phase 3's transform, jit_cache_misses 0;
                then fresh-process cold starts of the LM artifact, one
@@ -402,7 +405,7 @@ Phases, one line each; any failure exits non-zero:
                int8 artifact of the same seeded model exported here:
                (a) bench_zoo's shape: 256 host models and the LM behind a
                2-engine in-process fleet sharing one ModelZoo (cache 32,
-               2 workers each, default admission), 2,000 requests from
+               2 workers each, default admission), 600 requests from
                16 clients over zipf(1.1) picks and 4 tenants, every 40th
                to the LM after one cold LM request: the cold request's
                ms and its activation's, requests/s, p50 / p99,
@@ -449,28 +452,52 @@ Phases, one line each; any failure exits non-zero:
                engine processes of testing/serving_worker.py (the forest
                on the card, batch 64, 1 worker) behind
                ServingFleet.connect with shm_transport True, then False:
-               4 clients x 512-row post_columns, 1.5 s warm + 6 s each:
+               4 clients x 512-row post_columns, 1 s warm + 2 s each:
                rows/s and p50 / p99; shm fallbacks 0 and
                serving_shm_batches_total > 0; replies of both transports
                bitwise each other's and the in-process transform's;
                every slot free; the segment gone after stop_all; every
                worker exited.
-Then one JSON line of the int8 GEMMs' times (a library call, not a
+ 19. distributed GBDT on one card — two gloo ranks of
+               testing/gbdt_rank.py on cuda:0 (parallel.distributed:
+               the bounded barrier, a 60 s group timeout), phase 3's
+               1M x 28 table at 63 leaves, max_bin 255, 5 rounds, 500k
+               rows a rank (the full 1M in each for 'feature'): data
+               psum / reduce_scatter in f32 and q16, voting at top_k 28
+               and 3, feature, bin_fit='sketch', then a one-process q16
+               fit on rank 0 with the group's cuts frozen. The two ranks'
+               model strings bitwise equal in every fit; reduce_scatter's
+               forest bitwise psum's in f32 and q16; the q16 forest's
+               structure and counts bitwise the one-process fit's, values
+               within rtol 1e-5; voting at 28 with data-parallel's root
+               splits and at most 2 % of its nodes flipped (near ties);
+               each f32 fit's holdout AUC within 0.005 of phase 3's, each
+               q16 fit's within 0.005 of the one-process q16 fit's; hist
+               launches a rank equal to its histograms; fit s, the
+               collective share and bytes sent per collective. The
+               ranks are waited for with a bounded communicate, the
+               phase under a 120 s deadline.
+Then one JSON line of every phase's wall (``phase_walls_s``), one JSON
+line of the int8 GEMMs' times (a library call, not a
 ported kernel), one JSON line of per-kernel numbers (the hist rows
 include the int16 and int8 launches of 7(b) and 7(c), the F = 968
 launches of 8(a), the launches of 11(b)'s fit on its featurized bins,
 of 14(a)'s fit, of 15(a)'s boost_more, of 16(b)'s cli run and of
-18(a)'s two refits; the flash
+18(a)'s two refits (19's launch in the rank processes and are checked
+there); the flash
 rows phase 12's, 13's, 14(b)'s, 16(d)'s and 17's launches),
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
-Needs a CUDA card; without one it exits 1 and prints no result.
+Needs a CUDA card; without one it exits 1 and prints no result. A
+watchdog (faulthandler) dumps every thread's stack and exits non-zero
+if the whole run passes 1140 s.
 """
 
 from __future__ import annotations
 
 import ctypes
+import faulthandler
 import json
 import os
 import re
@@ -868,6 +895,14 @@ def traced_fit(label: str, table, test_t, yte, profiled: bool = True,
     return model, booster, a, launches, routes
 
 
+# phase 7(a)'s rounds: the early-stopping fit's and the label-flipped
+# one's (30 each, the first profiled, until the script's time limit cut
+# them: reading that profile took ~38 s), and 7(d)'s continuation rows
+# (1M until then)
+OPT_ROUNDS, FLIP_ROUNDS = 10, 20
+CONT_ROWS = 250_000
+
+
 def training_options(train_t, test_t, Xtr, ytr, Xte, yte, auc255: float,
                      smi: str) -> dict:
     """Phase 7: the GBDT training options at full width. Returns the
@@ -924,18 +959,18 @@ def training_options(train_t, test_t, Xtr, ytr, Xte, yte, auc255: float,
               f"every-{sync}-iterations cadence gives")
 
     _, ba, auc_a, la = fit("(a) bagging 0.8/1, feature_fraction 0.8, "
-                           "early_stopping_round 5", profiled=True,
-                           numIterations=30, earlyStoppingRound=5,
+                           "early_stopping_round 5", profiled=False,
+                           numIterations=OPT_ROUNDS, earlyStoppingRound=5,
                            validationData=test_t, **sampled)
     check(la["float32"] == ba.train_info["histograms"],
           f"(a): launches {la}")
-    stop_checks("(a)", ba, 30, 5)
+    stop_checks("(a)", ba, OPT_ROUNDS, 5)
     flipped = DataTable({"features": Xte, "label": 1.0 - yte})
-    _, bf, _, _ = fit("(a) on the label-flipped holdout", numIterations=30,
-                      earlyStoppingRound=5, validationData=flipped,
-                      **sampled)
-    stop_checks("(a) flipped", bf, 30, 5)
-    check(bf.num_trees < 30, "(a) flipped: the run did not stop")
+    _, bf, _, _ = fit("(a) on the label-flipped holdout",
+                      numIterations=FLIP_ROUNDS, earlyStoppingRound=5,
+                      validationData=flipped, **sampled)
+    stop_checks("(a) flipped", bf, FLIP_ROUNDS, 5)
+    check(bf.num_trees < FLIP_ROUNDS, "(a) flipped: the run did not stop")
     # the masks drawn on the card equal the CPU's, and what a draw costs
     key = prng.PRNGKey(7)
     ones = {d: (torch.ones(N_TRAIN, device=d), torch.ones(28, device=d))
@@ -986,11 +1021,13 @@ def training_options(train_t, test_t, Xtr, ytr, Xte, yte, auc255: float,
 
     # (d) retained continuation: 5 + boost_more(5) == 10 in one call
     kw = dict(numLeaves=63, seed=7, histBits=16, **sampled)
+    cont_t = DataTable({"features": Xtr[:CONT_ROWS],
+                        "label": ytr[:CONT_ROWS]})
     HK.reset_launches()
     m5 = TPUBoostClassifier(numIterations=5, keepTrainingData=True,
-                            **kw).fit(train_t)
+                            **kw).fit(cont_t)
     grown = m5.get_booster().boost_more(5)
-    m10 = TPUBoostClassifier(numIterations=10, **kw).fit(train_t)
+    m10 = TPUBoostClassifier(numIterations=10, **kw).fit(cont_t)
     torch.cuda.synchronize()
     ld = dict(HK.LAUNCHES_BY_TYPE)
     one = m10.get_booster()
@@ -1268,8 +1305,9 @@ def ingest_slice(auc255: float, Xtr, ytr, Xte, yte, test_t, measured,
     print("ingest (a): transform_sparse of 100k rows bitwise equal to the "
           "library's dense transform of them and to the fit's bins")
 
-    # a 50k-row slice fitted from CSR and from its dense copy
-    s2, y2 = tr[:50_000], ytb[:50_000]
+    # a 25k-row slice fitted from CSR and from its dense copy (50k until
+    # the script's time limit cut it)
+    s2, y2 = tr[:25_000], ytb[:25_000]
     fits = {}
     for kind, feats in (("CSR", s2), ("dense", s2.toarray())):
         t0 = time.perf_counter()
@@ -1281,9 +1319,9 @@ def ingest_slice(auc255: float, Xtr, ytr, Xte, yte, test_t, measured,
         bs.bin_mapper.upper_bounds, bd.bin_mapper.upper_bounds))
     same_trees = all(np.array_equal(bs.trees[k], bd.trees[k])
                      for k in bd.trees)
-    check(same_cuts, "(a): 50k rows: CSR and dense cuts differ")
-    check(same_trees, "(a): 50k rows: CSR and dense forests differ")
-    print(f"ingest (a): 50k rows fitted from CSR ({ts:.2f} s, bin path "
+    check(same_cuts, "(a): 25k rows: CSR and dense cuts differ")
+    check(same_trees, "(a): 25k rows: CSR and dense forests differ")
+    print(f"ingest (a): 25k rows fitted from CSR ({ts:.2f} s, bin path "
           f"{bs.train_info['bin_path']}) and from the dense copy "
           f"({td:.2f} s, bin path {bd.train_info['bin_path']}): equal "
           f"upper_bounds, forests bitwise equal")
@@ -1351,9 +1389,10 @@ def ingest_slice(auc255: float, Xtr, ytr, Xte, yte, test_t, measured,
                                              B), reps=5)
         torch.cuda.empty_cache()
         lib = bincount_call(bins, grad, hess, w, leaf, 1, B, None)
-        # one timed call after one warm-up: a call takes ~4.5 s here, and
-        # eight of them a case took ~73 s of the script's time limit
-        l_ms = time_ms(lib, reps=1, warmups=1)
+        # one timed call, no warm-up: a call takes ~4.5 s here, and eight
+        # of them a case (then one warm-up) took ~73 s (~9 s) of the
+        # script's time limit
+        l_ms = time_ms(lib, reps=1, warmups=0)
         del lib
         torch.cuda.empty_cache()
         bd_ms, by = hist_bound_ms(F, N, w, 1, B, torch.float32, False)
@@ -1716,7 +1755,9 @@ def zoo_slice(dev, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
-IMAGE_ROWS = 1024           # phase 10's Flowers-sized images
+# phase 10's Flowers-sized images (1024 until the script's time limit
+# cut them)
+IMAGE_ROWS = 512
 IMAGE_BATCHES = (64, 256)   # ImageFeaturizer's default batchSize, and 256
 TRANSFORM_ROWS = 256        # phase 10(a)'s uniform 375 x 500 batch
 
@@ -1915,8 +1956,16 @@ def image_slice(dev, smi: str) -> None:
 
 
 AUTOML_TRAIN = 900_000      # phase 11(b): fit rows; the rest are held out
-AUTOML_SPARSE_ROWS = 200_000  # phase 11(d)
-AUTOML_THREAD_ROWS = 100_000  # phase 11(e)
+# 11(d), (e), 11(b)'s kernel-vs-plain rounds and 11(a)'s numpy-path
+# rows, cut from 200,000, 100,000, 10 and the whole 1M for the script's
+# time limit
+AUTOML_SPARSE_ROWS = 100_000  # phase 11(d)
+AUTOML_THREAD_ROWS = 50_000   # phase 11(e)
+AUTOML_ROUNDS = 5             # phase 11(b)'s kernel vs plain
+AUTOML_NUMPY_ROWS = 250_000   # phase 11(a)'s numpy hashing path
+# 11(c)'s tune rows (profile_automl's AUTOML_TUNE_ROWS, 200,000, until the
+# script's time limit cut them)
+AUTOML_TUNE_N = 100_000
 AUTOML_CPU_ROWS = 20_000      # phase 11(f)
 
 
@@ -1935,7 +1984,7 @@ def automl_slice(dev, smi: str) -> dict:
     from mmlspark_tpu_torch.models.linear import (
         TPULinearRegression, TPULogisticRegression)
     from mmlspark_tpu_torch.profile_automl import (
-        AUTOML_HASH_WIDTH, AUTOML_N, AUTOML_TUNE_ROWS, FEATURE_COLUMNS,
+        AUTOML_HASH_WIDTH, AUTOML_N, FEATURE_COLUMNS,
         automl_table, hashing_path, transform_without_pyarrow, tuner)
     from mmlspark_tpu_torch.profile_hist import (
         bincount_call, device_ms, hist_bound_ms, hist_inputs, time_ms)
@@ -1974,11 +2023,15 @@ def automl_slice(dev, smi: str) -> dict:
     del oracle
     if hashing_path() == "pyarrow":
         # the numpy path too, held bitwise to the pyarrow one
-        Xn, np_s = transform_without_pyarrow(fm, table)
-        check(np.array_equal(X, Xn["features"]),
+        # on AUTOML_NUMPY_ROWS rows: the whole table's numpy pass took
+        # ~10 s of the script's time limit
+        Xn, np_s = transform_without_pyarrow(
+            fm, table.slice(0, AUTOML_NUMPY_ROWS))
+        check(np.array_equal(X[:AUTOML_NUMPY_ROWS], Xn["features"]),
               "(a): the numpy hashing path differs from pyarrow's")
-        print(f"automl (a): transform with pyarrow blocked (the numpy "
-              f"path) {np_s:.3f} s, bitwise equal to the pyarrow path")
+        print(f"automl (a): transform of the first {AUTOML_NUMPY_ROWS} "
+              f"rows with pyarrow blocked (the numpy path) {np_s:.3f} s, "
+              f"bitwise equal to the pyarrow path")
         del Xn
 
     # ---- (b) TrainClassifier, default GBDT, string labels ---------------
@@ -2021,18 +2074,22 @@ def automl_slice(dev, smi: str) -> dict:
     check(sum(launches.values()) > 0, f"(b): the fit launched no hist "
           f"kernel: {launches}")
     check(auc_k > 0.9, f"(b): holdout AUC {auc_k}")
-    # the plain path against the kernel at 10 of the default 100 rounds:
-    # the plain fit at 100 took 73-78 s of the script's time limit
+    # the plain path against the kernel at AUTOML_ROUNDS of the default
+    # 100 rounds: the plain fit at 100 took 73-78 s of the script's time
+    # limit
     _, auc_k10, l_k10, _ = classify(
-        "GBDT kernel, 10 rounds", TPUBoostClassifier(numIterations=10))
+        f"GBDT kernel, {AUTOML_ROUNDS} rounds",
+        TPUBoostClassifier(numIterations=AUTOML_ROUNDS))
     _, auc_p, l_plain, _ = classify(
-        "GBDT plain scatter path, 10 rounds",
-        TPUBoostClassifier(histMethod="scatter", numIterations=10))
+        f"GBDT plain scatter path, {AUTOML_ROUNDS} rounds",
+        TPUBoostClassifier(histMethod="scatter",
+                           numIterations=AUTOML_ROUNDS))
     check(sum(l_k10.values()) > 0 and sum(l_plain.values()) == 0,
           f"(b): kernel launches {l_k10}, plain path launches {l_plain}")
     check(abs(auc_k10 - auc_p) < 0.005, f"(b): kernel AUC {auc_k10} vs "
-          f"plain {auc_p} at 10 rounds")
-    print(f"automl (b): kernel vs plain holdout AUC at 10 rounds "
+          f"plain {auc_p} at {AUTOML_ROUNDS} rounds")
+    print(f"automl (b): kernel vs plain holdout AUC at {AUTOML_ROUNDS} "
+          f"rounds "
           f"{auc_k10:.5f} vs {auc_p:.5f} (|diff| "
           f"{abs(auc_k10 - auc_p):.5f} < 0.005)")
     # the kernel on this fit's bins: the featurized training rows binned
@@ -2082,8 +2139,8 @@ def automl_slice(dev, smi: str) -> dict:
     torch.cuda.empty_cache()
 
     # ---- (c) TuneHyperparameters, batched against serial ----------------
-    tune_t = DataTable({"features": X[:AUTOML_TUNE_ROWS],
-                        "label": label[:AUTOML_TUNE_ROWS]})
+    tune_t = DataTable({"features": X[:AUTOML_TUNE_N],
+                        "label": label[:AUTOML_TUNE_N]})
     runs = {}
     for mode in ("auto", "off"):
         for h in hists.values():
@@ -2206,11 +2263,13 @@ def automl_slice(dev, smi: str) -> dict:
 
 INTERCHANGE_DIR = os.path.join("build", "chip_smoke_interchange")
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core rate
-ONNX_ROWS = 1024            # phase 12(a)'s seeded 224 x 224 images
+ONNX_ROWS = 512             # phase 12(a)'s seeded 224 x 224 images
+#                             (1024 until the script's time limit cut them)
 CKPT_ROWS = 32              # phase 12(c)'s LM rows (4 steps an epoch)
-CKPT_DEPTH = 2              # phase 12(c)'s LM depth: LM_SPEC's width, cut
+CKPT_DEPTH = 1              # phase 12(c)'s LM depth: LM_SPEC's width, cut
 #                             from 8 blocks (its 6.4 GB checkpoints took
-#                             ~60 s of the script's time limit)
+#                             ~60 s of the script's time limit), then from
+#                             2 (2.8 GB) for the same limit
 CIFAR_CKPT_ROWS = 4096      # phase 12(c)'s ConvNet rows at batch 1024
 
 
@@ -2802,16 +2861,21 @@ def interchange_slice(dev, smi: str) -> dict:
 # phase 13: fused and streamed pipelines
 # ---------------------------------------------------------------------------
 
-FUSED_REQUESTS = 2000       # phase 13(e)'s one-row raw JSON requests
-PROFILE_WARM = """
+FUSED_REQUESTS = 1000       # phase 13(e)'s one-row raw JSON requests
+#                             (2000 until the script's time limit cut them)
+# the profiled warm transform's rows in its fresh interpreter (the 1M of
+# bench_pipeline until the script's time limit cut them)
+PROFILE_WARM_ROWS = 250_000
+PROFILE_WARM = f"""
 import json
 from mmlspark_tpu_torch.profile_pipeline import warm_profile
-busy = warm_profile()
+busy = warm_profile({PROFILE_WARM_ROWS})
 top = sorted(busy.pop("by_name").items(), key=lambda kv: -kv[1][1])[:4]
 busy["top"] = [(k[:40], n, round(us / 1e3, 3)) for k, (n, us) in top]
 print(json.dumps(busy))
 """
-SUMMARY_ROWS = 1_000_000    # phase 13(b)'s SummarizeData stream
+SUMMARY_ROWS = 500_000      # phase 13(b)'s SummarizeData stream (1M
+#                             until the script's time limit cut it)
 # phase 13(b)'s streamed rows: bench_ooc's 10M cut to 4M for the script's
 # time limit (the materialized baseline still exceeds the 1.5 GB budget)
 OOC_STREAM_ROWS = 4_000_000
@@ -2912,8 +2976,10 @@ def fused_slice(dev, smi: str, model255=None, out255=None,
     fused.transform(warm)
     fused.transform_staged(warm)
     fused.transform(PP.fresh_view(table))   # the 1M-row shape's first run
+    # one run of the stage-at-a-time host path (~4.5 s a run; best of 2
+    # until the script's time limit cut it)
     host_s, out_h = PP.best_of(lambda: pm.transform(PP.fresh_view(table)),
-                               2)
+                               1)
     staged_s, out_d = PP.best_of(
         lambda: fused.transform_staged(PP.fresh_view(table)), 2)
     misses = fused.jit_cache_misses
@@ -3252,6 +3318,11 @@ def _http(url: str):
         return r.status, r.headers.get("Content-Type", ""), r.read()
 
 
+# 14(a)'s GBDT rows and served requests in the fresh process (phase 3's
+# 1M and phase 6's 2,000 until the script's time limit cut them)
+TELEMETRY_ROWS, TELEMETRY_REQUESTS = 250_000, 500
+
+
 def telemetry_slice(smi: str, model255, out255, Xte) -> dict:
     """Phase 14: the telemetry on the card. (a) and (b) run in a fresh
     interpreter (``profile_telemetry``, where the profiler sees the
@@ -3271,7 +3342,9 @@ def telemetry_slice(smi: str, model255, out255, Xte) -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m",
-                        "mmlspark_tpu_torch.profile_telemetry"], cwd=root,
+                        "mmlspark_tpu_torch.profile_telemetry", "--rows",
+                        str(TELEMETRY_ROWS), "--requests",
+                        str(TELEMETRY_REQUESTS)], cwd=root,
                        capture_output=True, text=True, timeout=600,
                        env={**os.environ, "PYTHONPATH": root})
     check(r.returncode == 0, "(a)/(b) profile_telemetry failed: "
@@ -3280,7 +3353,8 @@ def telemetry_slice(smi: str, model255, out255, Xte) -> dict:
     g, sv, lm = prof["gbdt"], prof["serving"], prof["lm"]
     for line in r.stdout.strip().splitlines()[:-1]:
         print(f"telemetry (a)-(b) {line}")
-    print(f"telemetry (a) GBDT 1M x 28, 63 leaves, max_bin 255, 5 rounds, "
+    print(f"telemetry (a) GBDT {TELEMETRY_ROWS} x 28, 63 leaves, max_bin "
+          f"255, 5 rounds, "
           f"in a fresh process ({time.perf_counter() - t0:.1f} s in all): "
           f"fit s with the process tracer on {g['fit_s_tracer_on']}, off "
           f"{g['fit_s_tracer_off']}: gap {g['fit_gap_s']:+.4f} s "
@@ -3475,9 +3549,10 @@ def telemetry_slice(smi: str, model255, out255, Xte) -> dict:
 # phase 15: model lifecycle and the client fleet
 # ---------------------------------------------------------------------------
 
-# phase 15(b)'s one-row requests, cut from 4,000 for the script's time
-# limit; (c), (d) and the one-engine run take a fraction of them
-LIFECYCLE_REQUESTS = 3000
+# phase 15(b)'s one-row requests, cut from 4,000 and then 3,000 for the
+# script's time limit; (c), (d) and the one-engine run take a fraction of
+# them
+LIFECYCLE_REQUESTS = 2400
 LIFECYCLE_CLIENTS = 16      # client threads of the spawned process
 LIFECYCLE_ROWS = 2000       # distinct holdout rows the requests carry
 NEAR_TIE = 1e-4             # |raw score| under which a walk may round
@@ -4081,8 +4156,10 @@ def registry_aot_slice(smi: str, model255, out255, Xtr, ytr, Xte) -> dict:
     def raw_rows(n):
         return DataTable({c: Xte[:n, i] for i, c in enumerate(names)})
 
+    # buckets 8-32 (the export of 8-256 took ~19 s of the script's time
+    # limit)
     fz = fuse([FastVectorAssembler(inputCols=names, outputCol="features"),
-               model255], batch_size=256)
+               model255], batch_size=32)
     fart = os.path.join(work, "forest_aot")
     t0 = time.perf_counter()
     fman = aot.export_model(fz, raw_rows(4), fart)
@@ -4136,7 +4213,7 @@ def registry_aot_slice(smi: str, model255, out255, Xtr, ytr, Xte) -> dict:
 
 ZOO_MODELS = 256            # bench_zoo's shape (bench.py:1261-1264)
 ZOO_MAX_RESIDENT = 32
-ZOO_REQUESTS = 2000
+ZOO_REQUESTS = 600          # 17(a) (2000 until the script's time limit)
 ZOO_CLIENTS = 16
 ZOO_LM_EVERY = 40           # 17(a): every 40th request goes to the LM
 ZOO_DIM, ZOO_CLASSES = 16, 8
@@ -4615,8 +4692,9 @@ CP_CLIENTS = 16
 FABRIC_PROCS = 4            # 18(b): bench_fabric's shape (bench.py)
 FABRIC_CLIENTS = 4
 FABRIC_ROWS = 512
-FABRIC_WARM_S = 1.5
-FABRIC_LOAD_S = 3.0         # a turn; turns shm, HTTP, HTTP, shm: 6 s each
+FABRIC_WARM_S = 1.0         # (1.5 until the script's time limit cut it)
+FABRIC_LOAD_S = 2.0         # a turn; turns shm, HTTP, HTTP, shm (3 s each
+#                             until the script's time limit cut them)
 
 
 def higgs_drift(n: int, seed: int = 8):
@@ -5046,8 +5124,123 @@ def controlplane_slice(dev, smi: str, model255, Xtr, ytr, Xte, yte,
                      "_hist_kernel": 0}}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: distributed GBDT on one card
+# ---------------------------------------------------------------------------
+
+# phase 19's sweep (testing/gbdt_rank.py tags) and its deadline
+DIST_FITS = ("f32_psum", "f32_rs", "q16_psum", "q16_rs", "vote_all",
+             "vote_3", "feature", "sketch", "qref")
+DIST_DEADLINE_S = 120.0
+
+
+def distributed_slice(smi: str, auc255: float) -> dict:
+    """Phase 19: two gloo ranks on the one card run the distributed
+    sweep over phase 3's table; every wait is bounded."""
+    t_phase = time.perf_counter()
+    # two distinct free ports: the group's store and the liveness barrier
+    # (whose default, the store's port + 1, may be taken)
+    import socket
+    with socket.socket() as s1, socket.socket() as s2:
+        s1.bind(("127.0.0.1", 0))
+        s2.bind(("127.0.0.1", 0))
+        port, bport = s1.getsockname()[1], s2.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MMLSPARK_TPU_TORCH_")}
+    env["MMLSPARK_TPU_TORCH_BARRIER_PORT"] = str(bport)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_spawn = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mmlspark_tpu_torch.testing.gbdt_rank",
+         str(port), str(r), "2", "--device", "cuda", "--timeout-s", "60",
+         "--sweep", "higgs:" + ",".join(DIST_FITS), "--rows",
+         str(N_TRAIN), "--holdout", str(N_TEST), "--leaves", "63",
+         "--max-bin", "255"], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            left = DIST_DEADLINE_S - (time.perf_counter() - t_phase)
+            out, err = p.communicate(timeout=max(1.0, left))
+            outs.append((p.returncode, out, err))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate(timeout=30)
+        fail(f"(19) the ranks passed the phase's {DIST_DEADLINE_S:.0f} s "
+             f"deadline; finished: {[o[1][-2000:] for o in outs]}")
+    lines = {}
+    for r, (rc, out, err) in enumerate(outs):
+        check(rc == 0 and f"OK {r}" in out,
+              f"(19) rank {r} failed (rc={rc}):\n{out[-3000:]}\n"
+              f"{err[-3000:]}")
+        for ln in out.splitlines():
+            parts = ln.split()
+            if parts and parts[0] in ("READY", "DIGEST", "FIT", "QREF",
+                                      "VOTE"):
+                lines[(parts[0], int(parts[1]),
+                       parts[2] if len(parts) > 2 else "")] = parts[3:]
+    # seconds from the spawn to the rank's READY (its imports, then
+    # joining the group), and of the join alone
+    ready = [float(lines[("READY", r, "2")][2]) - t_spawn for r in (0, 1)]
+    joined = [float(lines[("READY", r, "2")][1]) for r in (0, 1)]
+    qsame, qrel, q_s, q_auc = lines[("QREF", 0, "higgs")]
+    q_auc = float(q_auc)
+    walls, comm = {}, {}
+    for tag in DIST_FITS[:-1]:
+        name = f"higgs/{tag}"
+        d0, d1 = lines[("DIGEST", 0, name)], lines[("DIGEST", 1, name)]
+        check(d0 == d1, f"(19) {tag}: the ranks' forests differ {d0} {d1}")
+        for r in (0, 1):
+            fit = lines[("FIT", r, name)]
+            check(int(fit[2]) == int(fit[3]) > 0,
+                  f"(19) {tag} rank {r}: {fit[2]} hist launches for "
+                  f"{fit[3]} histograms")
+        fit_s, coll_s = float(fit[0]), float(fit[1])
+        a = float(fit[4])
+        ref = q_auc if tag.startswith("q16") else auc255
+        check(abs(a - ref) < 0.005,
+              f"(19) {tag}: holdout AUC {a} vs {ref} (|diff| >= 0.005)")
+        walls[tag] = fit_s
+        comm[tag] = dict(zip(("psum", "psum_scatter", "all_gather"),
+                             map(float, fit[5:8])))
+        print(f"distributed (19) {tag}: fit {fit_s:.3f} s a rank, "
+              f"collectives {coll_s:.3f} s ({100 * coll_s / fit_s:.1f} %), "
+              f"holdout AUC {a:.5f}, {fit[3]} histograms = launches a "
+              f"rank, gbdt_comm_bytes_total by collective "
+              f"{comm[tag]}; model sha {d0[0]} on both ranks")
+    for bits in ("f32", "q16"):
+        check(lines[("DIGEST", 0, f"higgs/{bits}_rs")][1]
+              == lines[("DIGEST", 0, f"higgs/{bits}_psum")][1],
+              f"(19) {bits}: reduce_scatter's forest is not psum's")
+    check(qsame == "1" and float(qrel) <= 1e-5,
+          f"(19) q16 group forest vs the one-process fit: structure "
+          f"{qsame}, values rel {qrel}")
+    root, flipped, nodes = lines[("VOTE", 0, "higgs")]
+    check(root == "1" and int(flipped) <= 0.02 * int(nodes),
+          f"(19) voting at top_k 28 vs data: roots {root}, {flipped} / "
+          f"{nodes} nodes differ")
+    print(f"distributed (19): ranks ready {ready[0]:.2f} / {ready[1]:.2f} "
+          f"s after the spawn (joining the group {joined[0]:.2f} / "
+          f"{joined[1]:.2f} s of it); every fit's model string bitwise equal on both ranks; "
+          f"reduce_scatter = psum bitwise in f32 and q16; q16 group vs "
+          f"one-process fit with its cuts: structure and counts equal, "
+          f"values max rel {qrel} (one-process fit {float(q_s):.3f} s, "
+          f"AUC {q_auc:.5f}; q16 vs phase 3's f32 {q_auc - auc255:+.5f}); "
+          f"voting at top_k 28 vs data: roots equal, {flipped} / {nodes} "
+          f"nodes differ; card: {smi}")
+    print(f"distributed: phase 19 took {time.perf_counter() - t_phase:.1f} "
+          f"s; card: {smi}")
+    return {"walls": walls, "comm": comm}
+
+
 def main() -> int:
+    # an overrun dumps every thread's stack and exits non-zero before the
+    # run's 1200 s limit
+    faulthandler.dump_traceback_later(1140, exit=True)
     t_start = time.perf_counter()
+    walls = {}
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5083,6 +5276,7 @@ def main() -> int:
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all()
+    walls["1"] = time.perf_counter() - t0
     for name, (secs, log) in built.items():
         print(f"build: {_build.source_of(name)} built in {secs:.1f} s")
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s "
@@ -5216,7 +5410,8 @@ def main() -> int:
         del bins, grad, hess, w, leaf, cv, out, again, ref
     torch.cuda.empty_cache()
 
-    print(f"chip_smoke: phase 2 took {time.perf_counter() - t_phase:.1f} s")
+    walls["2"] = time.perf_counter() - t_phase
+    print(f"chip_smoke: phase 2 took {walls['2']:.1f} s")
     # ---- 2b. flash-attention kernel vs its plain version -----------------
     t_phase = time.perf_counter()
     def flash_bound_ms(case, dtype):
@@ -5327,7 +5522,8 @@ def main() -> int:
             del q, k, v, out, lse, out2, lse2, rout, rlse
     torch.cuda.empty_cache()
 
-    print(f"chip_smoke: phase 2b took {time.perf_counter() - t_phase:.1f} s")
+    walls["2b"] = time.perf_counter() - t_phase
+    print(f"chip_smoke: phase 2b took {walls['2b']:.1f} s")
     # ---- 2c. flash-attention backward kernels vs their plain version -----
     t_phase = time.perf_counter()
     def flash_bwd_bound_ms(case, dtype, kernel):
@@ -5413,7 +5609,8 @@ def main() -> int:
             del q, k, v, out, lse, dout, got, again, ref
     torch.cuda.empty_cache()
 
-    print(f"chip_smoke: phase 2c took {time.perf_counter() - t_phase:.1f} s")
+    walls["2c"] = time.perf_counter() - t_phase
+    print(f"chip_smoke: phase 2c took {walls['2c']:.1f} s")
     # ---- 3. the GBDT slice end to end ------------------------------------
     t_phase = time.perf_counter()
     train_t = DataTable({"features": Xtr, "label": ytr})
@@ -5488,7 +5685,8 @@ def main() -> int:
     print(f"slice: 20k-row fit on the card vs on the CPU: trees identical "
           f"{same}, max |p diff| {diff:.3e}")
 
-    print(f"chip_smoke: phase 3 took {time.perf_counter() - t_phase:.1f} s")
+    walls["3"] = time.perf_counter() - t_phase
+    print(f"chip_smoke: phase 3 took {walls['3']:.1f} s")
     # ---- 4. the DNN slice: TPUModel.transform through the full-width LM --
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -5563,7 +5761,8 @@ def main() -> int:
           "of positions")
     del m2, on_card, on_cpu
 
-    print(f"chip_smoke: phase 4 took {time.perf_counter() - t_phase:.1f} s")
+    walls["4"] = time.perf_counter() - t_phase
+    print(f"chip_smoke: phase 4 took {walls['4']:.1f} s")
     # ---- 5. the training slice: TPULearner.fit of the full-width LM ------
     t_phase = time.perf_counter()
     train_rows = 32
@@ -5662,81 +5861,93 @@ def main() -> int:
           f"diff| {w_diff:.3e} vs largest update {upd:.3e} (<= 1e-3 of it)")
     del m0, w0, w_card, w_cpu
 
-    print(f"chip_smoke: phase 5 took {time.perf_counter() - t_phase:.1f} s")
+    walls["5"] = time.perf_counter() - t_phase
+    print(f"chip_smoke: phase 5 took {walls['5']:.1f} s")
     # ---- 6. the serving slice: save, reload, serve over HTTP --------------
     t_phase = time.perf_counter()
     serving_slice(model255, out255, Xte, smi)
 
-    print(f"chip_smoke: phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    walls["6"] = time.perf_counter() - t_phase
+    print(f"chip_smoke: phase 6 took {walls['6']:.1f} s")
     # ---- 7. the GBDT training options at full width ----------------------
     t_phase = time.perf_counter()
     int_launches = training_options(train_t, test_t, Xtr, ytr, Xte, yte,
                                     auc255, smi)
 
-    print(f"chip_smoke: phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    walls["7"] = time.perf_counter() - t_phase
+    print(f"chip_smoke: phase 7 took {walls['7']:.1f} s")
     # ---- 8. GBDT ingest beyond dense input --------------------------------
     t_phase = time.perf_counter()
     ingest_routes = ingest_slice(auc255, Xtr, ytr, Xte, yte, test_t,
                                  measured, smi)
 
-    print(f"chip_smoke: phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    walls["8"] = time.perf_counter() - t_phase
+    print(f"chip_smoke: phase 8 took {walls['8']:.1f} s")
     # ---- 9. the zoo's ConvNet, ResNet and BiLSTM ---------------------------
-    t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    zoo_slice(dev, smi)
-    print(f"zoo: phase 9 took {time.perf_counter() - t0:.1f} s")
+    def timed(phase: str, fn, *args):
+        """Run one phase, keep its wall and print it."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[phase] = time.perf_counter() - t0
+        print(f"chip_smoke: phase {phase} took {walls[phase]:.1f} s")
+        return out
+
+    timed("9", zoo_slice, dev, smi)
 
     # ---- 10. the transfer-learning image path -----------------------------
-    t0 = time.perf_counter()
-    image_slice(dev, smi)
-    print(f"image: phase 10 took {time.perf_counter() - t0:.1f} s")
+    timed("10", image_slice, dev, smi)
 
     # ---- 11. the AutoML slice ---------------------------------------------
-    t0 = time.perf_counter()
-    automl_row = automl_slice(dev, smi)
-    print(f"automl: phase 11 took {time.perf_counter() - t0:.1f} s")
+    automl_row = timed("11", automl_slice, dev, smi)
 
     # ---- 12. models entering and leaving the system -----------------------
-    t0 = time.perf_counter()
-    inter = interchange_slice(dev, smi)
-    print(f"interchange: phase 12 took {time.perf_counter() - t0:.1f} s")
+    inter = timed("12", interchange_slice, dev, smi)
     for k, v in inter["bf16"].items():
         train_launches[k] += v
 
     # ---- 13. fused and streamed pipelines --------------------------------
-    fused_launches = fused_slice(dev, smi, model255, out255, test_t)
+    fused_launches = timed("13", fused_slice, dev, smi, model255, out255,
+                           test_t)
     for k, v in fused_launches["bf16"].items():
         train_launches[k] += v
 
     # ---- 14. request tracing and serving telemetry -----------------------
-    t0 = time.perf_counter()
-    tele = telemetry_slice(smi, model255, out255, Xte)
-    print(f"telemetry: phase 14 took {time.perf_counter() - t0:.1f} s")
+    tele = timed("14", telemetry_slice, smi, model255, out255, Xte)
     for k, v in tele["hist"].items():
         l255[k] += v
     for k, v in tele["flash"].items():
         train_launches[k] += v
 
     # ---- 15. model lifecycle and the client fleet -------------------------
-    life = lifecycle_slice(dev, smi, model255, Xtr, ytr, Xte, yte, auc255)
+    life = timed("15", lifecycle_slice, dev, smi, model255, Xtr, ytr, Xte,
+                 yte, auc255)
     for k, v in life["hist"].items():
         l255[k] += v
 
     # ---- 16. the stage registry and AOT serving artifacts ------------------
-    reg = registry_aot_slice(smi, model255, out255, Xtr, ytr, Xte)
+    reg = timed("16", registry_aot_slice, smi, model255, out255, Xtr, ytr,
+                Xte)
     for k, v in reg["hist"].items():
         l255[k] += v
 
     # ---- 17. the multi-model plane (phase 16's LM artifact) ---------------
     try:
-        multi = multimodel_slice(smi, reg["art"], reg["work"], reg["lm_ref"])
+        multi = timed("17", multimodel_slice, smi, reg["art"], reg["work"],
+                      reg["lm_ref"])
     finally:
         shutil.rmtree(reg["work"], ignore_errors=True)
 
     # ---- 18. the control plane and host transports ------------------------
-    cp = controlplane_slice(dev, smi, model255, Xtr, ytr, Xte, yte, auc255)
+    cp = timed("18", controlplane_slice, dev, smi, model255, Xtr, ytr, Xte,
+               yte, auc255)
     for k, v in cp["hist"].items():
         l255[k] += v
+
+    # ---- 19. distributed GBDT on one card ---------------------------------
+    timed("19", distributed_slice, smi, auc255)
+    walls["all"] = time.perf_counter() - t_start
+    print(json.dumps({"phase_walls_s": {k: round(v, 1)
+                                        for k, v in walls.items()}}))
     print(json.dumps({"int8_gemms": inter["int8_gemms"]}))
     print(f"chip_smoke: all phases took {time.perf_counter() - t_start:.1f} "
           "s")

@@ -28,9 +28,9 @@ What a bundle carries:
 Auto-capture: ``trigger(reason)`` is RATE-LIMITED (one bundle per
 ``min_interval_s``; later triggers within the window are counted, not
 captured) and keeps the last ``bundle_capacity`` bundles in memory. The
-port's serving engine triggers on SLO alert fire, and
-``CircuitBreaker.on_open`` can carry ``trigger`` (the reference also
-triggers on swap rollback, which waits for the model lifecycle);
+port's serving engine triggers on SLO alert fire and on a swap's
+rollback (``serving/lifecycle.py``), and ``CircuitBreaker.on_open`` can
+carry ``trigger``;
 ``/debug/bundle?confirm=1`` serves a fresh dump on demand. Everything is
 bounded — an always-on recorder must never be the memory leak it exists
 to debug.

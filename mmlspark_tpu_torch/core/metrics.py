@@ -5,9 +5,8 @@ MetricConstants), latency histograms (mergeable, snapshot for
 exporters), the capped ``LabelledHistograms``, the windowed counter and
 histogram, the process-wide GBDT training-phase, GBDT histogram-phase
 and collective-byte families, the warmup, AutoML-phase, pipeline, ooc
-and ingress histograms, and the feature ``DriftMonitor``. The
-control-loop family waits for the control plane (ROADMAP.md, 'The rest
-of the serving plane')."""
+and ingress histograms, the control-loop family and the feature
+``DriftMonitor``."""
 
 from __future__ import annotations
 
@@ -455,11 +454,10 @@ def gbdt_hist_histograms() -> Dict[str, LatencyHistogram]:
     return _GBDT_HIST_HISTS
 
 
-# per-device collective payload bytes the training schedule shipped,
-# keyed by collective type. Computed from the collective schedule's
-# ring-payload model at the end of every distributed train(). The port
-# trains in one process, so they stay zero until distributed GBDT is
-# ported (ROADMAP.md, 'Distributed GBDT'); /metrics renders them.
+# per-device collective payload bytes distributed GBDT training shipped,
+# keyed by collective type: at the end of every distributed train() the
+# bytes this rank sent while boosting (``parallel.distributed.Axis.sent``;
+# zero in a group of one); /metrics renders them.
 GBDT_COMM_COLLECTIVES = ("psum", "psum_scatter", "all_gather")
 _GBDT_COMM_LOCK = threading.Lock()
 _GBDT_COMM_BYTES: Dict[str, float] = {c: 0.0 for c in
@@ -467,8 +465,8 @@ _GBDT_COMM_BYTES: Dict[str, float] = {c: 0.0 for c in
 
 
 def gbdt_comm_add(collective: str, nbytes: float) -> None:
-    """Accumulate modeled per-device payload bytes for one collective
-    type ('psum' | 'psum_scatter' | 'all_gather')."""
+    """Accumulate per-device payload bytes for one collective type
+    ('psum' | 'psum_scatter' | 'all_gather')."""
     if collective not in _GBDT_COMM_BYTES:
         raise ValueError(f"unknown collective {collective!r}; expected "
                          f"one of {GBDT_COMM_COLLECTIVES}")

@@ -150,9 +150,9 @@ def process_families(r: PromRenderer, tracer: Any = None) -> None:
                     hist, {"phase": phase})
     for coll, val in MC.gbdt_comm_counters().items():
         r.counter("gbdt_comm_bytes_total",
-                  "modeled per-device collective payload bytes shipped "
-                  "by distributed GBDT training (ring model; zero "
-                  "in a one-process fit)",
+                  "per-device collective payload bytes each rank "
+                  "sent while boosting distributed GBDT (zero in a "
+                  "one-process fit)",
                   val, {"collective": coll})
     for phase, hist in MC.automl_histograms().items():
         r.histogram("automl_phase_ms",

@@ -164,8 +164,8 @@ class BinMapper:
                          f32_cuts_exact=f32_exact)
 
     @staticmethod
-    def fit_streaming(chunks, max_bin: int = 255,
-                      b: int = 512) -> "BinMapper":
+    def fit_streaming(chunks, max_bin: int = 255, b: int = 512,
+                      sketches: Optional[List] = None) -> "BinMapper":
         """Fit bin boundaries in one bounded-memory pass over a chunk
         stream (the out-of-core analog of ``fit``, which must see the
         whole (N, F) matrix). ``chunks`` yields (N, F) arrays, ``(X,
@@ -176,24 +176,31 @@ class BinMapper:
         certificate, kept on the mapper) of their equal-frequency
         targets. An all-float32 stream gets f32-snapped cuts, so the
         device binning stays eligible; any float64 chunk keeps f64
-        cuts."""
+        cuts. Distributed fits pass ``sketches`` (per-feature sketches
+        already merged across processes, ``booster._multihost_sketch_
+        mapper``) instead of a stream; they carry no dtype, so their cuts
+        stay float64."""
         from mmlspark_tpu_torch.gbdt.sketch import QuantileSketch
         f32_exact = True
-        sketches: List[QuantileSketch] = []
-        seen = False
-        for chunk in chunks:
-            X = _chunk_matrix(chunk)
-            if not sketches:
-                sketches = [QuantileSketch(b=b) for _ in range(X.shape[1])]
-            elif X.shape[1] != len(sketches):
-                raise ValueError(f"chunk has {X.shape[1]} features; "
-                                 f"expected {len(sketches)}")
-            seen = True
-            f32_exact = f32_exact and X.dtype == np.float32
-            for j, sk in enumerate(sketches):
-                sk.update(X[:, j])
-        if not seen:
-            raise ValueError("empty chunk stream")
+        if sketches is None:
+            sketches = []
+            seen = False
+            for chunk in chunks:
+                X = _chunk_matrix(chunk)
+                if not sketches:
+                    sketches = [QuantileSketch(b=b)
+                                for _ in range(X.shape[1])]
+                elif X.shape[1] != len(sketches):
+                    raise ValueError(f"chunk has {X.shape[1]} features; "
+                                     f"expected {len(sketches)}")
+                seen = True
+                f32_exact = f32_exact and X.dtype == np.float32
+                for j, sk in enumerate(sketches):
+                    sk.update(X[:, j])
+            if not seen:
+                raise ValueError("empty chunk stream")
+        else:
+            f32_exact = False   # merged / wire sketches carry no dtype
         bounds: List[np.ndarray] = []
         for sk in sketches:
             cut = sk.cuts(max_bin)

@@ -21,9 +21,15 @@ losses at the chunk boundaries (``boost_chunk`` sets that cadence).
 The model string is the JAX package's ``"mmlspark_tpu.booster.v1"``
 JSON, so each package loads the other's forests.
 
-Options outside this slice raise ``NotImplementedError`` naming the
-ROADMAP.md item that will port them; none of them silently runs
-something else.
+Distributed training (``parallelism='data' | 'voting' | 'feature'``)
+runs one rank per process over a ``torch.distributed`` group
+(``parallel.distributed``; outside a group, as a group of one). Every
+process calls ``train`` with its OWN row shard (data / voting; the ranks
+agree on bin boundaries from all-gathered samples or quantile sketches,
+``bin_fit``) or with the FULL dataset (feature, LightGBM's layout,
+checked by a digest); the tree grower's collectives are in
+``tree.grow_tree``. A ``mesh`` (many devices in one process) raises
+``NotImplementedError`` naming the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -424,7 +430,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _validate_params(p: Dict[str, Any], mesh) -> None:
-    """Fail fast on everything outside this slice of the port."""
+    """Fail fast — an unsupported combination raises an actionable
+    error, never silently runs something else. Resolves
+    ``hist_comm='auto'``."""
     hist_bits = int(p["hist_bits"])
     if hist_bits not in (32, 16, 8):
         raise ValueError(
@@ -437,17 +445,37 @@ def _validate_params(p: Dict[str, Any], mesh) -> None:
             "run would silently lose the integer-exactness contract); "
             "use hist_method='scatter' (any device) or 'pallas' (the "
             "card's kernel), or hist_bits=32")
-    if p["parallelism"] != "serial" or mesh is not None:
-        raise _not_ported(f"parallelism={p['parallelism']!r}",
-                          "Distributed GBDT")
-    if p["hist_comm"] not in ("auto", "psum", "reduce_scatter"):
+    if mesh is not None:
+        raise _not_ported("mesh= (a device mesh inside one process; the "
+                          "port's data axis is the torch.distributed "
+                          "group)", "Device pipeline and serving "
+                          "compilation")
+    if p["parallelism"] not in ("serial", "data", "voting", "feature"):
+        raise ValueError(
+            f"unknown parallelism={p['parallelism']!r}; expected "
+            "'serial', 'data', 'voting' or 'feature'")
+    if hist_bits < 32 and p["parallelism"] == "feature":
+        raise ValueError(
+            "hist_bits < 32 with parallelism='feature' is not "
+            "supported: feature-parallel histograms never cross the "
+            "wire, so quantization only adds rounding noise; use "
+            "parallelism='data' or 'voting', or hist_bits=32")
+    if p["hist_comm"] == "auto":
+        # quantized data-parallel gets the reduce-scatter partition (the
+        # wire saving is the point); f32 keeps psum
+        p["hist_comm"] = ("reduce_scatter"
+                          if hist_bits < 32 and p["parallelism"] == "data"
+                          else "psum")
+    elif p["hist_comm"] == "reduce_scatter":
+        if p["parallelism"] != "data":
+            raise ValueError(
+                "hist_comm='reduce_scatter' requires "
+                "parallelism='data' (feature/voting modes already "
+                f"keep histograms local); got {p['parallelism']!r}")
+    elif p["hist_comm"] != "psum":
         raise ValueError(
             f"unknown hist_comm={p['hist_comm']!r}; expected 'auto', "
             "'psum' or 'reduce_scatter'")
-    if p["hist_comm"] == "reduce_scatter":
-        raise ValueError(
-            "hist_comm='reduce_scatter' requires parallelism='data'")
-    p["hist_comm"] = "psum"
     if p["device_binning"] not in ("auto", "on", "off"):
         raise ValueError(f"device_binning={p['device_binning']!r}; expected "
                          "'auto', 'on' or 'off'")
@@ -463,21 +491,27 @@ class _BoostRun:
                  bins_d: torch.Tensor, y_d: torch.Tensor,
                  w_d: torch.Tensor, fmask: torch.Tensor,
                  scores: torch.Tensor, mask_key: prng.Key, bag_cfg,
-                 ff_cfg):
+                 ff_cfg, f_valid: int, f_total: int, axis=None,
+                 parallel_mode: str = "data"):
         self.objective, self.gp, self.lr = objective, gp, lr
         self.bins_d, self.y_d, self.w_d, self.fmask = bins_d, y_d, w_d, fmask
         self.scores = scores
         self.mask_key, self.bag_cfg, self.ff_cfg = mask_key, bag_cfg, ff_cfg
+        # feature-parallel ranks hold a window of f_total (padded)
+        # features, f_valid of them real
+        self.f_valid, self.f_total = f_valid, f_total
+        self.axis, self.parallel_mode = axis, parallel_mode
         self.trees: List[Tree] = []
         self.histograms = 0
 
     def step(self, it: int) -> List[Tree]:
         """Boost iteration ``it``; returns (and keeps) its K trees."""
         K = self.objective.num_class
-        f = self.bins_d.shape[0]
         w, fmask = sample_iteration_masks(self.mask_key, it, self.w_d,
                                           self.fmask, self.bag_cfg,
-                                          self.ff_cfg, f, f)
+                                          self.ff_cfg, self.f_valid,
+                                          self.f_total, self.axis,
+                                          self.parallel_mode)
         scores = self.scores
         grad, hess = self.objective.grad_hess(
             scores[0] if K == 1 else scores, self.y_d)
@@ -487,12 +521,18 @@ class _BoostRun:
         # feature fraction 2), then the class
         kq = (prng.fold_in(prng.fold_in(self.mask_key, it), 3)
               if self.gp.hist_bits < 32 else None)
+        # the data axis's arguments only for a distributed run: a serial
+        # one calls the grower as it always has
+        dist_kw = ({} if self.axis is None else
+                   {"axis_name": self.axis,
+                    "parallel_mode": self.parallel_mode})
         out = []
         for k in range(K):
             tree, leaf_of_row, leaf_vals, n_leaves = grow_tree(
                 self.bins_d, grad[k].contiguous(), hess[k].contiguous(), w,
                 fmask, self.gp,
-                quant_key=None if kq is None else prng.fold_in(kq, k))
+                quant_key=None if kq is None else prng.fold_in(kq, k),
+                **dist_kw)
             scores[k] += self.lr * leaf_vals[leaf_of_row.long()]
             out.append(tree)
             self.histograms += n_leaves
@@ -590,8 +630,19 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
     ``boost_chunk`` span per chunk of iterations (host wall; the grower
     reads every split back, so it tracks the card), and the root
     attributes ``bin_path``, ``boost_chunks`` and ``trees``. The phases
-    and chunks are observed into ``core.metrics.gbdt_train_histograms()``."""
-    from mmlspark_tpu_torch.core.metrics import gbdt_train_histograms
+    and chunks are observed into ``core.metrics.gbdt_train_histograms()``.
+
+    ``parallelism`` 'data' / 'voting' / 'feature' trains over the
+    ``torch.distributed`` group this process joined
+    (``parallel.distributed.initialize``; outside one, as a group of
+    one), one rank per process: each passes its own row shard (data /
+    voting; shards truncate to the smallest, and the ranks agree on cuts
+    through ``_multihost_mapper``) or the full dataset (feature, checked
+    by a digest). ``train_info["comm_bytes"]`` holds the bytes this rank
+    sent per collective while boosting, also added to
+    ``core.metrics.gbdt_comm_add``."""
+    from mmlspark_tpu_torch.core.metrics import gbdt_comm_add, \
+        gbdt_train_histograms
     from mmlspark_tpu_torch.core.trace import get_tracer
     dev = resolve_device(device)
     tracer = get_tracer()
@@ -653,6 +704,36 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
             "iterator X with a separate y is ambiguous: streaming mode "
             "passes y=None and the iterator yields "
             "(X_shard, y_shard[, w_shard]) tuples")
+    # distributed: every process calls train() with its OWN row shard
+    # (data / voting) or the full dataset (feature, LightGBM's layout);
+    # the ranks agree on bin boundaries before anything is binned
+    from mmlspark_tpu_torch.parallel import distributed as dist_lib
+    par = p["parallelism"]
+    nproc = dist_lib.host_info().process_count
+    axis = dist_lib.Axis() if par != "serial" else None
+    multi_host = par in ("data", "voting") and nproc > 1
+    multi_host_fp = par == "feature" and nproc > 1
+    if multi_host_fp and streaming:
+        raise ValueError(
+            "multi-process parallelism='feature' requires the full dense "
+            "dataset on every process (LightGBM's feature-parallel "
+            "layout); stream ingestion only supports "
+            "parallelism='data'/'voting' across processes")
+    if par == "serial" and nproc > 1:
+        _log.warning(
+            "train() called in a group of %d processes with "
+            "parallelism='serial': each process will fit an INDEPENDENT "
+            "model on its local data. Use parallelism='data' for one "
+            "globally-trained forest.", nproc)
+    forced_mapper = (_multihost_mapper(X, streaming, p["max_bin"],
+                                       p["seed"], nproc, p["bin_fit"])
+                     if multi_host else None)
+    if bin_mapper is not None:
+        if multi_host or multi_host_fp:
+            raise ValueError(
+                "bin_mapper override is single-process only (the ranks "
+                "of a group agree on boundaries themselves)")
+        forced_mapper = bin_mapper
     bins_fm: Optional[np.ndarray] = None   # host-binned (F, N), if any
     if streaming:
         if sample_weight is not None:
@@ -663,7 +744,7 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
             # fail fast, before consuming the (possibly huge) stream
             raise ValueError("init_model warm start requires dense X")
         mapper, bins_fm, y, w_base = _bin_stream(
-            X, p["max_bin"], p["seed"], mapper=bin_mapper,
+            X, p["max_bin"], p["seed"], mapper=forced_mapper,
             bin_fit=p["bin_fit"], native=native)
         f, n = bins_fm.shape
     elif isinstance(X, CSRMatrix):
@@ -677,7 +758,7 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
                 f"binned matrix for CSR input would need "
                 f"{f * n * 4 / 2**30:.1f} GB ({f} features x {n} "
                 f"rows); reduce the feature width (hashing) first")
-        mapper = bin_mapper or BinMapper.fit_sparse(
+        mapper = forced_mapper or BinMapper.fit_sparse(
             X, max_bin=p["max_bin"], seed=p["seed"])
     else:
         # float32 input stays float32 (binning widens per compare, exact)
@@ -686,8 +767,8 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
             X = X.astype(np.float64)
         y = np.asarray(y, dtype=np.float64)
         n, f = X.shape
-        mapper = bin_mapper or BinMapper.fit(X, max_bin=p["max_bin"],
-                                             seed=p["seed"])
+        mapper = forced_mapper or BinMapper.fit(X, max_bin=p["max_bin"],
+                                                seed=p["seed"])
     if not streaming:
         w_base = (np.ones(n) if sample_weight is None
                   else np.asarray(sample_weight, dtype=np.float64))
@@ -697,6 +778,22 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
         raise ValueError(f"bin_mapper covers {len(mapper.num_bins)} "
                          f"features, X has {f}")
     num_bins = int(mapper.num_bins.max())
+    if multi_host_fp:
+        _check_same_dataset(X, y, w_base, mapper, n, f, axis)
+    if multi_host:
+        # every rank contributes an equally long shard: truncate to the
+        # smallest
+        n_all = axis.all_gather(torch.tensor(n, dtype=torch.int64))
+        n_min = int(n_all.min())
+        if n_min != n:
+            _log.warning("host shards are unequal (%s); truncating to %d "
+                         "rows per host", n_all.tolist(), n_min)
+            y, w_base = y[:n_min], w_base[:n_min]
+            if bins_fm is not None:
+                bins_fm = bins_fm[:, :n_min]
+            if isinstance(X, (np.ndarray, CSRMatrix)):
+                X = X[:n_min]
+            n = n_min
     p["f32_unsafe"] = not mapper.f32_values_safe
     # on-device binning when f32 compares provably equal f64 ones
     # (f32-snapped cuts of dense input); host binning otherwise, shipped
@@ -726,6 +823,17 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
         # the narrow matrix crosses to the device and widens there
         bins_d = torch.from_numpy(bins_fm).to(dev).to(torch.int32)
         del bins_fm
+    # feature-parallel: pad F to the group size with always-masked dummy
+    # features and keep this rank's window
+    f_eff = f + ((-f) % axis.size if par == "feature" else 0)
+    fmask = torch.zeros(f_eff, dtype=torch.float32, device=dev)
+    fmask[:f] = 1.0
+    if par == "feature":
+        f_loc = f_eff // axis.size
+        lo = axis.rank * f_loc
+        bins_d = torch.nn.functional.pad(bins_d, (0, 0, 0, f_eff - f))[
+            lo:lo + f_loc].contiguous()
+        fmask = fmask[lo:lo + f_loc].contiguous()
 
     # 2) init scores: a fresh start, or a warm start from a base forest
     base_model: Optional[Booster] = None
@@ -753,14 +861,23 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
         base_eff_trees = base_model._resolve_iterations(None) * K
         scores_np = _base_raw_kn(base_model, X, K)
     else:
-        init_score = (objective.init_score(y, w_base)
-                      if p["boost_from_average"] else np.zeros(K))
+        if p["boost_from_average"] and multi_host:
+            # the init score must agree across ranks: the global labels
+            # (float32 on the wire, as the JAX package ships them)
+            y_g = axis.all_gather(torch.from_numpy(
+                y.astype(np.float32))).reshape(-1).numpy()
+            w_g = axis.all_gather(torch.from_numpy(
+                w_base.astype(np.float32))).reshape(-1).numpy()
+            init_score = objective.init_score(y_g.astype(np.float64),
+                                              w_g.astype(np.float64))
+        else:
+            init_score = (objective.init_score(y, w_base)
+                          if p["boost_from_average"] else np.zeros(K))
         scores_np = np.broadcast_to(
             np.asarray(init_score, np.float32)[:, None], (K, n))
     scores = torch.from_numpy(np.ascontiguousarray(scores_np)).to(dev)
     y_d = torch.from_numpy(y.astype(np.float32)).to(dev)
     w_d = torch.from_numpy(w_base.astype(np.float32)).to(dev)
-    fmask = torch.ones(f, dtype=torch.float32, device=dev)
 
     # validation state: the held-out rows through the binned view, the
     # comparisons training makes
@@ -797,7 +914,8 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
         max_depth=int(p["max_depth"]),
         lambda_l1=float(p["lambda_l1"]), lambda_l2=float(p["lambda_l2"]),
         min_gain_to_split=float(p["min_gain_to_split"]),
-        hist_method=p["hist_method"], hist_bits=int(p["hist_bits"]))
+        hist_method=p["hist_method"], hist_bits=int(p["hist_bits"]),
+        voting_k=int(p["top_k"]), hist_comm=p["hist_comm"])
     bag_active = (float(p["bagging_fraction"]) < 1.0
                   and int(p["bagging_freq"]) > 0)
     ff_active = float(p["feature_fraction"]) < 1.0
@@ -810,7 +928,10 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
         int(p["seed"]) if (bag_cfg is not None or ff_cfg is not None
                            or gp.hist_bits < 32) else 0)
     run = _BoostRun(objective, gp, lr, bins_d, y_d, w_d, fmask, scores,
-                    mask_key, bag_cfg, ff_cfg)
+                    mask_key, bag_cfg, ff_cfg, f, f_eff, axis,
+                    par if par in ("feature", "voting") else "data")
+    sent0 = dict(axis.sent) if axis is not None else {}
+    coll_s0 = axis.seconds if axis is not None else 0.0
 
     # the stop decision reads the losses at the JAX engine's chunk
     # boundaries: every esr_sync = min(esr, 8) iterations and at the end
@@ -877,8 +998,18 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
     if use_valid:
         # the validation losses the stop decision read, one per iteration
         booster.train_info["valid_loss"] = read_losses
+    if axis is not None:
+        comm = {c: axis.sent[c] - sent0[c] for c in axis.sent}
+        for coll, nbytes in comm.items():
+            if nbytes:
+                gbdt_comm_add(coll, nbytes)
+        booster.train_info["comm_bytes"] = {k: round(v)
+                                            for k, v in comm.items()}
+        booster.train_info["collective_s"] = round(axis.seconds - coll_s0,
+                                                   4)
     booster.bin_mapper = mapper
-    if p.get("keep_training_data") and base_model is None and not use_valid:
+    if (p.get("keep_training_data") and base_model is None
+            and not use_valid and nproc == 1):
         # continuation is bit-identical to one longer run only without a
         # warm-start base (its trees live outside the run) and without
         # early stopping (a stopped run's scores hold the overshoot)
@@ -889,7 +1020,7 @@ def train(params: Dict[str, Any], X, y: Optional[np.ndarray] = None,
     elif p.get("keep_training_data"):
         _log.warning(
             "keep_training_data requested but continuation state is "
-            "only retained for single-host runs without init_model or "
+            "only retained for single-process runs without init_model or "
             "early stopping; boost_more(data=None) will be unavailable")
     hists = gbdt_train_histograms()
     for phase_name, secs in phase_s.items():
@@ -1030,6 +1161,182 @@ def _bin_stream(shards, max_bin: int, seed: int,
                 "two-pass quantiles.", 100 * drift)
     return (mapper, np.concatenate(bins_parts, axis=1),
             np.concatenate(y_parts), np.concatenate(w_parts))
+
+
+def _multihost_sketch_mapper(X, streaming: bool, max_bin: int,
+                             axis) -> BinMapper:
+    """Bin-boundary agreement WITHOUT gathering rows: each rank folds its
+    LOCAL data into per-feature mergeable quantile sketches, the
+    fixed-shape sketch summaries (float64) are all-gathered bit for bit,
+    and every rank merges the SAME per-rank summaries in rank order — so
+    all ranks derive identical cuts from statistics of EVERY row, at
+    O(F · width) bytes instead of O(sample · F) rows (the Chen & Guestrin
+    §3.3 distributed-sketch recipe)."""
+    from mmlspark_tpu_torch.gbdt.sketch import QuantileSketch, sketch_block
+    wire_width = 512
+    sketches: List[QuantileSketch] = []
+
+    def absorb(block: np.ndarray) -> None:
+        block = np.asarray(block)
+        if not sketches:
+            sketches.extend(QuantileSketch()
+                            for _ in range(block.shape[1]))
+        sketch_block(block, sketches)
+
+    if streaming:
+        if not (isinstance(X, (list, tuple)) or callable(X)):
+            raise ValueError(
+                "multi-process streaming GBDT needs a replayable shard "
+                "sequence (list or zero-arg factory), not a one-shot "
+                "generator: bin boundaries must be agreed across ranks "
+                "before any shard is binned")
+        fac = X if callable(X) else (lambda: iter(X))
+        for shard in fac():
+            absorb(shard[0])
+    elif isinstance(X, CSRMatrix):
+        # bounded densification (the CSR fit path keeps no dense copy)
+        step = max(1, (64 << 20) // max(1, X.shape[1] * 8))
+        for i in range(0, X.shape[0], step):
+            absorb(X.take(np.arange(i, min(i + step, X.shape[0])))
+                   .toarray())
+        if not sketches:
+            absorb(np.empty((0, X.shape[1])))
+    else:
+        absorb(np.asarray(X))
+    wire = np.stack([sk.to_wire(wire_width) for sk in sketches])
+    gathered = axis.all_gather(torch.from_numpy(wire)).numpy()
+    merged = [QuantileSketch.from_wire(gathered[0, j])
+              for j in range(len(sketches))]
+    for h in range(1, axis.size):
+        for j, sk in enumerate(merged):
+            sk.merge(QuantileSketch.from_wire(gathered[h, j]))
+    return BinMapper.fit_streaming([], max_bin=max_bin, sketches=merged)
+
+
+def _multihost_mapper(X, streaming: bool, max_bin: int, seed: int,
+                      nproc: int, bin_fit: str = "sample") -> BinMapper:
+    """Identical bin boundaries on every rank: each rank reservoir- or
+    choice-samples its LOCAL shard, the samples are all-gathered (float64
+    bit for bit) and every rank fits the SAME mapper on the gathered rows
+    — the BinMapper agreement LightGBM reaches inside its allreduce ring.
+    With ``bin_fit='sketch'`` the ranks instead exchange mergeable
+    quantile-sketch summaries built over ALL their rows
+    (``_multihost_sketch_mapper``) — no row crosses processes. The bytes
+    these gathers move are set-up, not counted in ``comm_bytes``."""
+    from mmlspark_tpu_torch.parallel.distributed import Axis
+    axis = Axis()
+    if bin_fit == "sketch":
+        return _multihost_sketch_mapper(X, streaming, max_bin, axis)
+    cap = max(1000, _RESERVOIR_CAP // nproc)
+    rng = np.random.default_rng(seed)
+    if streaming:
+        if not (isinstance(X, (list, tuple)) or callable(X)):
+            raise ValueError(
+                "multi-process streaming GBDT needs a replayable shard "
+                "sequence (list or zero-arg factory), not a one-shot "
+                "generator: bin boundaries must be agreed across ranks "
+                "before any shard is binned")
+        fac = X if callable(X) else (lambda: iter(X))
+        sample = _reservoir_rows(
+            ((np.asarray(s[0], np.float64),) for s in fac()), cap, seed)
+    elif isinstance(X, CSRMatrix):
+        # the gathered sample is dense — budget rows by bytes
+        cap = min(cap, max(100, (256 << 20) // (X.shape[1] * 8)))
+        idx = rng.choice(X.shape[0], size=min(X.shape[0], cap),
+                         replace=False)
+        sample = X.take(idx).toarray().astype(np.float64)
+    else:
+        n_loc = len(X)
+        idx = rng.choice(n_loc, size=min(n_loc, cap), replace=False)
+        sample = np.asarray(np.asarray(X)[idx], dtype=np.float64)
+    s_len = int(axis.all_gather(torch.tensor(len(sample))).min())
+    gathered = axis.all_gather(torch.from_numpy(np.ascontiguousarray(
+        sample[:s_len], dtype=np.float64))).reshape(
+            -1, sample.shape[1]).numpy()
+    return BinMapper.fit(gathered, max_bin=max_bin,
+                         sample_cnt=len(gathered), seed=seed)
+
+
+def _check_same_dataset(X, y, w, mapper: BinMapper, n: int, f: int,
+                        axis) -> None:
+    """Feature-parallel ranks must hold the IDENTICAL full dataset: all-
+    gather a digest of its shape, cuts, labels, weights and a strided
+    row sample (cuts alone are row-order invariant, and the owner's row
+    bitmap is computed in its own row order) and raise on a mismatch."""
+    import hashlib
+    h = hashlib.sha256()
+    h.update(np.asarray([n, f], np.int64).tobytes())
+    for u in mapper.upper_bounds:
+        h.update(np.asarray(u).tobytes())
+    h.update(np.ascontiguousarray(y).tobytes())
+    h.update(np.ascontiguousarray(w).tobytes())
+    if isinstance(X, CSRMatrix):
+        for a in (X.indptr, X.indices, X.data):
+            h.update(np.ascontiguousarray(a).tobytes())
+    else:
+        h.update(np.ascontiguousarray(
+            np.asarray(X)[::max(1, n // 1024)]).tobytes())
+    mine = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8)
+    alld = axis.all_gather(mine)
+    if not bool((alld == alld[0]).all()):
+        raise ValueError(
+            "ranks disagree on the dataset (shape, bin boundaries, "
+            "labels, or row content/order): multi-process "
+            "parallelism='feature' requires every process to pass the "
+            "IDENTICAL full dataset (LightGBM's feature-parallel layout)")
+
+
+def comm_payload_model(parallel_mode: str, hist_comm: str,
+                       hist_bits: int, num_trees: int, num_leaves: int,
+                       num_features: int, num_bins: int, n_shards: int,
+                       voting_k: int, num_rows: int) -> Dict[str, float]:
+    """The JAX package's per-device collective payload model of one
+    training run, keyed by collective ('psum' | 'psum_scatter' |
+    'all_gather'): every tree runs all ``num_leaves - 1`` split steps,
+    at ring costs per device — allreduce 2·S·(D-1)/D, reduce-scatter and
+    all-gather S·(D-1)/D for an S-byte payload over D devices; quantized
+    runs (hist_bits < 32) ship 2-byte histogram cells plus one (3,) f32
+    scale psum per tree. The port counts what its ranks send instead
+    (``train_info['comm_bytes']``); at two ranks its psum and
+    psum_scatter bytes equal this model for trees that grow every leaf,
+    and its all-gathers send a per-rank payload once, S·(D-1)."""
+    D = max(int(n_shards), 1)
+    if D < 2 or num_trees <= 0:
+        return {"psum": 0.0, "psum_scatter": 0.0, "all_gather": 0.0}
+    ring = (D - 1) / D
+    L, F, B = int(num_leaves), int(num_features), int(num_bins)
+    item = 2 if hist_bits < 32 else 4        # histogram wire itemsize
+    psum = scatter = gather = 0.0
+    if parallel_mode == "data" and hist_comm == "reduce_scatter":
+        fp = -(-F // D) * D                  # feature dim padded to D
+        # per tree: L leaf histograms, each one reduce-scatter of the
+        # (3, Fp, B) wire + one psum of the (3, B) feature-0 slice;
+        # 2L-1 best_split calls each all_gather a (4,) f32 candidate
+        scatter += L * (3 * fp * B * item) * ring
+        psum += L * 2 * (3 * B * item) * ring
+        gather += (2 * L - 1) * 16 * ring
+    elif parallel_mode == "data":
+        # per tree: L full-histogram allreduces (root + L-1 children)
+        psum += L * 2 * (3 * F * B * item) * ring
+    elif parallel_mode == "voting":
+        k = min(max(int(voting_k), 1), F)
+        c = D * k + 1                        # vote union + feature-0
+        # per tree: 2L-1 top-k vote all_gathers; L single-slice psums
+        # (root + right children) + L-1 UNSUBTRACTED pair psums (2x);
+        # two (L,) leaf-total psums
+        gather += (2 * L - 1) * 4 * k * ring
+        psum += (L + (L - 1) * 2) * 2 * (3 * c * B * item) * ring
+        psum += 2 * 2 * (4 * L) * ring
+    elif parallel_mode == "feature":
+        # per tree: 2L-1 candidate all_gathers + L-1 row-indicator
+        # broadcasts ((N,) f32 psum)
+        gather += (2 * L - 1) * 16 * ring
+        psum += (L - 1) * 2 * (4 * int(num_rows)) * ring
+    if hist_bits < 32 and parallel_mode in ("data", "voting"):
+        psum += 2 * 12 * ring                # (3,) f32 scales, per tree
+    t = int(num_trees)
+    return {"psum": psum * t, "psum_scatter": scatter * t,
+            "all_gather": gather * t}
 
 
 def _host_predict_trees(X: np.ndarray, trees: Dict[str, np.ndarray],

@@ -85,11 +85,16 @@ class _BoostParams(HasFeaturesCol, HasLabelCol, HasPredictionCol,
                         "stochastically rounded int16 / int8 stats with "
                         "exact int32 histograms", default=32)
     histComm = EnumParam(["auto", "psum", "reduce_scatter"],
-                         "data-parallel histogram collective (distributed "
-                         "modes are not ported yet)", default="auto")
+                         "data-parallel histogram collective: 'psum' sums "
+                         "the full histogram on every rank, "
+                         "'reduce_scatter' gives each rank its feature "
+                         "slice; 'auto' = reduce_scatter for quantized "
+                         "data-parallel fits, else psum", default="auto")
     parallelism = EnumParam(["serial", "data", "feature", "voting"],
-                            "tree learner parallelism (only 'serial' is "
-                            "ported yet)", default="serial")
+                            "tree learner parallelism over the "
+                            "torch.distributed group (one rank per "
+                            "process; outside a group, a group of one)",
+                            default="serial")
     topK = IntParam("voting-parallel candidates per worker", default=20)
     boostChunk = IntParam(
         "boosting iterations fused per device dispatch in the JAX "

@@ -13,7 +13,13 @@ JAX package so a model's params carry over:
   - 'scatter': the plain ``index_add_`` version (``hist_kernels.hist_plain``).
   - 'onehot': stats x one-hot products over row chunks, plain torch.
 
-Distributed reduction (``axis_name``, ``wire_dtype``) is not ported yet.
+With ``axis_name`` the histogram is summed over the data axis of a
+``torch.distributed`` group (``parallel.distributed.Axis``: an ordered
+sum on every rank), so every rank sees the global histogram. Integer
+(quantized) histograms ride a NARROW wire when ``wire_dtype`` is given
+(int16): the global-L1 gradient scales of the tree grower bound every
+partial sum by the quantization range, so the narrow bytes cannot
+overflow, and the sum widens back to exact int32.
 """
 
 from __future__ import annotations
@@ -37,11 +43,21 @@ def build_histogram(bins: torch.Tensor, grad: torch.Tensor,
 
     ``weight`` doubles as the padding/bagging mask (0 = row ignored).
     Bins come unpadded: the kernel masks the ragged edge itself, so the
-    JAX package's ``true_shape`` argument has no counterpart."""
-    if axis_name is not None or wire_dtype is not None:
-        raise NotImplementedError(
-            "distributed histograms (axis_name / wire_dtype) are not "
-            "ported yet (ROADMAP.md, 'Distributed GBDT')")
+    JAX package's ``true_shape`` argument has no counterpart.
+    ``axis_name`` (a ``parallel.distributed.Axis``, or any name for the
+    default group's) sums the rank-local histogram over the ranks."""
+    hist = _local_histogram(bins, grad, hess, weight, leaf_of_row,
+                            num_leaves, num_bins, method, count_values)
+    if axis_name is not None:
+        from mmlspark_tpu_torch.parallel.distributed import as_axis
+        hist = as_axis(axis_name).psum(
+            hist, wire_dtype=wire_dtype if not
+            hist.dtype.is_floating_point else None)
+    return hist
+
+
+def _local_histogram(bins, grad, hess, weight, leaf_of_row, num_leaves,
+                     num_bins, method, count_values):
     if method == "onehot":
         if count_values is not None:
             raise ValueError(

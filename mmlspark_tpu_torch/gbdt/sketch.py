@@ -40,7 +40,7 @@ hundred KB per feature at 100M rows with the default ``b=512``.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -322,7 +322,31 @@ class QuantileSketch:
         keep = np.concatenate([[True], cuts[1:] > cuts[:-1]])
         return cuts[keep]
 
-    # -- wire format ---------------------------------------------------------
+    # -- serialization (the wire across processes, and persistence) ---------
+
+    def to_state(self) -> dict:
+        """Collapsed JSON-able state (one summary level)."""
+        s = self.summary()
+        return {"b": self.b, "count": self.count,
+                "dropped": self.dropped, "exact": bool(self.exact),
+                "v": s.v.tolist(), "lmin": s.lmin.tolist(),
+                "lmax": s.lmax.tolist(), "rmin": s.rmin.tolist(),
+                "rmax": s.rmax.tolist(), "w": s.w}
+
+    @staticmethod
+    def from_state(d: dict) -> "QuantileSketch":
+        sk = QuantileSketch(b=int(d["b"]))
+        s = _Summary(np.asarray(d["v"], np.float64),
+                     np.asarray(d["lmin"], np.float64),
+                     np.asarray(d["lmax"], np.float64),
+                     np.asarray(d["rmin"], np.float64),
+                     np.asarray(d["rmax"], np.float64), float(d["w"]))
+        if len(s):
+            sk._levels = [s]
+        sk.count = int(d["count"])
+        sk.dropped = int(d["dropped"])
+        sk.exact = bool(d["exact"])
+        return sk
 
     def to_wire(self, width: int) -> np.ndarray:
         """Fixed-shape float64 vector for collective transports
@@ -359,3 +383,31 @@ class QuantileSketch:
         sk.exact = bool(vec[3])
         return sk
 
+
+def sketch_block(X: np.ndarray, sketches: List[QuantileSketch]) -> None:
+    """Update one per-feature sketch per column of a raw (N, F) block —
+    the inner loop of ``BinMapper.fit_streaming``."""
+    for j, sk in enumerate(sketches):
+        sk.update(X[:, j])
+
+
+def merge_sketch_lists(per_host: Iterable[List[QuantileSketch]]
+                       ) -> List[QuantileSketch]:
+    """Fold per-process per-feature sketch lists feature-wise (the
+    distributed fit: processes exchange SKETCHES, never rows). Every
+    process folding the same inputs in the same order gets identical
+    cuts."""
+    acc: Optional[List[QuantileSketch]] = None
+    for sketches in per_host:
+        if acc is None:
+            acc = list(sketches)
+        else:
+            if len(acc) != len(sketches):
+                raise ValueError(
+                    f"feature-count mismatch across hosts: "
+                    f"{len(acc)} vs {len(sketches)}")
+            for mine, theirs in zip(acc, sketches):
+                mine.merge(theirs)
+    if acc is None:
+        raise ValueError("no sketches to merge")
+    return acc

@@ -1,6 +1,6 @@
 """Leaf-wise tree growth and the batched forest walk.
 
-Port of ``mmlspark_tpu/gbdt/tree.py`` (serial). The
+Port of ``mmlspark_tpu/gbdt/tree.py``. The
 JAX grower is one jitted ``fori_loop`` with masked updates; here the
 split loop is a Python loop whose per-split bookkeeping lives on the host
 (a few (L,) / (2L-1,) numpy arrays) while the row-sized work stays on the
@@ -30,9 +30,9 @@ to int16 / int8 under global-L1 scales, with uniforms keyed on
 histograms, the cache's sibling subtraction and the bin cumsums are exact
 int32, dequantized once at gain time and at the leaf values. The
 bagging / feature-fraction masks of ``sample_iteration_masks`` come from
-the same bits. The distributed modes are not ported yet
-(``booster.train`` raises NotImplementedError naming the ROADMAP.md
-item).
+the same bits. The distributed modes (data / reduce-scatter, voting,
+feature) run over a ``torch.distributed`` group, one rank per process
+(``grow_tree``'s docstring).
 """
 
 from __future__ import annotations
@@ -45,13 +45,14 @@ import torch
 
 from mmlspark_tpu_torch.gbdt import prng
 from mmlspark_tpu_torch.gbdt.histogram import build_histogram
+from mmlspark_tpu_torch.parallel.distributed import as_axis
 
 NEG_INF = -1e30
 
 
 class GrowParams(NamedTuple):
-    """Growth hyperparams: the JAX package's fields and defaults for the
-    serial grower (its distributed fields are not ported yet)."""
+    """Growth hyperparams: the JAX package's fields and defaults (its
+    ``n_shards`` is the data axis's size here)."""
     num_leaves: int = 31
     num_bins: int = 64
     min_data_in_leaf: int = 20
@@ -64,6 +65,11 @@ class GrowParams(NamedTuple):
     # 32 = float32 histograms; 16 / 8 = stochastically rounded int16 /
     # int8 stats with exact int32 histograms
     hist_bits: int = 32
+    voting_k: int = 20   # parallel_mode='voting': candidates per rank
+    # data-parallel histogram collective: 'psum' sums the full (3, F, B)
+    # histogram on every rank; 'reduce_scatter' gives each rank the sum
+    # of its F / D features' slices (LightGBM's reduce-scatter recipe)
+    hist_comm: str = "psum"
 
 
 class Tree(NamedTuple):
@@ -91,27 +97,35 @@ def _index_uniforms(key: prng.Key, ids: torch.Tensor) -> torch.Tensor:
 
 def sample_iteration_masks(key: prng.Key, it: int, w_base: torch.Tensor,
                            fmask_base: torch.Tensor, bag_cfg, ff_cfg,
-                           f_valid: int, f_total: int
+                           f_valid: int, f_total: int, axis_name=None,
+                           parallel_mode: str = "data"
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bagging / feature-fraction masks of boosting iteration ``it`` (the
-    JAX package's, serial): a pure function of (key, it) and the row /
-    feature index.
+    JAX package's): a pure function of (key, it) and the GLOBAL row /
+    feature index, so serial and distributed runs draw the same masks.
 
     - Bagging (``bag_cfg = (fraction, freq)``): per-row uniforms from the
       key folded with the last resample iteration and then 1; a row stays
-      while its uniform is below the fraction (in float32).
+      while its uniform is below the fraction (in float32). Row-sharded
+      modes (data / voting, ``axis_name`` set) index by the rank's global
+      row offset, rank x local rows.
     - Feature fraction (``ff_cfg = fraction``): per-feature uniforms from
       the key folded with ``it`` and then 2; with k = max(1, ceil(fraction
       * f_valid)), the features whose uniform is at most the k-th smallest
       stay (``uf <= kth``: features tied with the k-th all stay, as in
-      the JAX package)."""
+      the JAX package). Feature-parallel ranks take their window of the
+      global mask."""
     w = w_base
+    axis = None if axis_name is None else as_axis(axis_name)
     if bag_cfg is not None:
         frac, freq = bag_cfg
         bag_it = (it // freq) * freq
         kb = prng.fold_in(prng.fold_in(key, bag_it), 1)
-        u = _index_uniforms(kb, torch.arange(w_base.shape[0],
-                                             device=w_base.device))
+        n_loc = w_base.shape[0]
+        row0 = (axis.rank * n_loc
+                if axis is not None and parallel_mode != "feature" else 0)
+        u = _index_uniforms(kb, row0 + torch.arange(n_loc,
+                                                    device=w_base.device))
         # the fraction as the float32 the JAX package compares with
         w = w_base * (u < float(np.float32(frac)))
     fmask = fmask_base
@@ -124,6 +138,10 @@ def sample_iteration_masks(key: prng.Key, it: int, w_base: torch.Tensor,
         k = max(1, math.ceil(ff_cfg * f_valid))
         kth = torch.sort(uf).values[k - 1]
         m = ((uf <= kth) & valid).to(fmask_base.dtype)
+        f_loc = fmask_base.shape[0]
+        if axis is not None and parallel_mode == "feature" \
+                and f_total != f_loc:
+            m = m[axis.rank * f_loc:(axis.rank + 1) * f_loc]
         fmask = fmask_base * m
     return w, fmask
 
@@ -141,46 +159,76 @@ def _split_gain(g, h, l1, l2):
 
 
 def quant_scales(grad: torch.Tensor, hess: torch.Tensor,
-                 weight: torch.Tensor, hist_bits: int) -> torch.Tensor:
+                 weight: torch.Tensor, hist_bits: int,
+                 axis_name=None) -> torch.Tensor:
     """The (3,) float32 quantization steps (dg, dh, dc) of one tree:
     ``delta = max(sum(|stat|), 1e-30) / Q``, Q = 2**(bits - 2), over
     grad * weight, hess * weight and weight — float32 sums in torch's
-    order, as the JAX package takes them in XLA's."""
+    order, as the JAX package takes them in XLA's; summed over the ranks
+    (one stacked 3-scalar psum) when rows are sharded over
+    ``axis_name``."""
     scales = torch.stack([torch.sum(torch.abs(grad * weight)),
                           torch.sum(torch.abs(hess * weight)),
                           torch.sum(torch.abs(weight))])
+    if axis_name is not None:
+        scales = as_axis(axis_name).psum(scales)
     tiny = torch.tensor(1e-30, dtype=torch.float32, device=grad.device)
     return torch.maximum(scales, tiny) / (1 << (hist_bits - 2))
 
 
 def _sround(vals: torch.Tensor, delta: torch.Tensor, quant_key: prng.Key,
-            chan: int, sdt: torch.dtype) -> torch.Tensor:
+            chan: int, sdt: torch.dtype, row0: int = 0) -> torch.Tensor:
     """Stochastic rounding of vals / delta: floor(x) + (u < x - floor(x))
-    with u the uniform of (fold_in(quant_key, chan), row id), so every
-    row rounds the same way whatever the layout."""
+    with u the uniform of (fold_in(quant_key, chan), global row id =
+    ``row0`` + local index), so every row rounds the same way whatever
+    the layout."""
     x = vals / delta
     fl = torch.floor(x)
     u = _index_uniforms(prng.fold_in(quant_key, chan),
-                        torch.arange(vals.shape[0], device=vals.device))
+                        row0 + torch.arange(vals.shape[0],
+                                            device=vals.device))
     return (fl + (u < (x - fl)).to(torch.float32)).to(sdt)
 
 
 def quantize_stats(grad: torch.Tensor, hess: torch.Tensor,
                    weight: torch.Tensor, hist_bits: int,
-                   quant_key: prng.Key):
+                   quant_key: prng.Key, axis_name=None, row0: int = 0):
     """The JAX grower's once-per-tree discretization: (qg, qh, qc) in
     int16 / int8 (channels 0, 1, 2 of the rounding) and the (3,) scales
     (dg, dh, dc). Rows of weight 0 round to 0."""
     sdt = torch.int8 if hist_bits == 8 else torch.int16
-    deltas = quant_scales(grad, hess, weight, hist_bits)
-    return (_sround(grad * weight, deltas[0], quant_key, 0, sdt),
-            _sround(hess * weight, deltas[1], quant_key, 1, sdt),
-            _sround(weight, deltas[2], quant_key, 2, sdt), deltas)
+    deltas = (quant_scales(grad, hess, weight, hist_bits)
+              if axis_name is None else
+              quant_scales(grad, hess, weight, hist_bits, axis_name))
+    return (_sround(grad * weight, deltas[0], quant_key, 0, sdt, row0),
+            _sround(hess * weight, deltas[1], quant_key, 1, sdt, row0),
+            _sround(weight, deltas[2], quant_key, 2, sdt, row0), deltas)
+
+
+def _slot_totals(hist: torch.Tensor, slot: int) -> torch.Tensor:
+    """(3,) grad / hess / count sums over the bins of feature slot
+    ``slot`` of a (3, F, B) histogram (any feature's bins partition the
+    leaf's rows): exact integer sums, or float32 sums taken on a fresh
+    copy, so the device reduction's order does not depend on where the
+    slot sits in memory (psum and reduce-scatter caches place it apart)."""
+    if not hist.dtype.is_floating_point:
+        return hist[:, slot, :].sum(-1, dtype=torch.int64)
+    t = hist[:, slot, :].clone()
+    return torch.stack([t[0].sum(), t[1].sum(), t[2].sum()])
+
+
+def _leaf_sums(hist_cache: torch.Tensor, slot: int) -> torch.Tensor:
+    """(2, L) grad / hess sums of every leaf slot from its cached
+    histogram's feature ``slot`` (int64 when quantized)."""
+    if not hist_cache.dtype.is_floating_point:
+        return hist_cache[:, :2, slot, :].sum(-1, dtype=torch.int64).T
+    return hist_cache[:, :2, slot, :].clone().sum(-1).T
 
 
 def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               weight: torch.Tensor, feature_mask: torch.Tensor,
-              p: GrowParams, quant_key: Optional[prng.Key] = None
+              p: GrowParams, quant_key: Optional[prng.Key] = None,
+              axis_name=None, parallel_mode: str = "data"
               ) -> Tuple[Tree, torch.Tensor, torch.Tensor, int]:
     """Grow one tree; returns (Tree, leaf_of_row, leaf_values, n_leaves).
 
@@ -189,7 +237,40 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     device. The Tree's arrays are host numpy; ``leaf_of_row`` (N,) int32
     and ``leaf_values`` (L,) float32 stay on the device for the score
     update. ``p.hist_bits`` 16 / 8 needs ``quant_key``, the tree's key
-    for the stochastic rounding (``quantize_stats``)."""
+    for the stochastic rounding (``quantize_stats``).
+
+    Distribution (``axis_name``: a ``parallel.distributed.Axis``, the
+    ranks of a ``torch.distributed`` group, one device each) follows the
+    JAX grower's ``tree_learner`` modes; each rank's histogram stays the
+    hist kernel on the card (the plain version on the CPU), only the
+    collectives are new:
+
+    - ``'data'``: rows sharded; each histogram is summed over the ranks
+      (``hist_comm='psum'``), so every rank grows the same tree. With
+      ``hist_comm='reduce_scatter'`` each rank gets the sum of a
+      contiguous F / D feature slice plus the summed feature-0 slice
+      (the leaf totals in psum's association), proposes its slice's best
+      split, and the (D, 4) candidate table is all-gathered; the first
+      maximum over ranks is psum's lowest-(feature, bin) tie-break.
+    - ``'voting'``: rows sharded; each rank votes its top ``voting_k``
+      features by local gain, the votes are all-gathered and only the
+      candidates' slices (and feature 0's) are summed. The left child's
+      search ships the (parent, right) pair unsubtracted, so the f32
+      subtraction follows the sum, data-parallel's order. Exact search
+      when ``voting_k >= F``.
+    - ``'feature'``: features sharded (F / D each, global ids in the
+      tree), rows replicated. Each rank proposes its best local split
+      against the totals of global feature 0 (its owner, rank 0,
+      broadcasts them), the candidates are all-gathered, and the winning
+      feature's owner broadcasts the row bitmap (packed bits); the leaf
+      sums are rank 0's feature-0 sums, broadcast — serial's, so the
+      ranks' trees are bitwise equal.
+
+    Quantized stats round with GLOBAL row ids (rank x local rows) under
+    scales summed over the ranks; their histograms cross on an int16
+    wire and sum to exact int32."""
+    from mmlspark_tpu_torch.parallel.distributed import pack_bits, \
+        unpack_bits
     f, n = bins.shape
     L = p.num_leaves
     M = 2 * L - 1
@@ -198,64 +279,223 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     l1, l2 = p.lambda_l1, p.lambda_l2
     min_hess = p.min_sum_hessian_in_leaf
     min_data = float(p.min_data_in_leaf)
+    axis = None if axis_name is None else as_axis(axis_name)
+    feat_par = parallel_mode == "feature" and axis is not None
+    voting = parallel_mode == "voting" and axis is not None
+    quantized = p.hist_bits < 32
+    rs = (p.hist_comm == "reduce_scatter" and axis is not None
+          and parallel_mode == "data")
+    if p.hist_comm not in ("psum", "reduce_scatter"):
+        raise ValueError(f"unknown hist_comm={p.hist_comm!r}; "
+                         "expected 'psum' or 'reduce_scatter'")
+    if p.hist_comm == "reduce_scatter" and (feat_par or voting):
+        raise ValueError(
+            "hist_comm='reduce_scatter' is a data-parallel recipe; "
+            f"parallel_mode={parallel_mode!r} already keeps histograms "
+            "local (feature/voting) — use hist_comm='psum'")
     zero_leaf = torch.zeros(n, dtype=torch.int32, device=dev)
     neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
-    fm_ok = (feature_mask > 0)[:, None]
-    quantized = p.hist_bits < 32
+    wire = torch.int16 if quantized else None
     if quantized:
         if p.hist_bits not in (16, 8):
             raise ValueError(
                 f"hist_bits={p.hist_bits} is not supported: use 32 "
                 "(f32), 16 or 8 (quantized stochastic rounding)")
+        if feat_par:
+            raise ValueError(
+                "hist_bits < 32 with parallel_mode='feature' is not "
+                "supported: feature-parallel histograms never cross "
+                "the wire, so quantization only adds rounding noise")
         if quant_key is None:
             raise ValueError(
                 "hist_bits < 32 requires quant_key (per-round PRNG key "
                 "for deterministic stochastic rounding)")
         sdt = torch.int8 if p.hist_bits == 8 else torch.int16
-        qg, qh, qc, deltas = quantize_stats(grad, hess, weight, p.hist_bits,
-                                            quant_key)
+        qg, qh, qc, deltas = quantize_stats(
+            grad, hess, weight, p.hist_bits, quant_key, axis,
+            row0=axis.rank * n if axis is not None else 0)
+    # voting and feature keep histograms local; reduce-scatter runs its
+    # own collective inside leaf_hist
+    hist_axis = None if (feat_par or voting or rs) else axis
+    fm_ok = feature_mask > 0
+    if rs:
+        D = axis.size
+        Fp = -(-f // D) * D           # F padded to a multiple of D
+        fs = Fp // D                  # owned features per rank
+        f_off = axis.rank * fs
+        fm_rows = torch.nn.functional.pad(fm_ok, (0, Fp - f))[
+            f_off:f_off + fs]
+        tot_slot = -1
+    else:
+        f_off = axis.rank * f if feat_par else 0
+        fm_rows = fm_ok
+        tot_slot = 0
 
     def leaf_hist(mask_weight):
-        """(3, F, B) histogram of the rows selected by mask_weight:
+        """Histogram of the rows selected by mask_weight: (3, F, B)
         float32, or exact int32 when quantized (mask_weight is then the
         0/1 row indicator in the narrow type; the row weight lives in
-        qg / qh / qc)."""
+        qg / qh / qc); under reduce_scatter (3, fs + 1, B), the owned
+        feature slices and the summed feature-0 slice."""
+        # the data axis's arguments only when the histogram is summed
+        # here: a one-process tree calls build_histogram as it always has
+        dist_kw = ({} if hist_axis is None else
+                   {"axis_name": hist_axis, "wire_dtype": wire})
         if quantized:
-            return build_histogram(bins, qg, qh, mask_weight, zero_leaf, 1,
-                                   B, method=p.hist_method,
-                                   count_values=qc)[:, 0]
-        return build_histogram(bins, grad, hess, mask_weight, zero_leaf, 1,
-                               B, method=p.hist_method)[:, 0]
-
-    def best_split(hist, depth_ok: bool) -> torch.Tensor:
-        """Best candidate split of one leaf from its (3, F, B) histogram:
-        float64 (gain, feature, bin, left_count, total_count) — every
-        entry an exact widening of its float32 / int value."""
-        if quantized:
-            # exact int32 cumsums, one dequantize at gain time: float32(int)
-            # * delta; feature 0's last cumsum is the leaf's exact total
-            GL, HL, CL = (torch.cumsum(hist, dim=-1, dtype=torch.int32)
-                          .to(torch.float32) * deltas[:, None, None])
-            G, H, C = GL[0, -1], HL[0, -1], CL[0, -1]
+            h = build_histogram(bins, qg, qh, mask_weight, zero_leaf, 1,
+                                B, method=p.hist_method, count_values=qc,
+                                **dist_kw)[:, 0]
         else:
-            Gh, Hh, Ch = hist[0], hist[1], hist[2]               # (F, B)
-            G, H, C = Gh[0].sum(), Hh[0].sum(), Ch[0].sum()
-            GL = torch.cumsum(Gh, dim=-1)
-            HL = torch.cumsum(Hh, dim=-1)
-            CL = torch.cumsum(Ch, dim=-1)
+            h = build_histogram(bins, grad, hess, mask_weight, zero_leaf, 1,
+                                B, method=p.hist_method, **dist_kw)[:, 0]
+        if rs:
+            tot0 = axis.psum(h[:, 0, :], wire_dtype=wire)          # (3, B)
+            owned = axis.psum_scatter(
+                torch.nn.functional.pad(h, (0, 0, 0, Fp - f)), dim=1,
+                wire_dtype=wire)                                   # (3, fs, B)
+            h = torch.cat([owned, tot0[:, None, :]], dim=1)
+        return h
+
+    def best_split(hist, depth_ok: bool, tot=None) -> torch.Tensor:
+        """Best candidate split of one leaf among this rank's feature
+        rows: float64 (gain, global feature, bin, left_count,
+        total_count) — every entry an exact widening of its float32 /
+        int value. ``tot`` overrides the leaf totals (feature-parallel:
+        global feature 0's)."""
+        rows = hist[:, :-1] if rs else hist
+        if tot is None:
+            tot = _slot_totals(hist, tot_slot)
+        if quantized:
+            # exact int32 cumsums, one dequantize at gain time
+            GL, HL, CL = (torch.cumsum(rows, dim=-1, dtype=torch.int32)
+                          .to(torch.float32) * deltas[:, None, None])
+            G, H, C = tot.to(torch.float32) * deltas
+        else:
+            G, H, C = tot
+            GL = torch.cumsum(rows[0], dim=-1)
+            HL = torch.cumsum(rows[1], dim=-1)
+            CL = torch.cumsum(rows[2], dim=-1)
         GR, HR, CR = G - GL, H - HL, C - CL
         parent_score = _split_gain(G, H, l1, l2)
         gain = (_split_gain(GL, HL, l1, l2) + _split_gain(GR, HR, l1, l2)
                 - parent_score)
         ok = ((CL >= min_data) & (CR >= min_data)
-              & (HL >= min_hess) & (HR >= min_hess) & fm_ok)
+              & (HL >= min_hess) & (HR >= min_hess) & fm_rows[:, None])
         if not depth_ok:
             ok = torch.zeros_like(ok)
         gain = torch.where(ok, gain, neg_inf).reshape(-1)
         flat = torch.argmax(gain)
-        return torch.stack([gain[flat].double(), (flat // B).double(),
-                            (flat % B).double(),
+        Bh = rows.shape[-1]
+        return torch.stack([gain[flat].double(),
+                            (flat // Bh + f_off).double(),
+                            (flat % Bh).double(),
                             CL.reshape(-1)[flat].double(), C.double()])
+
+    def best_split_voting(hist, depth_ok: bool, hist_sub=None
+                          ) -> torch.Tensor:
+        """PV-tree split search: rank features by LOCAL gain, vote the
+        union of every rank's top-k, sum only the candidates' slices
+        (and feature 0's, whose bin sums are the leaf totals in
+        data-parallel's association), then pick the global best among
+        them with psum's lowest-(feature, bin) tie-break. ``hist_sub``
+        is the right child of a (parent, right) pair shipped
+        unsubtracted."""
+        local = hist if hist_sub is None else hist - hist_sub
+        if quantized:
+            lcs = (torch.cumsum(local[:2], dim=-1, dtype=torch.int32)
+                   .to(torch.float32) * deltas[:2, None, None])
+            GLl, HLl = lcs[0], lcs[1]
+            Gt, Ht = GLl[0, -1], HLl[0, -1]
+        else:
+            Gt, Ht, _ = _slot_totals(local, 0)
+            GLl = torch.cumsum(local[0], dim=-1)
+            HLl = torch.cumsum(local[1], dim=-1)
+        parent_l = _split_gain(Gt, Ht, l1, l2)
+        gain_l = (_split_gain(GLl, HLl, l1, l2)
+                  + _split_gain(Gt - GLl, Ht - HLl, l1, l2) - parent_l)
+        gain_f = torch.where(fm_ok[:, None], gain_l, neg_inf).amax(-1)
+        k = min(max(p.voting_k, 1), f)
+        # the k largest, ties to the lower feature (XLA's top_k order)
+        topk = torch.sort(gain_f, descending=True, stable=True).indices[:k]
+        cand = axis.all_gather(topk.to(torch.int32)).reshape(-1).long()
+        sel = torch.cat([cand, torch.zeros(1, dtype=torch.long,
+                                           device=dev)])
+        if hist_sub is None:
+            ps = axis.psum(hist[:, sel, :], wire_dtype=wire)
+        else:
+            pair = axis.psum(torch.stack([hist[:, sel, :],
+                                          hist_sub[:, sel, :]]),
+                             wire_dtype=wire)
+            ps = pair[0] - pair[1]
+        ch = ps[:, :-1, :]
+        if quantized:
+            G, H, C = (ps[:, -1, :].sum(-1, dtype=torch.int64)
+                       .to(torch.float32) * deltas)
+            GL, HL, CL = (torch.cumsum(ch, dim=-1, dtype=torch.int32)
+                          .to(torch.float32) * deltas[:, None, None])
+        else:
+            G, H, C = _slot_totals(ps, ps.shape[1] - 1)
+            GL = torch.cumsum(ch[0], dim=-1)
+            HL = torch.cumsum(ch[1], dim=-1)
+            CL = torch.cumsum(ch[2], dim=-1)
+        GR, HR, CR = G - GL, H - HL, C - CL
+        parent_score = _split_gain(G, H, l1, l2)
+        gain = (_split_gain(GL, HL, l1, l2) + _split_gain(GR, HR, l1, l2)
+                - parent_score)
+        ok = ((CL >= min_data) & (CR >= min_data)
+              & (HL >= min_hess) & (HR >= min_hess)
+              & fm_ok[cand][:, None])
+        if not depth_ok:
+            ok = torch.zeros_like(ok)
+        gain = torch.where(ok, gain, neg_inf)
+        best = gain.max()
+        fb_key = cand[:, None] * B + torch.arange(B, device=dev)
+        keyed = torch.where(gain >= best, fb_key,
+                            torch.full_like(fb_key, 2 ** 62))
+        flat = torch.argmin(keyed.reshape(-1))
+        ci, bb = flat // B, flat % B
+        return torch.stack([gain.reshape(-1)[flat].double(),
+                            cand[ci].double(), bb.double(),
+                            CL[ci, bb].double(), C.double()])
+
+    def search(hists, depth_ok: bool, subs=None) -> np.ndarray:
+        """(k, 5) float64 host array: each leaf's best split (gain,
+        global feature, bin, left count, total count), one device->host
+        read; under reduce_scatter / feature the ranks' candidates are
+        all-gathered and the first maximum over ranks wins."""
+        if voting:
+            return torch.stack([
+                best_split_voting(h, depth_ok, None if subs is None
+                                  else subs[i])
+                for i, h in enumerate(hists)]).cpu().numpy()
+        tots = [None] * len(hists)
+        if feat_par:
+            # global feature 0's totals, from its owner (rank 0)
+            tot_all = axis.broadcast(torch.stack(
+                [_slot_totals(h, 0) for h in hists]), src=0)
+            tots = list(tot_all)
+        local = torch.stack([best_split(h, depth_ok, t)
+                             for h, t in zip(hists, tots)])
+        if not (rs or feat_par):
+            return local.cpu().numpy()
+        allc = axis.all_gather(local[:, :4].float()).cpu().numpy()
+        out = local.cpu().numpy()
+        for c in range(len(hists)):
+            win = int(np.argmax(allc[:, c, 0]))
+            out[c, :4] = allc[win, c]
+        return out
+
+    def split_indicator(leaf_of_row, bl: int, bf: int, bb: int):
+        """Rows of leaf ``bl`` that go RIGHT under split (bf, bb); in
+        feature-parallel mode only the owner holds column bf, so it
+        broadcasts the bitmap (packed bits) to the other ranks."""
+        if feat_par:
+            owner = bf // f
+            ind = (bins[bf - owner * f] > bb if axis.rank == owner
+                   else torch.zeros(n, dtype=torch.bool, device=dev))
+            ind = unpack_bits(axis.broadcast(pack_bits(ind), src=owner), n)
+            return (leaf_of_row == bl) & ind
+        return (leaf_of_row == bl) & (bins[bf] > bb)
 
     # root: slot 0 holds all rows (its children sit at depth 1, legal for
     # any max_depth >= 1, so the root's candidate is never depth-blocked)
@@ -264,7 +504,7 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     hist_cache = torch.zeros((L,) + tuple(root_hist.shape),
                              dtype=root_hist.dtype, device=dev)
     hist_cache[0] = root_hist
-    g0, f0, b0, cl0, c0 = best_split(root_hist, True).cpu().numpy()
+    g0, f0, b0, cl0, c0 = search([root_hist], True)[0]
 
     feature = np.zeros(M, np.int32)
     bin_threshold = np.zeros(M, np.int32)
@@ -293,7 +533,7 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             break   # `done` is sticky: every later step would be a no-op
         bf, bb = int(best_feat[bl]), int(best_bin[bl])
         new_leaf = n_leaves
-        goes_right = (leaf_of_row == bl) & (bins[bf] > bb)
+        goes_right = split_indicator(leaf_of_row, bl, bf, bb)
         leaf_of_row = torch.where(goes_right, new_leaf, leaf_of_row) \
             .to(torch.int32)
 
@@ -307,9 +547,14 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
         child_depth = int(leaf_depth[bl]) + 1
         depth_ok = p.max_depth <= 0 or child_depth < p.max_depth
-        (gl, fl, bl_bin, cll, cl_tot), (gr, fr, br_bin, clr, cr_tot) = \
-            torch.stack([best_split(hist_l, depth_ok),
-                         best_split(hist_r, depth_ok)]).cpu().numpy()
+        if voting:
+            # ship the (parent, right) pair unsubtracted: the sum then the
+            # subtraction, data-parallel's order
+            res = search([hist_cache[bl], hist_r], depth_ok,
+                         subs=[hist_r, None])
+        else:
+            res = search([hist_l, hist_r], depth_ok)
+        (gl, fl, bl_bin, cll, cl_tot), (gr, fr, br_bin, clr, cr_tot) = res
 
         parent = leaf_to_node[bl]
         lid, rid = next_node, next_node + 1
@@ -333,10 +578,17 @@ def grow_tree(bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         n_leaves += 1
         next_node += 2
 
-    # per-leaf grad/hess sums straight from the cached histograms:
-    # feature 0's bin sums ARE the leaf totals
-    g_leaf = hist_cache[:, 0, 0, :].sum(-1)
-    h_leaf = hist_cache[:, 1, 0, :].sum(-1)
+    # per-leaf grad/hess sums straight from the cached histograms: feature
+    # 0's bin sums ARE the leaf totals (under reduce_scatter the summed
+    # feature-0 slice; voting sums its local ones over the ranks; feature
+    # takes rank 0's, the owner of global feature 0)
+    gh_leaf = _leaf_sums(hist_cache, tot_slot)
+    if voting:
+        gh_leaf = axis.psum(gh_leaf.to(torch.int32) if quantized
+                            else gh_leaf)
+    elif feat_par:
+        gh_leaf = axis.broadcast(gh_leaf, src=0)
+    g_leaf, h_leaf = gh_leaf[0], gh_leaf[1]
     if quantized:
         g_leaf = g_leaf.to(torch.float32) * deltas[0]
         h_leaf = h_leaf.to(torch.float32) * deltas[1]

@@ -23,6 +23,7 @@ if the profiler records no device activity.
 from __future__ import annotations
 
 import argparse
+import atexit
 import http.client
 import json
 import multiprocessing
@@ -91,10 +92,52 @@ def post_json(bodies, address: str, n_threads: int, traceparents=None):
     return replies, lat, wall, errors
 
 
-def _client_process(bodies, address, n_threads, out_q,
-                    traceparents=None) -> None:
-    """Spawned child: the same clients, outside the engine's process."""
-    out_q.put(post_json(bodies, address, n_threads, traceparents))
+def _client_loop(in_q, out_q) -> None:
+    """Spawned child: the same clients, outside the engine's process,
+    for each job it is sent until it gets None."""
+    while True:
+        job = in_q.get()
+        if job is None:
+            return
+        out_q.put(post_json(*job))
+
+
+# the spawned client process, started at the first drive() and reused by
+# the next ones: a spawn (a fresh interpreter importing the package)
+# costs seconds, more than a driven run; closed at exit
+_CLIENT = None
+
+
+def close_client() -> None:
+    """Stop the reused client process, if one runs."""
+    global _CLIENT
+    if _CLIENT is None:
+        return
+    proc, in_q, _ = _CLIENT
+    _CLIENT = None
+    try:
+        in_q.put(None)
+        proc.join(timeout=10)
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def _client():
+    global _CLIENT
+    if _CLIENT is None or not _CLIENT[0].is_alive():
+        close_client()
+        ctx = multiprocessing.get_context("spawn")
+        in_q, out_q = ctx.Queue(), ctx.Queue()
+        proc = ctx.Process(target=_client_loop, args=(in_q, out_q),
+                           daemon=True)
+        proc.start()
+        _CLIENT = (proc, in_q, out_q)
+    return _CLIENT
+
+
+atexit.register(close_client)
 
 
 def drive(engine, bodies, n_threads: int, traceparents=None):
@@ -102,28 +145,23 @@ def drive(engine, bodies, n_threads: int, traceparents=None):
     a spawned process (as ``post_json`` does), so that the clients do
     not share the engine's interpreter lock; then wait, polling for at
     most 30 s, until the engine's source has counted every reply.
-    Returns what ``post_json`` returns. A client process that sends no
-    result within 300 s or exits non-zero is reported among the
-    errors."""
+    Returns what ``post_json`` returns. The client process is started
+    once and reused by later calls (``close_client`` stops it). A client
+    process that sends no result within 300 s or dies is reported among
+    the errors, and the next call starts a fresh one."""
     import queue
     n0 = engine.source.requests_answered
-    ctx = multiprocessing.get_context("spawn")
-    out_q = ctx.Queue()
-    proc = ctx.Process(target=_client_process, args=(
-        bodies, engine.source.address, n_threads, out_q, traceparents))
-    proc.start()
+    proc, in_q, out_q = _client()
+    in_q.put((bodies, engine.source.address, n_threads, traceparents))
     replies, lat, wall, errors = [None] * len(bodies), [], 0.0, []
     try:
         replies, lat, wall, errors = out_q.get(timeout=300)
     except queue.Empty:
         errors = ["the client process sent no result"]
-    finally:
-        proc.join(timeout=30)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-    if proc.exitcode != 0:
+        close_client()
+    if not proc.is_alive():
         errors = errors + [f"client process exit code {proc.exitcode}"]
+        close_client()
     wait_answered(engine, n0 + len(bodies))
     return replies, lat, wall, errors
 

@@ -1,7 +1,7 @@
 """How the port's request and training spans line up with a CUDA card,
 and what tracing costs a fit (the PyTorch port).
 
-    python3 -m mmlspark_tpu_torch.profile_telemetry
+    python3 -m mmlspark_tpu_torch.profile_telemetry [--rows N] [--requests N]
     python3 -m mmlspark_tpu_torch.profile_telemetry --turns 12
 
 Run it in a fresh interpreter: ``torch.profiler`` records the card only
@@ -10,7 +10,8 @@ in a process no earlier profiler session shared (``chip_smoke.py`` phase
 
   1. **GBDT**: ``TPUBoostClassifier`` (63 leaves, max_bin 255, 5 rounds,
      seed 7) on the 1M x 28 HIGGS-shaped table of ``chip_smoke.py``
-     phase 3: one fit to warm up, then four with the process tracer on,
+     phase 3 (its first ``--rows``; ``chip_smoke.py`` runs 250,000):
+     one fit to warm up, then four with the process tracer on,
      off, off, on (fit seconds each), then one with it on under
      ``torch.profiler`` (CPU and CUDA). Its ``gbdt.train`` trace must
      hold one ``bin``, ``ship`` and ``boost`` span and ``boost_chunk``
@@ -25,7 +26,8 @@ in a process no earlier profiler session shared (``chip_smoke.py`` phase
   2. **Serving**: that model behind ``serve_model(json_scoring_pipeline(
      model), port=0, batch_size=256, workers=2, max_wait_ms=5)`` with a
      tracer, driven as ``chip_smoke.py`` phase 6 drives it (2,000
-     one-row requests from 16 client threads of a spawned process)
+     one-row requests, ``--requests``, from 16 client threads of a
+     spawned process)
      after a warm-up pass, once without the profiler (the device spans'
      own length) and once under it: each batch's ``device`` span against
      the device time (kernels and copies) of the work launched inside
@@ -150,8 +152,10 @@ def _only(tracer, name: str):
     return found[0]
 
 
-def gbdt_part() -> Tuple[dict, Any, np.ndarray]:
-    """Part 1. Returns (numbers, fitted model, holdout rows)."""
+def gbdt_part(rows: int = ROWS, requests: int = REQUESTS
+              ) -> Tuple[dict, Any, np.ndarray]:
+    """Part 1 on ``rows`` training rows. Returns (numbers, fitted model,
+    ``requests`` holdout rows, which part 2 serves)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -162,8 +166,8 @@ def gbdt_part() -> Tuple[dict, Any, np.ndarray]:
     from mmlspark_tpu_torch.gbdt.estimators import TPUBoostClassifier
     from mmlspark_tpu_torch.profile_fit import higgs_shape
 
-    X, y = higgs_shape(ROWS + REQUESTS)
-    table = DataTable({"features": X[:ROWS], "label": y[:ROWS]})
+    X, y = higgs_shape(rows + requests)
+    table = DataTable({"features": X[:rows], "label": y[:rows]})
 
     def fit():
         model = TPUBoostClassifier(numIterations=ITERS, numLeaves=LEAVES,
@@ -242,7 +246,7 @@ def gbdt_part() -> Tuple[dict, Any, np.ndarray]:
         "hist_device_ms": sum(k["dur"] for k in kernels) / 1e3,
         "checks": checks,
     }
-    return out, model, X[ROWS:]
+    return out, model, X[rows:]
 
 
 def _device_events(payload: dict) -> dict:
@@ -451,6 +455,10 @@ def onoff_part(turns: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--turns", type=int, default=0)
+    ap.add_argument("--rows", type=int, default=ROWS,
+                    help="training rows of the GBDT part")
+    ap.add_argument("--requests", type=int, default=REQUESTS,
+                    help="one-row requests of the serving part")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -471,7 +479,7 @@ def main() -> int:
         print(json.dumps(out))
         return 0
     t0 = time.perf_counter()
-    out["gbdt"], model, rows = gbdt_part()
+    out["gbdt"], model, rows = gbdt_part(args.rows, args.requests)
     g = out["gbdt"]
     on = [round(x, 3) for x in g["fit_s_tracer_on"]]
     off = [round(x, 3) for x in g["fit_s_tracer_off"]]

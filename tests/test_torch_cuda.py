@@ -1840,3 +1840,63 @@ def test_cuda_int8_rung_routed_under_pressure(card, tmp_path):
     finally:
         engine.stop()
         zoo.close()
+
+
+def _gbdt_ranks(device: str, out: str):
+    """Two gbdt_rank processes (gloo) of a 20,000-row q16 data fit on
+    ``device``; started, not waited for."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    # the store's port and the liveness barrier's (its default, the
+    # store's + 1, may be taken)
+    with socket.socket() as s1, socket.socket() as s2:
+        s1.bind(("127.0.0.1", 0))
+        s2.bind(("127.0.0.1", 0))
+        port, bport = s1.getsockname()[1], s2.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MMLSPARK_TPU_TORCH_")}
+    env["MMLSPARK_TPU_TORCH_BARRIER_PORT"] = str(bport)
+    return [subprocess.Popen(
+        [sys.executable, "-m", "mmlspark_tpu_torch.testing.gbdt_rank",
+         str(port), str(r), "2", "--device", device, "--sweep",
+         "higgs:q16_psum", "--rows", "20000", "--holdout", "2000",
+         "--out", out], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+
+
+def test_cuda_two_rank_q16_fit_bitwise_across_ranks_and_cpu(card, tmp_path):
+    """Two gloo ranks on the one card, each launching the hist kernel: a
+    q16 data-parallel fit bitwise equal across the ranks, its structure
+    and counts the CPU ranks' (integer histograms, the same global-row
+    rounding); every wait bounded."""
+    import subprocess
+    procs = {dev: _gbdt_ranks(dev, str(tmp_path / dev))
+             for dev in ("cuda", "cpu")}
+    outs = {}
+    try:
+        for dev, ps in procs.items():
+            outs[dev] = [p.communicate(timeout=120) + (p.returncode,)
+                         for p in ps]
+    except subprocess.TimeoutExpired:
+        for ps in procs.values():
+            for p in ps:
+                p.kill()
+        pytest.fail("gbdt ranks hung")
+    digests = {}
+    for dev, ranks in outs.items():
+        for r, (out, err, rc) in enumerate(ranks):
+            assert rc == 0, f"{dev} rank {r}:\n{out}\n{err[-3000:]}"
+            line = next(ln.split() for ln in out.splitlines()
+                        if ln.startswith("DIGEST"))
+            fit = next(ln.split() for ln in out.splitlines()
+                       if ln.startswith("FIT"))
+            digests[dev, r] = line[3:]
+            launches, hists = int(fit[5]), int(fit[6])
+            assert launches == (hists if dev == "cuda" else 0), fit
+    assert digests["cuda", 0] == digests["cuda", 1]
+    assert digests["cpu", 0] == digests["cpu", 1]
+    # the structure sha (feature, bin_threshold, left, right, count)
+    assert digests["cuda", 0][2] == digests["cpu", 0][2]

@@ -481,16 +481,49 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card, higgs):
         mtt.Booster.from_string(tb.model_to_string())
 
 
-@pytest.mark.parametrize("params,item", [
-    ({"parallelism": "data"}, "Distributed GBDT"),
-    ({"parallelism": "feature"}, "Distributed GBDT"),
-    ({"parallelism": "voting"}, "Distributed GBDT"),
-    ({"parallelism": "data", "hist_bits": 16}, "Distributed GBDT"),
-])
-def test_out_of_slice_options_raise(params, item):
-    X = np.random.default_rng(0).normal(size=(50, 3))
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain({"num_iterations": 1, **params}, X, X[:, 0], device="cpu")
+@pytest.mark.parametrize("params", [
+    {"parallelism": "data"}, {"parallelism": "feature"},
+    {"parallelism": "voting"}, {"parallelism": "data", "hist_bits": 16},
+], ids=["data", "feature", "voting", "data-q16"])
+def test_parallel_modes_fit_as_a_group_of_one(params):
+    """Outside a process group the distributed modes train as a group of
+    one: every collective is the identity, so the forest is the serial
+    one bitwise (voting with top_k >= F searches every feature; q16 data
+    resolves hist_comm 'auto' to reduce_scatter, whose one slice holds
+    every feature)."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(1500, 9)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] > 0).astype(np.float64)
+    kw = {"objective": "binary", "num_iterations": 3, "num_leaves": 15,
+          "max_bin": 31, "min_data_in_leaf": 5,
+          "hist_bits": params.get("hist_bits", 32)}
+    serial = ttrain(kw, X, y, device="cpu")
+    got = ttrain({**kw, **params}, X, y, device="cpu")
+    assert got.params["parallelism"] == params["parallelism"]
+    assert got.params["hist_comm"] == (
+        "reduce_scatter" if "hist_bits" in params else "psum")
+    assert got.train_info["comm_bytes"] == {
+        "psum": 0, "psum_scatter": 0, "all_gather": 0}
+    for k in serial.trees:
+        np.testing.assert_array_equal(got.trees[k], serial.trees[k],
+                                      err_msg=k)
+
+
+def test_estimator_parallelism_reaches_train():
+    """``parallelism`` / ``histComm`` / ``topK`` of the estimator reach
+    ``train`` (tests/test_gbdt.py::test_fp_estimator_stage's flow)."""
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(600, 12)).astype(np.float32)
+    y = (X[:, 0] + X[:, 3] > 0).astype(np.int64)
+    t = mtt.DataTable({"features": X, "label": y})
+    model = mtt.TPUBoostClassifier(numIterations=8, numLeaves=15,
+                                   parallelism="voting", topK=12,
+                                   histComm="psum", device="cpu").fit(t)
+    p = model.get_booster().params
+    assert (p["parallelism"], p["top_k"], p["hist_comm"]) == \
+        ("voting", 12, "psum")
+    acc = np.mean(np.asarray(model.transform(t)["prediction"]) == y)
+    assert acc > 0.9
 
 
 @pytest.mark.parametrize("params", [

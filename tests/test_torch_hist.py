@@ -182,7 +182,25 @@ def test_launch_plan_refuses_out_of_range(L, B):
         HK.launch_plan(10, 1000, L, B)
 
 
-def test_distributed_histogram_not_ported():
-    with pytest.raises(NotImplementedError, match="Distributed GBDT"):
-        build_histogram(*_torch(*_inputs(50, 2, 1, 8)), 1, 8,
-                        method="pallas", axis_name="data")
+@pytest.mark.parametrize("sdt", [np.float32, np.int16])
+def test_histogram_over_a_group_of_one_is_the_local_one(sdt):
+    """``axis_name`` sums the histogram over the process group; outside
+    one it is the local histogram (integer stats widen to int32 as the
+    int16 wire would)."""
+    from mmlspark_tpu_torch.parallel.distributed import Axis
+    bins, g, h, w, leaf = _inputs(300, 4, 1, 16)
+    cv = None
+    if sdt == np.int16:
+        rng = np.random.default_rng(5)
+        g, h, cv = (rng.integers(-300, 300, size=300).astype(np.int16)
+                    for _ in range(3))
+        w = (w > 0).astype(np.int16)
+    args = _torch(bins, g, h, w, leaf)
+    cv = None if cv is None else torch.from_numpy(cv)
+    local = build_histogram(*args, 1, 16, method="pallas",
+                            count_values=cv)
+    summed = build_histogram(*args, 1, 16, method="pallas",
+                             axis_name=Axis(), count_values=cv,
+                             wire_dtype=torch.int16)
+    assert summed.dtype == local.dtype
+    assert torch.equal(summed, local)

@@ -12,19 +12,16 @@ equal across the packages on the same inputs:
 - the renderer's text for the same calls and histogram states, and the
   escaping helpers;
 - ``process_families``' samples for the same registry state, family by
-  family (the port renders every reference family but the ingress ones,
-  which wait for the host transports; the HELP texts of
-  ``gbdt_comm_bytes_total`` and ``serving_model_warmup_ms`` say what the
-  port measures);
+  family (the HELP texts of ``gbdt_comm_bytes_total`` and
+  ``serving_model_warmup_ms`` say what the port measures);
 - a request trace's span names and its device span's links and
   attributes; the training spans' names, structure and attributes (the
   port's ``gbdt.train`` has no ``first_iter`` / ``bin_device`` phase,
   and its fused segment span adds ``jit_cache_miss``);
 - the JSON log formatter's output.
 Timing values (span durations, latency buckets) are only checked for
-shape and grammar. ``TestSwapMetricsConsistency`` waits for ``swap()``
-and the zoo and fleet expositions for their planes (ROADMAP.md, 'The
-rest of the serving plane').
+shape and grammar. ``TestSwapMetricsConsistency`` is ported in
+``tests/test_torch_lifecycle.py``.
 """
 
 import json
